@@ -1,0 +1,111 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Each ``<name>.cu`` in this directory compiles into its own shared library
+with a plain C interface, for ``sm_90a`` (Hopper), into ``csrc/build/``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/lib<name>-<digest>.so <name>.cu
+
+The file name carries a digest of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.  Nothing here runs at
+import time: the first wrapper call builds (or ``build_all`` builds every
+source at once, one nvcc process per source, all started together).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, List, Optional
+
+CSRC_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(CSRC_DIR, "build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libraries: Dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each build this
+# process ran, by kernel name.
+build_logs: Dict[str, str] = {}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def sources() -> List[str]:
+    """Kernel names: one per ``.cu`` file in this directory."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def find_nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    return default if os.path.exists(default) else None
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def nvcc_command(nvcc: str, name: str, out: str) -> List[str]:
+    return [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", out,
+            os.path.join(CSRC_DIR, f"{name}.cu")]
+
+
+def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
+    """Compiles every missing kernel library in parallel; returns the
+    library path of each name.  Raises KernelBuildError on any failure."""
+    names = sources() if names is None else names
+    targets = {n: library_path(n) for n in names}
+    missing = [n for n in names if not os.path.exists(targets[n])]
+    if not missing:
+        return targets
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels build only on a machine with the CUDA toolkit")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for n in missing:
+        # Build under a private name and rename into place, so a
+        # concurrent build never loads a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        procs[n] = (tmp, subprocess.Popen(
+            nvcc_command(nvcc, n, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[n] = log
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, targets[n])
+    if failures:
+        raise KernelBuildError("kernel build failed: " + "\n".join(failures))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_all([name])[name])
+            _libraries[name] = lib
+        return lib

@@ -1,0 +1,304 @@
+"""TorchEngine: the execution runtime behind a served model.
+
+Port of ``kfserving_tpu/engine/jax_engine.py`` (``JaxEngine``):
+
+- ``apply_fn(params, batch)`` runs one padded batch; requests are padded
+  up to the nearest batch (and sequence) bucket and sliced back after, so
+  the model only ever sees the bucket shapes that warmup visited;
+- execution runs on ``pipeline_depth`` worker threads, so the asyncio
+  serving loop never blocks on the device and one batch's host work
+  (padding, transfers, result fetch) overlaps another's kernels;
+- the device is explicit, and the model runs under
+  ``torch.inference_mode()``.
+
+PyTorch runs eagerly, so there is nothing to compile: ``compile_count``
+counts the bucket shapes warmup ran, as the JAX engine counts programs.
+"""
+
+import asyncio
+import concurrent.futures
+import os
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from kfserving_tpu_torch.engine.buckets import BucketPolicy
+
+# Dense bf16 tensor-core peaks (NVIDIA data sheets, SXM parts), by the
+# substring of torch.cuda.get_device_name() that names the part.
+_PEAK_FLOPS = (("h100", 989e12), ("h200", 989e12), ("a100", 312e12))
+
+
+def resolve_device(device: Any = "cuda") -> torch.device:
+    """A torch.device; asking for cuda without a card raises (there is
+    no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' was asked for but torch.cuda.is_available() "
+            "is false; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def device_peak_flops(device: Optional[torch.device] = None
+                      ) -> Optional[float]:
+    """Peak dense bf16 FLOP/s of the serving card, for MFU.
+
+    Override with KFS_PEAK_FLOPS.  None when unknown (a CPU device or an
+    unlisted card) — stats then omit the MFU line rather than fake it.
+    """
+    env = os.getenv("KFS_PEAK_FLOPS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    if device is None or device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device).lower()
+    for marker, peak in _PEAK_FLOPS:
+        if marker in name:
+            return peak
+    return None
+
+
+def _resize_seq(arr: np.ndarray, seq: int) -> np.ndarray:
+    """Clip or tile a single instance's leading (sequence) axis to `seq`
+    for warmup shape synthesis."""
+    if arr.ndim == 0 or arr.shape[0] == seq:
+        return arr
+    if arr.shape[0] > seq:
+        return arr[:seq]
+    reps = (seq + arr.shape[0] - 1) // arr.shape[0]
+    return np.concatenate([arr] * reps, axis=0)[:seq]
+
+
+def _map(fn: Callable, out: Any) -> Any:
+    if isinstance(out, dict):
+        return {k: fn(v) for k, v in out.items()}
+    return fn(out)
+
+
+class TorchEngine:
+    """Bucketed, padded batch execution of `apply_fn(params, batch)`.
+
+    apply_fn: a function of (params, batch_tensor) or (params,
+        dict_of_batch_tensors) returning a tensor or a dict of tensors
+        whose leading axis is the batch dimension.
+    params: the model (an nn.Module already on `device`).
+    batch_buckets: BucketPolicy for the leading batch dimension.
+    seq_buckets: optional BucketPolicy for axis 1 (sequence length).
+    """
+
+    def __init__(self, apply_fn: Callable, params: Any,
+                 batch_buckets: Optional[BucketPolicy] = None,
+                 seq_buckets: Optional[BucketPolicy] = None,
+                 pipeline_depth: int = 2,
+                 device: Any = "cuda"):
+        self.device = resolve_device(device)
+        self._apply = apply_fn
+        self.params = params
+        self.batch_buckets = batch_buckets or BucketPolicy.pow2(32)
+        self.seq_buckets = seq_buckets
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.pipeline_depth,
+            thread_name_prefix="torch-engine")
+        self._flops_fn = getattr(params, "flops", None)
+        self._peak_flops = device_peak_flops(self.device)
+        self._stats_lock = threading.Lock()
+        self.compile_count = 0
+        self.execute_count = 0
+        self.last_execute_ms = 0.0
+        self.padded_waste_total = 0.0
+        self.prepare_ms_total = 0.0   # host: pad to the bucket
+        self.device_ms_total = 0.0    # transfer + dispatch (asynchronous)
+        self.fetch_ms_total = 0.0     # wait for the device + D2H slice
+        self.flops_total = 0.0
+        self._bucket_hits: Dict[Any, int] = {}
+        self._bucket_waste: Dict[Any, float] = {}
+        self._slots_total = 0
+        self._padded_slots_total = 0
+
+    # -- shape plumbing ------------------------------------------------------
+    def _pad_to_bucket(self, arr: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Pad leading (and optionally seq) dims to bucket sizes."""
+        n = arr.shape[0]
+        b = self.batch_buckets.fit(n)
+        if b is None:
+            raise ValueError(
+                f"batch of {n} exceeds the largest bucket "
+                f"{self.batch_buckets.max}")
+        pad = [(0, b - n)] + [(0, 0)] * (arr.ndim - 1)
+        if self.seq_buckets is not None and arr.ndim >= 2:
+            s = self.seq_buckets.fit(arr.shape[1])
+            if s is None:
+                raise ValueError(
+                    f"sequence length {arr.shape[1]} exceeds the largest "
+                    f"bucket {self.seq_buckets.max}")
+            pad[1] = (0, s - arr.shape[1])
+        if any(p[1] for p in pad):
+            arr = np.pad(arr, pad)
+        return arr, n
+
+    def _prepare(self, inputs: Any) -> Tuple[Any, int]:
+        if isinstance(inputs, dict):
+            padded = {}
+            n = None
+            for k, v in inputs.items():
+                p, n_k = self._pad_to_bucket(np.asarray(v))
+                padded[k] = p
+                if n is None:
+                    n = n_k
+                elif n != n_k:
+                    raise ValueError("inconsistent batch sizes across inputs")
+            return padded, int(n)
+        return self._pad_to_bucket(np.asarray(inputs))
+
+    def _shape_key(self, batch: Any) -> Tuple[int, Optional[int]]:
+        """Stats key: (batch bucket, seq bucket)."""
+        first = (batch[next(iter(batch))]
+                 if isinstance(batch, dict) else batch)
+        return (int(first.shape[0]),
+                int(first.shape[1]) if self.seq_buckets is not None
+                and first.ndim >= 2 else None)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device, non_blocking=True)
+
+    # -- execution -----------------------------------------------------------
+    def _execute_sync(self, inputs: Any) -> Any:
+        if self.params is None:
+            raise RuntimeError("engine is closed")
+        t0 = time.perf_counter()
+        padded, n = self._prepare(inputs)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            batch = _map(self._to_device, padded)
+            out = self._apply(self.params, batch)
+            t2 = time.perf_counter()
+            # The one device -> host join of a batch: waits for the
+            # kernels, then copies only the n real rows.
+            result = _map(lambda t: t[:n].cpu().numpy(), out)
+        t3 = time.perf_counter()
+        key = self._shape_key(padded)
+        bucket = key[0]
+        flops = self._flops_fn(*key) if (self._flops_fn and key[1]) else 0.0
+        with self._stats_lock:
+            self.last_execute_ms = (t3 - t1) * 1000.0
+            self.execute_count += 1
+            self.padded_waste_total += (bucket - n) / bucket
+            self.prepare_ms_total += (t1 - t0) * 1e3
+            self.device_ms_total += (t2 - t1) * 1e3
+            self.fetch_ms_total += (t3 - t2) * 1e3
+            self.flops_total += flops
+            self._bucket_hits[key] = self._bucket_hits.get(key, 0) + 1
+            self._bucket_waste[key] = \
+                self._bucket_waste.get(key, 0.0) + (bucket - n) / bucket
+            self._slots_total += bucket
+            self._padded_slots_total += bucket - n
+        return result
+
+    async def predict(self, inputs: Any) -> Any:
+        """Async batch predict: pads, executes off-loop, unpads."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._executor, self._execute_sync, inputs)
+
+    def predict_sync(self, inputs: Any) -> Any:
+        return self._execute_sync(inputs)
+
+    # -- lifecycle -----------------------------------------------------------
+    def warmup(self, example: Any, buckets: Optional[List[int]] = None,
+               minimal: bool = False) -> float:
+        """Run every shape a request can hit once: all batch buckets x
+        all seq buckets (minimal=True: only the largest batch bucket per
+        seq bucket).  `example` is a single instance (no batch dim) as
+        array or dict of arrays.  Returns the seconds it took."""
+        start = time.perf_counter()
+        batch_buckets = buckets or self.batch_buckets.buckets
+        if minimal:
+            batch_buckets = [max(batch_buckets)]
+        seq_buckets = (self.seq_buckets.buckets
+                       if self.seq_buckets is not None else [None])
+
+        def instance_at(seq):
+            if seq is None:
+                return example
+            if isinstance(example, dict):
+                return {k: _resize_seq(np.asarray(v), seq)
+                        for k, v in example.items()}
+            return _resize_seq(np.asarray(example), seq)
+
+        for s in seq_buckets:
+            inst = instance_at(s)
+            for b in batch_buckets:
+                if isinstance(inst, dict):
+                    batch = {k: np.stack([np.asarray(v)] * b)
+                             for k, v in inst.items()}
+                else:
+                    batch = np.stack([np.asarray(inst)] * b)
+                self._execute_sync(batch)
+                self.compile_count += 1
+        # Warmup batches are exactly full: leaving them in the traffic
+        # counters would report phantom bucket hits.
+        with self._stats_lock:
+            self._bucket_hits.clear()
+            self._bucket_waste.clear()
+            self._slots_total = 0
+            self._padded_slots_total = 0
+        return time.perf_counter() - start
+
+    def param_bytes(self) -> int:
+        """Total parameter bytes held on the device."""
+        if isinstance(self.params, torch.nn.Module):
+            tensors = list(self.params.parameters()) + \
+                list(self.params.buffers())
+        else:
+            tensors = [t for t in self.params.values()
+                       if isinstance(t, torch.Tensor)]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def close(self, wait: bool = True) -> None:
+        """Quiesce the workers and drop the model's device memory."""
+        self._executor.shutdown(wait=wait)
+        self.params = None
+
+    def stats(self) -> Dict[str, Any]:
+        with self._stats_lock:
+            n = self.execute_count
+            out = {
+                "execute_count": n,
+                "compile_count": self.compile_count,
+                "pipeline_depth": self.pipeline_depth,
+                "last_execute_ms": self.last_execute_ms,
+                "avg_pad_waste": (self.padded_waste_total / n
+                                  if n else 0.0),
+                "slot_pad_waste": (
+                    self._padded_slots_total / self._slots_total
+                    if self._slots_total else 0.0),
+                "avg_prepare_ms": self.prepare_ms_total / n if n else 0.0,
+                "avg_device_ms": self.device_ms_total / n if n else 0.0,
+                "avg_fetch_ms": self.fetch_ms_total / n if n else 0.0,
+            }
+            # Dispatch is asynchronous: device work completes inside the
+            # fetch wait, so MFU divides by their sum (a floor).
+            device_s = (self.device_ms_total + self.fetch_ms_total) / 1e3
+            if self.flops_total > 0 and device_s > 0:
+                achieved = self.flops_total / device_s
+                out["achieved_tflops"] = achieved / 1e12
+                if self._peak_flops:
+                    out["mfu"] = achieved / self._peak_flops
+            if self._bucket_hits:
+                out["bucket_hits"] = {
+                    (f"b{b}" if s is None else f"b{b}s{s}"): hits
+                    for (b, s), hits in sorted(self._bucket_hits.items())}
+                out["bucket_pad_waste"] = {
+                    (f"b{b}" if s is None else f"b{b}s{s}"):
+                        round(waste / self._bucket_hits[(b, s)], 4)
+                    for (b, s), waste in sorted(self._bucket_waste.items())}
+        return out

@@ -1,0 +1,97 @@
+"""Multi-head attention dispatch: the CUDA flash kernel on the card,
+plain PyTorch attention otherwise.
+
+Port of ``kfserving_tpu/ops/attention.py``.  One public entry point,
+``dot_product_attention(q, k, v, mask=None)``, over
+[batch, len, heads, head_dim] tensors.  The kernel runs when the kernel
+accepts the call: a CUDA tensor, a mask case it handles (none, suffix
+padding as lengths, or causal-only with Lq == Lk), a supported head dim
+and dtype, and sequence lengths that are multiples of 8.  Everything else
+takes ``_torch_attention``, the port of the JAX package's einsum path.
+The TPU's sequence-length thresholds do not apply on the card.
+``KFS_DISABLE_FLASH=1`` forces the plain path.
+"""
+
+import os
+from typing import Optional
+
+import torch
+
+from kfserving_tpu_torch.ops.flash_attention import (
+    SUPPORTED_DTYPES,
+    SUPPORTED_HEAD_DIMS,
+    flash_attention,
+)
+
+
+def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Reference attention in BLHD layout: the scale applied to q in its
+    own dtype, the softmax in fp32."""
+    depth = q.shape[-1]
+    scale = float(torch.tensor(1.0 / depth ** 0.5, dtype=q.dtype))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)   # [B, H, Lq, Lk]
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.finfo(scores.dtype).min)
+    weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """What the kernel accepts.  Mask handling is the dispatcher's job."""
+    if os.getenv("KFS_DISABLE_FLASH", "") not in ("", "0", "false"):
+        return False
+    return (q.is_cuda and q.dtype in SUPPORTED_DTYPES
+            and q.shape[-1] in SUPPORTED_HEAD_DIMS
+            and q.shape[1] % 8 == 0 and k.shape[1] % 8 == 0)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          causal: bool = False,
+                          kv_lengths: Optional[torch.Tensor] = None,
+                          prefix_padding: bool = False) -> torch.Tensor:
+    """Attention over [batch, len, heads, head_dim] tensors.
+
+    mask: optional broadcastable boolean [B, H, Lq, Lk] (True = attend).
+    causal: apply a causal mask; composes with an explicit mask.  With
+        Lq < Lk query i sits at position Lk - Lq + i (shifted triangle).
+    kv_lengths: optional int [B] declaring suffix key padding.  Mutually
+        exclusive with `mask`: lengths fully determine the suffix mask.
+    prefix_padding: declares `mask` to be suffix key padding; the kernel
+        then consumes it as per-row lengths, while the plain path still
+        applies the mask itself.
+    """
+    if kv_lengths is not None and mask is not None:
+        raise ValueError(
+            "mask and kv_lengths are mutually exclusive: kv_lengths "
+            "asserts suffix padding and the flash path would silently "
+            "ignore a disagreeing mask; pass the mask alone for "
+            "arbitrary patterns (optionally with prefix_padding=True)")
+    Lq, Lk = q.shape[1], k.shape[1]
+    derived_lengths = None
+    if prefix_padding and mask is not None and not causal:
+        # Any one query row's key mask gives the row's real-key count.
+        flat = mask.reshape(mask.shape[0], -1, mask.shape[-1])
+        derived_lengths = flat[:, 0, :].sum(dim=-1, dtype=torch.int32)
+    if kv_lengths is not None and mask is None:
+        keys = torch.arange(Lk, device=q.device)
+        mask = (keys[None, :] < kv_lengths.to(q.device)[:, None]
+                )[:, None, None, :]
+    if causal:
+        causal_mask = torch.ones((Lq, Lk), dtype=torch.bool,
+                                 device=q.device).tril(Lk - Lq)[None, None]
+        mask = causal_mask if mask is None else (mask & causal_mask)
+        # The kernel's causal mask puts query i at position i, which
+        # holds only when Lq == Lk; causal + key padding stays plain too.
+        flash_ok = (mask is causal_mask and Lq == Lk
+                    and kv_lengths is None)
+        lengths = None
+    else:
+        flash_ok = (mask is None or kv_lengths is not None
+                    or derived_lengths is not None)
+        lengths = kv_lengths if kv_lengths is not None else derived_lengths
+    if flash_ok and _flash_eligible(q, k):
+        return flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
+    return _torch_attention(q, k, v, mask)

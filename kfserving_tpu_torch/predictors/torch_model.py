@@ -1,0 +1,354 @@
+"""TorchModel: the port's predictor for the jaxserver artifact format.
+
+Port of ``kfserving_tpu/predictors/jax_model.py`` (``JaxModel``): load a
+model from the registry plus its weights, run shape-bucketed batches on
+the card, and serve V1/V2 predict through the in-process dynamic batcher.
+
+Model directory layout (a local path or a ``file://`` URI):
+
+    config.json          — required; see TorchModelConfig
+    checkpoint.msgpack   — Flax ``to_bytes`` variables as the JAX package
+                           writes them (optional: absent -> seeded random
+                           init)
+
+config.json keys (all optional except architecture), with the JAX
+package's defaults:
+    {
+      "architecture": "bert" | "bert_tiny" | <registered>,
+      "arch_kwargs": {...},            # forwarded to the registry factory
+      "max_batch_size": 32,            # bucket ceiling (pow2 buckets)
+      "batch_buckets": [1, 4, 16],     # explicit batch buckets
+      "max_latency_ms": 5.0,           # batcher flush deadline
+      "seq_buckets": [64, 128, 256],   # seq-len buckets (token models)
+      "pipeline_depth": 2,             # engine worker threads
+      "warmup": true,                  # run every bucket shape at load
+      "input_dtype": "uint8"|"float32",# client payload dtype on the wire
+      "scale": 0.00392156862,          # on-device input scaling (1/255)
+      "output": "logits"|"argmax"|"topk",
+      "topk": 5
+    }
+"""
+
+import json
+import os
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from kfserving_tpu_torch.batching import DynamicBatcher
+from kfserving_tpu_torch.engine.buckets import BucketPolicy
+from kfserving_tpu_torch.engine.torch_engine import TorchEngine, resolve_device
+from kfserving_tpu_torch.model.model import Model
+from kfserving_tpu_torch.models import apply_fn_for, create_model
+from kfserving_tpu_torch.models import weights
+from kfserving_tpu_torch.protocol import v1
+from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
+from kfserving_tpu_torch.protocol.v2 import (
+    InferRequest,
+    datatype_of,
+    make_response,
+)
+from kfserving_tpu_torch.server.dataplane import is_v2_request
+
+DEFAULT_CONFIG_NAME = "config.json"
+CHECKPOINT_NAME = "checkpoint.msgpack"
+
+
+class TorchModelConfig:
+    def __init__(self, architecture: str, arch_kwargs: Optional[Dict] = None,
+                 max_batch_size: int = 32, max_latency_ms: float = 5.0,
+                 batch_buckets: Optional[List[int]] = None,
+                 seq_buckets: Optional[List[int]] = None,
+                 input_dtype: str = "float32", scale: Optional[float] = None,
+                 output: str = "logits", topk: int = 5,
+                 warmup: bool = True, pipeline_depth: int = 2,
+                 **_ignored):
+        self.architecture = architecture
+        self.arch_kwargs = arch_kwargs or {}
+        self.max_batch_size = max_batch_size
+        self.max_latency_ms = max_latency_ms
+        self.batch_buckets = batch_buckets
+        self.seq_buckets = seq_buckets
+        self.input_dtype = input_dtype
+        self.scale = scale
+        self.output = output
+        self.topk = topk
+        self.warmup = warmup
+        self.pipeline_depth = pipeline_depth
+
+    @classmethod
+    def from_file(cls, path: str,
+                  overrides: Optional[Dict[str, Any]] = None
+                  ) -> "TorchModelConfig":
+        with open(path) as f:
+            data = json.load(f)
+        if overrides:
+            data.update(overrides)
+        if "architecture" not in data:
+            raise InvalidInput(f"{path} missing required key 'architecture'")
+        return cls(**data)
+
+
+def local_model_dir(uri: str) -> str:
+    """The local directory of a model artifact URI (a path or file://)."""
+    if uri.startswith("file://"):
+        return uri[len("file://"):]
+    if "://" in uri:
+        raise InvalidInput(
+            f"unsupported storage URI {uri!r}: the port serves local "
+            "paths and file:// only")
+    return uri
+
+
+class TorchModel(Model):
+    """A served PyTorch model with bucketed batched execution."""
+
+    def __init__(self, name: str, model_dir: str,
+                 config: Optional[TorchModelConfig] = None,
+                 config_overrides: Optional[Dict[str, Any]] = None,
+                 device: Any = "cuda"):
+        super().__init__(name)
+        self.model_dir = model_dir
+        self.config = config
+        self.config_overrides = dict(config_overrides or {})
+        self.device = resolve_device(device)
+        self.engine: Optional[TorchEngine] = None
+        self.batcher: Optional[DynamicBatcher] = None
+        self.module: Optional[torch.nn.Module] = None
+        self._spec = None
+        # How the weights were materialized: "checkpoint" or "init".
+        self.param_source: Optional[str] = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def load(self) -> bool:
+        local_dir = local_model_dir(self.model_dir)
+        if self.config is None:
+            self.config = TorchModelConfig.from_file(
+                os.path.join(local_dir, DEFAULT_CONFIG_NAME),
+                overrides=self.config_overrides)
+        cfg = self.config
+        spec = create_model(cfg.architecture, **cfg.arch_kwargs)
+        ckpt = os.path.join(local_dir, CHECKPOINT_NAME)
+        state_dict = None
+        if os.path.exists(ckpt):
+            convert = weights.FLAX_CONVERTERS.get(cfg.architecture)
+            if convert is None:
+                raise InvalidInput(
+                    f"no Flax checkpoint converter for architecture "
+                    f"{cfg.architecture!r}")
+            state_dict = convert(weights.read_flax_msgpack(ckpt))
+        self.param_source = "checkpoint" if state_dict else "init"
+        module = weights.materialize(spec.module, self.device,
+                                     state_dict=state_dict)
+        engine, batcher = self._build_engine(spec, module, cfg)
+        old = self.engine
+        self._spec, self.module = spec, module
+        self.engine, self.batcher = engine, batcher
+        self.ready = True
+        if old is not None:
+            old.close()
+        return True
+
+    def _build_engine(self, spec, module, cfg: TorchModelConfig):
+        base_apply = apply_fn_for(spec)
+        scale = cfg.scale
+        output_mode, topk = cfg.output, cfg.topk
+
+        def serve_fn(m, batch):
+            x = batch
+            if not isinstance(x, dict) and scale is not None:
+                x = x.to(torch.bfloat16) * scale
+            out = base_apply(m, x)
+            if output_mode == "argmax":
+                return out.argmax(dim=-1).to(torch.int32)
+            if output_mode == "topk":
+                vals, idx = torch.topk(out, topk, dim=-1)
+                return {"values": vals.float(),
+                        "indices": idx.to(torch.int32)}
+            return out
+
+        seq_buckets = (BucketPolicy(cfg.seq_buckets)
+                       if cfg.seq_buckets else None)
+        engine = TorchEngine(
+            serve_fn, module,
+            batch_buckets=(BucketPolicy(cfg.batch_buckets)
+                           if cfg.batch_buckets
+                           else BucketPolicy.pow2(cfg.max_batch_size)),
+            seq_buckets=seq_buckets,
+            pipeline_depth=cfg.pipeline_depth,
+            device=self.device)
+        try:
+            if cfg.warmup:
+                engine.warmup(self._example_instance(spec))
+        except Exception:
+            engine.close()
+            raise
+        batcher = DynamicBatcher(
+            self._batch_handler,
+            max_batch_size=(max(cfg.batch_buckets) if cfg.batch_buckets
+                            else cfg.max_batch_size),
+            max_latency_ms=cfg.max_latency_ms,
+            key_fn=self._bucket_key if seq_buckets else None,
+            # One more than the engine's workers, so a batch is always
+            # staged when a worker frees.
+            max_inflight=cfg.pipeline_depth + 1,
+            buckets=engine.batch_buckets.buckets)
+        return engine, batcher
+
+    def _example_instance(self, spec):
+        if isinstance(spec.example, dict):
+            return {k: np.asarray(v)[0] for k, v in spec.example.items()}
+        ex = np.asarray(spec.example)[0]
+        if self.config.input_dtype == "uint8":
+            return np.zeros(ex.shape, np.uint8)
+        return ex.astype(self.config.input_dtype)
+
+    def unload(self) -> None:
+        if self.engine is not None:
+            self.engine.close()
+            self.engine = None
+        self.batcher = None
+        self.module = None
+        self.ready = False
+
+    # -- inference ---------------------------------------------------------
+    def _bucket_key(self, instance: Any):
+        """Seq-bucket key: instances whose (padded) seq length lands in
+        different buckets never share a batch."""
+        arr = (next(iter(instance.values())) if isinstance(instance, dict)
+               else instance)
+        arr = np.asarray(arr)
+        n = arr.shape[0] if arr.ndim else 1
+        bucket = self.engine.seq_buckets.fit(n)
+        if bucket is None:
+            raise InvalidInput(
+                f"sequence length {n} exceeds the largest bucket "
+                f"{self.engine.seq_buckets.max}")
+        return bucket
+
+    async def _batch_handler(self, instances: List[Any], key=None
+                             ) -> List[Any]:
+        first = instances[0]
+        if isinstance(first, dict):
+            batch = {}
+            for k in first:
+                rows = [np.asarray(inst[k]) for inst in instances]
+                if key is not None:  # pad rows to the shared seq bucket
+                    rows = [self._pad_seq(r, key) for r in rows]
+                batch[k] = np.stack(rows)
+            if "attention_mask" in batch:
+                self._check_prefix_mask(batch["attention_mask"])
+        else:
+            rows = [np.asarray(inst) for inst in instances]
+            lengths = [r.shape[0] if r.ndim else 1 for r in rows]
+            if key is not None:
+                rows = [self._pad_seq(r, key) for r in rows]
+            batch = np.stack(rows)
+            if self.config.input_dtype == "uint8":
+                batch = batch.astype(np.uint8)
+            if (isinstance(self._spec.example, dict)
+                    and "attention_mask" in self._spec.example):
+                # Bare token rows take the model's dict signature with a
+                # synthesized suffix padding mask.
+                primary = next(iter(self._spec.example))
+                mask = np.zeros(batch.shape[:2], np.int32)
+                for i, n in enumerate(lengths):
+                    mask[i, :n] = 1
+                batch = {primary: batch, "attention_mask": mask}
+        out = await self.engine.predict(batch)
+        return self._scatter(out, len(instances))
+
+    def _check_prefix_mask(self, mask: np.ndarray) -> None:
+        """BERT models with prefix_padding (the default) read
+        attention_mask as suffix padding and give it to the flash kernel
+        as lengths; any other mask would be silently wrong there, so
+        reject it on the host."""
+        if not self.config.architecture.startswith("bert"):
+            return
+        if not self.config.arch_kwargs.get("prefix_padding", True):
+            return
+        m = np.asarray(mask)
+        if m.ndim != 2:
+            return
+        # suffix form == row values never increase (1s then 0s)
+        if np.any(np.diff(m.astype(np.int8), axis=1) > 0):
+            raise InvalidInput(
+                "attention_mask is not suffix padding (1s then 0s); "
+                "this model serves masks as sequence lengths "
+                "(prefix_padding). Set arch_kwargs.prefix_padding=false "
+                "in the model config to serve arbitrary mask patterns.")
+
+    @staticmethod
+    def _pad_seq(row: np.ndarray, bucket: int) -> np.ndarray:
+        if row.shape[0] == bucket:
+            return row
+        pad = [(0, bucket - row.shape[0])] + [(0, 0)] * (row.ndim - 1)
+        return np.pad(row, pad)
+
+    @staticmethod
+    def _scatter(out: Any, n: int) -> List[Any]:
+        if isinstance(out, dict):
+            return [{k: v[i] for k, v in out.items()} for i in range(n)]
+        return [out[i] for i in range(n)]
+
+    async def predict(self, request: Any) -> Any:
+        if self.batcher is None:
+            raise InferenceError(f"model {self.name} not loaded")
+        if isinstance(request, InferRequest) or is_v2_request(request):
+            return await self._predict_v2(request)
+        instances = v1.get_instances(request)
+        result = await self.batcher.submit(instances)
+        return v1.make_response([_tolist(p) for p in result.predictions])
+
+    async def _predict_v2(self, request: Any) -> Dict[str, Any]:
+        req = (request if isinstance(request, InferRequest)
+               else InferRequest.from_dict(request))
+        named = req.named_numpy()
+        if len(named) == 1:
+            batch = next(iter(named.values()))
+            instances = [batch[i] for i in range(batch.shape[0])]
+        else:
+            n = next(iter(named.values())).shape[0]
+            instances = [{k: v[i] for k, v in named.items()}
+                         for i in range(n)]
+        result = await self.batcher.submit(instances)
+        preds = result.predictions
+        if preds and isinstance(preds[0], dict):
+            outputs = {k: np.stack([p[k] for p in preds])
+                       for k in preds[0]}
+        else:
+            outputs = {"output_0": np.stack(preds)}
+        return make_response(self.name, outputs, id=req.id)
+
+    # -- metadata ----------------------------------------------------------
+    def metadata(self) -> Dict[str, Any]:
+        meta = super().metadata()
+        if self.engine is None or self.config is None:
+            return meta
+        meta["platform"] = "pytorch"
+        meta["architecture"] = self.config.architecture
+        meta["batch_buckets"] = list(self.engine.batch_buckets.buckets)
+        if self.engine.seq_buckets:
+            meta["seq_buckets"] = list(self.engine.seq_buckets.buckets)
+        example = self._spec.example
+        if isinstance(example, dict):
+            meta["inputs"] = [
+                {"name": k, "datatype": datatype_of(np.asarray(v)),
+                 "shape": [-1] + list(np.asarray(v).shape[1:])}
+                for k, v in example.items()]
+        return meta
+
+    def engine_stats(self) -> Dict[str, Any]:
+        stats = dict(self.engine.stats()) if self.engine else {}
+        if self.batcher:
+            stats["batches_flushed"] = self.batcher.batches_flushed
+            stats["instances_batched"] = self.batcher.instances_batched
+        return stats
+
+
+def _tolist(x: Any) -> Any:
+    if isinstance(x, dict):
+        return {k: _tolist(v) for k, v in x.items()}
+    arr = np.asarray(x)
+    return arr.item() if arr.ndim == 0 else arr.tolist()

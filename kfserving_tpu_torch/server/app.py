@@ -1,0 +1,163 @@
+"""ModelServer: the V1/V2 inference routes on the stdlib HTTP server.
+
+Port of the inference surface of ``kfserving_tpu/server/app.py``:
+
+    GET  /                                  liveness ("Alive")
+    GET  /v2/health/live                    V2 server live
+    GET  /v2/health/ready                   V2 server ready (all models)
+    GET  /v2                                V2 server metadata
+    GET  /v1/models  /v2/models             list models
+    GET  /v1/models/{name}                  model health
+    GET  /v2/models/{name}/status           model health
+    GET  /v2/models/{name}/ready            V2 model ready
+    GET  /v2/models/{name}                  V2 model metadata
+    POST /v1/models/{name}:predict          V1 predict
+    POST /v2/models/{name}/infer            V2 infer
+
+One asyncio process serves; batched device execution runs on the
+engines' worker threads.
+"""
+
+import argparse
+import asyncio
+import json
+import logging
+import signal
+from typing import Any, List, Optional
+
+from kfserving_tpu_torch.model.model import Model
+from kfserving_tpu_torch.model.repository import ModelRepository
+from kfserving_tpu_torch.protocol.errors import ServingError
+from kfserving_tpu_torch.server.dataplane import DataPlane
+from kfserving_tpu_torch.server.http import HTTPServer, Request, Response, Router
+
+logger = logging.getLogger("kfserving_tpu_torch.server")
+
+DEFAULT_HTTP_PORT = 8080
+
+parser = argparse.ArgumentParser(add_help=False)
+parser.add_argument("--http_port", default=DEFAULT_HTTP_PORT, type=int,
+                    help="The HTTP port listened to by the model server.")
+
+
+def _np_default(obj):
+    tolist = getattr(obj, "tolist", None)
+    if tolist is not None:
+        return tolist()
+    raise TypeError(
+        f"Object of type {type(obj).__name__} is not JSON serializable")
+
+
+def _json(data: Any, status: int = 200) -> Response:
+    return Response(json.dumps(data, default=_np_default).encode("utf-8"),
+                    status=status)
+
+
+def _error(e: ServingError) -> Response:
+    return _json({"error": e.reason}, status=e.status_code)
+
+
+class ModelServer:
+    def __init__(self, http_port: int = DEFAULT_HTTP_PORT,
+                 registered_models: Optional[ModelRepository] = None):
+        self.repository = registered_models or ModelRepository()
+        self.dataplane = DataPlane(self.repository)
+        self.http_port = http_port
+        self.router = Router()
+        self._register_routes()
+        self.http_server = HTTPServer(self.router)
+
+    def _register_routes(self):
+        r = self.router
+        r.add("GET", "/", self._live)
+        r.add("GET", "/v2/health/live", self._live)
+        r.add("GET", "/v2/health/ready", self._server_ready)
+        r.add("GET", "/v2", self._server_metadata)
+        r.add("GET", "/v1/models", self._list_models)
+        r.add("GET", "/v2/models", self._list_models)
+        r.add("GET", "/v1/models/{name}", self._model_health)
+        r.add("GET", "/v2/models/{name}/status", self._model_health)
+        r.add("GET", "/v2/models/{name}/ready", self._model_ready)
+        r.add("GET", "/v2/models/{name}", self._model_metadata)
+        r.add("POST", "/v1/models/{name}:predict", self._inference)
+        r.add("POST", "/v2/models/{name}/infer", self._inference)
+
+    # -- handlers ----------------------------------------------------------
+    async def _live(self, req: Request) -> Response:
+        return Response(b"Alive", content_type="text/plain")
+
+    async def _server_ready(self, req: Request) -> Response:
+        ready = self.dataplane.server_ready()
+        return _json({"ready": ready}, status=200 if ready else 503)
+
+    async def _server_metadata(self, req: Request) -> Response:
+        return _json(self.dataplane.server_metadata())
+
+    async def _list_models(self, req: Request) -> Response:
+        return _json(self.dataplane.list_models())
+
+    async def _model_health(self, req: Request) -> Response:
+        try:
+            model = self.dataplane.model_ready(req.path_params["name"])
+        except ServingError as e:
+            return _error(e)
+        return _json({"name": model.name, "ready": model.ready})
+
+    async def _model_ready(self, req: Request) -> Response:
+        try:
+            self.dataplane.model_ready(req.path_params["name"])
+        except ServingError as e:
+            return _error(e)
+        return Response(b"", status=200)
+
+    async def _model_metadata(self, req: Request) -> Response:
+        try:
+            return _json(self.dataplane.model_metadata(
+                req.path_params["name"]))
+        except ServingError as e:
+            return _error(e)
+
+    async def _inference(self, req: Request) -> Response:
+        name = req.path_params["name"]
+        try:
+            body = self.dataplane.decode_body(req.body)
+            return _json(await self.dataplane.infer(name, body))
+        except ServingError as e:
+            return _error(e)
+        except Exception as e:
+            logger.exception("inference failed for model %s", name)
+            return _json({"error": str(e)}, status=500)
+
+    # -- lifecycle ---------------------------------------------------------
+    def register_model(self, model: Model) -> None:
+        if not model.name:
+            raise ValueError(
+                "Failed to register model, model.name must be provided.")
+        self.repository.update(model)
+        logger.info("Registering model: %s", model.name)
+
+    async def start_async(self, models: List[Model],
+                          host: str = "0.0.0.0") -> None:
+        """Register `models` and listen; http_port=0 picks a free port,
+        which `self.http_port` then holds."""
+        for model in models:
+            self.register_model(model)
+        await self.http_server.start(host, self.http_port)
+        self.http_port = self.http_server.port
+
+    async def stop_async(self) -> None:
+        await self.http_server.stop()
+
+    def start(self, models: List[Model]) -> None:
+        """Blocking entry point: serve until SIGINT or SIGTERM."""
+        async def _main():
+            await self.start_async(models)
+            stop = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                loop.add_signal_handler(sig, stop.set)
+            await stop.wait()
+            await self.stop_async()
+
+        logging.basicConfig(level=logging.INFO)
+        asyncio.run(_main())

@@ -1,0 +1,92 @@
+"""Protocol-agnostic data-plane operations over a ModelRepository.
+
+Port of ``kfserving_tpu/server/dataplane.py``: liveness, readiness, model
+listing and metadata, and inference (JSON bodies, V1 or V2).
+"""
+
+import json
+from typing import Any, Dict, List
+
+from kfserving_tpu_torch import __version__ as SERVER_VERSION
+from kfserving_tpu_torch.model.model import Model
+from kfserving_tpu_torch.model.repository import ModelRepository, maybe_await
+from kfserving_tpu_torch.protocol import v1
+from kfserving_tpu_torch.protocol.errors import (
+    InvalidInput,
+    ModelNotFound,
+    ModelNotReady,
+)
+
+SERVER_NAME = "kfserving-tpu-torch"
+
+
+def is_v2_request(request: Any) -> bool:
+    """A V2 tensor request: {"inputs": [{"name", "datatype", ...}]}."""
+    return (isinstance(request, dict)
+            and isinstance(request.get("inputs"), list)
+            and bool(request["inputs"])
+            and isinstance(request["inputs"][0], dict)
+            and "datatype" in request["inputs"][0])
+
+
+class DataPlane:
+    def __init__(self, repository: ModelRepository):
+        self.repository = repository
+
+    # -- health / metadata -------------------------------------------------
+    def server_ready(self) -> bool:
+        """V2 "server ready": all registered models ready."""
+        return all(m.ready for m in self.repository.get_models())
+
+    def model_ready(self, name: str) -> Model:
+        model = self.repository.get_model(name)
+        if model is None:
+            raise ModelNotFound(name)
+        if not model.ready:
+            raise ModelNotReady(name)
+        return model
+
+    def list_models(self) -> List[str]:
+        return [m.name for m in self.repository.get_models()]
+
+    def server_metadata(self) -> Dict[str, Any]:
+        return {"name": SERVER_NAME, "version": SERVER_VERSION,
+                "extensions": []}
+
+    def model_metadata(self, name: str) -> Dict[str, Any]:
+        model = self.repository.get_model(name)
+        if model is None:
+            raise ModelNotFound(name)
+        return model.metadata()
+
+    # -- inference ---------------------------------------------------------
+    async def get_model(self, name: str) -> Model:
+        """Fetch a model, loading it on first use."""
+        model = self.repository.get_model(name)
+        if model is None:
+            raise ModelNotFound(name)
+        if not model.ready:
+            await maybe_await(model.load())
+        return model
+
+    @staticmethod
+    def decode_body(body: bytes) -> Any:
+        try:
+            return json.loads(body) if body else {}
+        except ValueError as e:
+            raise InvalidInput(f"Unrecognized request format: {e}")
+
+    async def infer(self, name: str, body: Any) -> Any:
+        model = await self.get_model(name)
+        request = self.validate(await model.preprocess(body))
+        response = await maybe_await(model.predict(request))
+        return await model.postprocess(response)
+
+    @staticmethod
+    def validate(request: Any) -> Any:
+        if is_v2_request(request):
+            # Structural validation happens in InferRequest.from_dict.
+            return request
+        if isinstance(request, dict):
+            return v1.validate_request(request)
+        return request

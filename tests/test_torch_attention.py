@@ -1,0 +1,207 @@
+"""Parity of the port's attention (kfserving_tpu_torch.ops) with the JAX
+package's, on the CPU.
+
+The JAX flash kernel runs in Pallas interpret mode (as in
+tests/test_models.py); the port's ``flash_attention`` on a CPU tensor runs
+its plain PyTorch version, the function the CUDA kernel is held against
+on the card by chip_smoke.py.  Inputs come from numpy with a fixed seed.
+"""
+
+import functools
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from kfserving_tpu.ops import pallas_attention
+from kfserving_tpu.ops.attention import (
+    dot_product_attention as jax_dot_product_attention,
+)
+from kfserving_tpu_torch.csrc import build
+from kfserving_tpu_torch.ops import attention as torch_attention
+from kfserving_tpu_torch.ops.attention import dot_product_attention
+from kfserving_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+)
+
+# fp32 on both sides; the Pallas interpreter and torch sum in another
+# order, as in the JAX package's own interpret-mode tests.
+ATOL = RTOL = 2e-3
+
+
+def _qkv(seed, B, L, H, D, Lk=None):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, L, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Lk or L, H, D)).astype(np.float32)
+    v = rng.normal(size=(B, Lk or L, H, D)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_flash_interpret(q, k, v, causal=False, kv_lengths=None):
+    orig = pl.pallas_call
+    try:
+        pl.pallas_call = functools.partial(orig, interpret=True)
+        out = pallas_attention.flash_attention.__wrapped__(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            block_q=32, block_k=32,
+            kv_lengths=(None if kv_lengths is None
+                        else jnp.asarray(kv_lengths, jnp.int32)))
+    finally:
+        pl.pallas_call = orig
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("causal,lengths", [
+    (False, None),
+    (True, None),
+    (False, [64, 37, 0]),
+])
+def test_flash_plain_matches_pallas_interpret(causal, lengths):
+    q, k, v = _qkv(0, 3, 64, 2, 32)
+    expect = _jax_flash_interpret(q, k, v, causal=causal,
+                                  kv_lengths=lengths)
+    got = flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal,
+        kv_lengths=None if lengths is None else torch.tensor(lengths))
+    got = got.numpy()
+    np.testing.assert_allclose(got, expect, atol=ATOL, rtol=RTOL)
+    if lengths is not None:
+        # A row with no keys is 0, never NaN, on both sides.
+        assert np.all(got[2] == 0.0) and np.all(expect[2] == 0.0)
+
+
+def test_flash_rejects_seq_len_without_block_divisor():
+    q = np.zeros((1, 12, 2, 32), np.float32)
+    with pytest.raises(ValueError, match="power-of-two block divisor"):
+        pallas_attention.flash_attention(jnp.asarray(q), jnp.asarray(q),
+                                         jnp.asarray(q))
+    t = torch.from_numpy(q)
+    with pytest.raises(ValueError, match="power-of-two block divisor"):
+        flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="power-of-two block divisor"):
+        flash_attention_plain(t, t, t)
+
+
+def test_flash_wrapper_refuses_other_devices():
+    """Only CPU tensors take the plain version; anything that is not
+    CUDA or CPU is refused rather than computed some other way."""
+    t = torch.zeros((1, 8, 1, 32), device="meta")
+    with pytest.raises(ValueError, match="runs on cuda"):
+        flash_attention(t, t, t)
+
+
+def _compare_rows(got, expect, lengths):
+    """Rows with real keys only: on the CPU the JAX einsum path averages
+    V over a fully masked row, while the kernel semantics give 0 (such
+    rows are batch padding and are sliced away by the server)."""
+    for b, n in enumerate(lengths):
+        if n > 0:
+            np.testing.assert_allclose(got[b], expect[b], atol=ATOL,
+                                       rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", ["mask", "kv_lengths", "prefix_padding",
+                                  "causal_short_q", "causal_padded"])
+def test_dot_product_attention_matches_jax(case):
+    B, L, H, D = 3, 16, 2, 8
+    lengths = [16, 9, 0]
+    q, k, v = _qkv(1, B, L, H, D)
+    suffix = (np.arange(L)[None, :]
+              < np.asarray(lengths)[:, None])[:, None, None, :]
+    kw_jax, kw_torch = {}, {}
+    if case == "mask":
+        # An arbitrary (non-suffix) pattern, per query row.
+        mask = np.random.default_rng(2).random((B, 1, L, L)) < 0.7
+        mask[..., 0] = True
+        kw_jax["mask"], kw_torch["mask"] = jnp.asarray(mask), \
+            torch.from_numpy(mask)
+        lengths = [L] * B
+    elif case == "kv_lengths":
+        kw_jax["kv_lengths"] = jnp.asarray(lengths, jnp.int32)
+        kw_torch["kv_lengths"] = torch.tensor(lengths, dtype=torch.int32)
+    elif case == "prefix_padding":
+        kw_jax.update(mask=jnp.asarray(suffix), prefix_padding=True)
+        kw_torch.update(mask=torch.from_numpy(suffix), prefix_padding=True)
+    elif case == "causal_short_q":
+        q = q[:, :4]   # Lq < Lk: the shifted triangle
+        kw_jax["causal"] = kw_torch["causal"] = True
+        lengths = [L] * B
+    else:              # causal composed with a key-padding mask
+        kw_jax.update(mask=jnp.asarray(suffix), causal=True)
+        kw_torch.update(mask=torch.from_numpy(suffix), causal=True)
+    expect = np.asarray(jax_dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw_jax))
+    got = dot_product_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), **kw_torch).numpy()
+    assert got.shape == expect.shape
+    _compare_rows(got, expect, lengths)
+
+
+def test_mask_and_kv_lengths_mutually_exclusive():
+    q = torch.zeros((2, 16, 2, 8))
+    lengths = torch.tensor([8, 16])
+    mask = (torch.arange(16)[None, :] < lengths[:, None])[:, None, None, :]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dot_product_attention(q, q, q, mask=mask, kv_lengths=lengths)
+
+
+def test_cpu_dispatch_takes_plain_path(monkeypatch):
+    """On the CPU the dispatcher never reaches the kernel wrapper; the
+    kernel gate is only what the kernel accepts on a CUDA tensor."""
+    calls = []
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a, **k: calls.append(1))
+    q = torch.zeros((1, 64, 2, 64))
+    dot_product_attention(q, q, q)
+    assert calls == []
+    assert not torch_attention._flash_eligible(q, q)
+
+
+@pytest.mark.parametrize("shape,dtype,eligible", [
+    ((1, 64, 2, 64), torch.bfloat16, True),
+    ((1, 64, 2, 128), torch.float32, True),
+    ((1, 64, 2, 48), torch.bfloat16, False),     # head dim not built
+    ((1, 60, 2, 64), torch.bfloat16, False),     # L not a multiple of 8
+    ((1, 64, 2, 64), torch.float16, False),
+])
+def test_kernel_gate_is_what_the_kernel_accepts(monkeypatch, shape, dtype,
+                                                eligible):
+    fake = SimpleNamespace(is_cuda=True, dtype=dtype, shape=shape)
+    assert torch_attention._flash_eligible(fake, fake) is eligible
+    monkeypatch.setenv("KFS_DISABLE_FLASH", "1")
+    assert not torch_attention._flash_eligible(fake, fake)
+
+
+def test_bf16_plain_matches_fp32_within_bf16():
+    """The plain version keeps fp32 statistics for bf16 inputs."""
+    q, k, v = _qkv(3, 2, 32, 2, 64)
+    lengths = torch.tensor([32, 5])
+    t32 = [torch.from_numpy(x) for x in (q, k, v)]
+    t16 = [x.to(torch.bfloat16) for x in t32]
+    ref = flash_attention_plain(*(x.float() for x in t16),
+                                kv_lengths=lengths)
+    got = flash_attention_plain(*t16, kv_lengths=lengths)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_kernel_build_command_targets_hopper(monkeypatch):
+    """The nvcc line builds a plain-C shared library for sm_90a; without
+    nvcc the build fails with a clear error instead of falling back."""
+    cmd = build.nvcc_command("nvcc", "flash_attention", "/tmp/x.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-shared", "-O3"} <= set(cmd) and "-fPIC" in cmd
+    assert cmd[-1].endswith("flash_attention.cu")
+    assert "flash_attention" in build.sources()
+    assert build.library_path("flash_attention").startswith(build.BUILD_DIR)
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(build, "library_path",
+                        lambda name: "/nonexistent/lib.so")
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.build_all(["flash_attention"])
