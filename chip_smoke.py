@@ -7,16 +7,26 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  Phases, each fatal on
 failure:
 
 1. print the card's name and power limit; build every kernel under
-   ``kfserving_tpu_torch/csrc/`` with nvcc for sm_90a;
-2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and time kernel, plain version and the library
-   call that computes the same function (a yardstick only);
+   ``kfserving_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
+   source, all started together);
+2. hold each kernel (flash attention, paged decode attention) against its
+   plain PyTorch version on the card at the serving paths' shapes and
+   edge cases, and time kernel, plain version and the library call that
+   computes the same function (a yardstick only);
 3. serve BERT-base fill-mask (full width, seeded random init, bf16) through
    the port's ModelServer, send V1 and V2 requests over HTTP, check the
    answers, check that every encoder layer of every executed batch
    launched the flash kernel, and hold the served model against the same
    weights run with the plain attention;
-4. print one ``{"kernels": [...]}`` line, the card line, and as the last
+4. serve the generate_4k configuration (the decoder at GPT-2-small width,
+   seeded random init, bf16, paged cache) over HTTP: 16 SSE streams at
+   concurrency 8 behind a shared ~2980-token prompt, one V1 predict and
+   one V2 generate; check every answer, that the paged kernel ran
+   exactly once per layer per decode step and the flash kernel in every
+   prefill, the prefix-cache hits and the idle pool, and hold one served
+   stream against a teacher-forced forward with the plain attention;
+   time one decode wave and one prefill on the card;
+5. print one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
@@ -32,6 +42,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -56,6 +67,28 @@ TOPK = 5
 # share of positions whose top-1 token agrees, and the largest logit gap.
 MIN_TOP1_AGREEMENT = 0.9
 MAX_LOGIT_DIFF = 0.5
+
+PREFILL_CASE = "b8 L4096 bf16 causal kv_lengths"
+# K2 vs its plain version: bf16 rounds the output (one ulp is 2^-8 below
+# magnitude 1; both sides compute in fp32 from the same bf16 inputs);
+# fp32 differs by summation order only (partitions, fp32 exp).
+PAGED_TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-5}
+PAGED_MAIN_CASE = "b8 decode ~3045 bf16"
+
+# The generate_4k configuration (benchmarks/configs.py:1891-1949): the
+# decoder at GPT-2-small width, paged 8 slots x 4096, 16 streams of 48
+# tokens at concurrency 8 behind a ~2980-character shared system prompt.
+GEN_CONFIG = {
+    "architecture": "decoder",
+    "arch_kwargs": {"vocab_size": 32000, "hidden_size": 768,
+                    "num_layers": 12, "num_heads": 12,
+                    "intermediate_size": 3072, "max_seq": 4096},
+    "max_slots": 8, "max_seq": 4096, "prefill_buckets": [512, 4096],
+    "block_size": 128, "cache_blocks": 112, "steps_per_call": 16,
+    "tokenizer": "byte",
+}
+GEN_REQUESTS, GEN_CONCURRENCY, GEN_MAX_TOKENS = 16, 8, 48
+GEN_SYSTEM_LEN, GEN_TAIL_LEN = 2980, 40
 
 
 def check(cond: bool, message: str) -> None:
@@ -85,13 +118,61 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_device_ms(fn, iters: int = 20) -> tuple:
+    """Device time per call of ``fn``: the summed durations of the kernels
+    and copies it ran (torch.profiler), each device event counted once and
+    idle gaps excluded, so host overhead between launches does not count.
+    Returns (ms per call, the device events' key_averages)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    check(total_us > 0, "torch.profiler recorded no device time")
+    return total_us / 1e3 / iters, events
+
+
+def time_kernel_case(kernel, plain, library, plain_iters: int) -> dict:
+    """Kernel, plain version and library call at one shape: profiled
+    device time per call ("ms", "plain_ms", "library_ms"), and the kernel's
+    time between CUDA events over back-to-back calls ("events_ms", which a
+    slow host inflates for a short kernel)."""
+    return {"ms": profiled_device_ms(kernel)[0],
+            "events_ms": cuda_time_ms(kernel),
+            "plain_ms": profiled_device_ms(plain, plain_iters)[0],
+            "library_ms": profiled_device_ms(library)[0]}
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
+def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
+    """Least time for a call's work, the larger of its bytes over the
+    memory rate and its operations over the peak rate for its type:
+    (ms, "bytes" | "operations")."""
+    op_s = ops / PEAK_OPS_PER_S[str(dtype).split(".")[-1]]
+    byte_s = nbytes / PEAK_BYTES_PER_S
+    if op_s >= byte_s:
+        return op_s * 1e3, "operations"
+    return byte_s * 1e3, "bytes"
+
+
 def attention_bound_ms(B, H, L, D, dtype, causal, lengths) -> tuple:
-    """Least time for this call's work: (ms, "bytes" | "operations")."""
+    """Least time for this flash call's work."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     if lengths is not None:
-        keys = [min(int(n), L) for n in lengths.tolist()]
-        pairs = sum(L * n for n in keys)
+        keys = [min(max(int(n), 0), L) for n in lengths.tolist()]
+        if causal:
+            # Query i attends min(i + 1, n) keys.
+            pairs = sum(n * (n + 1) // 2 + (L - n) * n for n in keys)
+        else:
+            pairs = sum(L * n for n in keys)
         kv_rows = sum(keys)
     elif causal:
         pairs = B * L * (L + 1) // 2
@@ -103,11 +184,7 @@ def attention_bound_ms(B, H, L, D, dtype, causal, lengths) -> tuple:
     nbytes = (2 * B * L + 2 * kv_rows) * H * D * itemsize
     if lengths is not None:
         nbytes += 4 * B
-    op_s = ops / PEAK_OPS_PER_S[str(dtype).split(".")[-1]]
-    byte_s = nbytes / PEAK_BYTES_PER_S
-    if op_s >= byte_s:
-        return op_s * 1e3, "operations"
-    return byte_s * 1e3, "bytes"
+    return bound_ms(nbytes, ops, dtype)
 
 
 def check_flash_attention() -> dict:
@@ -119,28 +196,39 @@ def check_flash_attention() -> dict:
     )
 
     bf16, fp32 = torch.bfloat16, torch.float32
+    # The decoder's bucketed prefill at the generate_4k shape: 8 rows of
+    # ~3020 prompt tokens in the 4096 bucket, a dummy row of length 1 (the
+    # engine pads prefill batches with such rows).  Its row goes in the
+    # kernels line: the largest call on the serving paths.
+    prefill_lengths = [3021, 1, 4096, 3021, 2000, 3021, 17, 3021]
     cases = [
-        # name, B, H, L, D, dtype, causal, lengths
-        ("L128 bf16 kv_lengths", 16, 12, 128, 64, bf16, False, True),
-        ("L128 bf16 causal", 16, 12, 128, 64, bf16, True, False),
-        ("L512 bf16 causal", 16, 12, 512, 64, bf16, True, False),
-        ("L512 bf16 full", 16, 12, 512, 64, bf16, False, False),
-        ("L512 fp32 D128 kv_lengths", 16, 12, 512, 128, fp32, False, True),
-        # The serving path's largest shape; its row goes in the
-        # kernels line.
-        ("L512 bf16 kv_lengths", 16, 12, 512, 64, bf16, False, True),
+        # name, B, H, L, D, dtype, causal, lengths ("ragged": random
+        # with a full row, a zero row and a half row)
+        ("L128 bf16 kv_lengths", 16, 12, 128, 64, bf16, False, "ragged"),
+        ("L128 bf16 causal", 16, 12, 128, 64, bf16, True, None),
+        ("L512 bf16 causal", 16, 12, 512, 64, bf16, True, None),
+        ("L512 bf16 full", 16, 12, 512, 64, bf16, False, None),
+        ("L512 fp32 D128 kv_lengths", 16, 12, 512, 128, fp32, False,
+         "ragged"),
+        # BERT-base serving's largest shape.
+        ("L512 bf16 kv_lengths", 16, 12, 512, 64, bf16, False, "ragged"),
+        ("L512 bf16 causal kv_lengths", 16, 12, 512, 64, bf16, True,
+         "ragged"),
+        (PREFILL_CASE, 8, 12, 4096, 64, bf16, True, prefill_lengths),
     ]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results = []
-    for name, B, H, L, D, dtype, causal, ragged in cases:
+    for name, B, H, L, D, dtype, causal, spec in cases:
         q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda",
                                dtype=dtype) for _ in range(3))
         lengths = None
-        if ragged:
+        if spec == "ragged":
             lengths = torch.randint(1, L + 1, (B,), generator=gen,
                                     device="cuda", dtype=torch.int32)
             lengths[0], lengths[1], lengths[2] = L, 0, L // 2 + 3
+        elif spec is not None:
+            lengths = torch.tensor(spec, dtype=torch.int32, device="cuda")
         out = flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
         ref = flash_attention_plain(q, k, v, causal=causal,
                                     kv_lengths=lengths)
@@ -149,35 +237,148 @@ def check_flash_attention() -> dict:
         err = float((out.float() - ref.float()).abs().max())
         tol = TOLERANCE[str(dtype).split(".")[-1]]
         check(err <= tol, f"{name}: max abs error {err} > {tol}")
-        if ragged:
+        if spec == "ragged":
             check(bool((out[1] == 0).all()),
                   f"{name}: the zero-length row is not 0")
-        ms = cuda_time_ms(lambda: flash_attention(
-            q, k, v, causal=causal, kv_lengths=lengths))
-        plain_ms = cuda_time_ms(lambda: flash_attention_plain(
-            q, k, v, causal=causal, kv_lengths=lengths), iters=5)
+        del ref
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None
-        if ragged:
+        if lengths is not None:
             keys = torch.arange(L, device="cuda")
             mask = (keys[None, :] < lengths[:, None])[:, None, None, :]
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal))
+            if causal:   # SDPA takes a mask or is_causal, not both
+                mask = mask & torch.ones((L, L), dtype=torch.bool,
+                                         device="cuda").tril()
+        times = time_kernel_case(
+            lambda: flash_attention(q, k, v, causal=causal,
+                                    kv_lengths=lengths),
+            lambda: flash_attention_plain(q, k, v, causal=causal,
+                                          kv_lengths=lengths),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None),
+            plain_iters=2 if L > 512 else 5)
         bound_ms, bound_by = attention_bound_ms(B, H, L, D, dtype, causal,
                                                 lengths)
         row = {"case": name, "max_abs_err": err, "tolerance": tol,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
+               **times, "bound_ms": bound_ms, "bound_by": bound_by}
         print("flash_attention " + json.dumps(row), flush=True)
         results.append(row)
-        del q, k, v, out, ref
-    main_row = results[-1]
+        del q, k, v, qt, kt, vt, out, mask
+    main_row = next(r for r in results if r["case"] == PREFILL_CASE)
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "kfserving_tpu_torch/csrc/flash_attention.cu",
         "replaces": "kfserving_tpu/ops/pallas_attention.py:129",
         "launches": None,  # filled from the serving run
+        "max_abs_err": max(r["max_abs_err"] for r in results),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+    }
+
+
+def paged_bound_ms(B, H, D, BS, MB, dtype, lengths) -> tuple:
+    """Least time for one paged decode call: every valid key and value
+    read once (rows clamp to the table), q read and out written once;
+    4 * H * D operations per valid (row, token)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tokens = sum(min(max(int(n), 0), MB * BS) for n in lengths.tolist())
+    nbytes = (tokens * H * D * 2 + 2 * B * H * D) * itemsize
+    nbytes += 4 * (B * MB + B)                   # table and lengths
+    return bound_ms(nbytes, 4 * H * D * tokens, dtype)
+
+
+def paged_case(gen, name, B, H, D, BS, MB, dtype, lengths, edit=None):
+    """Pools with a sink block, a table of distinct random blocks."""
+    nb = B * MB + 8
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda", dtype=dtype)
+    pool_k, pool_v = (torch.randn((nb + 1, BS, H, D), generator=gen,
+                                  device="cuda", dtype=dtype)
+                      for _ in range(2))
+    table = torch.randperm(nb, generator=gen, device="cuda")[:B * MB]
+    table = table.reshape(B, MB).to(torch.int32)
+    if edit is not None:
+        edit(table)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return name, (q, pool_k, pool_v, table.contiguous(), lengths)
+
+
+def check_paged_attention() -> dict:
+    import torch.nn.functional as F
+
+    from kfserving_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel,
+        paged_attention_plain,
+    )
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    B, H, D, BS, MB = 8, 12, 64, 128, 32
+    # Row 7 has length 0; row 6 is parked past the table (4097); row 0
+    # has a -1 tail; rows 2 and 4 share their first block.
+    edge = [1, 127, 128, 129, 3021, 4096, 4097, 0]
+
+    def edit(table):
+        table[0, 1:] = -1
+        table[2, 0] = table[4, 0]
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    decode = [3021 + 4 * i for i in range(B)]     # the served rows
+    cases = [
+        paged_case(gen, "edge rows bf16", B, H, D, BS, MB, bf16, edge, edit),
+        paged_case(gen, "edge rows fp32", B, H, D, BS, MB, fp32, edge, edit),
+        paged_case(gen, "edge rows bf16 D128", B, H, 128, BS, MB, bf16,
+                   edge, edit),
+        paged_case(gen, PAGED_MAIN_CASE, B, H, D, BS, MB, bf16, decode),
+    ]
+    results = []
+    for name, args in cases:
+        q, pool_k, pool_v, table, lengths = args
+        out = paged_attention_kernel(*args)
+        ref = paged_attention_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        err = float((out.float() - ref.float()).abs().max())
+        tol = PAGED_TOLERANCE[str(q.dtype).split(".")[-1]]
+        check(err <= tol, f"{name}: max abs error {err} > {tol}")
+        zero_rows = (lengths == 0).nonzero().flatten().tolist()
+        for r in zero_rows:
+            check(bool((out[r] == 0).all()),
+                  f"{name}: the zero-length row is not exactly 0")
+        # Yardstick: SDPA over K/V gathered beforehand (the gather is not
+        # timed), with a length mask.
+        d = q.shape[-1]
+        idx = table.long().clamp_min(0)
+        k_all = pool_k[idx].reshape(B, MB * BS, H, d).transpose(1, 2)
+        v_all = pool_v[idx].reshape(B, MB * BS, H, d).transpose(1, 2)
+        keys = torch.arange(MB * BS, device="cuda")
+        mask = (keys[None, :] < lengths[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+        times = time_kernel_case(
+            lambda: paged_attention_kernel(*args),
+            lambda: paged_attention_plain(*args),
+            lambda: F.scaled_dot_product_attention(qt, k_all, v_all,
+                                                   attn_mask=mask),
+            plain_iters=5)
+        bound, bound_by = paged_bound_ms(B, H, d, BS, MB, q.dtype, lengths)
+        row = {"case": name, "max_abs_err": err, "tolerance": tol,
+               **times, "bound_ms": bound, "bound_by": bound_by,
+               "library": "scaled_dot_product_attention over K/V "
+                          "gathered beforehand (gather not timed)"}
+        print("paged_attention " + json.dumps(row), flush=True)
+        results.append(row)
+        del out, ref, k_all, v_all
+    main_row = next(r for r in results if r["case"] == PAGED_MAIN_CASE)
+    return {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "kfserving_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "kfserving_tpu/ops/paged_attention.py:107",
+        "launches": None,  # filled from the generative serving run
         "max_abs_err": max(r["max_abs_err"] for r in results),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -402,6 +603,321 @@ def serve_bert(card: str) -> dict:
     return summary
 
 
+# -- phase 4: generative serving at the generate_4k shape --------------------
+def gen_prompt(i: int) -> str:
+    """The shared system prompt plus a distinct tail, as
+    benchmarks/configs.py builds the generate_4k traffic."""
+    system = ("the quick brown fox jumps over the lazy dog. " * 80)
+    return (system[:GEN_SYSTEM_LEN] + f" request {i:04d} "
+            + "x" * (GEN_TAIL_LEN - 14))
+
+
+def sse_stream(port: int, path: str, body: dict):
+    """POST a streaming generate and read its SSE events: (status,
+    events, seconds to the first event, seconds to the end)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, resp.read(), None, None
+        events, first = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                if first is None:
+                    first = time.perf_counter() - t0
+                events.append(json.loads(line[len(b"data: "):]))
+        return resp.status, events, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def stream_tokens(events, where: str):
+    check(bool(events) and events[-1].get("finish_reason") is not None,
+          f"{where}: stream ended without a finish_reason")
+    count = events[-1]["details"]["token_count"]
+    check(count <= GEN_MAX_TOKENS, f"{where}: {count} tokens > "
+          f"{GEN_MAX_TOKENS}")
+    ids = [e["token"]["id"] for e in events
+           if e.get("token") and e["token"]["id"] is not None]
+    check(len(ids) == count, f"{where}: {len(ids)} token events for "
+          f"token_count {count}")
+    return ids
+
+
+async def drive_generate(model) -> dict:
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+    from kfserving_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel,
+    )
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    port = server.http_port
+    path = "/v2/models/gen4k/generate_stream"
+    engine = model.engine
+    try:
+        status, events, _, _ = await asyncio.to_thread(
+            sse_stream, port, path,
+            {"text_input": gen_prompt(9999), "max_tokens": GEN_MAX_TOKENS})
+        check(status == 200, f"warm-up stream: HTTP {status} {events}")
+        stream_tokens(events, "warm-up stream")
+
+        # The main path's run: every count starts at 0 here.
+        flash_attention.launches = 0
+        paged_attention_kernel.launches = 0
+        before = engine.stats()
+        sem = asyncio.Semaphore(GEN_CONCURRENCY)
+
+        async def one(i):
+            async with sem:
+                return await asyncio.to_thread(
+                    sse_stream, port, path,
+                    {"text_input": gen_prompt(i),
+                     "max_tokens": GEN_MAX_TOKENS})
+
+        t0 = time.perf_counter()
+        streams = await asyncio.gather(*(one(i)
+                                         for i in range(GEN_REQUESTS)))
+        wall_s = time.perf_counter() - t0
+        status, v1, _ = await asyncio.to_thread(
+            http_json, port, "POST", "/v1/models/gen4k:predict",
+            {"instances": [{"prompt": gen_prompt(100), "max_tokens": 8}]})
+        check(status == 200, f"V1 predict: HTTP {status} {v1}")
+        pred = v1["predictions"][0]
+        check(pred["finish_reason"] in ("length", "eos")
+              and pred["token_count"] <= 8, f"V1 predict: {pred}")
+        status, v2, _ = await asyncio.to_thread(
+            http_json, port, "POST", "/v2/models/gen4k/generate",
+            {"text_input": gen_prompt(101), "parameters": {"max_tokens": 8}})
+        check(status == 200, f"V2 generate: HTTP {status} {v2}")
+        check(v2["details"]["token_count"] <= 8
+              and v2["model_name"] == "gen4k", f"V2 generate: {v2}")
+        after = engine.stats()
+        launches = {"flash_attention": flash_attention.launches,
+                    "paged_attention": paged_attention_kernel.launches}
+        idle = None
+        for _ in range(200):
+            paged = engine.stats()["paged"]
+            if (paged["free_blocks"] + paged["reclaimable_blocks"]
+                    == paged["pool_blocks"]):
+                idle = paged
+                break
+            await asyncio.sleep(0.05)
+        check(idle is not None, f"blocks not all free or reclaimable "
+              f"when idle: {engine.stats()['paged']}")
+    finally:
+        await server.stop_async()
+    tokens = []
+    for i, (status, events, _, _) in enumerate(streams):
+        check(status == 200, f"stream {i}: HTTP {status} {events}")
+        tokens.append(stream_tokens(events, f"stream {i}"))
+    ttfts = sorted(first for _, _, first, _ in streams)
+    generated = sum(len(t) for t in tokens)
+    return {"launches": launches, "before": before, "after": after,
+            "tokens": tokens, "generated": generated, "wall_s": wall_s,
+            "tokens_per_s": generated / wall_s,
+            "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+            "ttft_max_ms": ttfts[-1] * 1e3, "idle_paged": idle}
+
+
+def check_generation_against_plain(model, prompt: str, served) -> dict:
+    """One served stream against a teacher-forced full forward of the
+    same weights with the plain attention: the top-1 at each generated
+    position, and the served token's logit against the maximum."""
+    from kfserving_tpu_torch.ops.attention import _torch_attention
+
+    module = model.module
+    prompt_ids = model.tokenizer.encode(prompt)
+    ids = torch.tensor([prompt_ids + served[:-1]], device=model.device)
+    with torch.inference_mode():
+        module.config.attn_fn = _torch_attention
+        try:
+            logits = module(ids)[0, len(prompt_ids) - 1:]
+        finally:
+            module.config.attn_fn = None
+    served_t = torch.tensor(served, device=model.device)
+    top = logits.max(dim=-1).values
+    gap = top - logits.gather(-1, served_t[:, None])[:, 0]
+    agree = float((logits.argmax(dim=-1) == served_t).float().mean())
+    max_gap = float(gap.max())
+    check(agree >= MIN_TOP1_AGREEMENT,
+          f"served vs plain top-1 agreement {agree} < {MIN_TOP1_AGREEMENT}")
+    check(math.isfinite(max_gap) and max_gap <= MAX_LOGIT_DIFF,
+          f"served token's logit {max_gap} under the plain maximum")
+    return {"positions": len(served), "top1_agreement": agree,
+            "max_served_logit_gap": max_gap}
+
+
+def host_syncs(fn) -> list:
+    """The host<->card synchronisations ``fn`` makes, as reported by
+    torch.cuda.set_sync_debug_mode("warn")."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # The debug mode's own notice also says "synchronizing"; a sync
+    # reads "called a synchronizing CUDA operation".
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def time_generate_device(model) -> dict:
+    """CUDA-event times, outside the server, at the served shapes: one
+    16-step decode wave (the engine's own device program; 8 rows of
+    ~3045 tokens sharing a 23-block prefix, as the served streams do),
+    K2 at that wave's shape, and one b8x4096 prefill (forward + pool
+    insert).  Also the wave's summed kernel time and its kernel launches
+    from torch.profiler, and a check that the wave never synchronises
+    the host with the card (torch.cuda.set_sync_debug_mode)."""
+    from kfserving_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel,
+        paged_insert,
+    )
+
+    engine, module = model.engine, model.module
+    cfg = module.config
+    S, BS, MB = engine.max_slots, engine.block_size, engine.blocks_per_slot
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    lengths = [3021 + 4 * i for i in range(S)]
+    blocks = torch.randperm(engine.num_blocks, generator=gen,
+                            device="cuda").to(torch.int32)
+    shared = (GEN_SYSTEM_LEN + 1) // BS
+    table = torch.full((S, MB), -1, dtype=torch.int32, device="cuda")
+    table[:, :shared] = blocks[:shared]
+    table[:, shared:shared + 2] = blocks[shared:shared + 2 * S].reshape(S, 2)
+    tokens = torch.randint(0, 258, (S,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    positions = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    greedy = engine._sampling([None] * S, S)
+
+    def wave():
+        with torch.inference_mode():
+            engine._decode_steps(table, tokens, positions, greedy)
+
+    wave_ms = cuda_time_ms(wave, iters=5, warmup=2)
+    check(bool(host_syncs(lambda: torch.ones(1, device="cuda").sum().item())),
+          "sync debug mode did not report the .item() of its control")
+    syncs = host_syncs(wave)
+    check(not syncs, f"the decode wave synchronised: {syncs[:1]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave()
+    torch.cuda.synchronize()
+    wave_host_ms = (time.perf_counter() - t0) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wave()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launch_events = [e for e in events
+                     if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")]
+    launches = sum(e.count for e in launch_events)
+    launch_cpu_us = sum(e.self_cpu_time_total for e in launch_events)
+    busy_ms, device_events = profiled_device_ms(wave, iters=1)
+    k2_ms_profiled = sum(e.self_device_time_total for e in device_events
+                         if "paged_" in e.key) / 1e3
+    q = torch.randn((S, 1, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda", dtype=cfg.dtype)
+    pool_k, pool_v = engine._caches[0]
+    k2_ms = profiled_device_ms(lambda: paged_attention_kernel(
+        q, pool_k, pool_v, table, positions + 1))[0]
+    steps = engine.steps_per_call
+    prefill_lengths = torch.tensor([3021] * S, dtype=torch.int32,
+                                   device="cuda")
+    ids = torch.randint(0, 258, (S, 4096), generator=gen, device="cuda")
+    dest = torch.full((S, 4096 // BS), -1, dtype=torch.int64, device="cuda")
+
+    def prefill():
+        with torch.inference_mode():
+            _, caches = module(ids, kv_lengths=prefill_lengths,
+                               return_cache=True,
+                               logit_positions=prefill_lengths - 1)
+            for (pk, pv), (k, v) in zip(engine._caches, caches):
+                paged_insert(pk, pv, k, v, dest)
+
+    prefill_ms = cuda_time_ms(prefill, iters=3, warmup=1)
+    return {
+        "wave_steps": steps, "wave_ms": wave_ms,
+        "wave_host_ms": wave_host_ms,
+        "wave_kernel_busy_ms": busy_ms,
+        "wave_k2_ms": k2_ms_profiled,
+        "wave_kernel_launches": launches,
+        "launch_cpu_us_mean": launch_cpu_us / launches if launches else None,
+        "wave_host_syncs": len(syncs),
+        "k2_ms_at_wave_shape": k2_ms,
+        "k2_share_of_wave_busy": k2_ms_profiled / busy_ms,
+        "k2_share_of_wave": k2_ms_profiled / wave_ms,
+        "prefill_b8x4096_ms": prefill_ms,
+    }
+
+
+def serve_generate(card: str) -> dict:
+    from kfserving_tpu_torch.predictors.llm import GenerativeModel
+
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(GEN_CONFIG, f)
+        model = GenerativeModel("gen4k", model_dir, device="cuda")
+        t0 = time.perf_counter()
+        model.load()
+        load_s = time.perf_counter() - t0
+    cfg = model.module.config
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.max_seq)
+          == (12, 768, 12, 4096), "not the generate_4k decoder")
+    try:
+        run = asyncio.run(drive_generate(model))
+        before, after = run["before"], run["after"]
+        waves = after["decode_steps"] - before["decode_steps"]
+        prefills = after["prefills"] - before["prefills"]
+        want_k2 = cfg.num_layers * waves * after["steps_per_call"]
+        got = run["launches"]
+        check(waves > 0 and got["paged_attention"] == want_k2,
+              f"paged kernel launched {got['paged_attention']} times for "
+              f"{waves} waves x {after['steps_per_call']} steps x "
+              f"{cfg.num_layers} layers")
+        check(prefills > 0
+              and got["flash_attention"] >= cfg.num_layers * prefills,
+              f"flash kernel launched {got['flash_attention']} times for "
+              f"{prefills} prefills")
+        hits = (after["paged"]["prefix_hits"]
+                - before["paged"]["prefix_hits"])
+        check(hits > 0, "no prefix-cache hit over the shared prompt")
+        reference = check_generation_against_plain(
+            model, gen_prompt(0), run["tokens"][0])
+        device = time_generate_device(model)
+    finally:
+        model.unload()
+    summary = {
+        "card": card, "load_s": load_s, "requests": GEN_REQUESTS,
+        "concurrency": GEN_CONCURRENCY,
+        "generated_tokens": run["generated"], "wall_s": run["wall_s"],
+        "tokens_per_s": run["tokens_per_s"],
+        "ttft_p50_ms": run["ttft_p50_ms"], "ttft_max_ms": run["ttft_max_ms"],
+        "decode_waves": waves, "prefills": prefills, "prefix_hits": hits,
+        "launches": run["launches"],
+        "engine": {k: after[k] for k in (
+            "decode_device_s", "decode_wait_s", "prefill_device_s",
+            "slot_occupancy", "goodput_ratio", "depth_effective",
+            "suppressed_waves") if k in after},
+        "idle_pool": run["idle_paged"],
+        "reference": reference, "device": device,
+    }
+    print("generate " + json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -410,6 +926,7 @@ def main() -> int:
     from kfserving_tpu_torch.csrc import build
 
     os.environ.pop("KFS_DISABLE_FLASH", None)
+    os.environ.pop("KFS_DISABLE_PAGED_KERNEL", None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -423,9 +940,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    kernels = [check_flash_attention()]
+    kernels = [check_flash_attention(), check_paged_attention()]
+    torch.cuda.empty_cache()
     serving = serve_bert(card)
-    kernels[0]["launches"] = serving["flash_launches"]
+    generating = serve_generate(card)
+    # K1 runs on both serving paths; each path's count was read from 0.
+    kernels[0]["launches"] = (serving["flash_launches"]
+                              + generating["launches"]["flash_attention"])
+    kernels[1]["launches"] = generating["launches"]["paged_attention"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)   # as nvidia-smi prints it: name, power limit
     print(json.dumps({"ok": True, "device": {

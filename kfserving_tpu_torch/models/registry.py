@@ -16,6 +16,10 @@ _REGISTRY: Dict[str, Callable[..., Tuple[Any, Any]]] = {}
 _LAZY_BUILTINS: Dict[str, Tuple[str, str]] = {
     "bert": ("kfserving_tpu_torch.models.bert", "_create_bert_base"),
     "bert_tiny": ("kfserving_tpu_torch.models.bert", "_create_bert_tiny"),
+    "decoder": ("kfserving_tpu_torch.models.decoder",
+                "_create_decoder_small"),
+    "decoder_tiny": ("kfserving_tpu_torch.models.decoder",
+                     "_create_decoder_tiny"),
 }
 
 

@@ -4,8 +4,9 @@
   ``flax.serialization.to_bytes`` (the artifact the JAX package restores
   in ``kfserving_tpu/engine/param_cache.py``) into a nested dict of numpy
   arrays, without flax.  It imports ``msgpack`` only when called.
-- ``bert_params_from_flax(tree)`` maps a BERT Flax param tree onto the
-  port's ``state_dict`` names.
+- ``bert_params_from_flax(tree)`` and ``decoder_params_from_flax(tree)``
+  map a BERT or decoder Flax param tree onto the port's ``state_dict``
+  names (``FLAX_CONVERTERS`` by architecture).
 - ``materialize(module, device, state_dict=None, seed=0)`` turns a
   meta-device module into one on ``device`` holding either those weights
   or a seeded random init (``torch.Generator``; it does not reproduce the
@@ -74,58 +75,95 @@ def read_flax_msgpack(path: str) -> Dict[str, Any]:
     return _unchunk(tree)
 
 
+class _StateDict:
+    """Collects numpy state-dict entries from Flax leaves."""
+
+    def __init__(self):
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def put(self, name: str, arr) -> None:
+        self.sd[name] = np.array(arr, dtype=np.float32)   # owned, writable
+
+    def dense(self, name: str, src) -> None:              # Dense [in, out]
+        self.put(f"{name}.weight", np.asarray(src["kernel"]).T)
+        self.put(f"{name}.bias", src["bias"])
+
+    def dense_in(self, name: str, src) -> None:           # [in, H, D]
+        kernel = np.asarray(src["kernel"])
+        self.put(f"{name}.weight", kernel.reshape(kernel.shape[0], -1).T)
+        self.put(f"{name}.bias", np.asarray(src["bias"]).reshape(-1))
+
+    def dense_out(self, name: str, src) -> None:          # [H, D, out]
+        kernel = np.asarray(src["kernel"])
+        self.put(f"{name}.weight", kernel.reshape(-1, kernel.shape[-1]).T)
+        self.put(f"{name}.bias", src["bias"])
+
+    def norm(self, name: str, src) -> None:
+        self.put(f"{name}.weight", src["scale"])
+        self.put(f"{name}.bias", src["bias"])
+
+    def embedding(self, name: str, src) -> None:
+        self.put(f"{name}.weight", src["embedding"])
+
+
 def bert_params_from_flax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The port's BERT ``state_dict`` (numpy) from the JAX package's
     variables (``{"params": ...}`` or the params dict itself)."""
     p = tree.get("params", tree)
-    sd: Dict[str, np.ndarray] = {}
-
-    def put(name: str, arr) -> None:
-        sd[name] = np.array(arr, dtype=np.float32)   # owned, writable
-
-    def dense(name: str, src) -> None:               # Dense [in, out]
-        put(f"{name}.weight", np.asarray(src["kernel"]).T)
-        put(f"{name}.bias", src["bias"])
-
-    def dense_in(name: str, src) -> None:            # [in, H, D]
-        kernel = np.asarray(src["kernel"])
-        put(f"{name}.weight", kernel.reshape(kernel.shape[0], -1).T)
-        put(f"{name}.bias", np.asarray(src["bias"]).reshape(-1))
-
-    def dense_out(name: str, src) -> None:           # [H, D, out]
-        kernel = np.asarray(src["kernel"])
-        put(f"{name}.weight", kernel.reshape(-1, kernel.shape[-1]).T)
-        put(f"{name}.bias", src["bias"])
-
-    def norm(name: str, src) -> None:
-        put(f"{name}.weight", src["scale"])
-        put(f"{name}.bias", src["bias"])
-
+    out = _StateDict()
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
-        put(f"{name}.weight", p[name]["embedding"])
-    norm("embeddings_norm", p["embeddings_norm"])
+        out.embedding(name, p[name])
+    out.norm("embeddings_norm", p["embeddings_norm"])
     i = 0
     while f"layer_{i}" in p:
         src, dst = p[f"layer_{i}"], f"layers.{i}"
         for proj in ("query", "key", "value"):
-            dense_in(f"{dst}.attention.{proj}", src["attention"][proj])
-        dense_out(f"{dst}.attention.out", src["attention"]["out"])
-        norm(f"{dst}.attention_norm", src["attention_norm"])
-        dense(f"{dst}.intermediate", src["intermediate"])
-        dense(f"{dst}.output", src["output"])
-        norm(f"{dst}.output_norm", src["output_norm"])
+            out.dense_in(f"{dst}.attention.{proj}", src["attention"][proj])
+        out.dense_out(f"{dst}.attention.out", src["attention"]["out"])
+        out.norm(f"{dst}.attention_norm", src["attention_norm"])
+        out.dense(f"{dst}.intermediate", src["intermediate"])
+        out.dense(f"{dst}.output", src["output"])
+        out.norm(f"{dst}.output_norm", src["output_norm"])
         i += 1
-    dense("mlm_transform", p["mlm_transform"])
-    norm("mlm_norm", p["mlm_norm"])
-    put("mlm_bias", p["mlm_bias"])
-    return sd
+    out.dense("mlm_transform", p["mlm_transform"])
+    out.norm("mlm_norm", p["mlm_norm"])
+    out.put("mlm_bias", p["mlm_bias"])
+    return out.sd
+
+
+def decoder_params_from_flax(tree: Dict[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """The port's ``DecoderLM`` ``state_dict`` (numpy) from the JAX
+    package's decoder variables: ``wte``/``wpe`` tables, per layer
+    ``attn_norm``, DenseGeneral ``query``/``key``/``value`` [in, H, D] and
+    ``out`` [H, D, out], ``mlp_norm``, ``mlp_in``, ``mlp_out``, then
+    ``final_norm``.  The LM head is ``wte`` itself (tied)."""
+    p = tree.get("params", tree)
+    out = _StateDict()
+    out.embedding("wte", p["wte"])
+    out.embedding("wpe", p["wpe"])
+    i = 0
+    while f"layer_{i}" in p:
+        src, dst = p[f"layer_{i}"], f"layers.{i}"
+        out.norm(f"{dst}.attn_norm", src["attn_norm"])
+        for proj in ("query", "key", "value"):
+            out.dense_in(f"{dst}.{proj}", src[proj])
+        out.dense_out(f"{dst}.out", src["out"])
+        out.norm(f"{dst}.mlp_norm", src["mlp_norm"])
+        out.dense(f"{dst}.mlp_in", src["mlp_in"])
+        out.dense(f"{dst}.mlp_out", src["mlp_out"])
+        i += 1
+    out.norm("final_norm", p["final_norm"])
+    return out.sd
 
 
 # Flax param tree -> port state_dict, by architecture.
 FLAX_CONVERTERS: Dict[str, Callable[[Dict[str, Any]], Dict[str, np.ndarray]]] = {
     "bert": bert_params_from_flax,
     "bert_tiny": bert_params_from_flax,
+    "decoder": decoder_params_from_flax,
+    "decoder_tiny": decoder_params_from_flax,
 }
 
 

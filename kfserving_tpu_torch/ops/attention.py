@@ -4,11 +4,14 @@ plain PyTorch attention otherwise.
 Port of ``kfserving_tpu/ops/attention.py``.  One public entry point,
 ``dot_product_attention(q, k, v, mask=None)``, over
 [batch, len, heads, head_dim] tensors.  The kernel runs when the kernel
-accepts the call: a CUDA tensor, a mask case it handles (none, suffix
-padding as lengths, or causal-only with Lq == Lk), a supported head dim
-and dtype, and sequence lengths that are multiples of 8.  Everything else
+accepts the call: a CUDA tensor, a mask case it handles
+(``flash_handles_mask``: none, suffix padding as lengths, causal with
+Lq == Lk, or causal with Lq == Lk plus lengths), a supported head dim and
+dtype, and sequence lengths that are multiples of 8.  Everything else
 takes ``_torch_attention``, the port of the JAX package's einsum path.
-The TPU's sequence-length thresholds do not apply on the card.
+The TPU's sequence-length thresholds do not apply on the card, and
+unlike the JAX dispatcher, causal + ``kv_lengths`` (the decoder's
+bucketed prefill) goes to the kernel, which applies both masks at once.
 ``KFS_DISABLE_FLASH=1`` forces the plain path.
 """
 
@@ -47,6 +50,21 @@ def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
             and q.shape[1] % 8 == 0 and k.shape[1] % 8 == 0)
 
 
+def flash_handles_mask(causal: bool, lq: int, lk: int, has_mask: bool,
+                       has_lengths: bool) -> bool:
+    """Whether the flash kernel computes a call's masking by itself.
+
+    has_mask: the caller passed an explicit mask.  has_lengths: the key
+    padding arrives as per-row lengths (``kv_lengths``, or lengths the
+    dispatcher derived from a ``prefix_padding`` mask).  The kernel's
+    causal mask puts query i at position i, so causal needs Lq == Lk; it
+    composes with lengths (one pass applies both, as the decoder's
+    bucketed prefill needs) but not with an arbitrary mask."""
+    if causal:
+        return lq == lk and not has_mask
+    return not has_mask or has_lengths
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           causal: bool = False,
@@ -70,12 +88,16 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "ignore a disagreeing mask; pass the mask alone for "
             "arbitrary patterns (optionally with prefix_padding=True)")
     Lq, Lk = q.shape[1], k.shape[1]
-    derived_lengths = None
+    lengths = kv_lengths
     if prefix_padding and mask is not None and not causal:
         # Any one query row's key mask gives the row's real-key count.
         flat = mask.reshape(mask.shape[0], -1, mask.shape[-1])
-        derived_lengths = flat[:, 0, :].sum(dim=-1, dtype=torch.int32)
-    if kv_lengths is not None and mask is None:
+        lengths = flat[:, 0, :].sum(dim=-1, dtype=torch.int32)
+    if (flash_handles_mask(causal, Lq, Lk, mask is not None,
+                           lengths is not None)
+            and _flash_eligible(q, k)):
+        return flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
+    if kv_lengths is not None:
         keys = torch.arange(Lk, device=q.device)
         mask = (keys[None, :] < kv_lengths.to(q.device)[:, None]
                 )[:, None, None, :]
@@ -83,15 +105,4 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         causal_mask = torch.ones((Lq, Lk), dtype=torch.bool,
                                  device=q.device).tril(Lk - Lq)[None, None]
         mask = causal_mask if mask is None else (mask & causal_mask)
-        # The kernel's causal mask puts query i at position i, which
-        # holds only when Lq == Lk; causal + key padding stays plain too.
-        flash_ok = (mask is causal_mask and Lq == Lk
-                    and kv_lengths is None)
-        lengths = None
-    else:
-        flash_ok = (mask is None or kv_lengths is not None
-                    or derived_lengths is not None)
-        lengths = kv_lengths if kv_lengths is not None else derived_lengths
-    if flash_ok and _flash_eligible(q, k):
-        return flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
     return _torch_attention(q, k, v, mask)

@@ -1,0 +1,566 @@
+"""GenerativeModel: the decoder-serving predictor.
+
+Port of ``kfserving_tpu/predictors/llm.py``: load a decoder from the
+registry plus its weights, run it in the paged ``GenerationEngine`` on
+the card, and serve V1 ``:predict``, ``:generate`` and
+``generate_stream``.
+
+Model directory layout (a local path or a ``file://`` URI):
+
+    config.json          — required; see GenerativeConfig
+    checkpoint.msgpack   — Flax ``to_bytes`` variables as the JAX package
+                           writes them (optional: absent -> seeded random
+                           init)
+
+config.json keys are the JAX package's (unknown keys are ignored):
+    {
+      "architecture": "decoder" | "decoder_tiny" | <registered>,
+      "arch_kwargs": {...},
+      "max_slots": 8, "max_seq": 512,
+      "prefill_buckets": [64, 128, 256, 512],
+      "max_new_tokens": 64, "temperature": 0.0,
+      "tokenizer": "byte",
+      "steps_per_call": 1, "pipeline_depth": 2, "logprob_topk": 5,
+      "block_size": 128,           # required by the port: paged cache
+      "cache_blocks": 48,
+      "adaptive_depth": true
+    }
+The port refuses, with InvalidInput, what it has not ported yet: no
+``block_size`` (dense slots), ``prefill_chunk_tokens``,
+``host_tier_blocks``, ``speculative`` and ``hf:`` tokenizers.
+
+Request shapes (V1 predict and the generate routes):
+    {"instances": ["a prompt", {"prompt": "...", "max_tokens": 32,
+                                "temperature": 0.7, "top_k": 40,
+                                "top_p": 0.95, "seed": 7,
+                                "stop": ["\\n\\n"], "logprobs": 3}]}
+    {"text_input": "...", "parameters": {...}}   # v2 generate extension
+Stop sequences match host-side in text space; the streaming path holds
+back any suffix that could begin a stop sequence.  The byte tokenizer
+(ids = UTF-8 bytes, BOS = 256, EOS = 257) is lossless for any input.
+"""
+
+import asyncio
+import json
+import logging
+import os
+from typing import Any, AsyncIterator, Dict, List, Optional
+
+import torch
+
+from kfserving_tpu_torch.engine.generator import GenerationEngine
+from kfserving_tpu_torch.engine.torch_engine import resolve_device
+from kfserving_tpu_torch.model.model import Model
+from kfserving_tpu_torch.models import create_model
+from kfserving_tpu_torch.models import weights
+from kfserving_tpu_torch.predictors.torch_model import (
+    CHECKPOINT_NAME,
+    local_model_dir,
+)
+from kfserving_tpu_torch.protocol import v1
+from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
+from kfserving_tpu_torch.streams import GuardedStream
+
+logger = logging.getLogger("kfserving_tpu_torch.llm")
+
+BOS_ID = 256
+EOS_ID = 257
+
+
+def _find_stop(text: str, stops: List[str]) -> int:
+    """Earliest index of any stop sequence in `text`, or -1."""
+    idx = -1
+    for s in stops:
+        i = text.find(s)
+        if i >= 0 and (idx < 0 or i < idx):
+            idx = i
+    return idx
+
+
+def _holdback_len(text: str, stops: List[str]) -> int:
+    """Length of the longest suffix of `text` that is a proper prefix of
+    some stop sequence: the streaming path must not emit it yet."""
+    hold = 0
+    for s in stops:
+        for length in range(min(len(s) - 1, len(text)), hold, -1):
+            if text.endswith(s[:length]):
+                hold = length
+                break
+    return hold
+
+
+class IncrementalDecoder:
+    """Streaming detokenizer with emission-stable deltas and O(window)
+    work per token: it re-decodes only a window of not-yet-emitted
+    tokens and releases text only when it can no longer change (a
+    trailing U+FFFD may be a partial UTF-8 sequence; a suffix that could
+    begin a stop sequence is held).  If decoding ever rewrites emitted
+    text, deltas stop and stop matching falls back to decoding the full
+    history."""
+
+    # Tokens of context kept across window compaction, so piece-joining
+    # tokenizers decode a boundary token the same way every time.
+    _KEEP = 4
+
+    def __init__(self, tokenizer, stops: List[str],
+                 history: Optional[List[int]] = None):
+        self.tok = tokenizer
+        self.stops = stops
+        self.max_stop = max((len(s) for s in stops), default=0)
+        self._sent: List[str] = []
+        self._pending: List[int] = []
+        self._p_emitted = ""   # prefix of decode(_pending) already out
+        self.degraded = False
+        # Full token history, read only by the degraded path; a caller
+        # that appends before each push may share its own list.
+        self._all: List[int] = [] if history is None else history
+        self._owns_history = history is None
+        self._final: Optional[str] = None  # degraded-stop truncation
+
+    def push(self, token: int):
+        """Feed one token; returns (delta, stopped).  On a stop match the
+        delta ends just before the match and the caller stops."""
+        if self._owns_history:
+            self._all.append(token)
+        if self.degraded:
+            return "", self._degraded_stop()
+        self._pending.append(token)
+        ptext = self.tok.decode(self._pending)
+        if not ptext.startswith(self._p_emitted):
+            self.degraded = True
+            if self.stops:
+                logger.warning(
+                    "tokenizer decode rewrote emitted text; stop-"
+                    "sequence matching degraded to full re-decode")
+            return "", self._degraded_stop()
+        rest = ptext[len(self._p_emitted):]
+        if self.stops:
+            idx = _find_stop(rest, self.stops)
+            if idx >= 0:
+                delta = rest[:idx]
+                self._emit(delta, ptext)
+                return delta, True
+            hold = _holdback_len(rest, self.stops)
+        else:
+            hold = 0
+        candidate = rest[:len(rest) - hold] if hold else rest
+        while candidate.endswith("�"):
+            candidate = candidate[:-1]
+        self._emit(candidate, ptext)
+        return candidate, False
+
+    def _degraded_stop(self) -> bool:
+        if not self.stops:
+            return False
+        window = self.max_stop * 4 + 16
+        if _find_stop(self.tok.decode(self._all[-window:]), self.stops) < 0:
+            return False
+        full = self.tok.decode(self._all)
+        idx = _find_stop(full, self.stops)
+        if idx < 0:
+            return False
+        self._final = full[:idx]
+        return True
+
+    def finish(self) -> str:
+        """Flush everything still held; returns the final delta."""
+        if self.degraded:
+            return ""
+        ptext = self.tok.decode(self._pending)
+        if not ptext.startswith(self._p_emitted):
+            self.degraded = True
+            return ""
+        delta = ptext[len(self._p_emitted):]
+        self._emit(delta, ptext)
+        return delta
+
+    def text(self) -> str:
+        """Text emitted so far (the full output after finish(), the
+        truncated output after a stop)."""
+        if self._final is not None:
+            return self._final
+        return "".join(self._sent)
+
+    def _emit(self, s: str, ptext: str):
+        if s:
+            self._sent.append(s)
+            self._p_emitted += s
+        if self._p_emitted == ptext and len(self._pending) > self._KEEP:
+            self._pending = self._pending[-self._KEEP:]
+            self._p_emitted = self.tok.decode(self._pending)
+
+
+def _lp_payload(req, tokens: List[int]) -> List[Dict[str, Any]]:
+    """Per-token logprob records (aligned with content tokens)."""
+    return [
+        {"id": int(t), "logprob": c,
+         "top": [{"id": i, "logprob": p} for i, p in top]}
+        for t, c, top in zip(tokens, req.lp_chosen, req.lp_top)
+    ]
+
+
+class ByteTokenizer:
+    """Lossless byte-level tokenizer: ids 0-255 are UTF-8 bytes, 256 is
+    BOS, 257 is EOS."""
+
+    vocab_size = 258
+    bos_id = BOS_ID
+    eos_id = EOS_ID
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        ids = list(text.encode("utf-8"))
+        return ([self.bos_id] + ids) if add_bos else ids
+
+    def decode(self, ids: List[int]) -> str:
+        data = bytes(i for i in ids if 0 <= i < 256)
+        return data.decode("utf-8", errors="replace")
+
+
+def build_tokenizer(spec: str):
+    if spec == "byte":
+        return ByteTokenizer()
+    if spec.startswith("hf:"):
+        raise InvalidInput(
+            f"tokenizer {spec!r}: hf: tokenizers are not supported by the "
+            "PyTorch port yet; use \"byte\"")
+    raise InvalidInput(f"unknown tokenizer spec {spec!r}")
+
+
+class GenerativeConfig:
+    def __init__(self, architecture: str,
+                 arch_kwargs: Optional[Dict] = None,
+                 max_slots: int = 8, max_seq: int = 512,
+                 prefill_buckets: Optional[List[int]] = None,
+                 max_new_tokens: int = 64, temperature: float = 0.0,
+                 tokenizer: str = "byte",
+                 steps_per_call: int = 1,
+                 pipeline_depth: int = 2,
+                 logprob_topk: int = 5,
+                 block_size: Optional[int] = None,
+                 cache_blocks: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 host_tier_blocks: Optional[int] = None,
+                 adaptive_depth: bool = True,
+                 speculative: Optional[Dict[str, Any]] = None,
+                 mesh: Optional[Dict[str, int]] = None,
+                 **_ignored):
+        self.architecture = architecture
+        self.arch_kwargs = arch_kwargs or {}
+        self.max_slots = int(max_slots)
+        self.max_seq = int(max_seq)
+        self.prefill_buckets = prefill_buckets
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.tokenizer = tokenizer
+        self.steps_per_call = int(steps_per_call)
+        self.pipeline_depth = int(pipeline_depth)
+        self.logprob_topk = int(logprob_topk)
+        self.block_size = int(block_size) if block_size else None
+        self.cache_blocks = int(cache_blocks) if cache_blocks else None
+        self.prefill_chunk_tokens = (int(prefill_chunk_tokens)
+                                     if prefill_chunk_tokens else None)
+        self.host_tier_blocks = (int(host_tier_blocks)
+                                 if host_tier_blocks else None)
+        self.adaptive_depth = bool(adaptive_depth)
+        self.speculative = dict(speculative) if speculative else None
+        self.mesh = mesh or {}
+
+    @classmethod
+    def from_file(cls, path: str,
+                  overrides: Optional[Dict[str, Any]] = None):
+        with open(path) as f:
+            data = json.load(f)
+        if overrides:
+            data.update(overrides)
+        if "architecture" not in data:
+            raise InvalidInput(
+                f"{path} missing required key 'architecture'")
+        return cls(**data)
+
+    def check_ported(self) -> None:
+        """Refuse what the PyTorch port does not serve yet."""
+        missing = []
+        if self.prefill_chunk_tokens:
+            missing.append("prefill_chunk_tokens (chunked prefill)")
+        if self.host_tier_blocks:
+            missing.append("host_tier_blocks (host KV tier)")
+        if self.speculative and int(self.speculative.get("tokens", 0)):
+            missing.append("speculative (speculative decoding)")
+        if any(int(v) > 1 for v in self.mesh.values()):
+            missing.append("mesh (multi-device)")
+        if missing:
+            raise InvalidInput("not supported by the PyTorch port yet: "
+                               + ", ".join(missing))
+
+
+class GenerativeModel(Model):
+    """A served decoder with continuous batching and token streaming."""
+
+    def __init__(self, name: str, model_dir: str,
+                 config: Optional[GenerativeConfig] = None,
+                 config_overrides: Optional[Dict[str, Any]] = None,
+                 device: Any = "cuda"):
+        super().__init__(name)
+        self.model_dir = model_dir
+        self.config = config
+        self.config_overrides = dict(config_overrides or {})
+        self.device = resolve_device(device)
+        self.engine: Optional[GenerationEngine] = None
+        self.module: Optional[torch.nn.Module] = None
+        self.tokenizer = None
+        # "checkpoint" or "init" once loaded.
+        self.param_source: Optional[str] = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def load(self) -> bool:
+        local = local_model_dir(self.model_dir)
+        cfg = self.config
+        if cfg is None:
+            cfg = GenerativeConfig.from_file(
+                os.path.join(local, "config.json"),
+                overrides=self.config_overrides)
+            self.config = cfg
+        cfg.check_ported()
+        self.tokenizer = build_tokenizer(cfg.tokenizer)
+        spec = create_model(cfg.architecture, **cfg.arch_kwargs)
+        ckpt = os.path.join(local, CHECKPOINT_NAME)
+        state_dict = None
+        if os.path.exists(ckpt):
+            convert = weights.FLAX_CONVERTERS.get(cfg.architecture)
+            if convert is None:
+                raise InvalidInput(
+                    f"no Flax checkpoint converter for architecture "
+                    f"{cfg.architecture!r}")
+            state_dict = convert(weights.read_flax_msgpack(ckpt))
+        self.param_source = "checkpoint" if state_dict else "init"
+        module = weights.materialize(spec.module, self.device,
+                                     state_dict=state_dict)
+        engine = GenerationEngine(
+            module, max_slots=cfg.max_slots, max_seq=cfg.max_seq,
+            prefill_buckets=cfg.prefill_buckets,
+            eos_id=getattr(self.tokenizer, "eos_id", None),
+            steps_per_call=cfg.steps_per_call,
+            pipeline_depth=cfg.pipeline_depth,
+            block_size=cfg.block_size, cache_blocks=cfg.cache_blocks,
+            adaptive_depth=cfg.adaptive_depth,
+            logprob_topk=cfg.logprob_topk, name=self.name)
+        old = self.engine
+        self.module, self.engine = module, engine
+        self.ready = True
+        if old is not None:
+            old.shutdown_nowait()
+        return True
+
+    def unload(self) -> None:
+        if self.engine is not None:
+            self.engine.shutdown_nowait()
+            self.engine = None
+        self.module = None
+        self.ready = False
+
+    # -- request parsing ---------------------------------------------------
+    def _parse_instance(self, inst: Any) -> Dict[str, Any]:
+        cfg = self.config
+        if isinstance(inst, str):
+            inst = {"prompt": inst}
+        if not isinstance(inst, dict):
+            raise InvalidInput(
+                f"generate instance must be a string or object, got "
+                f"{type(inst).__name__}")
+        if "prompt" not in inst and "text_input" not in inst:
+            raise InvalidInput(
+                "generate instance needs 'prompt' (or 'text_input')")
+        stop = inst.get("stop", [])
+        if isinstance(stop, str):
+            stop = [stop]
+        if not (isinstance(stop, list)
+                and all(isinstance(s, str) and s for s in stop)):
+            raise InvalidInput(
+                "stop must be a non-empty string or a list of them")
+        seed = inst.get("seed")
+        logprobs = inst.get("logprobs", 0)
+        if logprobs is True:
+            logprobs = 1
+        try:
+            return {
+                "prompt": str(inst.get("prompt", inst.get("text_input"))),
+                "max_tokens": int(inst.get("max_tokens",
+                                           inst.get("max_new_tokens",
+                                                    cfg.max_new_tokens))),
+                "temperature": float(inst.get("temperature",
+                                              cfg.temperature)),
+                "top_k": int(inst.get("top_k", 0)),
+                "top_p": float(inst.get("top_p", 1.0)),
+                "seed": None if seed is None else int(seed),
+                "stop": stop,
+                "logprobs": int(logprobs),
+            }
+        except (TypeError, ValueError) as e:
+            raise InvalidInput(f"invalid generate parameter: {e}")
+
+    def _submit(self, parsed: Dict[str, Any]):
+        ids = self.tokenizer.encode(parsed["prompt"])
+        return self.engine.submit(
+            ids, max_new_tokens=parsed["max_tokens"],
+            temperature=parsed["temperature"],
+            top_k=parsed["top_k"], top_p=parsed["top_p"],
+            seed=parsed["seed"], logprobs=parsed["logprobs"])
+
+    async def _run_one(self, parsed: Dict[str, Any]) -> Dict[str, Any]:
+        req = self._submit(parsed)
+        tokens: List[int] = []
+        decoder = IncrementalDecoder(self.tokenizer, parsed["stop"],
+                                     history=tokens)
+        reason = "length"
+        async for token, fin in self.engine.stream(req):
+            if token is not None:
+                tokens.append(token)
+                _, stopped = decoder.push(token)
+                if stopped:
+                    # The match runs host-side on decoded text; the
+                    # engine slot is cancelled the moment it lands.
+                    self.engine.cancel(req)
+                    return self._result(req, decoder.text(), tokens,
+                                        "stop", parsed)
+            if fin is not None:
+                reason = fin
+        decoder.finish()
+        text = (self.tokenizer.decode(tokens) if decoder.degraded
+                else decoder.text())
+        return self._result(req, text, tokens, reason, parsed)
+
+    def _result(self, req, text: str, tokens: List[int], reason: str,
+                parsed: Dict[str, Any]) -> Dict[str, Any]:
+        out = {"text": text, "token_count": len(tokens),
+               "finish_reason": reason}
+        if parsed["logprobs"] > 0:
+            out["logprobs"] = _lp_payload(req, tokens)
+        return out
+
+    # -- serving entry points ----------------------------------------------
+    def _require_engine(self) -> None:
+        if self.engine is None:
+            raise InferenceError(f"model {self.name} not loaded")
+
+    async def predict(self, request: Any) -> Any:
+        self._require_engine()
+        instances = v1.get_instances(request)
+        if not instances:
+            raise InvalidInput("generate needs at least one instance")
+        parsed = [self._parse_instance(i) for i in instances]
+        # All instances submit at once and share decode waves; every
+        # sibling settles before a failure surfaces.
+        results = await asyncio.gather(*[self._run_one(p) for p in parsed],
+                                       return_exceptions=True)
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+        return v1.make_response(list(results))
+
+    async def generate(self, request: Any) -> Any:
+        """Non-streaming :generate — v2 generate-extension shape in,
+        single result out."""
+        self._require_engine()
+        result = await self._run_one(self._parse_generate_body(request))
+        details = {"token_count": result["token_count"],
+                   "finish_reason": result["finish_reason"]}
+        if "logprobs" in result:
+            details["logprobs"] = result["logprobs"]
+        return {"model_name": self.name, "text_output": result["text"],
+                "details": details}
+
+    def _parse_generate_body(self, request: Any) -> Dict[str, Any]:
+        if isinstance(request, dict) and (
+                "text_input" in request or "prompt" in request):
+            merged = dict(request)
+            params = request.get("parameters") or {}
+            if not isinstance(params, dict):
+                raise InvalidInput("parameters must be an object")
+            merged.update(params)
+            return self._parse_instance(merged)
+        instances = v1.get_instances(request)
+        if not instances:
+            raise InvalidInput("generate needs a prompt")
+        return self._parse_instance(instances[0])
+
+    async def generate_stream(self, request: Any
+                              ) -> AsyncIterator[Dict[str, Any]]:
+        """Streaming :generate: an async iterator of per-token events
+        {"token": {"id", "text"}} ending with an event that carries
+        finish_reason and the whole text.  Validation and submission run
+        HERE, before the caller commits response headers, so a bad
+        request is a clean 4xx."""
+        self._require_engine()
+        parsed = self._parse_generate_body(request)
+        req = self._submit(parsed)
+        stops = parsed["stop"]
+        want_lp = parsed["logprobs"] > 0
+        finished = False
+
+        async def events():
+            nonlocal finished
+            collected: List[int] = []
+            decoder = IncrementalDecoder(self.tokenizer, stops,
+                                         history=collected)
+
+            def token_event(token, text_delta):
+                event = {"token": {"id": int(token), "text": text_delta}}
+                if want_lp and len(collected) <= len(req.lp_chosen):
+                    i = len(collected) - 1
+                    event["token"]["logprob"] = req.lp_chosen[i]
+                    event["token"]["top_logprobs"] = [
+                        {"id": t, "logprob": p} for t, p in req.lp_top[i]]
+                return event
+
+            async for token, reason in self.engine.stream(req):
+                if token is not None:
+                    collected.append(token)
+                    delta, stopped = decoder.push(token)
+                    if stopped:
+                        self.engine.cancel(req)
+                        finished = True
+                        event = token_event(token, delta)
+                        event["finish_reason"] = "stop"
+                        event["generated_text"] = decoder.text()
+                        event["details"] = {"token_count": len(collected)}
+                        yield event
+                        return
+                    event = token_event(token, delta)
+                else:
+                    event = {}
+                if reason is not None:
+                    finished = True
+                    tail = decoder.finish()
+                    if tail:
+                        tok = event.setdefault("token",
+                                               {"id": None, "text": ""})
+                        tok["text"] += tail
+                    full = (self.tokenizer.decode(collected)
+                            if decoder.degraded else decoder.text())
+                    event["finish_reason"] = reason
+                    event["generated_text"] = full
+                    event["details"] = {"token_count": len(collected)}
+                yield event
+
+        def on_close():
+            # The consumer abandoned the stream (client disconnect, even
+            # before the first event): free the decode slot.
+            if not finished:
+                self.engine.cancel(req)
+
+        return GuardedStream(events(), on_close)
+
+    def engine_stats(self) -> Dict[str, Any]:
+        stats = dict(self.engine.stats()) if self.engine else {}
+        if self.param_source is not None:
+            stats["param_source"] = self.param_source
+        return stats
+
+    def metadata(self) -> Dict[str, Any]:
+        meta = super().metadata()
+        if self.config is not None:
+            meta["platform"] = "pytorch-generate"
+            meta["architecture"] = self.config.architecture
+            meta["max_slots"] = self.config.max_slots
+            meta["max_seq"] = self.config.max_seq
+        return meta

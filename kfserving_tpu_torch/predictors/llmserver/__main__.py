@@ -1,0 +1,37 @@
+"""llmserver entry point of the port:
+``python -m kfserving_tpu_torch.predictors.llmserver``.
+
+Serves a generative model directory (config.json plus an optional Flax
+checkpoint.msgpack) with the PyTorch port — V1 ``:predict``,
+``:generate`` and ``generate_stream``:
+
+    python -m kfserving_tpu_torch.predictors.llmserver --model_name gen \
+        --model_dir /path/to/model --http_port 8080 [--device cuda]
+"""
+
+import argparse
+import logging
+
+from kfserving_tpu_torch.predictors.llm import GenerativeModel
+from kfserving_tpu_torch.server.app import ModelServer, parser as server_parser
+
+parser = argparse.ArgumentParser(parents=[server_parser])
+parser.add_argument("--model_name", default="model",
+                    help="name under which the model is served")
+parser.add_argument("--model_dir", required=True,
+                    help="model artifact directory (local path or file://)")
+parser.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda, cuda:N or cpu)")
+
+
+def main(argv=None) -> None:
+    args, _ = parser.parse_known_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    model = GenerativeModel(args.model_name, args.model_dir,
+                            device=args.device)
+    model.load()
+    ModelServer(http_port=args.http_port).start([model])
+
+
+if __name__ == "__main__":
+    main()

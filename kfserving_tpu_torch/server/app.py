@@ -13,6 +13,10 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
     GET  /v2/models/{name}                  V2 model metadata
     POST /v1/models/{name}:predict          V1 predict
     POST /v2/models/{name}/infer            V2 infer
+    POST /v1/models/{name}:generate         generate (``"stream": true``
+    POST /v2/models/{name}/generate           hands off to the stream)
+    POST /v2/models/{name}/generate_stream  token stream, SSE
+                                            ``data: {...}\n\n`` events
 
 One asyncio process serves; batched device execution runs on the
 engines' worker threads.
@@ -29,7 +33,14 @@ from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository
 from kfserving_tpu_torch.protocol.errors import ServingError
 from kfserving_tpu_torch.server.dataplane import DataPlane
-from kfserving_tpu_torch.server.http import HTTPServer, Request, Response, Router
+from kfserving_tpu_torch.server.http import (
+    HTTPServer,
+    Request,
+    Response,
+    Router,
+    StreamingResponse,
+)
+from kfserving_tpu_torch.streams import GuardedStream, aclose_quietly
 
 logger = logging.getLogger("kfserving_tpu_torch.server")
 
@@ -81,6 +92,10 @@ class ModelServer:
         r.add("GET", "/v2/models/{name}", self._model_metadata)
         r.add("POST", "/v1/models/{name}:predict", self._inference)
         r.add("POST", "/v2/models/{name}/infer", self._inference)
+        r.add("POST", "/v1/models/{name}:generate", self._generate)
+        r.add("POST", "/v2/models/{name}/generate", self._generate)
+        r.add("POST", "/v2/models/{name}/generate_stream",
+              self._generate_stream)
 
     # -- handlers ----------------------------------------------------------
     async def _live(self, req: Request) -> Response:
@@ -117,16 +132,57 @@ class ModelServer:
         except ServingError as e:
             return _error(e)
 
-    async def _inference(self, req: Request) -> Response:
+    async def _inference(self, req: Request, call=None) -> Response:
         name = req.path_params["name"]
+        call = call or self.dataplane.infer
         try:
             body = self.dataplane.decode_body(req.body)
-            return _json(await self.dataplane.infer(name, body))
+            return _json(await call(name, body))
         except ServingError as e:
             return _error(e)
         except Exception as e:
             logger.exception("inference failed for model %s", name)
             return _json({"error": str(e)}, status=500)
+
+    async def _generate(self, req: Request) -> Response:
+        # {"stream": true} hands the request to the token stream.
+        if b'"stream"' in req.body:
+            try:
+                body = self.dataplane.decode_body(req.body)
+            except ServingError as e:
+                return _error(e)
+            if isinstance(body, dict) and body.get("stream"):
+                return await self._generate_stream(req, body=body)
+        return await self._inference(req, self.dataplane.generate)
+
+    async def _generate_stream(self, req: Request,
+                               body: Any = None) -> Response:
+        name = req.path_params["name"]
+        try:
+            if body is None:
+                body = self.dataplane.decode_body(req.body)
+            # Validation and submission happen here, before headers
+            # are committed: errors are plain 4xx/5xx responses.
+            events = await self.dataplane.generate_stream(name, body)
+        except ServingError as e:
+            return _error(e)
+
+        async def sse():
+            try:
+                async for event in events:
+                    payload = json.dumps(event, default=_np_default)
+                    yield f"data: {payload}\n\n".encode("utf-8")
+            except Exception:
+                logger.exception("generate stream for %s failed", name)
+                raise
+
+        async def on_close():
+            # Runs once on every exit path, a client that went away
+            # before the first event included: closing the model's
+            # event stream frees its engine slot.
+            await aclose_quietly(events, "model event stream")
+
+        return StreamingResponse(GuardedStream(sse(), on_close))
 
     # -- lifecycle ---------------------------------------------------------
     def register_model(self, model: Model) -> None:

@@ -1,7 +1,8 @@
 """Protocol-agnostic data-plane operations over a ModelRepository.
 
 Port of ``kfserving_tpu/server/dataplane.py``: liveness, readiness, model
-listing and metadata, and inference (JSON bodies, V1 or V2).
+listing and metadata, inference (JSON bodies, V1 or V2), and the
+generate extension (``generate``, ``generate_stream``).
 """
 
 import json
@@ -81,6 +82,23 @@ class DataPlane:
         request = self.validate(await model.preprocess(body))
         response = await maybe_await(model.predict(request))
         return await model.postprocess(response)
+
+    async def generate(self, name: str, body: Any) -> Any:
+        model = await self.get_model(name)
+        generate = getattr(model, "generate", None)
+        if generate is None:
+            raise InvalidInput(f"model {name} does not support :generate")
+        return await maybe_await(generate(body))
+
+    async def generate_stream(self, name: str, body: Any):
+        model = await self.get_model(name)
+        stream = getattr(model, "generate_stream", None)
+        if stream is None:
+            raise InvalidInput(
+                f"model {name} does not support streaming generation")
+        # Awaiting runs validation and submission now: a bad request is
+        # a 4xx before any streaming headers are committed.
+        return await maybe_await(stream(body))
 
     @staticmethod
     def validate(request: Any) -> Any:

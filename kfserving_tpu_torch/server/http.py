@@ -1,9 +1,10 @@
 """A small asyncio HTTP/1.1 server on the standard library.
 
-Port of ``kfserving_tpu/server/http.py`` without streaming responses.  One
-process owns the card, so one asyncio event loop serves every connection
-while the engine's worker threads run the device work.  Supports
-keep-alive, Content-Length bodies, and chunked transfer decoding.
+Port of ``kfserving_tpu/server/http.py``.  One process owns the card, so
+one asyncio event loop serves every connection while the engines' worker
+threads run the device work.  Supports keep-alive, Content-Length bodies,
+chunked transfer decoding, and streaming (chunked) responses with write
+backpressure for token streams.
 """
 
 import asyncio
@@ -53,6 +54,21 @@ class Response:
         self.headers.setdefault("content-type", content_type)
 
 
+class StreamingResponse(Response):
+    """Chunked-transfer response whose body is an async iterator of byte
+    chunks (the token-streaming surface of generative models): each
+    chunk is flushed as one HTTP/1.1 chunk as it is produced."""
+
+    __slots__ = ("chunks",)
+
+    def __init__(self, chunks, status: int = 200,
+                 headers: Optional[Dict[str, str]] = None,
+                 content_type: str = "text/event-stream"):
+        super().__init__(b"", status=status, headers=headers,
+                         content_type=content_type)
+        self.chunks = chunks
+
+
 Handler = Callable[[Request], Awaitable[Response]]
 
 
@@ -99,7 +115,7 @@ class Router:
 class _HttpProtocol(asyncio.Protocol):
     __slots__ = ("server", "transport", "_buf", "_expect_body", "_headers",
                  "_method", "_target", "_keepalive", "_chunked", "_task",
-                 "_chunk_out", "_chunk_pos")
+                 "_chunk_out", "_chunk_pos", "_can_write")
 
     def __init__(self, server: "HTTPServer"):
         self.server = server
@@ -116,6 +132,10 @@ class _HttpProtocol(asyncio.Protocol):
         # large chunked body is decoded in O(n), not re-parsed per packet).
         self._chunk_out = bytearray()
         self._chunk_pos = 0
+        # Set while the transport accepts writes (cleared between
+        # pause_writing and resume_writing).
+        self._can_write = asyncio.Event()
+        self._can_write.set()
 
     def connection_made(self, transport):
         self.transport = transport
@@ -256,10 +276,70 @@ class _HttpProtocol(asyncio.Protocol):
         if prev is not None and not prev.done():
             await asyncio.shield(prev)
         if self.transport is None or self.transport.is_closing():
-            return  # client gone before the response started
+            # Client gone before the response started.  A streaming body
+            # still holds resources (an engine decode slot) released by
+            # its close path: close it now, not at garbage collection.
+            if isinstance(response, StreamingResponse):
+                from kfserving_tpu_torch.streams import aclose_quietly
+
+                await aclose_quietly(response.chunks,
+                                     "unstarted stream producer")
+            return
+        if isinstance(response, StreamingResponse):
+            await self._write_streaming(response, keepalive)
+            return
         self.transport.write(encode_response(response, keepalive))
         if not keepalive:
             self.transport.close()
+
+    async def _write_streaming(self, response: StreamingResponse,
+                               keepalive: bool):
+        phrase = STATUS_PHRASES.get(response.status, "Unknown")
+        lines = [f"HTTP/1.1 {response.status} {phrase}"]
+        for k, v in response.headers.items():
+            lines.append(f"{k}: {v}")
+        lines.append("transfer-encoding: chunked")
+        lines.append("connection: " + ("keep-alive" if keepalive
+                                       else "close"))
+        self.transport.write(
+            ("\r\n".join(lines) + "\r\n\r\n").encode("latin1"))
+        try:
+            try:
+                async for chunk in response.chunks:
+                    if not chunk:
+                        continue
+                    if self.transport is None or \
+                            self.transport.is_closing():
+                        return  # client went away: stop producing
+                    self.transport.write(b"%x\r\n" % len(chunk) + chunk
+                                         + b"\r\n")
+                    # Backpressure: a slow client must not buffer the
+                    # whole generation in memory.
+                    await self._can_write.wait()
+            except Exception:
+                logger.exception("streaming body failed mid-response")
+                # The chunked framing is committed: close the connection
+                # so the client sees a truncated stream, not a success.
+                if self.transport is not None:
+                    self.transport.close()
+                return
+            if self.transport is not None and \
+                    not self.transport.is_closing():
+                self.transport.write(b"0\r\n\r\n")
+                if not keepalive:
+                    self.transport.close()
+        finally:
+            # Close the producer on every exit path (client gone,
+            # mid-stream failure): its close path frees engine work.
+            from kfserving_tpu_torch.streams import aclose_quietly
+
+            await aclose_quietly(response.chunks, "stream producer")
+
+    def pause_writing(self):
+        self._can_write.clear()
+
+    def resume_writing(self):
+        self._can_write.set()
 
     def _fail(self, status: int, reason: str):
         # Chain behind any in-flight response so a pipelined connection never
@@ -278,6 +358,9 @@ class _HttpProtocol(asyncio.Protocol):
 
     def connection_lost(self, exc):
         self.transport = None
+        # Unblock a streaming writer waiting on backpressure; it sees
+        # the transport gone and stops.
+        self._can_write.set()
 
 
 def encode_response(resp: Response, keepalive: bool) -> bytes:

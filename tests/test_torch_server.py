@@ -223,6 +223,12 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.predictors.torch_model\n"
         "import kfserving_tpu_torch.predictors.jaxserver.__main__\n"
         "import kfserving_tpu_torch.models.weights\n"
+        "import kfserving_tpu_torch.models.decoder\n"
+        "import kfserving_tpu_torch.ops.paged_attention\n"
+        "import kfserving_tpu_torch.engine.generator\n"
+        "import kfserving_tpu_torch.predictors.llm\n"
+        "import kfserving_tpu_torch.predictors.llmserver.__main__\n"
+        "import kfserving_tpu_torch.streams\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'aiohttp', 'msgpack', 'ml_dtypes',\n"
