@@ -53,11 +53,17 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
-# Kernel vs plain version: max abs error allowed, by dtype.  bf16: the
-# output is rounded to bf16 (one ulp is 2^-7 at magnitude 1) and P is
-# rounded to bf16 in both; fp32: the kernel splits operands into bf16
-# hi + lo halves (about 16 mantissa bits).
-TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-4}
+# Kernel vs plain version.  bf16 (both kernels): each side computes in
+# fp32 from the same bf16 inputs and rounds the output to bf16 (K1 also
+# rounds P to bf16 before P.V, one ulp is 2^-8 relative).  An output
+# shrinks with the keys its query attends (about 0.03 at ~3000 keys), so
+# the limit follows each output vector's own scale: |out - ref| <=
+# BF16_RTOL * max|ref| over the vector's D elements (two bf16 ulps of its
+# largest element) + BF16_ATOL.  fp32: an absolute limit per kernel.
+BF16_RTOL, BF16_ATOL = 2 ** -6, 1e-5
+# K1 fp32 splits operands into bf16 hi + lo halves (about 16 mantissa
+# bits).
+FLASH_FP32_TOLERANCE = 2e-4
 
 SEQ_BUCKETS = [32, 64, 128, 256, 512]
 BATCH_BUCKETS = [1, 4, 16]
@@ -69,10 +75,9 @@ MIN_TOP1_AGREEMENT = 0.9
 MAX_LOGIT_DIFF = 0.5
 
 PREFILL_CASE = "b8 L4096 bf16 causal kv_lengths"
-# K2 vs its plain version: bf16 rounds the output (one ulp is 2^-8 below
-# magnitude 1; both sides compute in fp32 from the same bf16 inputs);
-# fp32 differs by summation order only (partitions, fp32 exp).
-PAGED_TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-5}
+# K2 fp32 differs from its plain version by summation order only
+# (partitions, fp32 exp).
+PAGED_FP32_TOLERANCE = 2e-5
 PAGED_MAIN_CASE = "b8 decode ~3045 bf16"
 
 # The generate_4k configuration (benchmarks/configs.py:1891-1949): the
@@ -102,6 +107,25 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def agreement(out: torch.Tensor, ref: torch.Tensor, fp32_tol: float,
+              where: str) -> tuple:
+    """Fails unless ``out`` agrees with ``ref`` (the limits above).
+    Returns (max abs error, the limit as printed, the largest error as a
+    share of its limit)."""
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.bfloat16:
+        scale = ref.float().abs().amax(dim=-1, keepdim=True)
+        limit = BF16_RTOL * scale + BF16_ATOL
+        tolerance = f"{BF16_RTOL} * max|ref| per vector + {BF16_ATOL}"
+    else:
+        limit = torch.full_like(err, fp32_tol)
+        tolerance = fp32_tol
+    worst = float((err / limit).max())
+    check(worst <= 1.0, f"{where}: error {worst} times the limit "
+          f"({tolerance}); max abs error {float(err.max())}")
+    return float(err.max()), tolerance, worst
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -234,9 +258,7 @@ def check_flash_attention() -> dict:
                                     kv_lengths=lengths)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        err = float((out.float() - ref.float()).abs().max())
-        tol = TOLERANCE[str(dtype).split(".")[-1]]
-        check(err <= tol, f"{name}: max abs error {err} > {tol}")
+        err, tol, share = agreement(out, ref, FLASH_FP32_TOLERANCE, name)
         if spec == "ragged":
             check(bool((out[1] == 0).all()),
                   f"{name}: the zero-length row is not 0")
@@ -261,7 +283,8 @@ def check_flash_attention() -> dict:
         bound_ms, bound_by = attention_bound_ms(B, H, L, D, dtype, causal,
                                                 lengths)
         row = {"case": name, "max_abs_err": err, "tolerance": tol,
-               **times, "bound_ms": bound_ms, "bound_by": bound_by}
+               "share_of_limit": share, **times, "bound_ms": bound_ms,
+               "bound_by": bound_by}
         print("flash_attention " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, qt, kt, vt, out, mask
@@ -342,9 +365,7 @@ def check_paged_attention() -> dict:
         ref = paged_attention_plain(*args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        err = float((out.float() - ref.float()).abs().max())
-        tol = PAGED_TOLERANCE[str(q.dtype).split(".")[-1]]
-        check(err <= tol, f"{name}: max abs error {err} > {tol}")
+        err, tol, share = agreement(out, ref, PAGED_FP32_TOLERANCE, name)
         zero_rows = (lengths == 0).nonzero().flatten().tolist()
         for r in zero_rows:
             check(bool((out[r] == 0).all()),
@@ -366,7 +387,8 @@ def check_paged_attention() -> dict:
             plain_iters=5)
         bound, bound_by = paged_bound_ms(B, H, d, BS, MB, q.dtype, lengths)
         row = {"case": name, "max_abs_err": err, "tolerance": tol,
-               **times, "bound_ms": bound, "bound_by": bound_by,
+               "share_of_limit": share, **times, "bound_ms": bound,
+               "bound_by": bound_by,
                "library": "scaled_dot_product_attention over K/V "
                           "gathered beforehand (gather not timed)"}
         print("paged_attention " + json.dumps(row), flush=True)
@@ -926,7 +948,6 @@ def main() -> int:
     from kfserving_tpu_torch.csrc import build
 
     os.environ.pop("KFS_DISABLE_FLASH", None)
-    os.environ.pop("KFS_DISABLE_PAGED_KERNEL", None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()

@@ -54,7 +54,11 @@ from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kfserving_tpu_torch.ops.paged_attention import paged_insert
+from kfserving_tpu_torch.ops.paged_attention import (
+    SUPPORTED_DTYPES,
+    SUPPORTED_HEAD_DIMS,
+    paged_insert,
+)
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
 
 logger = logging.getLogger("kfserving_tpu_torch.engine.generator")
@@ -226,6 +230,14 @@ class GenerationEngine:
                     f"prefill bucket {b} must be a multiple of "
                     f"block_size {bs} (paged insert writes whole "
                     f"blocks)")
+        if self.device.type == "cuda" and (
+                cfg.dtype not in SUPPORTED_DTYPES
+                or cfg.head_dim not in SUPPORTED_HEAD_DIMS):
+            raise InvalidInput(
+                f"the paged decode kernel takes dtypes "
+                f"{SUPPORTED_DTYPES} and head dims "
+                f"{SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
+                f"{cfg.head_dim}")
         self.blocks_per_slot = self.max_seq // bs
         self.num_blocks = int(cache_blocks or
                               self.max_slots * self.blocks_per_slot)

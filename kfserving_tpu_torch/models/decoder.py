@@ -11,11 +11,13 @@ module, these executions:
   [B, L, H, D] come back too) and ``kv_lengths`` for suffix padding; the
   causal + lengths attention runs the CUDA flash kernel on the card.
 - **paged decode / chunk prefill**: ``kv_cache`` is a list of per-layer
-  (pool_k, pool_v, block_table) 3-tuples.  The step's k/v are written
-  into the pools IN PLACE (the JAX module returns new pools; here the
-  engine's pools update on one CUDA stream, so no second copy exists),
-  then Lq == 1 attends through the paged decode kernel and Lq > 1 with
-  per-query causal masking.  The returned caches are the same pools.
+  (pool_k, pool_v, block_table) 3-tuples, all with one block table and
+  one pool geometry (layer 0's give every layer's write slots).  The
+  step's k/v are written into the pools IN PLACE (the JAX module returns
+  new pools; here the engine's pools update on one CUDA stream, so no
+  second copy exists), then Lq == 1 attends through the paged decode
+  kernel and Lq > 1 with per-query causal masking.  The returned caches
+  are the same pools.
 - **dense decode**: ``kv_cache`` of (k_cache, v_cache) [B, max_seq, H, D]
   2-tuples; writes past ``max_seq`` drop.  This branch returns new
   caches.
@@ -84,8 +86,8 @@ class DecoderBlock(nn.Module):
                 cache: Optional[tuple] = None,
                 positions: Optional[torch.Tensor] = None,
                 paged_step: Optional[tuple] = None):
-        """paged_step: optional (write slots, decode lengths) of a paged
-        cache step, the same for every layer (``_paged_step``)."""
+        """paged_step: with a paged ``cache``, the step's (write slots,
+        decode lengths), the same for every layer (``_paged_step``)."""
         cfg = self.cfg
         B, L, _ = hidden.shape
         heads = (B, L, cfg.num_heads, cfg.head_dim)
@@ -95,8 +97,7 @@ class DecoderBlock(nn.Module):
         v = self.value(x).view(heads)
         if cache is not None and len(cache) == 3:
             pool_k, pool_v, table = cache
-            slots, lengths = paged_step or _paged_step(pool_k, table,
-                                                       positions)
+            slots, lengths = paged_step
             if L == 1:
                 paged_write(pool_k, pool_v, k[:, 0], v[:, 0], table,
                             positions[:, 0], slots=slots)
@@ -189,14 +190,12 @@ class DecoderLM(nn.Module):
             pos = positions.reshape(B, -1).long()
         hidden = self.wte(input_ids.long())
         hidden = hidden + self.wpe(pos.clamp(0, cfg.max_seq - 1))
-        # A paged step's write slots and lengths are computed once: the
-        # engine gives every layer the same table (and pool geometry).
+        # A paged step's write slots and lengths are computed once, from
+        # layer 0: every layer shares one block table and pool geometry.
         paged_step = None
         if kv_cache is not None and len(kv_cache[0]) == 3:
             pool0, _, table = kv_cache[0]
-            if all(c[2] is table and c[0].shape == pool0.shape
-                   for c in kv_cache):
-                paged_step = _paged_step(pool0, table, pos)
+            paged_step = _paged_step(pool0, table, pos)
         caches = []
         for i, layer in enumerate(self.layers):
             hidden, new_cache = layer(

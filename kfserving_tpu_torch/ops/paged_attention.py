@@ -30,7 +30,6 @@ on a CUDA tensor it launches the kernel or raises.
 
 import ctypes
 import math
-import os
 import threading
 from typing import Tuple
 
@@ -184,26 +183,11 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
 paged_attention_kernel.launches = 0
 
 
-def paged_kernel_eligible(q: torch.Tensor) -> bool:
-    """The dispatcher's gate: one query per row on a CUDA tensor of a
-    dtype and head dim the kernel is built for.  The TPU's lane rules
-    (block_size % 128, head_dim % 64) do not apply on the card.
-    ``KFS_DISABLE_PAGED_KERNEL=1`` forces the plain path."""
-    if os.getenv("KFS_DISABLE_PAGED_KERNEL", "") not in ("", "0", "false"):
-        return False
-    return (q.is_cuda and q.shape[1] == 1 and q.dtype in SUPPORTED_DTYPES
-            and q.shape[-1] in SUPPORTED_HEAD_DIMS)
-
-
-def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
-                    pool_v: torch.Tensor, block_table: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
-    """Dispatcher: the CUDA kernel when ``paged_kernel_eligible``, else
-    the plain version."""
-    if paged_kernel_eligible(q):
-        return paged_attention_kernel(q, pool_k, pool_v, block_table,
-                                      lengths)
-    return paged_attention_plain(q, pool_k, pool_v, block_table, lengths)
+# The decode attention the decoder calls, under the JAX dispatcher's name.
+# It is the kernel wrapper itself: on the card there is no gate and no
+# switch that reroutes a call to the plain version (an unsupported dtype,
+# head dim or Lq raises), and a CPU tensor runs the plain version.
+paged_attention = paged_attention_kernel
 
 
 def paged_slots(block_table: torch.Tensor, positions: torch.Tensor,

@@ -125,11 +125,11 @@ def _run_paged(module, variables, port_model, ids, positions, seed):
     port_pools = [(torch.from_numpy(np.concatenate([k, sink])),
                    torch.from_numpy(np.concatenate([v, sink])))
                   for k, v in pools]
+    shared_table = torch.from_numpy(table)     # one table for all layers
     with torch.no_grad():
         got_logits, got_pools = port_model(
             torch.from_numpy(ids), positions=torch.from_numpy(positions),
-            kv_cache=[(k, v, torch.from_numpy(table))
-                      for k, v in port_pools])
+            kv_cache=[(k, v, shared_table) for k, v in port_pools])
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
                                atol=FP32_ATOL, rtol=0)
     for (gk, gv), (wk, wv) in zip(got_pools, want_pools):

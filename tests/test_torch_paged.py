@@ -9,7 +9,6 @@ chip_smoke.py.  Inputs come from numpy with fixed seeds.
 """
 
 import functools
-from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -172,32 +171,39 @@ def test_paged_prefill_attention_matches_jax():
 
 
 def test_paged_dispatcher_on_cpu_and_kill_switch(monkeypatch):
-    """On the CPU the dispatcher takes the plain version and never the
-    kernel wrapper; the gate is what the kernel is built for, and
-    KFS_DISABLE_PAGED_KERNEL closes it."""
-    calls = []
-    monkeypatch.setattr(port, "paged_attention_kernel",
-                        lambda *a: calls.append(1))
+    """The decoder's entry, ``paged_attention``, is the kernel wrapper: a
+    CPU tensor runs the plain version and launches nothing.  There is no
+    gate and no kill switch that reroutes a card call to the plain version:
+    KFS_DISABLE_PAGED_KERNEL changes nothing, and what the kernel is not
+    built for (dtype, head dim, Lq) raises before a launch."""
+    assert port.paged_attention is port.paged_attention_kernel
+    monkeypatch.setenv("KFS_DISABLE_PAGED_KERNEL", "1")
     table, lengths = PAGED_CASES["partial, shared and -1 tails"]
     q, pool_k, pool_v = _pools(5, 3, 4, 64, 128, 8)
-    got = port.paged_attention(
-        torch.from_numpy(q), torch.from_numpy(pool_k),
-        torch.from_numpy(pool_v), torch.tensor(table, dtype=torch.int32),
-        torch.tensor(lengths, dtype=torch.int32))
-    assert calls == [] and got.shape == (3, 1, 4, 64)
-    assert not port.paged_kernel_eligible(torch.from_numpy(q))
+    args = (torch.from_numpy(q), torch.from_numpy(pool_k),
+            torch.from_numpy(pool_v), torch.tensor(table, dtype=torch.int32),
+            torch.tensor(lengths, dtype=torch.int32))
+    before = port.paged_attention_kernel.launches
+    got = port.paged_attention(*args)
+    assert port.paged_attention_kernel.launches == before
+    assert got.shape == (3, 1, 4, 64)
+    assert torch.equal(got, port.paged_attention_plain(*args))
     for shape, dtype, ok in [((8, 1, 12, 64), torch.bfloat16, True),
                              ((8, 1, 4, 32), torch.float32, True),
                              ((8, 1, 4, 128), torch.bfloat16, True),
                              ((8, 2, 12, 64), torch.bfloat16, False),
                              ((8, 1, 12, 48), torch.bfloat16, False),
                              ((8, 1, 12, 64), torch.float16, False)]:
-        fake = SimpleNamespace(is_cuda=True, shape=shape, dtype=dtype)
-        assert port.paged_kernel_eligible(fake) is ok, (shape, dtype)
-    monkeypatch.setenv("KFS_DISABLE_PAGED_KERNEL", "1")
-    fake = SimpleNamespace(is_cuda=True, shape=(8, 1, 12, 64),
-                           dtype=torch.bfloat16)
-    assert not port.paged_kernel_eligible(fake)
+        B, _, H, D = shape
+        q = torch.zeros(shape, dtype=dtype)
+        pool = torch.zeros((4, 16, H, D), dtype=dtype)
+        operands = (q, pool, pool, torch.zeros((B, 2), dtype=torch.int32),
+                    torch.zeros((B,), dtype=torch.int32), D)
+        if ok:
+            port._check_cuda_operands(*operands)
+        else:
+            with pytest.raises(ValueError, match="paged_attention kernel"):
+                port._check_cuda_operands(*operands)
 
 
 def test_paged_wrapper_refuses_other_devices():
