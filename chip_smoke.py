@@ -11,19 +11,23 @@ failure:
    source, all started together);
 2. hold each kernel (flash attention, paged decode attention) against its
    plain PyTorch version on the card at the serving paths' shapes and
-   edge cases, and time kernel, plain version and the library call that
-   computes the same function (a yardstick only);
+   edge cases, and time kernel (device, events and host issue time),
+   plain version and the library call that computes the same function (a
+   yardstick only; SDPA's flash backend forced where there is no mask,
+   else the backend it picks, named from its kernels).  Device time comes
+   from torch.profiler; where a session records no device event three
+   times over, from CUDA events behind a sleep kernel;
 3. serve BERT-base fill-mask (full width, seeded random init, bf16) through
    the port's ModelServer, send V1 and V2 requests over HTTP, check the
    answers, check that every encoder layer of every executed batch
-   launched the flash kernel, and hold the served model against the same
-   weights run with the plain attention;
+   launched the flash kernel exactly once, and hold the served model
+   against the same weights run with the plain attention;
 4. serve the generate_4k configuration (the decoder at GPT-2-small width,
    seeded random init, bf16, paged cache) over HTTP: 16 SSE streams at
    concurrency 8 behind a shared ~2980-token prompt, one V1 predict and
    one V2 generate; check every answer, that the paged kernel ran
-   exactly once per layer per decode step and the flash kernel in every
-   prefill, the prefix-cache hits and the idle pool, and hold one served
+   exactly once per layer per decode step and the flash kernel once per
+   layer in every prefill, the prefix-cache hits and the idle pool, and hold one served
    stream against a teacher-forced forward with the plain attention;
    time one decode wave and one prefill on the card;
 5. print one ``{"kernels": [...]}`` line, the card line, and as the last
@@ -142,37 +146,114 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_device_ms(fn, iters: int = 20) -> tuple:
+def queued_events_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn`` from CUDA events, with host gaps
+    kept out: a sleep kernel holds the stream while the host queues the
+    calls, so the card runs them back to back between the two events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # At most ~2e9 cycles a second: the sleep outlasts twice the host's
+    # time to queue the calls.
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_device_ms(fn, iters: int = 20, attempts: int = 3) -> tuple:
     """Device time per call of ``fn``: the summed durations of the kernels
     and copies it ran (torch.profiler), each device event counted once and
     idle gaps excluded, so host overhead between launches does not count.
-    Returns (ms per call, the device events' key_averages)."""
+    The profiler now and then records no device event at all; after
+    ``attempts`` such sessions the time comes from ``queued_events_ms``.
+    Returns (ms per call, the device events' key_averages or [] when the
+    profiler saw none, "profiler" | "events")."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    check(total_us > 0, "torch.profiler recorded no device time")
-    return total_us / 1e3 / iters, events
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            return total_us / 1e3 / iters, events, "profiler"
+    print(f"torch.profiler recorded no device time in {attempts} sessions; "
+          "timing with CUDA events behind a sleep kernel", file=sys.stderr,
+          flush=True)
+    return queued_events_ms(fn, iters), [], "events"
+
+
+SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
+
+
+def sdpa_backend(events, library) -> str:
+    """Which of scaled_dot_product_attention's backends ran: from the
+    names of the device kernels it launched or, where the profiler saw
+    none, from the choice SDPA makes for the same call (``library`` run
+    with ``torch._fused_sdp_choice`` in place of the SDPA function)."""
+    names = " ".join(e.key.lower() for e in events)
+    if "cudnn" in names:
+        return "cudnn"
+    if "flash" in names:
+        return "flash"
+    if "fmha" in names or "efficient" in names:
+        return "efficient"
+    if names:
+        return "math"
+    choice = library(torch._fused_sdp_choice)
+    return SDPA_BACKENDS.get(int(choice), f"backend {int(choice)}")
+
+
+def host_us_per_call(fn, iters: int = 20) -> float:
+    """Host time to issue one call, with the card left to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return host_us
 
 
 def time_kernel_case(kernel, plain, library, plain_iters: int) -> dict:
     """Kernel, plain version and library call at one shape: profiled
-    device time per call ("ms", "plain_ms", "library_ms"), and the kernel's
-    time between CUDA events over back-to-back calls ("events_ms", which a
-    slow host inflates for a short kernel)."""
-    return {"ms": profiled_device_ms(kernel)[0],
+    device time per call ("ms", "plain_ms", "library_ms", each with how
+    it was timed), the kernel's time between CUDA events over
+    back-to-back calls ("events_ms", which a slow host inflates for a
+    short kernel) and behind a sleep kernel ("queued_ms", the profiler's
+    stand-in), the host's time to issue one kernel call ("host_us"),
+    the library call's backend and the kernel-to-library ratio.
+    ``library(sdpa)`` makes the library call through the function
+    ``sdpa`` (scaled_dot_product_attention by default)."""
+    ms, _, timing = profiled_device_ms(kernel)
+    library_ms, library_events, library_timing = profiled_device_ms(library)
+    plain_ms, _, plain_timing = profiled_device_ms(plain, plain_iters)
+    return {"ms": ms, "timing": timing,
             "events_ms": cuda_time_ms(kernel),
-            "plain_ms": profiled_device_ms(plain, plain_iters)[0],
-            "library_ms": profiled_device_ms(library)[0]}
+            "queued_ms": queued_events_ms(kernel),
+            "host_us": host_us_per_call(kernel),
+            "plain_ms": plain_ms, "plain_timing": plain_timing,
+            "library_ms": library_ms, "library_timing": library_timing,
+            "library_backend": sdpa_backend(library_events, library),
+            "kernel_to_library": ms / library_ms}
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -187,25 +268,25 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     return byte_s * 1e3, "bytes"
 
 
-def attention_bound_ms(B, H, L, D, dtype, causal, lengths) -> tuple:
-    """Least time for this flash call's work."""
+def attention_bound_ms(B, H, Lq, Lk, D, dtype, causal, lengths) -> tuple:
+    """Least time for this flash call's work (causal needs Lq == Lk)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     if lengths is not None:
-        keys = [min(max(int(n), 0), L) for n in lengths.tolist()]
+        keys = [min(max(int(n), 0), Lk) for n in lengths.tolist()]
         if causal:
             # Query i attends min(i + 1, n) keys.
-            pairs = sum(n * (n + 1) // 2 + (L - n) * n for n in keys)
+            pairs = sum(n * (n + 1) // 2 + (Lq - n) * n for n in keys)
         else:
-            pairs = sum(L * n for n in keys)
+            pairs = sum(Lq * n for n in keys)
         kv_rows = sum(keys)
     elif causal:
-        pairs = B * L * (L + 1) // 2
-        kv_rows = B * L
+        pairs = B * Lq * (Lq + 1) // 2
+        kv_rows = B * Lk
     else:
-        pairs = B * L * L
-        kv_rows = B * L
+        pairs = B * Lq * Lk
+        kv_rows = B * Lk
     ops = 4 * H * D * pairs
-    nbytes = (2 * B * L + 2 * kv_rows) * H * D * itemsize
+    nbytes = (2 * B * Lq + 2 * kv_rows) * H * D * itemsize
     if lengths is not None:
         nbytes += 4 * B
     return bound_ms(nbytes, ops, dtype)
@@ -213,6 +294,7 @@ def attention_bound_ms(B, H, L, D, dtype, causal, lengths) -> tuple:
 
 def check_flash_attention() -> dict:
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from kfserving_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -225,32 +307,52 @@ def check_flash_attention() -> dict:
     # engine pads prefill batches with such rows).  Its row goes in the
     # kernels line: the largest call on the serving paths.
     prefill_lengths = [3021, 1, 4096, 3021, 2000, 3021, 17, 3021]
+    # Rows at the kernel's 128-key tile edges, and an empty row.
+    edges = [0, 1, 127, 128, 129, 200]
     cases = [
-        # name, B, H, L, D, dtype, causal, lengths ("ragged": random
-        # with a full row, a zero row and a half row)
-        ("L128 bf16 kv_lengths", 16, 12, 128, 64, bf16, False, "ragged"),
-        ("L128 bf16 causal", 16, 12, 128, 64, bf16, True, None),
-        ("L512 bf16 causal", 16, 12, 512, 64, bf16, True, None),
-        ("L512 bf16 full", 16, 12, 512, 64, bf16, False, None),
-        ("L512 fp32 D128 kv_lengths", 16, 12, 512, 128, fp32, False,
+        # name, B, H, Lq, Lk, D, dtype, causal, lengths ("ragged": random
+        # with a full row, a zero row and a half row).  BERT serves
+        # L32-512 with lengths, the decoder prefills L512 and L4096
+        # causal with lengths.
+        ("L32 bf16 kv_lengths", 16, 12, 32, 32, 64, bf16, False, "ragged"),
+        ("L64 bf16 kv_lengths", 16, 12, 64, 64, 64, bf16, False, "ragged"),
+        ("L128 bf16 kv_lengths", 16, 12, 128, 128, 64, bf16, False,
          "ragged"),
+        ("L128 bf16 causal", 16, 12, 128, 128, 64, bf16, True, None),
+        ("L200 bf16 kv_lengths edges", 6, 12, 200, 200, 64, bf16, False,
+         edges),
+        ("L200 bf16 causal kv_lengths edges", 6, 12, 200, 200, 64, bf16,
+         True, edges),
+        ("L256 bf16 kv_lengths", 16, 12, 256, 256, 64, bf16, False,
+         "ragged"),
+        ("Lq136 Lk520 bf16 kv_lengths", 4, 12, 136, 520, 64, bf16, False,
+         "ragged"),
+        ("L512 bf16 causal", 16, 12, 512, 512, 64, bf16, True, None),
+        ("L512 bf16 full", 16, 12, 512, 512, 64, bf16, False, None),
+        ("L512 fp32 D128 kv_lengths", 16, 12, 512, 512, 128, fp32, False,
+         "ragged"),
+        ("L512 bf16 D128 causal kv_lengths", 16, 12, 512, 512, 128, bf16,
+         True, "ragged"),
         # BERT-base serving's largest shape.
-        ("L512 bf16 kv_lengths", 16, 12, 512, 64, bf16, False, "ragged"),
-        ("L512 bf16 causal kv_lengths", 16, 12, 512, 64, bf16, True,
+        ("L512 bf16 kv_lengths", 16, 12, 512, 512, 64, bf16, False,
          "ragged"),
-        (PREFILL_CASE, 8, 12, 4096, 64, bf16, True, prefill_lengths),
+        ("L512 bf16 causal kv_lengths", 16, 12, 512, 512, 64, bf16, True,
+         "ragged"),
+        (PREFILL_CASE, 8, 12, 4096, 4096, 64, bf16, True, prefill_lengths),
     ]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results = []
-    for name, B, H, L, D, dtype, causal, spec in cases:
-        q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda",
-                               dtype=dtype) for _ in range(3))
+    for name, B, H, Lq, Lk, D, dtype, causal, spec in cases:
+        q = torch.randn((B, Lq, H, D), generator=gen, device="cuda",
+                        dtype=dtype)
+        k, v = (torch.randn((B, Lk, H, D), generator=gen, device="cuda",
+                            dtype=dtype) for _ in range(2))
         lengths = None
         if spec == "ragged":
-            lengths = torch.randint(1, L + 1, (B,), generator=gen,
+            lengths = torch.randint(1, Lk + 1, (B,), generator=gen,
                                     device="cuda", dtype=torch.int32)
-            lengths[0], lengths[1], lengths[2] = L, 0, L // 2 + 3
+            lengths[0], lengths[1], lengths[2] = Lk, 0, Lk // 2 + 3
         elif spec is not None:
             lengths = torch.tensor(spec, dtype=torch.int32, device="cuda")
         out = flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
@@ -259,32 +361,39 @@ def check_flash_attention() -> dict:
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
         err, tol, share = agreement(out, ref, FLASH_FP32_TOLERANCE, name)
-        if spec == "ragged":
-            check(bool((out[1] == 0).all()),
-                  f"{name}: the zero-length row is not 0")
+        if lengths is not None:
+            for r in (lengths == 0).nonzero().flatten().tolist():
+                check(bool((out[r] == 0).all()),
+                      f"{name}: the zero-length row {r} is not 0")
         del ref
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None
         if lengths is not None:
-            keys = torch.arange(L, device="cuda")
+            keys = torch.arange(Lk, device="cuda")
             mask = (keys[None, :] < lengths[:, None])[:, None, None, :]
             if causal:   # SDPA takes a mask or is_causal, not both
-                mask = mask & torch.ones((L, L), dtype=torch.bool,
+                mask = mask & torch.ones((Lq, Lk), dtype=torch.bool,
                                          device="cuda").tril()
+
+        def library(sdpa=F.scaled_dot_product_attention):
+            # No mask: SDPA's flash backend, forced.  With a mask: the
+            # backend SDPA picks (recorded from its kernels' names).
+            if mask is None:
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    return sdpa(qt, kt, vt, is_causal=causal)
+            return sdpa(qt, kt, vt, attn_mask=mask)
+
         times = time_kernel_case(
             lambda: flash_attention(q, k, v, causal=causal,
                                     kv_lengths=lengths),
             lambda: flash_attention_plain(q, k, v, causal=causal,
                                           kv_lengths=lengths),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask,
-                is_causal=causal and mask is None),
-            plain_iters=2 if L > 512 else 5)
-        bound_ms, bound_by = attention_bound_ms(B, H, L, D, dtype, causal,
-                                                lengths)
+            library, plain_iters=2 if Lk > 512 else 5)
+        bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D, dtype, causal,
+                                             lengths)
         row = {"case": name, "max_abs_err": err, "tolerance": tol,
-               "share_of_limit": share, **times, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "share_of_limit": share, **times, "bound_ms": bound,
+               "bound_by": bound_by, "share_of_bound": bound / times["ms"]}
         print("flash_attention " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, qt, kt, vt, out, mask
@@ -382,8 +491,8 @@ def check_paged_attention() -> dict:
         times = time_kernel_case(
             lambda: paged_attention_kernel(*args),
             lambda: paged_attention_plain(*args),
-            lambda: F.scaled_dot_product_attention(qt, k_all, v_all,
-                                                   attn_mask=mask),
+            lambda sdpa=F.scaled_dot_product_attention: sdpa(
+                qt, k_all, v_all, attn_mask=mask),
             plain_iters=5)
         bound, bound_by = paged_bound_ms(B, H, d, BS, MB, q.dtype, lengths)
         row = {"case": name, "max_abs_err": err, "tolerance": tol,
@@ -599,7 +708,7 @@ def serve_bert(card: str) -> dict:
     try:
         run = asyncio.run(drive_server(model, cfg.vocab_size, rng))
         check(run["batches"] > 0, "no batch executed")
-        check(run["launches"] >= cfg.num_layers * run["batches"],
+        check(run["launches"] == cfg.num_layers * run["batches"],
               f"flash kernel launched {run['launches']} times for "
               f"{run['batches']} batches of {cfg.num_layers} layers")
         reference = check_against_plain(model, run["bodies"][100],
@@ -847,9 +956,12 @@ def time_generate_device(model) -> dict:
                      if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")]
     launches = sum(e.count for e in launch_events)
     launch_cpu_us = sum(e.self_cpu_time_total for e in launch_events)
-    busy_ms, device_events = profiled_device_ms(wave, iters=1)
-    k2_ms_profiled = sum(e.self_device_time_total for e in device_events
-                         if "paged_" in e.key) / 1e3
+    busy_ms, device_events, busy_timing = profiled_device_ms(wave, iters=1)
+    # Where the profiler saw no device event, K2's share of the wave is
+    # not measured.
+    k2_ms_profiled = (sum(e.self_device_time_total for e in device_events
+                          if "paged_" in e.key) / 1e3
+                      if device_events else None)
     q = torch.randn((S, 1, cfg.num_heads, cfg.head_dim), generator=gen,
                     device="cuda", dtype=cfg.dtype)
     pool_k, pool_v = engine._caches[0]
@@ -873,14 +985,16 @@ def time_generate_device(model) -> dict:
     return {
         "wave_steps": steps, "wave_ms": wave_ms,
         "wave_host_ms": wave_host_ms,
-        "wave_kernel_busy_ms": busy_ms,
+        "wave_kernel_busy_ms": busy_ms, "wave_busy_timing": busy_timing,
         "wave_k2_ms": k2_ms_profiled,
         "wave_kernel_launches": launches,
         "launch_cpu_us_mean": launch_cpu_us / launches if launches else None,
         "wave_host_syncs": len(syncs),
         "k2_ms_at_wave_shape": k2_ms,
-        "k2_share_of_wave_busy": k2_ms_profiled / busy_ms,
-        "k2_share_of_wave": k2_ms_profiled / wave_ms,
+        "k2_share_of_wave_busy": (k2_ms_profiled / busy_ms
+                                  if device_events else None),
+        "k2_share_of_wave": (k2_ms_profiled / wave_ms
+                             if device_events else None),
         "prefill_b8x4096_ms": prefill_ms,
     }
 
@@ -910,7 +1024,7 @@ def serve_generate(card: str) -> dict:
               f"{waves} waves x {after['steps_per_call']} steps x "
               f"{cfg.num_layers} layers")
         check(prefills > 0
-              and got["flash_attention"] >= cfg.num_layers * prefills,
+              and got["flash_attention"] == cfg.num_layers * prefills,
               f"flash kernel launched {got['flash_attention']} times for "
               f"{prefills} prefills")
         hits = (after["paged"]["prefix_hits"]
@@ -947,7 +1061,6 @@ def main() -> int:
         return 2
     from kfserving_tpu_torch.csrc import build
 
-    os.environ.pop("KFS_DISABLE_FLASH", None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -958,7 +1071,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     kernels = [check_flash_attention(), check_paged_attention()]

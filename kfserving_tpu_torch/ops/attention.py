@@ -3,28 +3,24 @@ plain PyTorch attention otherwise.
 
 Port of ``kfserving_tpu/ops/attention.py``.  One public entry point,
 ``dot_product_attention(q, k, v, mask=None)``, over
-[batch, len, heads, head_dim] tensors.  The kernel runs when the kernel
-accepts the call: a CUDA tensor, a mask case it handles
-(``flash_handles_mask``: none, suffix padding as lengths, causal with
-Lq == Lk, or causal with Lq == Lk plus lengths), a supported head dim and
-dtype, and sequence lengths that are multiples of 8.  Everything else
-takes ``_torch_attention``, the port of the JAX package's einsum path.
-The TPU's sequence-length thresholds do not apply on the card, and
-unlike the JAX dispatcher, causal + ``kv_lengths`` (the decoder's
-bucketed prefill) goes to the kernel, which applies both masks at once.
-``KFS_DISABLE_FLASH=1`` forces the plain path.
+[batch, len, heads, head_dim] tensors.  A CUDA call whose mask case the
+kernel handles (``flash_handles_mask``: none, suffix padding as lengths,
+causal with Lq == Lk, or causal with Lq == Lk plus lengths) always goes
+to ``flash_attention``, which launches the kernel or raises
+``ValueError`` for a dtype, head dim or length it does not take.  A mask
+case the kernel does not handle (an arbitrary mask, or causal with
+Lq != Lk as in the dense-cache decode) and every CPU call take
+``_torch_attention``, the port of the JAX package's einsum path.  The
+TPU's sequence-length thresholds do not apply on the card, and unlike
+the JAX dispatcher, causal + ``kv_lengths`` (the decoder's bucketed
+prefill) goes to the kernel, which applies both masks at once.
 """
 
-import os
 from typing import Optional
 
 import torch
 
-from kfserving_tpu_torch.ops.flash_attention import (
-    SUPPORTED_DTYPES,
-    SUPPORTED_HEAD_DIMS,
-    flash_attention,
-)
+from kfserving_tpu_torch.ops.flash_attention import flash_attention
 
 
 def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,13 +37,10 @@ def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """What the kernel accepts.  Mask handling is the dispatcher's job."""
-    if os.getenv("KFS_DISABLE_FLASH", "") not in ("", "0", "false"):
-        return False
-    return (q.is_cuda and q.dtype in SUPPORTED_DTYPES
-            and q.shape[-1] in SUPPORTED_HEAD_DIMS
-            and q.shape[1] % 8 == 0 and k.shape[1] % 8 == 0)
+def _on_card(q: torch.Tensor) -> bool:
+    """Whether a call runs on the card, where a mask case the kernel
+    handles always launches it (or raises)."""
+    return q.is_cuda
 
 
 def flash_handles_mask(causal: bool, lq: int, lk: int, has_mask: bool,
@@ -93,9 +86,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # Any one query row's key mask gives the row's real-key count.
         flat = mask.reshape(mask.shape[0], -1, mask.shape[-1])
         lengths = flat[:, 0, :].sum(dim=-1, dtype=torch.int32)
-    if (flash_handles_mask(causal, Lq, Lk, mask is not None,
-                           lengths is not None)
-            and _flash_eligible(q, k)):
+    if _on_card(q) and flash_handles_mask(causal, Lq, Lk, mask is not None,
+                                          lengths is not None):
         return flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
     if kv_lengths is not None:
         keys = torch.arange(Lk, device=q.device)

@@ -10,12 +10,10 @@ operands enter the products in the input dtype.  Options: ``causal``
 padding; key tiles past a row's length are skipped).  A row with no valid
 key gives 0.  Sequence lengths must be multiples of 8, as on the TPU.
 
-What bounds the kernel on an H100: at BERT-base's serving shapes (D = 64,
-L <= 512) it does about L/2 operations per byte moved, under the card's
-~295 bf16 operations per byte, so memory bounds the shorter buckets and
-the two roofs meet near L = 512.  This first version loads K/V tiles
-synchronously and uses ``mma.sync`` rather than ``wgmma``, so it runs well
-above both roofs; ``chip_smoke.py`` measures it against its bound.
+The kernel, for an H100: bf16 runs a warp-specialized kernel (a TMA
+producer warp feeding a ring of K/V tiles to two ``wgmma`` consumer
+warpgroups); fp32 runs an ``mma.sync`` kernel over bf16 hi + lo halves.
+Its source note says what bounds each and why.
 
 On a CPU tensor the wrapper runs ``flash_attention_plain``; on a CUDA
 tensor it launches the kernel or raises.
@@ -35,6 +33,8 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # Elements per 16-byte vector load, by dtype.
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 _MAX_GRID_Y = 65535
+# kfs_flash_attention returns this + the CUresult of a refused tensor map.
+_TENSOR_MAP_ERROR = 10000
 
 _count_lock = threading.Lock()
 _fn = None
@@ -115,7 +115,15 @@ def _check_cuda_operands(q, k, v, D) -> None:
         if (t.data_ptr() % 16
                 or any(t.stride(i) % vec for i in range(3))):
             raise ValueError(f"{name}: rows must start on 16-byte "
-                             "boundaries for the kernel's vector loads")
+                             "boundaries for the kernel's TMA and vector "
+                             "loads")
+
+
+def _launch_error(rc: int) -> str:
+    if rc >= _TENSOR_MAP_ERROR:
+        return f"the driver refused a TMA tensor map (CUresult " \
+               f"{rc - _TENSOR_MAP_ERROR})"
+    return f"cudaError {rc}"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,8 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
                          f"(plain version), not {q.device.type}")
     _check_cuda_operands(q, k, v, D)
-    if B * H > _MAX_GRID_Y:
-        raise ValueError(f"B*H = {B * H} exceeds the kernel grid's "
+    if q.dtype == torch.float32 and B * H > _MAX_GRID_Y:
+        raise ValueError(f"B*H = {B * H} exceeds the fp32 kernel grid's "
                          f"{_MAX_GRID_Y}")
     lengths = None
     if kv_lengths is not None:
@@ -158,7 +166,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+                           f"{_launch_error(rc)}")
     with _count_lock:
         flash_attention.launches += 1
     return out

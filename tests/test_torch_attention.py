@@ -8,7 +8,6 @@ on the card by chip_smoke.py.  Inputs come from numpy with a fixed seed.
 """
 
 import functools
-from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,13 +54,20 @@ def _jax_flash_interpret(q, k, v, causal=False, kv_lengths=None):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("causal,lengths", [
-    (False, None),
-    (True, None),
-    (False, [64, 37, 0]),
+@pytest.mark.parametrize("causal,lengths,L,Lk", [
+    (False, None, 64, None),
+    (True, None, 64, None),
+    (False, [64, 37, 0], 64, None),
+    # The card kernel's tile edges (128 keys, 128 queries a tile): rows
+    # of 0, 127, 128 and 129 keys, L not a multiple of 128.
+    (False, [0, 127, 128, 129], 136, None),
+    (False, [0, 127, 128, 129, 200], 200, None),
+    (True, [0, 127, 128, 129, 136], 136, None),
+    (False, [200, 129, 0], 64, 200),          # Lq != Lk
 ])
-def test_flash_plain_matches_pallas_interpret(causal, lengths):
-    q, k, v = _qkv(0, 3, 64, 2, 32)
+def test_flash_plain_matches_pallas_interpret(causal, lengths, L, Lk):
+    B = 3 if lengths is None else len(lengths)
+    q, k, v = _qkv(0, B, L, 2, 32, Lk=Lk)
     expect = _jax_flash_interpret(q, k, v, causal=causal,
                                   kv_lengths=lengths)
     got = flash_attention(
@@ -70,9 +76,10 @@ def test_flash_plain_matches_pallas_interpret(causal, lengths):
         kv_lengths=None if lengths is None else torch.tensor(lengths))
     got = got.numpy()
     np.testing.assert_allclose(got, expect, atol=ATOL, rtol=RTOL)
-    if lengths is not None:
-        # A row with no keys is 0, never NaN, on both sides.
-        assert np.all(got[2] == 0.0) and np.all(expect[2] == 0.0)
+    for b, n in enumerate(lengths or []):
+        if n == 0:
+            # A row with no keys is 0, never NaN, on both sides.
+            assert np.all(got[b] == 0.0) and np.all(expect[b] == 0.0)
 
 
 def test_flash_rejects_seq_len_without_block_divisor():
@@ -151,30 +158,86 @@ def test_mask_and_kv_lengths_mutually_exclusive():
 
 
 def test_cpu_dispatch_takes_plain_path(monkeypatch):
-    """On the CPU the dispatcher never reaches the kernel wrapper; the
-    kernel gate is only what the kernel accepts on a CUDA tensor."""
+    """On the CPU the dispatcher never reaches the kernel wrapper; only a
+    call on the card does."""
     calls = []
     monkeypatch.setattr(torch_attention, "flash_attention",
                         lambda *a, **k: calls.append(1))
     q = torch.zeros((1, 64, 2, 64))
     dot_product_attention(q, q, q)
     assert calls == []
-    assert not torch_attention._flash_eligible(q, q)
+    assert not torch_attention._on_card(q)
 
 
-@pytest.mark.parametrize("shape,dtype,eligible", [
-    ((1, 64, 2, 64), torch.bfloat16, True),
-    ((1, 64, 2, 128), torch.float32, True),
-    ((1, 64, 2, 48), torch.bfloat16, False),     # head dim not built
-    ((1, 60, 2, 64), torch.bfloat16, False),     # L not a multiple of 8
-    ((1, 64, 2, 64), torch.float16, False),
+class _OnCard:
+    """A CPU tensor that reports itself on the card: enough for the
+    dispatcher and for the wrapper's checks, which all run before a
+    launch."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t: torch.Tensor):
+        self._t, self.shape, self.dtype = t, t.shape, t.dtype
+
+    def dim(self):
+        return self._t.dim()
+
+    def stride(self, i):
+        return self._t.stride(i)
+
+    def data_ptr(self):
+        return self._t.data_ptr()
+
+
+@pytest.mark.parametrize("shape,dtype,mask,expect", [
+    ((1, 64, 2, 64), torch.bfloat16, None, "kernel"),
+    ((1, 64, 2, 128), torch.float32, "lengths", "kernel"),
+    ((1, 64, 2, 64), torch.bfloat16, "causal", "kernel"),
+    ((1, 64, 2, 64), torch.float16, None, "bfloat16 or float32"),
+    ((1, 64, 2, 48), torch.bfloat16, None, "head dims"),
+    ((1, 60, 2, 64), torch.bfloat16, None, "power-of-two block divisor"),
+    ((1, 64, 2, 64), torch.bfloat16, "arbitrary", "plain"),
+    ((1, 64, 2, 64), torch.bfloat16, "causal_short_q", "plain"),
 ])
 def test_kernel_gate_is_what_the_kernel_accepts(monkeypatch, shape, dtype,
-                                                eligible):
-    fake = SimpleNamespace(is_cuda=True, dtype=dtype, shape=shape)
-    assert torch_attention._flash_eligible(fake, fake) is eligible
+                                                mask, expect):
+    """On the card, a mask case the kernel handles always goes to the
+    kernel wrapper, which raises for a dtype, head dim or length it does
+    not take: no plain fallback and no kill switch (the environment
+    variable the first port read is ignored).  Mask cases the kernel does
+    not handle take the plain path."""
     monkeypatch.setenv("KFS_DISABLE_FLASH", "1")
-    assert not torch_attention._flash_eligible(fake, fake)
+    routed = []
+    monkeypatch.setattr(torch_attention, "_torch_attention",
+                        lambda *a: routed.append("plain"))
+    if expect == "kernel":
+        monkeypatch.setattr(torch_attention, "flash_attention",
+                            lambda *a, **k: routed.append("kernel"))
+    t = torch.zeros(shape, dtype=dtype)
+    q = k = v = _OnCard(t)
+    if expect == "plain":
+        # The plain path builds its masks on q's device: real CPU
+        # tensors, with the dispatcher told they are on the card.
+        monkeypatch.setattr(torch_attention, "_on_card", lambda q: True)
+        q = k = v = t
+    kw = {}
+    if mask == "lengths":
+        kw["kv_lengths"] = torch.tensor([shape[1]], dtype=torch.int32)
+    elif mask == "causal":
+        kw["causal"] = True
+    elif mask == "arbitrary":
+        kw["mask"] = torch.rand((1, 1, shape[1], shape[1])) < 0.5
+    elif mask == "causal_short_q":
+        q = t[:, :8]
+        kw["causal"] = True
+    if expect in ("kernel", "plain"):
+        dot_product_attention(q, k, v, **kw)
+        assert routed == [expect]
+    else:
+        with pytest.raises(ValueError, match=expect):
+            dot_product_attention(q, k, v, **kw)
+        assert routed == []
 
 
 def test_bf16_plain_matches_fp32_within_bf16():

@@ -254,8 +254,8 @@ def test_flash_routing(causal, lq, lk, has_mask, has_lengths, kernel):
 
 
 def test_dispatcher_sends_causal_kv_lengths_to_kernel(monkeypatch):
-    """With the kernel gate open, causal + kv_lengths reaches the flash
-    wrapper with both; the CPU result is unchanged."""
+    """On the card, causal + kv_lengths reaches the flash wrapper with
+    both; the CPU result is unchanged."""
     seen = []
 
     def fake_flash(q, k, v, causal=False, kv_lengths=None):
@@ -267,8 +267,7 @@ def test_dispatcher_sends_causal_kv_lengths_to_kernel(monkeypatch):
     plain = torch_attention.dot_product_attention(q, q, q, causal=True,
                                                   kv_lengths=lengths)
     monkeypatch.setattr(torch_attention, "flash_attention", fake_flash)
-    monkeypatch.setattr(torch_attention, "_flash_eligible",
-                        lambda q, k: True)
+    monkeypatch.setattr(torch_attention, "_on_card", lambda q: True)
     torch_attention.dot_product_attention(q, q, q, causal=True,
                                           kv_lengths=lengths)
     assert len(seen) == 1 and seen[0][0] is True
