@@ -30,7 +30,19 @@ failure:
    layer in every prefill, the prefix-cache hits and the idle pool, and hold one served
    stream against a teacher-forced forward with the plain attention;
    time one decode wave and one prefill on the card;
-5. print one ``{"kernels": [...]}`` line, the card line, and as the last
+5. serve ResNet-50 (224 px, 1000 classes, bf16, seeded random init with
+   BatchNorm statistics calibrated on a seeded batch) at the resnet bench
+   configuration: 128 V1 and V2 uint8 image requests at concurrency 32;
+   every served argmax must equal the direct forward's on the card, but
+   for counted near-ties; time a b128 forward (CUDA events, MFU);
+6. serve ViT-B/16 (224 px, L = 197) at the chain bench's predictor
+   configuration; the flash kernel must launch exactly 12 times per
+   executed batch, and the served model must agree with the same weights
+   run with the plain attention;
+7. serve the multi-model catalog (8 MLPs) through the repository routes
+   under a device-memory budget of 4 models: LRU eviction in the index,
+   evicted models freed, predictions held against direct forwards;
+8. print one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
@@ -79,6 +91,7 @@ MIN_TOP1_AGREEMENT = 0.9
 MAX_LOGIT_DIFF = 0.5
 
 PREFILL_CASE = "b8 L4096 bf16 causal kv_lengths"
+VIT_CASE = "b16 L197 bf16 (ViT-B/16)"
 # K2 fp32 differs from its plain version by summation order only
 # (partitions, fp32 exp).
 PAGED_FP32_TOLERANCE = 2e-5
@@ -98,6 +111,44 @@ GEN_CONFIG = {
 }
 GEN_REQUESTS, GEN_CONCURRENCY, GEN_MAX_TOKENS = 16, 8, 48
 GEN_SYSTEM_LEN, GEN_TAIL_LEN = 2980, 40
+
+# The resnet bench configuration (benchmarks/configs.py:207-219).
+RESNET_CONFIG = {
+    "architecture": "resnet50", "arch_kwargs": {"image_size": 224},
+    "max_batch_size": 128, "batch_buckets": [4, 8, 16, 32, 64, 128],
+    "pipeline_depth": 3, "max_latency_ms": 15.0, "warmup": True,
+    "input_dtype": "uint8", "scale": 1.0 / 255.0, "output": "argmax",
+}
+RESNET_REQUESTS, RESNET_CONCURRENCY = 128, 32
+V2_EVERY = 4          # every fourth image request is V2, the rest V1
+# A served argmax may differ from the direct forward's only where that
+# forward's top two logits lie within this share of its largest |logit|:
+# the served batches run at other batch sizes (other cuDNN algorithms),
+# and bf16 activations (8 mantissa bits) are rounded at other places
+# through 53 layers.
+RESNET_TIE_RTOL = 2 ** -5
+# The chain bench's ViT predictor (benchmarks/configs.py:1389-1393).
+VIT_CONFIG = {
+    "architecture": "vit_b16", "arch_kwargs": {"image_size": 224},
+    "max_batch_size": 16, "max_latency_ms": 5.0, "warmup": True,
+    "output": "argmax",
+}
+VIT_REQUESTS, VIT_CONCURRENCY = 48, 16
+# ViT served through K1 vs the same weights with the plain attention
+# (both bf16): the logits of one batch differ by at most this share of
+# the batch's largest |logit|.  K1 and the plain version differ by bf16
+# rounding of P and of the output (2^-6 of each output vector); the
+# residual stream carries that through 12 blocks.  On the CPU two
+# roundings of the attention moved ViT-B/16's logits by ~1% of their
+# largest.
+VIT_LOGIT_RTOL = 2 ** -4
+# The multi-model catalog (benchmarks/configs.py:896-907).
+MMS_MODELS, MMS_RESIDENT = 8, 4
+MMS_CONFIG = {
+    "architecture": "mlp",
+    "arch_kwargs": {"input_dim": 32, "features": [64], "num_classes": 8},
+    "max_latency_ms": 2.0, "warmup": True,
+}
 
 
 def check(cond: bool, message: str) -> None:
@@ -339,6 +390,13 @@ def check_flash_attention() -> dict:
         ("L512 bf16 causal kv_lengths", 16, 12, 512, 512, 64, bf16, True,
          "ragged"),
         (PREFILL_CASE, 8, 12, 4096, 4096, 64, bf16, True, prefill_lengths),
+        # ViT-B/16 at 224 px: L = 197 with no mask, its largest bucket
+        # and one image; the fp32 path's partial tiles at 197; a short
+        # ragged length.
+        (VIT_CASE, 16, 12, 197, 197, 64, bf16, False, None),
+        ("b1 L197 bf16", 1, 12, 197, 197, 64, bf16, False, None),
+        ("b2 L197 fp32", 2, 12, 197, 197, 64, fp32, False, None),
+        ("b2 L13 bf16", 2, 12, 13, 13, 64, bf16, False, None),
     ]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -376,9 +434,10 @@ def check_flash_attention() -> dict:
                                          device="cuda").tril()
 
         def library(sdpa=F.scaled_dot_product_attention):
-            # No mask: SDPA's flash backend, forced.  With a mask: the
-            # backend SDPA picks (recorded from its kernels' names).
-            if mask is None:
+            # No mask, bf16: SDPA's flash backend, forced.  Otherwise
+            # (a mask, or fp32, which the flash backend does not take):
+            # the backend SDPA picks (recorded from its kernels' names).
+            if mask is None and dtype == bf16:
                 with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                     return sdpa(qt, kt, vt, is_causal=causal)
             return sdpa(qt, kt, vt, attn_mask=mask)
@@ -523,7 +582,8 @@ def check_paged_attention() -> dict:
 def http_json(port: int, method: str, path: str, body=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
-        payload = None if body is None else json.dumps(body).encode()
+        payload = (body if body is None or isinstance(body, bytes)
+                   else json.dumps(body).encode())
         t0 = time.perf_counter()
         conn.request(method, path, body=payload,
                      headers={"content-type": "application/json"})
@@ -688,19 +748,23 @@ def time_largest_bucket(model) -> dict:
             "forward_tflops": flops / forward_ms / 1e9}
 
 
-def serve_bert(card: str) -> dict:
+def load_model(name: str, config: dict):
     from kfserving_tpu_torch.predictors.torch_model import TorchModel
 
     with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
         with open(os.path.join(model_dir, "config.json"), "w") as f:
-            json.dump({"architecture": "bert", "seq_buckets": SEQ_BUCKETS,
-                       "batch_buckets": BATCH_BUCKETS,
-                       "max_batch_size": 16, "output": "topk",
-                       "topk": TOPK}, f)
-        model = TorchModel("bert", model_dir, device="cuda")
+            json.dump(config, f)
+        model = TorchModel(name, model_dir, device="cuda")
         t0 = time.perf_counter()
         model.load()
-        load_s = time.perf_counter() - t0
+        return model, time.perf_counter() - t0
+
+
+def serve_bert(card: str) -> dict:
+    model, load_s = load_model("bert", {
+        "architecture": "bert", "seq_buckets": SEQ_BUCKETS,
+        "batch_buckets": BATCH_BUCKETS, "max_batch_size": 16,
+        "output": "topk", "topk": TOPK})
     cfg = model.module.config
     check((cfg.num_layers, cfg.hidden_size, cfg.num_heads)
           == (12, 768, 12), "not BERT-base")
@@ -1054,6 +1118,380 @@ def serve_generate(card: str) -> dict:
     return summary
 
 
+# -- phase 5: ResNet-50 through the port's server -----------------------------
+def bench_images(rng, n: int, size: int) -> np.ndarray:
+    """Seeded uint8 NHWC images that differ in more than noise: a colour
+    of their own, a gradient and pixel noise each (iid noise alone gives
+    every image the same pooled features)."""
+    base = rng.uniform(0, 255, (n, 1, 1, 3))
+    ramp = np.linspace(-60, 60, size)[None, :, None, None]
+    grad = rng.uniform(-1, 1, (n, 1, 1, 3)) * ramp
+    noise = rng.normal(0, 20, (n, size, size, 3))
+    return np.clip(base + grad + noise, 0, 255).astype(np.uint8)
+
+
+def calibrate_batch_norm(module, images: torch.Tensor) -> None:
+    """Sets every BatchNorm's running mean and variance to the statistics
+    of its input over ``images``, in one forward, layer by layer.  With
+    its seeded statistics the random network's answer hardly depends on
+    the image, so a misrouted answer would not show; calibrated, it
+    does."""
+    from kfserving_tpu_torch.models.resnet import BatchNorm
+
+    def take_stats(bn, args):
+        x = args[0].float()
+        bn.mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.var.copy_(x.var(dim=(0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(take_stats)
+             for m in module.modules() if isinstance(m, BatchNorm)]
+    try:
+        with torch.inference_mode():
+            module(images)
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def forward_breakdown(fn, top: int = 8) -> dict:
+    """One forward's device time (profiler, idle gaps excluded) beside its
+    time between CUDA events (which a slow host stretches), the kernels
+    that take most of it, and K1's share."""
+    events_ms = cuda_time_ms(fn, iters=5, warmup=1)
+    busy_ms, events, timing = profiled_device_ms(fn, iters=3)
+    by_name = sorted(((e.self_device_time_total / 3e3, e.count // 3, e.key)
+                      for e in events), reverse=True)
+    flash_ms = sum(ms for ms, _, key in by_name if "flash_fwd" in key)
+    return {"events_ms": events_ms, "device_busy_ms": busy_ms,
+            "busy_timing": timing,
+            "device_idle_share": max(0.0, 1 - busy_ms / events_ms),
+            "flash_ms": flash_ms if events else None,
+            "top_kernels": [{"ms": ms, "calls": n, "kernel": key[:90]}
+                            for ms, n, key in by_name[:top]]}
+
+
+def percentile(values, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+async def drive_images(port: int, name: str, bodies, concurrency: int):
+    """POST pre-encoded bodies (V1 or V2) at a fixed concurrency; returns
+    (the answers in request order, client latencies in ms, wall seconds)."""
+    sem = asyncio.Semaphore(concurrency)
+
+    async def one(path, body):
+        async with sem:
+            return await asyncio.to_thread(http_json, port, "POST", path,
+                                           body)
+
+    t0 = time.perf_counter()
+    results = await asyncio.gather(*(one(path, body)
+                                     for path, body in bodies))
+    wall_s = time.perf_counter() - t0
+    answers = []
+    for i, (status, resp, _) in enumerate(results):
+        check(status == 200, f"{name} request {i}: HTTP {status} {resp}")
+        if "predictions" in resp:                          # V1
+            answers.append(int(resp["predictions"][0]))
+        else:                                              # V2
+            out = resp["outputs"][0]
+            check(out["shape"] == [1], f"{name} V2 shape {out['shape']}")
+            answers.append(int(out["data"][0]))
+    return answers, [lat for _, _, lat in results], wall_s
+
+
+def image_bodies(name: str, images: np.ndarray):
+    """One request per image: V1 JSON, and V2 JSON for every
+    ``V2_EVERY``-th image."""
+    datatype = {np.uint8: "UINT8", np.float32: "FP32"}[images.dtype.type]
+    bodies = []
+    for i, img in enumerate(images):
+        if i % V2_EVERY == V2_EVERY - 1:
+            body = {"inputs": [{"name": "images", "datatype": datatype,
+                                "shape": [1] + list(img.shape),
+                                "data": img.ravel().tolist()}]}
+            path = f"/v2/models/{name}/infer"
+        else:
+            body = {"instances": [img.tolist()]}
+            path = f"/v1/models/{name}:predict"
+        bodies.append((path, json.dumps(body).encode()))
+    return bodies
+
+
+async def serve_over_http(model, drive):
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    try:
+        return await drive(server.http_port)
+    finally:
+        await server.stop_async()
+
+
+def serve_resnet(card: str) -> dict:
+    model, load_s = load_model("resnet", RESNET_CONFIG)
+    module = model.module
+    check(len(module.blocks) == 16 and module.head.out_features == 1000
+          and module.num_filters == 64, "not ResNet-50")
+    rng = np.random.default_rng(5)
+    scale = float(torch.tensor(RESNET_CONFIG["scale"], dtype=torch.bfloat16))
+
+    def forward_input(images: np.ndarray) -> torch.Tensor:
+        # What the served path computes from the uint8 wire.
+        return torch.from_numpy(images).to("cuda").float() * scale
+
+    try:
+        size = module.image_size
+        calibrate_batch_norm(module, forward_input(bench_images(rng, 64,
+                                                                size)))
+        images = bench_images(rng, RESNET_REQUESTS, size)
+        bodies = image_bodies("resnet", images)
+        executed0 = model.engine.execute_count
+        answers, latencies, wall_s = asyncio.run(serve_over_http(
+            model, lambda port: drive_images(port, "resnet", bodies,
+                                             RESNET_CONCURRENCY)))
+        batches = model.engine.execute_count - executed0
+        stats = model.engine_stats()
+        with torch.inference_mode():
+            logits = module(forward_input(images)).float()
+        top2 = logits.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        limit = (RESNET_TIE_RTOL * logits.abs().amax(dim=-1)).cpu().numpy()
+        direct = logits.argmax(dim=-1).cpu().numpy()
+        mismatched = [i for i in range(len(answers))
+                      if answers[i] != int(direct[i])]
+        far = [i for i in mismatched if gap[i] > limit[i]]
+        check(not far, f"resnet: served argmax differs from the direct "
+              f"forward's at images {far[:5]} (top-2 gaps "
+              f"{[float(gap[i]) for i in far[:5]]})")
+        check(bool(torch.isfinite(logits).all()), "resnet: non-finite logits")
+        big = torch.from_numpy(images[:128]).to("cuda")
+        with torch.inference_mode():
+            b128 = forward_breakdown(lambda: module(big.float() * scale))
+        b128_ms = b128["events_ms"]
+        flops = module.flops(128)
+    finally:
+        model.unload()
+    summary = {
+        "card": card, "load_and_warmup_s": load_s,
+        "requests": len(answers), "v2_requests": len(answers) // V2_EVERY,
+        "concurrency": RESNET_CONCURRENCY, "wall_s": wall_s,
+        "req_per_s": len(answers) / wall_s,
+        "p50_ms": percentile(latencies, 0.5),
+        "p99_ms": percentile(latencies, 0.99),
+        "batches": batches, "bucket_hits": stats.get("bucket_hits"),
+        "engine": {k: stats[k] for k in (
+            "avg_prepare_ms", "avg_device_ms", "avg_fetch_ms",
+            "achieved_tflops", "mfu", "slot_pad_waste") if k in stats},
+        "distinct_direct_classes": len(set(direct.tolist())),
+        "argmax_mismatches_near_tie": len(mismatched),
+        "tie_rtol": RESNET_TIE_RTOL,
+        "b128_forward": b128,
+        "b128_gflop": flops / 1e9,
+        "b128_events_tflops": flops / b128_ms / 1e9,
+        "b128_events_mfu": flops / b128_ms / 1e-3
+        / PEAK_OPS_PER_S["bfloat16"],
+    }
+    print("resnet " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- phase 6: ViT-B/16 through the port's server -----------------------------
+def serve_vit(card: str) -> dict:
+    from kfserving_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    model, load_s = load_model("vit", VIT_CONFIG)
+    module = model.module
+    cfg = module.config
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.seq_len)
+          == (12, 768, 12, 197), "not ViT-B/16 at 224 px")
+    rng = np.random.default_rng(6)
+    try:
+        images = bench_images(rng, VIT_REQUESTS, cfg.image_size)
+        images = images.astype(np.float32) / 255.0
+        images = np.round(images, 3)         # shorter JSON, same function
+        bodies = image_bodies("vit", images)
+
+        async def drive(port):
+            # The main path's run: the count starts at 0 here.
+            flash_attention.launches = 0
+            executed0 = model.engine.execute_count
+            answers, latencies, wall_s = await drive_images(
+                port, "vit", bodies, VIT_CONCURRENCY)
+            return (answers, latencies, wall_s, flash_attention.launches,
+                    model.engine.execute_count - executed0)
+
+        answers, latencies, wall_s, launches, batches = asyncio.run(
+            serve_over_http(model, drive))
+        check(batches > 0 and launches == cfg.num_layers * batches,
+              f"vit: flash kernel launched {launches} times for {batches} "
+              f"batches of {cfg.num_layers} layers")
+        batch = torch.from_numpy(images[:VIT_CONFIG["max_batch_size"]]
+                                 ).to("cuda")
+        with torch.inference_mode():
+            served_logits = module(batch).float()
+            cfg.attn_fn = lambda q, k, v, mask: flash_attention_plain(q, k, v)
+            try:
+                plain_logits = module(batch).float()
+            finally:
+                cfg.attn_fn = None
+        diff = float((served_logits - plain_logits).abs().max())
+        limit = VIT_LOGIT_RTOL * float(plain_logits.abs().max())
+        check(math.isfinite(diff) and diff <= limit,
+              f"vit: kernel vs plain logits differ by {diff} > {limit}")
+        direct = served_logits.argmax(dim=-1).cpu().tolist()
+        served = answers[:len(direct)]
+        top2 = served_logits.topk(2, dim=-1).values
+        near_tie = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+        far = [i for i, (a, b) in enumerate(zip(served, direct))
+               if a != b and near_tie[i] > limit]
+        check(not far, f"vit: served argmax differs from the direct "
+              f"forward's at images {far}")
+        sixteen = torch.from_numpy(images[:16]).to("cuda")
+        with torch.inference_mode():
+            b16 = forward_breakdown(lambda: module(sixteen))
+        stats = model.engine_stats()
+    finally:
+        model.unload()
+    summary = {
+        "card": card, "load_and_warmup_s": load_s,
+        "requests": len(answers), "concurrency": VIT_CONCURRENCY,
+        "wall_s": wall_s, "req_per_s": len(answers) / wall_s,
+        "p50_ms": percentile(latencies, 0.5),
+        "p99_ms": percentile(latencies, 0.99),
+        "batches": batches, "flash_launches": launches,
+        "bucket_hits": stats.get("bucket_hits"),
+        "engine": {k: stats[k] for k in (
+            "avg_prepare_ms", "avg_device_ms", "avg_fetch_ms",
+            "achieved_tflops", "mfu") if k in stats},
+        "logits_max_abs_diff_vs_plain": diff, "logit_limit": limit,
+        "b16_forward": b16,
+        "b16_busy_tflops": module.flops(16) / b16["device_busy_ms"] / 1e9,
+    }
+    print("vit " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- phase 7: the multi-model catalog through the repository routes ----------
+def allocated_bytes() -> int:
+    from kfserving_tpu_torch.engine.hbm import device_hbm_in_use
+
+    torch.cuda.synchronize()
+    return device_hbm_in_use()
+
+
+async def drive_repository(root: str) -> dict:
+    import gc
+    import weakref
+
+    from kfserving_tpu_torch.engine.hbm import HBMManager
+    from kfserving_tpu_torch.predictors.jaxserver.repository import (
+        TorchModelRepository,
+    )
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    hbm = HBMManager(budget_bytes=2 ** 40)
+    repo = TorchModelRepository(models_dir=root, hbm=hbm, device="cuda")
+    server = ModelServer(http_port=0, registered_models=repo)
+    await server.start_async([], host="127.0.0.1")
+    port = server.http_port
+
+    async def call(method, path, body=None):
+        status, resp, ms = await asyncio.to_thread(http_json, port, method,
+                                                   path, body)
+        check(status == 200, f"{method} {path}: HTTP {status} {resp}")
+        return resp, ms
+
+    async def index():
+        resp, _ = await call("GET", "/v2/repository/index")
+        return {m["name"]: m["state"] for m in resp}
+
+    try:
+        load_ms, allocated, freed = {}, {"before_loads": allocated_bytes()}, []
+        for i in range(MMS_MODELS):
+            name = f"m{i}"
+            if i >= MMS_RESIDENT:      # this load evicts m{i - 4}
+                victim = repo.get_model(f"m{i - MMS_RESIDENT}")
+                freed.append(weakref.ref(victim.module))
+            _, load_ms[name] = await call(
+                "POST", f"/v2/repository/models/{name}/load")
+            if i == 0:
+                # The budget: four models' device bytes, read from m0.
+                per_model = repo.get_model("m0").engine.param_bytes()
+                hbm.budget_bytes = MMS_RESIDENT * per_model
+            if i == MMS_RESIDENT - 1:
+                allocated["before_evictions"] = allocated_bytes()
+        allocated["after_evictions"] = allocated_bytes()
+        gc.collect()
+        check(all(ref() is None for ref in freed),
+              "an evicted model's parameters are still referenced")
+        states = await index()
+        want = {f"m{i}": ("UNAVAILABLE" if i < MMS_RESIDENT else "READY")
+                for i in range(MMS_MODELS)}
+        check(states == want, f"repository index {states}, want {want}")
+        check(hbm.resident_models() == [f"m{i}" for i in
+                                        range(MMS_RESIDENT, MMS_MODELS)],
+              f"ledger {hbm.resident_models()}")
+        rng = np.random.default_rng(7)
+        first_predict_ms = {}
+        for i in range(MMS_RESIDENT, MMS_MODELS):
+            name = f"m{i}"
+            x = rng.normal(size=(3, 32)).astype(np.float32)
+            resp, first_predict_ms[name] = await call(
+                "POST", f"/v1/models/{name}:predict",
+                {"instances": x.tolist()})
+            module = repo.get_model(name).module
+            with torch.inference_mode():
+                direct = module(torch.from_numpy(x).to("cuda")).float().cpu()
+            served = torch.tensor(resp["predictions"])
+            limit = BF16_RTOL * direct.abs().amax(dim=-1, keepdim=True)
+            check(bool(((served - direct).abs() <= limit + BF16_ATOL).all()),
+                  f"{name}: served logits differ from the direct forward")
+        cycles = []
+        for _ in range(2):
+            before = allocated_bytes()
+            await call("POST", "/v2/repository/models/m4/unload")
+            unloaded = allocated_bytes()
+            _, ms = await call("POST", "/v2/repository/models/m4/load")
+            cycles.append({"allocated_before": before,
+                           "allocated_unloaded": unloaded,
+                           "allocated_reloaded": allocated_bytes(),
+                           "load_ms": ms})
+        check(cycles[1]["allocated_reloaded"]
+              == cycles[0]["allocated_reloaded"],
+              f"memory grew over unload/load cycles: {cycles}")
+        check(all(c["allocated_unloaded"] < c["allocated_before"]
+                  for c in cycles), f"unload freed nothing: {cycles}")
+        states = await index()
+        check(states == want, f"index after the m4 cycles {states}")
+        return {"per_model_bytes": per_model,
+                "budget_bytes": hbm.budget_bytes,
+                "load_ms": load_ms, "first_predict_ms": first_predict_ms,
+                "allocated": allocated, "m4_cycles": cycles,
+                "evictions": hbm.debug()["evictions"],
+                "index": states}
+    finally:
+        await server.stop_async()
+        for model in repo.get_models():
+            model.unload()
+
+
+def serve_multi_model(card: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-mms-") as root:
+        for i in range(MMS_MODELS):
+            os.makedirs(os.path.join(root, f"m{i}"))
+            with open(os.path.join(root, f"m{i}", "config.json"), "w") as f:
+                json.dump(MMS_CONFIG, f)
+        summary = {"card": card, **asyncio.run(drive_repository(root))}
+    print("multi_model " + json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1079,9 +1517,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = serve_bert(card)
     generating = serve_generate(card)
-    # K1 runs on both serving paths; each path's count was read from 0.
+    serve_resnet(card)
+    vit = serve_vit(card)
+    serve_multi_model(card)
+    # K1 runs on three serving paths; each path's count was read from 0.
     kernels[0]["launches"] = (serving["flash_launches"]
-                              + generating["launches"]["flash_attention"])
+                              + generating["launches"]["flash_attention"]
+                              + vit["flash_launches"])
     kernels[1]["launches"] = generating["launches"]["paged_attention"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)   # as nvidia-smi prints it: name, power limit

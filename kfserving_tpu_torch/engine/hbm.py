@@ -1,0 +1,199 @@
+"""Device-memory accounting and LRU eviction for multi-model serving.
+
+Port of ``kfserving_tpu/engine/hbm.py`` (``HBMManager``).  On the card
+"loaded" means resident in device memory, the scarce resource: the ledger
+books each model's bytes against a budget, and an admission that would
+overflow it picks least-recently-used victims, which ``evict_cb`` frees.
+
+The budget is ``KFS_HBM_BUDGET`` when set, else 90% of the card's memory
+(``torch.cuda.mem_get_info``), else 12 GiB when no card reports one.  The
+JAX package's registry metrics and the residency manager's victim vetoes
+are not ported yet (ROADMAP Queue 1, slice 1 items c and g).
+"""
+
+import logging
+import os
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+logger = logging.getLogger("kfserving_tpu_torch.hbm")
+
+
+def device_hbm_bytes(device: Any = None) -> Optional[int]:
+    """Total memory of the serving card; None without one."""
+    if not torch.cuda.is_available():
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def device_hbm_in_use(device: Any = None) -> Optional[int]:
+    """Bytes the caching allocator holds in live tensors on the card."""
+    if not torch.cuda.is_available():
+        return None
+    return torch.cuda.memory_allocated(device)
+
+
+class InsufficientHBM(Exception):
+    """No room for an admission.  ``permanent`` is set when the model can
+    never fit (it is bigger than the whole budget)."""
+
+    permanent = False
+
+
+@dataclass
+class Residency:
+    name: str
+    bytes: int
+    loaded_at: float
+    last_used: float
+
+
+class HBMManager:
+    """Byte ledger for the models resident on one card.
+
+    budget_bytes: capacity to pack into (default: see the module note).
+    evict_cb: called with a model name when the ledger evicts it; the
+        callback must actually free the model's memory (unload it).
+    """
+
+    DEFAULT_BUDGET = 12 * 1024**3
+    HEADROOM = 0.10     # of the card's memory, left out of the budget
+
+    def __init__(self, budget_bytes: Optional[int] = None,
+                 evict_cb: Optional[Callable[[str], None]] = None):
+        if budget_bytes is None:
+            env = os.environ.get("KFS_HBM_BUDGET", "")
+            if env:
+                budget_bytes = int(float(env))
+        if budget_bytes is None:
+            total = device_hbm_bytes()
+            budget_bytes = (int(total * (1 - self.HEADROOM)) if total
+                            else self.DEFAULT_BUDGET)
+        self.budget_bytes = budget_bytes
+        self.evict_cb = evict_cb
+        self._resident: "OrderedDict[str, Residency]" = OrderedDict()
+        self._lock = threading.Lock()
+        # Lifetime evictions per model.
+        self.evictions: Dict[str, int] = {}
+
+    @property
+    def used_bytes(self) -> int:
+        with self._lock:
+            return sum(r.bytes for r in self._resident.values())
+
+    @property
+    def free_bytes(self) -> int:
+        return self.budget_bytes - self.used_bytes
+
+    def resident_models(self) -> List[str]:
+        """Resident models in LRU order (index 0 is the next victim)."""
+        with self._lock:
+            return list(self._resident)
+
+    def admit(self, name: str, nbytes: int, evict: bool = True) -> List[str]:
+        """Book ``nbytes`` for ``name``, evicting LRU models to make room.
+
+        Returns the models evicted.  Raises InsufficientHBM when the model
+        is bigger than the budget, or when there is no room and ``evict``
+        is False.  Three phases: plan the victims and reserve the bytes
+        under the lock (victims stay booked), free the victims through
+        ``evict_cb`` outside it, then drop the victims' entries.  Until
+        the victims are out of memory, ``used_bytes`` counts both them
+        and the incoming model, so a concurrent admission never plans
+        against memory that is not free yet.  A reload of ``name``
+        replaces its entry rather than counting it twice.
+        """
+        with self._lock:
+            if nbytes > self.budget_bytes:
+                err = InsufficientHBM(
+                    f"model {name} needs {nbytes} bytes; budget is "
+                    f"{self.budget_bytes}")
+                err.permanent = True
+                raise err
+            plan = OrderedDict((k, v) for k, v in self._resident.items()
+                               if k != name)
+            victims: List[str] = []
+            while True:
+                free = self.budget_bytes - sum(r.bytes for r in plan.values())
+                if nbytes <= free:
+                    break
+                if not evict:
+                    raise InsufficientHBM(
+                        f"model {name} needs {nbytes} bytes; only {free} "
+                        "free and eviction disabled")
+                if not plan:
+                    raise InsufficientHBM(
+                        f"model {name} needs {nbytes} bytes; nothing "
+                        "left to evict")
+                victims.append(plan.popitem(last=False)[0])
+            now = time.time()
+            self._resident.pop(name, None)
+            self._resident[name] = Residency(name, nbytes, now, now)
+            victim_entries = {v: self._resident[v] for v in victims}
+        for victim in victims:
+            logger.info("evicting model %s to fit %s", victim, name)
+            if self.evict_cb:
+                # One victim's failed unload must not strand the others:
+                # its entry is dropped below all the same.
+                try:
+                    self.evict_cb(victim)
+                except Exception:
+                    logger.exception("evict callback failed for %s (entry "
+                                     "released anyway)", victim)
+        with self._lock:
+            for victim, entry in victim_entries.items():
+                # Identity check: a victim re-admitted meanwhile keeps
+                # its new entry.
+                if self._resident.get(victim) is entry:
+                    self._resident.pop(victim)
+                self.evictions[victim] = self.evictions.get(victim, 0) + 1
+        return victims
+
+    def touch(self, name: str) -> None:
+        """Mark a model as recently used (moves it to MRU position)."""
+        with self._lock:
+            res = self._resident.get(name)
+            if res is not None:
+                res.last_used = time.time()
+                self._resident.move_to_end(name)
+
+    def release(self, name: str) -> None:
+        with self._lock:
+            self._resident.pop(name, None)
+
+    def commit(self, staging: str, name: str,
+               nbytes: Optional[int] = None) -> None:
+        """Atomically replace ``name``'s entry with the ``staging`` entry
+        (a reload that kept the old generation serving until the new one
+        was built).  ``nbytes`` overrides the staged estimate."""
+        with self._lock:
+            staged = self._resident.pop(staging, None)
+            old = self._resident.pop(name, None)
+            src = staged or old
+            if src is None:
+                return
+            final = nbytes if nbytes is not None else src.bytes
+            self._resident[name] = Residency(name, final, src.loaded_at,
+                                             time.time())
+
+    def debug(self) -> Dict[str, Any]:
+        """Budget totals and the per-model ledger in LRU order (index 0
+        is the next eviction victim)."""
+        with self._lock:
+            residents = [
+                {"model": r.name, "bytes": r.bytes,
+                 "loaded_at": round(r.loaded_at, 3),
+                 "last_used": round(r.last_used, 3)}
+                for r in self._resident.values()]
+            evictions = dict(self.evictions)
+        return {
+            "budget_bytes": self.budget_bytes,
+            "used_bytes": sum(r["bytes"] for r in residents),
+            "resident": residents,
+            "evictions": evictions,
+        }

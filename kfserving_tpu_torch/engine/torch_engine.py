@@ -65,6 +65,12 @@ def device_peak_flops(device: Optional[torch.device] = None
     return None
 
 
+def module_bytes(module: torch.nn.Module) -> int:
+    """Parameter and buffer bytes of a module (meta tensors included)."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _resize_seq(arr: np.ndarray, seq: int) -> np.ndarray:
     """Clip or tile a single instance's leading (sequence) axis to `seq`
     for warmup shape synthesis."""
@@ -187,7 +193,8 @@ class TorchEngine:
         t3 = time.perf_counter()
         key = self._shape_key(padded)
         bucket = key[0]
-        flops = self._flops_fn(*key) if (self._flops_fn and key[1]) else 0.0
+        # Models without a sequence axis (ResNet, MLP, ViT) take None.
+        flops = self._flops_fn(*key) if self._flops_fn else 0.0
         with self._stats_lock:
             self.last_execute_ms = (t3 - t1) * 1000.0
             self.execute_count += 1
@@ -254,19 +261,14 @@ class TorchEngine:
         return time.perf_counter() - start
 
     def param_bytes(self) -> int:
-        """Total parameter bytes held on the device."""
-        if isinstance(self.params, torch.nn.Module):
-            tensors = list(self.params.parameters()) + \
-                list(self.params.buffers())
-        else:
-            tensors = [t for t in self.params.values()
-                       if isinstance(t, torch.Tensor)]
-        return sum(t.numel() * t.element_size() for t in tensors)
+        """Parameter and buffer bytes held on the device."""
+        return module_bytes(self.params)
 
     def close(self, wait: bool = True) -> None:
         """Quiesce the workers and drop the model's device memory."""
         self._executor.shutdown(wait=wait)
         self.params = None
+        self._flops_fn = None     # a bound method of the module
 
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:

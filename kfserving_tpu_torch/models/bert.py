@@ -62,6 +62,10 @@ class BertConfig:
         # broadcastable [B, 1, 1, L] key-padding mask (or None).
         self.attn_fn = attn_fn
 
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 parameters and statistics, output in the
@@ -93,7 +97,7 @@ class BertSelfAttention(nn.Module):
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         B, L, _ = hidden.shape
-        heads = (B, L, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+        heads = (B, L, cfg.num_heads, cfg.head_dim)
         q = self.query(hidden).view(heads)          # [B, L, H, D]
         k = self.key(hidden).view(heads)
         v = self.value(hidden).view(heads)
@@ -169,8 +173,11 @@ class BertForMaskedLM(nn.Module):
         logits = F.linear(hidden, self.word_embeddings.weight)
         return logits.float() + self.mlm_bias
 
-    def flops(self, batch: int, seq: int) -> float:
-        """Multiply-add operations (x2) of one forward at this shape."""
+    def flops(self, batch: int, seq: Optional[int]) -> float:
+        """Multiply-add operations (x2) of one forward at this shape; 0
+        when the engine has no sequence bucket to give (not counted)."""
+        if seq is None:
+            return 0.0
         cfg = self.config
         h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
         tokens = batch * seq

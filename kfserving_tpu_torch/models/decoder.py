@@ -213,9 +213,12 @@ class DecoderLM(nn.Module):
             return logits, caches
         return logits
 
-    def flops(self, batch: int, seq: int) -> float:
+    def flops(self, batch: int, seq: Optional[int]) -> float:
         """Multiply-add operations (x2) of one full forward at this
-        shape, causal attention counted over the triangle."""
+        shape, causal attention counted over the triangle; 0 without a
+        sequence length (not counted)."""
+        if seq is None:
+            return 0.0
         cfg = self.config
         h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
         tokens = batch * seq

@@ -4,8 +4,9 @@ Port of ``kfserving_tpu/models/registry.py``.  The ``architecture`` string
 of a model's config.json names a factory that yields an ``nn.Module`` on
 the meta device and a single-instance example input (numpy, batch dim 1).
 ``models/weights.py`` materializes the module on its serving device.
-Architectures join this table as the port reaches them; user models plug
-in with ``register_model``.
+The names and kwargs are the JAX package's; a ``dtype`` kwarg may be a
+torch dtype or its name ("bfloat16", "float32"), so config.json can carry
+it.  User models plug in with ``register_model``.
 """
 
 from typing import Any, Callable, Dict, NamedTuple, Tuple
@@ -14,8 +15,12 @@ _REGISTRY: Dict[str, Callable[..., Tuple[Any, Any]]] = {}
 
 # Built-ins resolve lazily (module_path, factory_name).
 _LAZY_BUILTINS: Dict[str, Tuple[str, str]] = {
+    "resnet50": ("kfserving_tpu_torch.models.resnet", "create_resnet50"),
     "bert": ("kfserving_tpu_torch.models.bert", "_create_bert_base"),
     "bert_tiny": ("kfserving_tpu_torch.models.bert", "_create_bert_tiny"),
+    "vit_b16": ("kfserving_tpu_torch.models.vit", "_create_vit_b16"),
+    "vit_tiny": ("kfserving_tpu_torch.models.vit", "_create_vit_tiny"),
+    "mlp": ("kfserving_tpu_torch.models.mlp", "create_mlp"),
     "decoder": ("kfserving_tpu_torch.models.decoder",
                 "_create_decoder_small"),
     "decoder_tiny": ("kfserving_tpu_torch.models.decoder",

@@ -4,13 +4,19 @@
   ``flax.serialization.to_bytes`` (the artifact the JAX package restores
   in ``kfserving_tpu/engine/param_cache.py``) into a nested dict of numpy
   arrays, without flax.  It imports ``msgpack`` only when called.
-- ``bert_params_from_flax(tree)`` and ``decoder_params_from_flax(tree)``
-  map a BERT or decoder Flax param tree onto the port's ``state_dict``
-  names (``FLAX_CONVERTERS`` by architecture).
+- ``bert_params_from_flax``, ``decoder_params_from_flax``,
+  ``resnet_params_from_flax``, ``vit_params_from_flax`` and
+  ``mlp_params_from_flax`` map a Flax variable tree onto the port's
+  ``state_dict`` names (``FLAX_CONVERTERS`` by architecture): HWIO conv
+  kernels become OIHW weights, ``batch_stats`` mean and var become
+  BatchNorm buffers, DenseGeneral ``[in, H, D]`` and ``[H, D, out]``
+  kernels become Linear weights.
 - ``materialize(module, device, state_dict=None, seed=0)`` turns a
   meta-device module into one on ``device`` holding either those weights
   or a seeded random init (``torch.Generator``; it does not reproduce the
   JAX package's PRNG, so parity tests share one numpy tree instead).
+  4-d (conv) weights are stored channels-last, the layout the image
+  models run in.
 """
 
 import math
@@ -19,6 +25,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from kfserving_tpu_torch.models.bert import LayerNorm
+from kfserving_tpu_torch.models.resnet import BatchNorm, Conv2d
 
 # Flax's msgpack extension type codes (flax/serialization.py).
 _EXT_NDARRAY = 1
@@ -105,6 +114,17 @@ class _StateDict:
     def embedding(self, name: str, src) -> None:
         self.put(f"{name}.weight", src["embedding"])
 
+    def conv(self, name: str, src) -> None:                # HWIO -> OIHW
+        self.put(f"{name}.weight",
+                 np.asarray(src["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in src:
+            self.put(f"{name}.bias", src["bias"])
+
+    def batch_norm(self, name: str, src, stats) -> None:
+        self.norm(name, src)
+        self.put(f"{name}.mean", stats["mean"])
+        self.put(f"{name}.var", stats["var"])
+
 
 def bert_params_from_flax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The port's BERT ``state_dict`` (numpy) from the JAX package's
@@ -158,37 +178,143 @@ def decoder_params_from_flax(tree: Dict[str, Any]
     return out.sd
 
 
+def resnet_params_from_flax(tree: Dict[str, Any]
+                            ) -> Dict[str, np.ndarray]:
+    """The port's ``ResNet`` ``state_dict`` (numpy) from the JAX
+    package's ResNet variables (``params`` and ``batch_stats``):
+    ``conv_init``/``bn_init``, then per ``BottleneckBlock_{i}`` the
+    ``Conv_{0,1,2}``/``BatchNorm_{0,1,2}`` triple and, where the block
+    projects, ``conv_proj``/``norm_proj``; then ``head``."""
+    p, stats = tree["params"], tree["batch_stats"]
+    out = _StateDict()
+    out.conv("conv_init", p["conv_init"])
+    out.batch_norm("bn_init", p["bn_init"], stats["bn_init"])
+    i = 0
+    while f"BottleneckBlock_{i}" in p:
+        name = f"BottleneckBlock_{i}"
+        src, bs, dst = p[name], stats[name], f"blocks.{i}"
+        for j in range(3):
+            out.conv(f"{dst}.conv{j + 1}", src[f"Conv_{j}"])
+            out.batch_norm(f"{dst}.bn{j + 1}", src[f"BatchNorm_{j}"],
+                           bs[f"BatchNorm_{j}"])
+        if "conv_proj" in src:
+            out.conv(f"{dst}.conv_proj", src["conv_proj"])
+            out.batch_norm(f"{dst}.norm_proj", src["norm_proj"],
+                           bs["norm_proj"])
+        i += 1
+    out.dense("head", p["head"])
+    return out.sd
+
+
+def vit_params_from_flax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's ``ViT`` ``state_dict`` (numpy) from the JAX package's
+    ViT variables: ``patch_embed`` (a conv with bias), ``cls_token``,
+    ``pos_embed``, per ``block_{i}`` the DenseGeneral ``query``/``key``/
+    ``value`` [in, H, D] and ``out`` [H, D, out] with ``norm1``,
+    ``norm2``, ``mlp_in`` and ``mlp_out``; then ``final_norm`` and
+    ``head``."""
+    p = tree.get("params", tree)
+    out = _StateDict()
+    out.conv("patch_embed", p["patch_embed"])
+    out.put("cls_token", p["cls_token"])
+    out.put("pos_embed", p["pos_embed"])
+    i = 0
+    while f"block_{i}" in p:
+        src, dst = p[f"block_{i}"], f"blocks.{i}"
+        out.norm(f"{dst}.norm1", src["norm1"])
+        for proj in ("query", "key", "value"):
+            out.dense_in(f"{dst}.{proj}", src[proj])
+        out.dense_out(f"{dst}.out", src["out"])
+        out.norm(f"{dst}.norm2", src["norm2"])
+        out.dense(f"{dst}.mlp_in", src["mlp_in"])
+        out.dense(f"{dst}.mlp_out", src["mlp_out"])
+        i += 1
+    out.norm("final_norm", p["final_norm"])
+    out.dense("head", p["head"])
+    return out.sd
+
+
+def mlp_params_from_flax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's ``MLP`` ``state_dict`` (numpy): ``dense_{i}`` and
+    ``head``, named as in Flax."""
+    p = tree.get("params", tree)
+    out = _StateDict()
+    for name, src in p.items():
+        out.dense(name, src)
+    return out.sd
+
+
 # Flax param tree -> port state_dict, by architecture.
 FLAX_CONVERTERS: Dict[str, Callable[[Dict[str, Any]], Dict[str, np.ndarray]]] = {
     "bert": bert_params_from_flax,
     "bert_tiny": bert_params_from_flax,
     "decoder": decoder_params_from_flax,
     "decoder_tiny": decoder_params_from_flax,
+    "resnet50": resnet_params_from_flax,
+    "vit_b16": vit_params_from_flax,
+    "vit_tiny": vit_params_from_flax,
+    "mlp": mlp_params_from_flax,
 }
+
+
+# BatchNorm running statistics and affine terms drawn by seeded_init: wide
+# enough that a wrong channel, a missing mean or a zero scale shows in the
+# output, narrow enough that 16 random bottleneck blocks stay finite in bf16.
+BN_SCALE_RANGE = (0.5, 1.0)
+BN_SHIFT_STD = 0.1
+BN_VAR_RANGE = (0.5, 1.5)
+# Flax's init of ViT's position table (normal(0.02)); the CLS token uses it
+# too rather than Flax's zeros, so its path carries signal.
+TOKEN_STD = 0.02
 
 
 @torch.no_grad()
 def seeded_init(module: nn.Module, seed: int = 0) -> None:
     """Random weights from one seeded generator on the module's device:
-    Linear kernels N(0, 1/fan_in), embeddings N(0, 1/width), biases 0,
-    norm scales 1."""
+    Linear and conv kernels N(0, 1/fan_in), embeddings N(0, 1/width),
+    biases 0, LayerNorm scales 1; BatchNorm scale, shift, running mean and
+    variance drawn from the ranges above; ``cls_token`` and
+    ``pos_embed`` N(0, 0.02).  Every parameter and buffer is written: one
+    this function does not know raises, since ``materialize`` allocates
+    with ``to_empty`` and would otherwise serve uninitialized memory."""
     device = next(module.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    for sub in module.modules():
-        if isinstance(sub, nn.Linear):
-            sub.weight.normal_(0.0, 1.0 / math.sqrt(sub.in_features),
-                               generator=gen)
+    done = set()
+    for prefix, sub in module.named_modules():
+        own = dict(sub.named_parameters(recurse=False))
+        own.update(sub.named_buffers(recurse=False))
+        if isinstance(sub, (nn.Linear, Conv2d)):
+            fan_in = sub.weight[0].numel()
+            sub.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
             if sub.bias is not None:
                 sub.bias.zero_()
         elif isinstance(sub, nn.Embedding):
             sub.weight.normal_(0.0, 1.0 / math.sqrt(sub.embedding_dim),
                                generator=gen)
-    for name, param in module.named_parameters(recurse=True):
-        if name.endswith("norm.weight"):
-            param.fill_(1.0)
-        elif name.endswith("norm.bias") or name == "mlm_bias":
-            param.zero_()
+        elif isinstance(sub, LayerNorm):
+            sub.weight.fill_(1.0)
+            sub.bias.zero_()
+        elif isinstance(sub, BatchNorm):
+            sub.weight.uniform_(*BN_SCALE_RANGE, generator=gen)
+            sub.bias.normal_(0.0, BN_SHIFT_STD, generator=gen)
+            sub.mean.normal_(0.0, BN_SHIFT_STD, generator=gen)
+            sub.var.uniform_(*BN_VAR_RANGE, generator=gen)
+        else:
+            for name, tensor in own.items():
+                if name == "mlm_bias":
+                    tensor.zero_()
+                elif name in ("cls_token", "pos_embed"):
+                    tensor.normal_(0.0, TOKEN_STD, generator=gen)
+                else:
+                    continue
+                done.add(f"{prefix}.{name}" if prefix else name)
+            continue
+        done.update(f"{prefix}.{name}" if prefix else name for name in own)
+    missing = [name for name in module.state_dict() if name not in done]
+    if missing:
+        raise ValueError(f"seeded_init does not know how to initialize "
+                         f"{missing[:5]}; load a checkpoint instead")
 
 
 def materialize(module: nn.Module, device: torch.device,
@@ -203,4 +329,4 @@ def materialize(module: nn.Module, device: torch.device,
         module.load_state_dict(
             {k: torch.from_numpy(v) for k, v in state_dict.items()},
             strict=True)
-    return module.eval()
+    return module.to(memory_format=torch.channels_last).eval()

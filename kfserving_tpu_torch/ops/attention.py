@@ -7,7 +7,7 @@ Port of ``kfserving_tpu/ops/attention.py``.  One public entry point,
 kernel handles (``flash_handles_mask``: none, suffix padding as lengths,
 causal with Lq == Lk, or causal with Lq == Lk plus lengths) always goes
 to ``flash_attention``, which launches the kernel or raises
-``ValueError`` for a dtype, head dim or length it does not take.  A mask
+``ValueError`` for a dtype, head dim or layout it does not take.  A mask
 case the kernel does not handle (an arbitrary mask, or causal with
 Lq != Lk as in the dense-cache decode) and every CPU call take
 ``_torch_attention``, the port of the JAX package's einsum path.  The

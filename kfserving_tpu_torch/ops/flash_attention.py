@@ -8,7 +8,10 @@ online softmax whose max, normalizer and accumulator stay fp32 while the
 operands enter the products in the input dtype.  Options: ``causal``
 (query i sits at position i) and ``kv_lengths`` (int32 ``[B]``, suffix key
 padding; key tiles past a row's length are skipped).  A row with no valid
-key gives 0.  Sequence lengths must be multiples of 8, as on the TPU.
+key gives 0.  Any sequence length is taken: the TPU kernel's rule that L
+be a multiple of 8 came from its lane tiling, while this kernel masks
+keys past Lk in the tile that crosses it and stores no query row past Lq
+(ViT-B/16 at 224 px runs L = 197).
 
 The kernel, for an H100: bf16 runs a warp-specialized kernel (a TMA
 producer warp feeding a ring of K/V tiles to two ``wgmma`` consumer
@@ -50,10 +53,6 @@ def _check_lengths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}")
-    if Lq % 8 or Lk % 8:
-        raise ValueError(
-            f"seq lens ({Lq}, {Lk}) need a power-of-two block divisor "
-            ">= 8; pad sequences to a multiple of 8")
     return B, Lq, H, D, Lk
 
 

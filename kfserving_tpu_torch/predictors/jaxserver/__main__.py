@@ -6,11 +6,19 @@ checkpoint.msgpack) with the PyTorch port:
 
     python -m kfserving_tpu_torch.predictors.jaxserver --model_name bert \
         --model_dir /path/to/model --http_port 8080 [--device cuda]
+
+With ``--multi_model``, ``--model_dir`` is the catalog root: the server
+starts with no model, and ``POST /v2/repository/models/{name}/load`` builds
+``<model_dir>/<name>`` under one device-memory ledger (``KFS_HBM_BUDGET``
+or 90% of the card), unloading least-recently-used models to make room.
 """
 
 import argparse
 import logging
 
+from kfserving_tpu_torch.predictors.jaxserver.repository import (
+    TorchModelRepository,
+)
 from kfserving_tpu_torch.predictors.torch_model import TorchModel
 from kfserving_tpu_torch.server.app import ModelServer, parser as server_parser
 
@@ -18,7 +26,11 @@ parser = argparse.ArgumentParser(parents=[server_parser])
 parser.add_argument("--model_name", default="model",
                     help="name under which the model is served")
 parser.add_argument("--model_dir", required=True,
-                    help="model artifact directory (local path or file://)")
+                    help="model artifact directory (local path or file://) "
+                         "or, with --multi_model, the models root dir")
+parser.add_argument("--multi_model", action="store_true",
+                    help="serve a repository of models loaded on demand "
+                         "via /v2/repository/models/{name}/load")
 parser.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, cuda:N or cpu)")
 
@@ -26,6 +38,12 @@ parser.add_argument("--device", default="cuda",
 def main(argv=None) -> None:
     args, _ = parser.parse_known_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.multi_model:
+        repo = TorchModelRepository(models_dir=args.model_dir,
+                                    device=args.device)
+        ModelServer(http_port=args.http_port,
+                    registered_models=repo).start([])
+        return
     model = TorchModel(args.model_name, args.model_dir, device=args.device)
     model.load()
     ModelServer(http_port=args.http_port).start([model])

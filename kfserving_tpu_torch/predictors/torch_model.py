@@ -3,6 +3,9 @@
 Port of ``kfserving_tpu/predictors/jax_model.py`` (``JaxModel``): load a
 model from the registry plus its weights, run shape-bucketed batches on
 the card, and serve V1/V2 predict through the in-process dynamic batcher.
+With an ``HBMManager`` the model's parameter and buffer bytes are admitted
+before it is built (evicting least-recently-used models), and a reload
+is staged beside the serving generation, as in the JAX package.
 
 Model directory layout (a local path or a ``file://`` URI):
 
@@ -14,7 +17,7 @@ Model directory layout (a local path or a ``file://`` URI):
 config.json keys (all optional except architecture), with the JAX
 package's defaults:
     {
-      "architecture": "bert" | "bert_tiny" | <registered>,
+      "architecture": "resnet50" | "bert" | "vit_b16" | "mlp" | <registered>,
       "arch_kwargs": {...},            # forwarded to the registry factory
       "max_batch_size": 32,            # bucket ceiling (pow2 buckets)
       "batch_buckets": [1, 4, 16],     # explicit batch buckets
@@ -38,10 +41,19 @@ import torch
 
 from kfserving_tpu_torch.batching import DynamicBatcher
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
-from kfserving_tpu_torch.engine.torch_engine import TorchEngine, resolve_device
+from kfserving_tpu_torch.engine.hbm import HBMManager, InsufficientHBM
+from kfserving_tpu_torch.engine.torch_engine import (
+    TorchEngine,
+    module_bytes,
+    resolve_device,
+)
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import apply_fn_for, create_model
 from kfserving_tpu_torch.models import weights
+from kfserving_tpu_torch.ops.flash_attention import (
+    SUPPORTED_DTYPES,
+    SUPPORTED_HEAD_DIMS,
+)
 from kfserving_tpu_torch.protocol import v1
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
 from kfserving_tpu_torch.protocol.v2 import (
@@ -90,6 +102,23 @@ class TorchModelConfig:
         return cls(**data)
 
 
+def check_kernel_shapes(module: torch.nn.Module,
+                        device: torch.device) -> None:
+    """On the card, refuse a model whose attention the flash kernel is not
+    built for (it would raise on the first batch; nothing reroutes a card
+    call to the plain version).  Models without attention pass."""
+    cfg = getattr(module, "config", None)
+    head_dim = getattr(cfg, "head_dim", None)
+    if device.type != "cuda" or head_dim is None:
+        return
+    if cfg.dtype not in SUPPORTED_DTYPES or head_dim not in \
+            SUPPORTED_HEAD_DIMS:
+        raise InvalidInput(
+            f"the flash attention kernel takes dtypes {SUPPORTED_DTYPES} "
+            f"and head dims {SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
+            f"head dim {head_dim}")
+
+
 def local_model_dir(uri: str) -> str:
     """The local directory of a model artifact URI (a path or file://)."""
     if uri.startswith("file://"):
@@ -107,12 +136,13 @@ class TorchModel(Model):
     def __init__(self, name: str, model_dir: str,
                  config: Optional[TorchModelConfig] = None,
                  config_overrides: Optional[Dict[str, Any]] = None,
-                 device: Any = "cuda"):
+                 device: Any = "cuda", hbm: Optional[HBMManager] = None):
         super().__init__(name)
         self.model_dir = model_dir
         self.config = config
         self.config_overrides = dict(config_overrides or {})
         self.device = resolve_device(device)
+        self.hbm = hbm
         self.engine: Optional[TorchEngine] = None
         self.batcher: Optional[DynamicBatcher] = None
         self.module: Optional[torch.nn.Module] = None
@@ -129,36 +159,78 @@ class TorchModel(Model):
                 overrides=self.config_overrides)
         cfg = self.config
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
-        ckpt = os.path.join(local_dir, CHECKPOINT_NAME)
-        state_dict = None
-        if os.path.exists(ckpt):
-            convert = weights.FLAX_CONVERTERS.get(cfg.architecture)
-            if convert is None:
-                raise InvalidInput(
-                    f"no Flax checkpoint converter for architecture "
-                    f"{cfg.architecture!r}")
-            state_dict = convert(weights.read_flax_msgpack(ckpt))
-        self.param_source = "checkpoint" if state_dict else "init"
-        module = weights.materialize(spec.module, self.device,
-                                     state_dict=state_dict)
-        engine, batcher = self._build_engine(spec, module, cfg)
-        old = self.engine
+        check_kernel_shapes(spec.module, self.device)
+        # Reload is transactional: the new generation is built aside and
+        # swapped in only on success.  Both are resident until the swap,
+        # so the new one is admitted under a staging key beside the old
+        # entry; with no headroom for both, the old generation is closed
+        # first (downtime, but never an overcommitted card).
+        old_engine = self.engine
+        staging_key = f"{self.name}!staging"   # '!' is not in model names
+        zero_downtime = True
+        if self.hbm is not None:
+            nbytes = module_bytes(spec.module)
+            if old_engine is None:
+                self.hbm.admit(self.name, nbytes)
+            else:
+                try:
+                    # Staging never evicts live models, this one's
+                    # serving generation included.
+                    self.hbm.admit(staging_key, nbytes, evict=False)
+                except InsufficientHBM:
+                    zero_downtime = False
+                    self._drop_generation()
+                    old_engine = None
+                    self.hbm.release(self.name)
+                    self.hbm.admit(self.name, nbytes)
+        try:
+            module = self._materialize(spec, local_dir)
+            engine, batcher = self._build_engine(spec, module, cfg)
+        except Exception:
+            if self.hbm is not None:
+                self.hbm.release(staging_key if old_engine is not None
+                                 else self.name)
+            raise
         self._spec, self.module = spec, module
         self.engine, self.batcher = engine, batcher
         self.ready = True
-        if old is not None:
-            old.close()
+        if old_engine is not None:
+            old_engine.close()
+            if self.hbm is not None and zero_downtime:
+                self.hbm.commit(staging_key, self.name, engine.param_bytes())
         return True
+
+    def _materialize(self, spec, local_dir: str) -> torch.nn.Module:
+        """The module on the serving device: the checkpoint's weights,
+        else a seeded init."""
+        arch = self.config.architecture
+        ckpt = os.path.join(local_dir, CHECKPOINT_NAME)
+        state_dict = None
+        if os.path.exists(ckpt):
+            convert = weights.FLAX_CONVERTERS.get(arch)
+            if convert is None:
+                raise InvalidInput(
+                    f"no Flax checkpoint converter for architecture "
+                    f"{arch!r}")
+            state_dict = convert(weights.read_flax_msgpack(ckpt))
+        self.param_source = "checkpoint" if state_dict else "init"
+        return weights.materialize(spec.module, self.device,
+                                   state_dict=state_dict)
 
     def _build_engine(self, spec, module, cfg: TorchModelConfig):
         base_apply = apply_fn_for(spec)
-        scale = cfg.scale
+        # The JAX package computes x.astype(bf16) * scale with the weakly
+        # typed scale rounded to bf16, and XLA keeps the product in fp32
+        # when the model casts it on at once: the port multiplies in fp32
+        # by the bf16-rounded scale, and the model rounds to its dtype.
+        scale = (None if cfg.scale is None else
+                 float(torch.tensor(cfg.scale, dtype=torch.bfloat16)))
         output_mode, topk = cfg.output, cfg.topk
 
         def serve_fn(m, batch):
             x = batch
             if not isinstance(x, dict) and scale is not None:
-                x = x.to(torch.bfloat16) * scale
+                x = x.float() * scale
             out = base_apply(m, x)
             if output_mode == "argmax":
                 return out.argmax(dim=-1).to(torch.int32)
@@ -204,13 +276,19 @@ class TorchModel(Model):
             return np.zeros(ex.shape, np.uint8)
         return ex.astype(self.config.input_dtype)
 
-    def unload(self) -> None:
+    def _drop_generation(self) -> None:
+        """Close the engine and drop every reference to the module, so
+        its device memory is freed."""
+        self.ready = False
         if self.engine is not None:
             self.engine.close()
-            self.engine = None
-        self.batcher = None
-        self.module = None
-        self.ready = False
+        self.engine, self.batcher = None, None
+        self.module, self._spec = None, None
+
+    def unload(self) -> None:
+        self._drop_generation()
+        if self.hbm is not None:
+            self.hbm.release(self.name)
 
     # -- inference ---------------------------------------------------------
     def _bucket_key(self, instance: Any):
@@ -295,6 +373,8 @@ class TorchModel(Model):
     async def predict(self, request: Any) -> Any:
         if self.batcher is None:
             raise InferenceError(f"model {self.name} not loaded")
+        if self.hbm is not None:
+            self.hbm.touch(self.name)     # LRU order follows use
         if isinstance(request, InferRequest) or is_v2_request(request):
             return await self._predict_v2(request)
         instances = v1.get_instances(request)

@@ -9,8 +9,9 @@ Port of the JSON part of ``kfserving_tpu/protocol/v2.py``:
     }
     $request_input = {"name", "shape", "datatype", "parameters"#opt, "data"}
 
-Datatypes FP32, FP16, INT32, INT64 and BOOL.  BF16 and the binary data
-extension are not ported yet.
+The numeric datatypes of the V2 spec (BOOL, UINT8-64, INT8-64, FP16-64;
+UINT8 carries the image models' uint8 wire).  BYTES, BF16 and the binary
+data extension are not ported yet.
 """
 
 from typing import Any, Dict, List, Optional
@@ -21,10 +22,17 @@ from kfserving_tpu_torch.protocol.errors import InvalidInput
 
 DTYPES_TO_NUMPY = {
     "BOOL": np.bool_,
+    "UINT8": np.uint8,
+    "UINT16": np.uint16,
+    "UINT32": np.uint32,
+    "UINT64": np.uint64,
+    "INT8": np.int8,
+    "INT16": np.int16,
     "INT32": np.int32,
     "INT64": np.int64,
     "FP16": np.float16,
     "FP32": np.float32,
+    "FP64": np.float64,
 }
 
 NUMPY_TO_DTYPES = {np.dtype(v): k for k, v in DTYPES_TO_NUMPY.items()}

@@ -17,6 +17,9 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
     POST /v2/models/{name}/generate           hands off to the stream)
     POST /v2/models/{name}/generate_stream  token stream, SSE
                                             ``data: {...}\n\n`` events
+    POST /v2/repository/models/{name}/load    (re)load a model
+    POST /v2/repository/models/{name}/unload  unload a model
+    GET  /v2/repository/index               models and their states
 
 One asyncio process serves; batched device execution runs on the
 engines' worker threads.
@@ -96,6 +99,9 @@ class ModelServer:
         r.add("POST", "/v2/models/{name}/generate", self._generate)
         r.add("POST", "/v2/models/{name}/generate_stream",
               self._generate_stream)
+        r.add("POST", "/v2/repository/models/{name}/load", self._load)
+        r.add("POST", "/v2/repository/models/{name}/unload", self._unload)
+        r.add("GET", "/v2/repository/index", self._repository_index)
 
     # -- handlers ----------------------------------------------------------
     async def _live(self, req: Request) -> Response:
@@ -183,6 +189,25 @@ class ModelServer:
             await aclose_quietly(events, "model event stream")
 
         return StreamingResponse(GuardedStream(sse(), on_close))
+
+    async def _load(self, req: Request) -> Response:
+        name = req.path_params["name"]
+        try:
+            await self.dataplane.load(name)
+        except ServingError as e:
+            return _error(e)
+        return _json({"name": name, "load": True})
+
+    async def _unload(self, req: Request) -> Response:
+        name = req.path_params["name"]
+        try:
+            await self.dataplane.unload(name)
+        except ServingError as e:
+            return _error(e)
+        return _json({"name": name, "unload": True})
+
+    async def _repository_index(self, req: Request) -> Response:
+        return _json(self.dataplane.repository_index())
 
     # -- lifecycle ---------------------------------------------------------
     def register_model(self, model: Model) -> None:

@@ -1,8 +1,9 @@
 """Protocol-agnostic data-plane operations over a ModelRepository.
 
 Port of ``kfserving_tpu/server/dataplane.py``: liveness, readiness, model
-listing and metadata, inference (JSON bodies, V1 or V2), and the
-generate extension (``generate``, ``generate_stream``).
+listing and metadata, inference (JSON bodies, V1 or V2), the generate
+extension (``generate``, ``generate_stream``) and the repository
+extension (``load``, ``unload``, ``repository_index``).
 """
 
 import json
@@ -99,6 +100,28 @@ class DataPlane:
         # Awaiting runs validation and submission now: a bad request is
         # a 4xx before any streaming headers are committed.
         return await maybe_await(stream(body))
+
+    # -- repository --------------------------------------------------------
+    async def load(self, name: str) -> None:
+        try:
+            ok = await self.repository.load(name)
+        except Exception as e:
+            raise ModelNotReady(name, f"Error type: {type(e)} error msg: {e}")
+        if not ok or not self.repository.is_model_ready(name):
+            raise ModelNotReady(name)
+
+    async def unload(self, name: str) -> None:
+        try:
+            await self.repository.unload(name)
+        except KeyError:
+            raise ModelNotFound(name)
+
+    def repository_index(self) -> List[Dict[str, Any]]:
+        """V2 repository index extension (Triton-style)."""
+        return [
+            {"name": m.name, "state": "READY" if m.ready else "UNAVAILABLE"}
+            for m in self.repository.get_models()
+        ]
 
     @staticmethod
     def validate(request: Any) -> Any:

@@ -83,15 +83,24 @@ def test_flash_plain_matches_pallas_interpret(causal, lengths, L, Lk):
 
 
 def test_flash_rejects_seq_len_without_block_divisor():
-    q = np.zeros((1, 12, 2, 32), np.float32)
+    """The Pallas kernel refuses L = 12 (its blocks need a power-of-two
+    divisor >= 8, from the TPU's lane tiling).  The port takes any L: at
+    L = 12 its wrapper and plain version equal the masked reference, the
+    same rows padded to 16 with the 4 padding keys masked by lengths."""
+    q, k, v = _qkv(4, 2, 12, 2, 32)
     with pytest.raises(ValueError, match="power-of-two block divisor"):
-        pallas_attention.flash_attention(jnp.asarray(q), jnp.asarray(q),
-                                         jnp.asarray(q))
-    t = torch.from_numpy(q)
-    with pytest.raises(ValueError, match="power-of-two block divisor"):
-        flash_attention(t, t, t)
-    with pytest.raises(ValueError, match="power-of-two block divisor"):
-        flash_attention_plain(t, t, t)
+        pallas_attention.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v))
+    pad = [(0, 0), (0, 4), (0, 0), (0, 0)]
+    padded = [torch.from_numpy(np.pad(a, pad, constant_values=9.0))
+              for a in (q, k, v)]
+    expect = flash_attention_plain(
+        *padded, kv_lengths=torch.tensor([12, 12]))[:, :12].numpy()
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    for fn in (flash_attention, flash_attention_plain):
+        got = fn(*t)
+        assert got.shape == (2, 12, 2, 32)
+        np.testing.assert_allclose(got.numpy(), expect, atol=1e-6, rtol=0)
 
 
 def test_flash_wrapper_refuses_other_devices():
@@ -196,17 +205,17 @@ class _OnCard:
     ((1, 64, 2, 64), torch.bfloat16, "causal", "kernel"),
     ((1, 64, 2, 64), torch.float16, None, "bfloat16 or float32"),
     ((1, 64, 2, 48), torch.bfloat16, None, "head dims"),
-    ((1, 60, 2, 64), torch.bfloat16, None, "power-of-two block divisor"),
+    ((1, 60, 2, 64), torch.bfloat16, None, "kernel"),   # any L
     ((1, 64, 2, 64), torch.bfloat16, "arbitrary", "plain"),
     ((1, 64, 2, 64), torch.bfloat16, "causal_short_q", "plain"),
 ])
 def test_kernel_gate_is_what_the_kernel_accepts(monkeypatch, shape, dtype,
                                                 mask, expect):
     """On the card, a mask case the kernel handles always goes to the
-    kernel wrapper, which raises for a dtype, head dim or length it does
-    not take: no plain fallback and no kill switch (the environment
-    variable the first port read is ignored).  Mask cases the kernel does
-    not handle take the plain path."""
+    kernel wrapper, which raises for a dtype or head dim it does not
+    take (any length is taken): no plain fallback and no kill switch
+    (the environment variable the first port read is ignored).  Mask
+    cases the kernel does not handle take the plain path."""
     monkeypatch.setenv("KFS_DISABLE_FLASH", "1")
     routed = []
     monkeypatch.setattr(torch_attention, "_torch_attention",

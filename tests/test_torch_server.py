@@ -222,6 +222,11 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.server.app\n"
         "import kfserving_tpu_torch.predictors.torch_model\n"
         "import kfserving_tpu_torch.predictors.jaxserver.__main__\n"
+        "import kfserving_tpu_torch.predictors.jaxserver.repository\n"
+        "import kfserving_tpu_torch.engine.hbm\n"
+        "import kfserving_tpu_torch.models.resnet\n"
+        "import kfserving_tpu_torch.models.vit\n"
+        "import kfserving_tpu_torch.models.mlp\n"
         "import kfserving_tpu_torch.models.weights\n"
         "import kfserving_tpu_torch.models.decoder\n"
         "import kfserving_tpu_torch.ops.paged_attention\n"
