@@ -32,18 +32,34 @@ failure:
    time one decode wave and one prefill on the card;
 5. serve ResNet-50 (224 px, 1000 classes, bf16, seeded random init with
    BatchNorm statistics calibrated on a seeded batch) at the resnet bench
-   configuration: 128 V1 and V2 uint8 image requests at concurrency 32;
-   every served argmax must equal the direct forward's on the card, but
-   for counted near-ties; time a b128 forward (CUDA events, MFU);
+   configuration: 128 V1 and V2 uint8 image requests at concurrency 32,
+   then the same 128 images as V2 binary UINT8 requests; every served
+   argmax must equal the direct forward's on the card, but for counted
+   near-ties; one ``binary_data_output`` response must decode to its JSON
+   counterpart; time a b128 forward (CUDA events, MFU);
 6. serve ViT-B/16 (224 px, L = 197) at the chain bench's predictor
    configuration; the flash kernel must launch exactly 12 times per
    executed batch, and the served model must agree with the same weights
    run with the plain attention;
-7. serve the multi-model catalog (8 MLPs) through the repository routes
-   under a device-memory budget of 4 models: LRU eviction in the index,
-   evicted models freed, predictions held against direct forwards;
-8. print one ``{"kernels": [...]}`` line, the card line, and as the last
+7. serve the multi-model catalog (8 MLPs) through the eager repository
+   routes under a device-memory budget of 4 models: LRU eviction in the
+   index, evicted models freed, predictions held against direct forwards;
+8. serve four BERT-base fill-mask models demand-paged (registered, then
+   faulted in by their requests) under a budget of two: three rounds of
+   b1 requests round-robin; after every warm fault the top-5 equals round
+   1's, once every parameter and buffer equals its mmap source bit for
+   bit, the ledger stays within budget, ``memory_allocated`` is the same
+   after each round, 8 concurrent requests coalesce onto one fault, a
+   fault-in skips a model held in flight, and the flash kernel launched
+   12 times per batch (cold-fault warmups included);
+9. serve 20 catalog MLPs demand-paged under 40% of their bytes, four
+   workers each taking 6 shuffled passes; every answer held against its
+   model's direct forward;
+10. print one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
+
+Every model loads through a private mmap param cache (``KFS_PARAM_CACHE``
+points at a temporary directory for the run).
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -54,6 +70,7 @@ import http.client
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -149,6 +166,23 @@ MMS_CONFIG = {
     "arch_kwargs": {"input_dim": 32, "features": [64], "num_classes": 8},
     "max_latency_ms": 2.0, "warmup": True,
 }
+# The demand-paged BERT-base catalog: four fill-mask models of
+# serve_bert's configuration (each its own init seed, so each serves its
+# own weights) under a budget of two models' device bytes; ten rounds of
+# b1 requests round-robin (round 1 cold-faults every model, each later
+# request warm-faults one: 36 warm faults), then 8 concurrent requests to
+# one offloaded model.
+RES_MODELS, RES_RESIDENT, RES_ROUNDS, RES_COALESCE = 4, 2, 10, 8
+RES_CONFIG = {
+    "architecture": "bert", "seq_buckets": SEQ_BUCKETS,
+    "batch_buckets": BATCH_BUCKETS, "max_batch_size": 16,
+    "output": "topk", "topk": TOPK,
+}
+# MLP density, the full size of benchmarks/configs.py:1027-1120: 24
+# catalog MLPs demand-paged under 40% of the catalog's bytes, four workers
+# each taking 24 shuffled passes over it (2304 requests).
+DENSITY_MODELS, DENSITY_FRAC, DENSITY_WORKERS, DENSITY_PASSES = \
+    24, 0.4, 4, 24
 
 
 def check(cond: bool, message: str) -> None:
@@ -1219,6 +1253,93 @@ def image_bodies(name: str, images: np.ndarray):
     return bodies
 
 
+def http_binary(port: int, path: str, body: bytes, header_length: int,
+                headers=None):
+    """POST a V2 binary-extension body; returns (status, lower-cased
+    response headers, raw response bytes, latency ms)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=body, headers={
+            "content-type": "application/octet-stream",
+            "inference-header-content-length": str(header_length),
+            **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        out_headers = {k.lower(): v for k, v in resp.getheaders()}
+    finally:
+        conn.close()
+    return resp.status, out_headers, data, latency_ms
+
+
+async def drive_binary_images(port: int, name: str, images: np.ndarray,
+                              concurrency: int):
+    """One V2 binary UINT8 request per image at a fixed concurrency;
+    returns (the answers in request order, latencies in ms, wall s)."""
+    from kfserving_tpu_torch.protocol.v2 import make_binary_request
+
+    bodies = [make_binary_request({"images": img[None]}) for img in images]
+    sem = asyncio.Semaphore(concurrency)
+    path = f"/v2/models/{name}/infer"
+
+    async def one(body, hlen):
+        async with sem:
+            return await asyncio.to_thread(http_binary, port, path, body,
+                                           hlen)
+
+    t0 = time.perf_counter()
+    results = await asyncio.gather(*(one(b, h) for b, h in bodies))
+    wall_s = time.perf_counter() - t0
+    answers = []
+    for i, (status, _, data, _) in enumerate(results):
+        check(status == 200, f"{name} binary request {i}: HTTP {status} "
+              f"{data[:200]!r}")
+        out = json.loads(data)["outputs"][0]
+        check(out["shape"] == [1], f"{name} binary shape {out['shape']}")
+        answers.append(int(out["data"][0]))
+    return answers, [r[3] for r in results], wall_s
+
+
+def check_binary_output(port: int, name: str, image: np.ndarray) -> dict:
+    """One image as V2 JSON and as V2 binary asking for
+    binary_data_output: the binary response decodes to the JSON one."""
+    from kfserving_tpu_torch.protocol.v2 import (
+        INFERENCE_HEADER_CONTENT_LENGTH,
+        decode_binary_response,
+        make_binary_request,
+    )
+
+    status, expect, _ = http_json(port, "POST", f"/v2/models/{name}/infer", {
+        "inputs": [{"name": "images", "datatype": "UINT8",
+                    "shape": [1] + list(image.shape),
+                    "data": image.ravel().tolist()}]})
+    check(status == 200, f"{name} V2 JSON: HTTP {status} {expect}")
+    body, hlen = make_binary_request({"images": image[None]},
+                                     binary_output=True)
+    status, headers, data, _ = http_binary(port, f"/v2/models/{name}/infer",
+                                           body, hlen)
+    check(status == 200, f"{name} binary output: HTTP {status}")
+    check(headers.get("content-type") == "application/octet-stream",
+          f"{name} binary output content-type {headers}")
+    resp = decode_binary_response(
+        data, int(headers[INFERENCE_HEADER_CONTENT_LENGTH]))
+    got, want = resp["outputs"][0], expect["outputs"][0]
+    check(got["datatype"] == want["datatype"]
+          and list(got["data"].shape) == want["shape"]
+          and got["data"].ravel().tolist() == want["data"],
+          f"{name}: binary output {got} != JSON output {want}")
+    return {"datatype": got["datatype"], "shape": want["shape"],
+            "answer": want["data"], "response_bytes": len(data)}
+
+
+def bucket_hits_between(before: dict, after: dict) -> dict:
+    """Batches formed per bucket between two ``engine_stats()``."""
+    before, after = before or {}, after or {}
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
 async def serve_over_http(model, drive):
     from kfserving_tpu_torch.server.app import ModelServer
 
@@ -1248,11 +1369,31 @@ def serve_resnet(card: str) -> dict:
                                                                 size)))
         images = bench_images(rng, RESNET_REQUESTS, size)
         bodies = image_bodies("resnet", images)
-        executed0 = model.engine.execute_count
-        answers, latencies, wall_s = asyncio.run(serve_over_http(
-            model, lambda port: drive_images(port, "resnet", bodies,
-                                             RESNET_CONCURRENCY)))
-        batches = model.engine.execute_count - executed0
+
+        async def drive(port):
+            # The JSON arm, then the same images over the binary wire.
+            arms = {}
+            for arm in ("json", "binary"):
+                executed0 = model.engine.execute_count
+                hits0 = model.engine_stats().get("bucket_hits")
+                if arm == "json":
+                    run = await drive_images(port, "resnet", bodies,
+                                             RESNET_CONCURRENCY)
+                else:
+                    run = await drive_binary_images(port, "resnet", images,
+                                                    RESNET_CONCURRENCY)
+                arms[arm] = (*run, model.engine.execute_count - executed0,
+                             bucket_hits_between(
+                                 hits0,
+                                 model.engine_stats().get("bucket_hits")))
+            arms["binary_output"] = await asyncio.to_thread(
+                check_binary_output, port, "resnet", images[0])
+            return arms
+
+        arms = asyncio.run(serve_over_http(model, drive))
+        answers, latencies, wall_s, batches, json_hits = arms["json"]
+        bin_answers, bin_latencies, bin_wall_s, bin_batches, bin_hits = \
+            arms["binary"]
         stats = model.engine_stats()
         with torch.inference_mode():
             logits = module(forward_input(images)).float()
@@ -1260,12 +1401,17 @@ def serve_resnet(card: str) -> dict:
         gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
         limit = (RESNET_TIE_RTOL * logits.abs().amax(dim=-1)).cpu().numpy()
         direct = logits.argmax(dim=-1).cpu().numpy()
-        mismatched = [i for i in range(len(answers))
-                      if answers[i] != int(direct[i])]
-        far = [i for i in mismatched if gap[i] > limit[i]]
-        check(not far, f"resnet: served argmax differs from the direct "
-              f"forward's at images {far[:5]} (top-2 gaps "
-              f"{[float(gap[i]) for i in far[:5]]})")
+        mismatched, bin_mismatched = ([i for i in range(len(served))
+                                       if served[i] != int(direct[i])]
+                                      for served in (answers, bin_answers))
+        for arm, wrong in (("json", mismatched), ("binary", bin_mismatched)):
+            far = [i for i in wrong if gap[i] > limit[i]]
+            check(not far, f"resnet {arm}: served argmax differs from the "
+                  f"direct forward's at images {far[:5]} (top-2 gaps "
+                  f"{[float(gap[i]) for i in far[:5]]})")
+        check(arms["binary_output"]["answer"] == [int(direct[0])]
+              or gap[0] <= limit[0], "resnet: binary_data_output answer "
+              f"{arms['binary_output']} vs direct {int(direct[0])}")
         check(bool(torch.isfinite(logits).all()), "resnet: non-finite logits")
         big = torch.from_numpy(images[:128]).to("cuda")
         with torch.inference_mode():
@@ -1281,7 +1427,15 @@ def serve_resnet(card: str) -> dict:
         "req_per_s": len(answers) / wall_s,
         "p50_ms": percentile(latencies, 0.5),
         "p99_ms": percentile(latencies, 0.99),
-        "batches": batches, "bucket_hits": stats.get("bucket_hits"),
+        "batches": batches, "bucket_hits": json_hits,
+        "binary": {
+            "requests": len(bin_answers), "wall_s": bin_wall_s,
+            "req_per_s": len(bin_answers) / bin_wall_s,
+            "p50_ms": percentile(bin_latencies, 0.5),
+            "p99_ms": percentile(bin_latencies, 0.99),
+            "batches": bin_batches, "bucket_hits": bin_hits,
+            "argmax_mismatches_near_tie": len(bin_mismatched),
+            "binary_output": arms["binary_output"]},
         "engine": {k: stats[k] for k in (
             "avg_prepare_ms", "avg_device_ms", "avg_fetch_ms",
             "achieved_tflops", "mfu", "slot_pad_waste") if k in stats},
@@ -1385,6 +1539,15 @@ def allocated_bytes() -> int:
     return device_hbm_in_use()
 
 
+def requested_bytes() -> int:
+    """The bytes live tensors asked the caching allocator for.
+    ``memory_allocated`` counts whole blocks instead: a large block is
+    not split when less than 1 MiB would remain, so it also moves with
+    the allocator's free-block history."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
 async def drive_repository(root: str) -> dict:
     import gc
     import weakref
@@ -1396,7 +1559,9 @@ async def drive_repository(root: str) -> dict:
     from kfserving_tpu_torch.server.app import ModelServer
 
     hbm = HBMManager(budget_bytes=2 ** 40)
-    repo = TorchModelRepository(models_dir=root, hbm=hbm, device="cuda")
+    # The eager mode (demand paging is the default and has phases 8-9).
+    repo = TorchModelRepository(models_dir=root, hbm=hbm, residency=False,
+                                device="cuda")
     server = ModelServer(http_port=0, registered_models=repo)
     await server.start_async([], host="127.0.0.1")
     port = server.http_port
@@ -1492,6 +1657,363 @@ def serve_multi_model(card: str) -> dict:
     return summary
 
 
+# -- phase 8: a demand-paged BERT-base catalog --------------------------------
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().cpu().contiguous().reshape(-1).view(torch.uint8),
+        b.detach().cpu().contiguous().reshape(-1).view(torch.uint8))
+
+
+def direct_topk(model, ids, shape: str) -> dict:
+    """The top-k the restored module computes for one request at a served
+    batch shape ("b16s64": every row the request), as the engine serves
+    it: the answer of the batch's first row, at every position."""
+    batch, seq = map(int, shape[1:].split("s"))
+    device = model.device
+    x = torch.zeros((batch, seq), dtype=torch.int64, device=device)
+    x[:, :len(ids)] = torch.tensor(ids, device=device)
+    mask = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+    mask[:, :len(ids)] = 1
+    with torch.inference_mode():
+        values, indices = torch.topk(model.module(x, mask), TOPK, dim=-1)
+    return {"values": values[0].float().cpu().tolist(),
+            "indices": indices[0].to(torch.int32).cpu().tolist()}
+
+
+def check_restored_bits(model) -> int:
+    """Every parameter and buffer of a resident model against its mmap
+    source, bit for bit; returns the bytes compared."""
+    host = model.engine.host_params
+    check(host is not None, f"{model.name}: no host restore source")
+    compared = 0
+    for name, t in (list(model.module.named_parameters())
+                    + list(model.module.named_buffers())):
+        check(bit_equal(t, host[name]),
+              f"{model.name}: {name} differs from its mmap source")
+        compared += t.numel() * t.element_size()
+    return compared
+
+
+async def drive_residency(root: str) -> dict:
+    from kfserving_tpu_torch.engine.hbm import HBMManager
+    from kfserving_tpu_torch.models import create_model
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+    from kfserving_tpu_torch.predictors.jaxserver.repository import (
+        TorchModelRepository,
+    )
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    hbm = HBMManager(budget_bytes=2 ** 40)      # sized at the first fault
+    repo = TorchModelRepository(models_dir=root, hbm=hbm, device="cuda")
+    server = ModelServer(http_port=0, registered_models=repo)
+    await server.start_async([], host="127.0.0.1")
+    port = server.http_port
+    names = [f"r{i}" for i in range(RES_MODELS)]
+    res = repo.residency
+
+    async def call(method, path, body=None):
+        status, resp, ms = await asyncio.to_thread(http_json, port, method,
+                                                   path, body)
+        check(status == 200, f"{method} {path}: HTTP {status} {resp}")
+        return resp, ms
+
+    try:
+        # The main path's run: the count starts at 0 here; every batch
+        # of the phase (cold-fault warmups included) runs 12 layers.
+        flash_attention.launches = 0
+        for i, name in enumerate(names):
+            await call("POST", f"/v2/repository/models/{name}/load")
+            # Registered, not built: its cold fault will init these.
+            repo.get_model(name).init_seed = i
+        check(all(res.state_of(n) == "registered" for n in names)
+              and hbm.resident_models() == [],
+              f"registration touched the card: {res.debug()}")
+        cfg = repo.get_model("r0").config
+        vocab = create_model(cfg.architecture,
+                             **cfg.arch_kwargs).module.config.vocab_size
+        rng = np.random.default_rng(8)
+        lengths = dict(zip(names, REQUEST_LENGTHS))
+        bodies = {n: rng.integers(1, vocab, size=lengths[n]).tolist()
+                  for n in names}
+        first, ledger_max, worst_diff = {}, 0, 0.0
+
+        async def predict(name):
+            resp, ms = await call("POST", f"/v1/models/{name}:predict",
+                                  {"instances": [bodies[name]]})
+            pred = resp["predictions"][0]
+            seq = repo.get_model(name).engine.seq_buckets.fit(lengths[name])
+            check_topk(pred["values"], pred["indices"], seq, vocab,
+                       f"residency {name}")
+            return pred, ms
+
+        def same_as_first(name, pred, where):
+            """Round 1's answer (a b1 batch, as every answer held to it):
+            the same top-5 indices, scores within the BERT limit."""
+            nonlocal worst_diff
+            want = first[name]
+            diff = float(np.abs(np.subtract(pred["values"],
+                                            want["values"])).max())
+            check(diff <= MAX_LOGIT_DIFF, f"{where}: {name} top-5 scores "
+                  f"moved by {diff} > {MAX_LOGIT_DIFF}")
+            worst_diff = max(worst_diff, diff)
+            check(pred["indices"] == want["indices"],
+                  f"{where}: {name} top-5 indices differ from round 1's")
+
+        allocated, requested, restored_bytes, rounds = [], [], None, []
+        for r in range(RES_ROUNDS):
+            round_ms = {}
+            for name in names:
+                warm0 = res.debug()["models"][name]["fault_ins"]["warm"]
+                pred, round_ms[name] = await predict(name)
+                if r == 0 and name == names[0]:
+                    # The budget: two models' device bytes, read from the
+                    # first cold fault (benchmarks/configs.py:1080-1088).
+                    per_model = hbm.used_bytes
+                    hbm.budget_bytes = RES_RESIDENT * per_model
+                ledger_max = max(ledger_max, hbm.used_bytes)
+                check(hbm.used_bytes <= hbm.budget_bytes,
+                      f"ledger {hbm.used_bytes} over budget "
+                      f"{hbm.budget_bytes}")
+                if r == 0:
+                    first[name] = pred
+                    continue
+                check(res.debug()["models"][name]["fault_ins"]["warm"]
+                      == warm0 + 1, f"round {r + 1}: {name} was not "
+                      "warm-faulted")
+                same_as_first(name, pred, f"round {r + 1}")
+                if r == 1 and name == names[-1]:
+                    restored_bytes = check_restored_bits(
+                        repo.get_model(name))
+            allocated.append(allocated_bytes())
+            requested.append(requested_bytes())
+            rounds.append({"request_ms": round_ms,
+                           "resident": hbm.resident_models()})
+        # The same two models are resident after every round: the live
+        # tensor bytes must not move, nor the blocks once every request
+        # is a warm fault (round 1 allocates its models by cold builds,
+        # whose block history differs).
+        check(len(set(requested)) == 1,
+              f"requested bytes moved between rounds: {requested}")
+        check(len(set(allocated[1:])) == 1,
+              f"memory_allocated moved between warm rounds: {allocated}")
+        # The transfer alone, without the fault's admission, eviction and
+        # executor hop: offload and restore one idle resident model.
+        timed = repo.get_model(hbm.resident_models()[-1])
+        restore_ms = []
+        for _ in range(3):
+            timed.engine.offload()
+            restore_ms.append(timed.engine.restore() * 1e3)
+        check_restored_bits(timed)
+
+        # 8 concurrent requests to one model on the host: one fault.
+        target = next(n for n in names if res.state_of(n) == "host")
+        counts0 = dict(res.debug()["models"][target]["fault_ins"])
+        hits0 = repo.get_model(target).engine_stats().get("bucket_hits")
+        preds = await asyncio.gather(*(predict(target)
+                                       for _ in range(RES_COALESCE)))
+        model = repo.get_model(target)
+        hits = bucket_hits_between(
+            hits0, model.engine_stats().get("bucket_hits"))
+        # They ran batched, at other GEMM shapes than round 1's b1 (bf16
+        # near-ties may reorder there): each answer equals the restored
+        # module's own forward at a batch shape the requests ran at, and
+        # that module's b1 forward equals round 1's answer.
+        launches0 = flash_attention.launches
+        direct = {shape: direct_topk(model, bodies[target], shape)
+                  for shape in hits}
+        b1 = direct_topk(model, bodies[target],
+                         f"b1s{model.engine.seq_buckets.fit(lengths[target])}")
+        check_launches = flash_attention.launches - launches0
+        same_as_first(target, b1, "restored b1 forward")
+        coalesced_diff = 0.0
+        for pred, _ in preds:
+            same = [d for d in direct.values()
+                    if d["indices"] == pred["indices"]]
+            check(bool(same), f"coalesced: {target} top-5 indices equal "
+                  f"no direct forward at the shapes run {sorted(hits)}")
+            coalesced_diff = max(coalesced_diff, float(np.abs(np.subtract(
+                pred["values"], same[0]["values"])).max()))
+        check(coalesced_diff <= MAX_LOGIT_DIFF, f"coalesced: {target} "
+              f"scores {coalesced_diff} from the direct forward's")
+        counts = res.debug()["models"][target]["fault_ins"]
+        coalesce = {k: counts[k] - counts0[k] for k in counts}
+        check(coalesce == {"cold": 0, "warm": 1,
+                           "coalesced": RES_COALESCE - 1, "error": 0},
+              f"{RES_COALESCE} concurrent requests to {target}: {coalesce}")
+
+        # The admission-aware veto (benchmarks/configs.py:1124-1146): the
+        # LRU head is held in flight while the others are touched past
+        # it; the next fault-in must skip it and evict the next one.
+        victim = hbm.debug()["resident"][0]["model"]
+        faulting = next(n for n in names if res.state_of(n) == "host")
+        skips0 = sum(hbm.eviction_skips.values())
+        async with res.serving(victim):
+            for entry in hbm.debug()["resident"]:
+                if entry["model"] != victim:
+                    hbm.touch(entry["model"])
+            pred, _ = await predict(faulting)
+            same_as_first(faulting, pred, "veto")
+            skipped = sum(hbm.eviction_skips.values()) - skips0
+            kept = victim in hbm.resident_models()
+        check(skipped >= 1 and kept, f"the fault-in of {faulting} did not "
+              f"skip the busy {victim} (skips {skipped}, resident "
+              f"{hbm.resident_models()})")
+        launches = flash_attention.launches - check_launches
+        batches = sum(repo.get_model(n).engine.execute_count for n in names)
+        layers = repo.get_model("r0").module.config.num_layers
+        check(launches == layers * batches,
+              f"residency: flash kernel launched {launches} times for "
+              f"{batches} batches of {layers} layers")
+        debug = res.debug()
+        fault_ms = debug["fault_in_ms"]
+        return {
+            "models": RES_MODELS, "per_model_bytes": per_model,
+            "budget_bytes": hbm.budget_bytes, "ledger_max_bytes": ledger_max,
+            "param_sources": {n: repo.get_model(n).param_source
+                              for n in names},
+            "rounds": rounds, "allocated_after_rounds": allocated,
+            "requested_after_rounds": requested,
+            "restored_bytes_checked": restored_bytes,
+            "top5_max_score_diff": worst_diff,
+            "coalesced": {"model": target, **coalesce,
+                          "bucket_hits": hits,
+                          "max_score_diff_vs_direct": coalesced_diff},
+            "veto": {"held": victim, "faulted": faulting,
+                     "skips": skipped},
+            "flash_launches": launches, "batches": batches,
+            "warm_fault_ms": sorted(res.fault_ms["warm"]),
+            "warm_fault_n": fault_ms["warm_count"],
+            "warm_fault_p90_ms": percentile(res.fault_ms["warm"], 0.9),
+            "warm_fault_max_ms": max(res.fault_ms["warm"]),
+            "cold_fault_ms": sorted(res.fault_ms["cold"]),
+            "warm_fault_gb_per_s": per_model / fault_ms["warm_p50"] / 1e6,
+            "restore_ms": restore_ms,
+            "restore_gb_per_s": per_model / min(restore_ms) / 1e6,
+            "residency": debug,
+        }
+    finally:
+        await server.stop_async()
+        for model in repo.get_models():
+            model.unload()
+
+
+def serve_residency(card: str, config: dict = RES_CONFIG) -> dict:
+    """Four BERT-base fill-mask models of serve_bert's configuration,
+    demand-paged under a budget of two."""
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-res-") as root:
+        for i in range(RES_MODELS):
+            os.makedirs(os.path.join(root, f"r{i}"))
+            with open(os.path.join(root, f"r{i}", "config.json"), "w") as f:
+                json.dump(config, f)
+        summary = {"card": card, **asyncio.run(drive_residency(root))}
+    print("residency " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- phase 9: MLP density under demand paging ---------------------------------
+async def drive_density(root: str) -> dict:
+    from kfserving_tpu_torch.engine.hbm import HBMManager
+    from kfserving_tpu_torch.predictors.jaxserver.repository import (
+        TorchModelRepository,
+    )
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    hbm = HBMManager(budget_bytes=2 ** 40)
+    repo = TorchModelRepository(models_dir=root, hbm=hbm, device="cuda")
+    server = ModelServer(http_port=0, registered_models=repo)
+    await server.start_async([], host="127.0.0.1")
+    port = server.http_port
+    names = [f"m{i}" for i in range(DENSITY_MODELS)]
+    x = np.random.default_rng(9).normal(size=(1, 32)).astype(np.float32)
+    body = json.dumps({"instances": x.tolist()}).encode()
+
+    async def predict(name):
+        status, resp, ms = await asyncio.to_thread(
+            http_json, port, "POST", f"/v1/models/{name}:predict", body)
+        check(status == 200, f"density {name}: HTTP {status} {resp}")
+        return np.asarray(resp["predictions"][0], np.float32), ms
+
+    try:
+        t0 = time.perf_counter()
+        for name in names:
+            status, resp, _ = await asyncio.to_thread(
+                http_json, port, "POST",
+                f"/v2/repository/models/{name}/load")
+            check(status == 200, f"density load {name}: {status} {resp}")
+        register_s = time.perf_counter() - t0
+        # Size the budget off one cold fault: 40% of the catalog fits.
+        direct = {}
+        for name in names:
+            await predict(name)
+            if name == names[0]:
+                per_model = hbm.used_bytes
+                hbm.budget_bytes = int(per_model * DENSITY_MODELS
+                                       * DENSITY_FRAC)
+            # Resident and idle right after its predict: its direct
+            # forward is the reference for every later answer.
+            module = repo.get_model(name).module
+            with torch.inference_mode():
+                direct[name] = module(torch.from_numpy(x).to(
+                    "cuda")).float().cpu().numpy()[0]
+        cold_evictions = sum(hbm.evictions.values())
+        latencies, checked = [], 0
+
+        async def worker(w: int):
+            nonlocal checked
+            order = list(names)
+            wrng = np.random.default_rng(w)
+            for _ in range(DENSITY_PASSES):
+                wrng.shuffle(order)
+                for name in order:
+                    served, ms = await predict(name)
+                    latencies.append(ms)
+                    limit = BF16_RTOL * np.abs(direct[name]).max() + BF16_ATOL
+                    check(bool(np.isfinite(served).all()) and bool(
+                        (np.abs(served - direct[name]) <= limit).all()),
+                        f"density {name}: served {served} vs direct "
+                        f"{direct[name]}")
+                    checked += 1
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(worker(w) for w in range(DENSITY_WORKERS)))
+        wall_s = time.perf_counter() - t0
+        check(hbm.used_bytes <= hbm.budget_bytes,
+              f"density ledger {hbm.used_bytes} over {hbm.budget_bytes}")
+        debug = repo.residency.debug()
+        evictions = sum(hbm.evictions.values())
+        check(evictions > cold_evictions and debug["fault_in_ms"][
+            "warm_count"] > 0, f"density: no eviction pressure {debug}")
+        return {
+            "models": DENSITY_MODELS, "per_model_bytes": per_model,
+            "budget_bytes": hbm.budget_bytes, "register_all_s": register_s,
+            "requests": checked, "workers": DENSITY_WORKERS,
+            "wall_s": wall_s, "req_per_s": checked / wall_s,
+            "p50_ms": percentile(latencies, 0.5),
+            "p99_ms": percentile(latencies, 0.99),
+            "fault_in_ms": debug["fault_in_ms"],
+            "evictions_cold_pass": cold_evictions,
+            "evictions_total": evictions,
+            "eviction_skips_total": debug["eviction_skips_total"],
+            "eviction_storms": debug["eviction_storms"],
+            "resident_at_end": debug["resident"],
+        }
+    finally:
+        await server.stop_async()
+        for model in repo.get_models():
+            model.unload()
+
+
+def serve_density(card: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-dens-") as root:
+        for i in range(DENSITY_MODELS):
+            os.makedirs(os.path.join(root, f"m{i}"))
+            with open(os.path.join(root, f"m{i}", "config.json"), "w") as f:
+                json.dump(MMS_CONFIG, f)
+        summary = {"card": card, **asyncio.run(drive_density(root))}
+    print("density " + json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1515,15 +2037,24 @@ def main() -> int:
 
     kernels = [check_flash_attention(), check_paged_attention()]
     torch.cuda.empty_cache()
-    serving = serve_bert(card)
-    generating = serve_generate(card)
-    serve_resnet(card)
-    vit = serve_vit(card)
-    serve_multi_model(card)
-    # K1 runs on three serving paths; each path's count was read from 0.
+    # Every model loads through the mmap param cache: a private one.
+    cache = tempfile.mkdtemp(prefix="kfs-chip-smoke-params-")
+    os.environ["KFS_PARAM_CACHE"] = cache
+    try:
+        serving = serve_bert(card)
+        generating = serve_generate(card)
+        serve_resnet(card)
+        vit = serve_vit(card)
+        serve_multi_model(card)
+        residency = serve_residency(card)
+        serve_density(card)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    # K1 runs on four serving paths; each path's count was read from 0.
     kernels[0]["launches"] = (serving["flash_launches"]
                               + generating["launches"]["flash_attention"]
-                              + vit["flash_launches"])
+                              + vit["flash_launches"]
+                              + residency["flash_launches"])
     kernels[1]["launches"] = generating["launches"]["paged_attention"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)   # as nvidia-smi prints it: name, power limit

@@ -5,10 +5,18 @@ Port of ``kfserving_tpu/engine/hbm.py`` (``HBMManager``).  On the card
 books each model's bytes against a budget, and an admission that would
 overflow it picks least-recently-used victims, which ``evict_cb`` frees.
 
+The ledger is admission-aware: ``victim_ok`` (set by the residency
+manager, ``engine/residency.py``) vetoes a candidate with queued or
+in-flight work and claims the ones it passes, under the ledger lock, so
+a fault-in racing an eviction of the same model serializes; a vetoed
+candidate is counted in ``eviction_skips`` (once per admission
+episode), and a plan that fails after claiming victims gives them back
+through ``victim_release``.
+
 The budget is ``KFS_HBM_BUDGET`` when set, else 90% of the card's memory
 (``torch.cuda.mem_get_info``), else 12 GiB when no card reports one.  The
-JAX package's registry metrics and the residency manager's victim vetoes
-are not ported yet (ROADMAP Queue 1, slice 1 items c and g).
+JAX package's registry metrics wait for the port's registry (ROADMAP
+Queue 1, slice 1 item g).
 """
 
 import logging
@@ -39,8 +47,9 @@ def device_hbm_in_use(device: Any = None) -> Optional[int]:
 
 
 class InsufficientHBM(Exception):
-    """No room for an admission.  ``permanent`` is set when the model can
-    never fit (it is bigger than the whole budget)."""
+    """No room for an admission.  ``permanent`` tells "can never fit"
+    (bigger than the whole budget) from the transient case of no
+    evictable victim, which a waiting fault-in may retry."""
 
     permanent = False
 
@@ -58,14 +67,22 @@ class HBMManager:
 
     budget_bytes: capacity to pack into (default: see the module note).
     evict_cb: called with a model name when the ledger evicts it; the
-        callback must actually free the model's memory (unload it).
+        callback must actually free the model's memory (unload or
+        offload it).
+    victim_ok: optional admission-aware veto, consulted in LRU order
+        while planning an eviction, under the ledger lock; True claims
+        the candidate as a victim.  A vetoed candidate is skipped, never
+        evicted, and counted in ``eviction_skips``.
+    victim_release: called for claimed victims of a plan that failed
+        (undoes victim_ok's claim).
     """
 
     DEFAULT_BUDGET = 12 * 1024**3
     HEADROOM = 0.10     # of the card's memory, left out of the budget
 
     def __init__(self, budget_bytes: Optional[int] = None,
-                 evict_cb: Optional[Callable[[str], None]] = None):
+                 evict_cb: Optional[Callable[[str], None]] = None,
+                 victim_ok: Optional[Callable[[str], bool]] = None):
         if budget_bytes is None:
             env = os.environ.get("KFS_HBM_BUDGET", "")
             if env:
@@ -76,10 +93,18 @@ class HBMManager:
                             else self.DEFAULT_BUDGET)
         self.budget_bytes = budget_bytes
         self.evict_cb = evict_cb
+        self.victim_ok = victim_ok
+        self.victim_release: Optional[Callable[[str], None]] = None
         self._resident: "OrderedDict[str, Residency]" = OrderedDict()
         self._lock = threading.Lock()
-        # Lifetime evictions per model.
+        # Lifetime evictions and admission skips per model.
         self.evictions: Dict[str, int] = {}
+        self.eviction_skips: Dict[str, int] = {}
+        # Busy candidates already counted for a still-waiting admission
+        # (admitted name -> candidates): a waiting fault-in retries
+        # admit every ~20 ms, and a busy candidate counts once per
+        # admission episode, not once per retry.
+        self._skips_counted: Dict[str, set] = {}
 
     @property
     def used_bytes(self) -> int:
@@ -99,47 +124,76 @@ class HBMManager:
         """Book ``nbytes`` for ``name``, evicting LRU models to make room.
 
         Returns the models evicted.  Raises InsufficientHBM when the model
-        is bigger than the budget, or when there is no room and ``evict``
-        is False.  Three phases: plan the victims and reserve the bytes
-        under the lock (victims stay booked), free the victims through
-        ``evict_cb`` outside it, then drop the victims' entries.  Until
-        the victims are out of memory, ``used_bytes`` counts both them
-        and the incoming model, so a concurrent admission never plans
-        against memory that is not free yet.  A reload of ``name``
-        replaces its entry rather than counting it twice.
+        is bigger than the budget (``permanent``), or when there is no
+        room and ``evict`` is False or every candidate is vetoed.  Three
+        phases: plan the victims and reserve the bytes under the lock
+        (victims stay booked, claimed through ``victim_ok``), free the
+        victims through ``evict_cb`` outside it, then drop the victims'
+        entries.  Until the victims are out of memory, ``used_bytes``
+        counts both them and the incoming model, so a concurrent
+        admission never plans against memory that is not free yet.  A
+        reload of ``name`` replaces its entry rather than counting it
+        twice.  A failed plan leaves the books untouched and releases
+        the victims it claimed.
         """
-        with self._lock:
-            if nbytes > self.budget_bytes:
-                err = InsufficientHBM(
-                    f"model {name} needs {nbytes} bytes; budget is "
-                    f"{self.budget_bytes}")
-                err.permanent = True
-                raise err
-            plan = OrderedDict((k, v) for k, v in self._resident.items()
-                               if k != name)
-            victims: List[str] = []
-            while True:
-                free = self.budget_bytes - sum(r.bytes for r in plan.values())
-                if nbytes <= free:
-                    break
-                if not evict:
-                    raise InsufficientHBM(
-                        f"model {name} needs {nbytes} bytes; only {free} "
-                        "free and eviction disabled")
-                if not plan:
-                    raise InsufficientHBM(
-                        f"model {name} needs {nbytes} bytes; nothing "
-                        "left to evict")
-                victims.append(plan.popitem(last=False)[0])
-            now = time.time()
-            self._resident.pop(name, None)
-            self._resident[name] = Residency(name, nbytes, now, now)
-            victim_entries = {v: self._resident[v] for v in victims}
+        victims: List[str] = []
+        skipped: List[str] = []
+        claimed: List[str] = []
+        try:
+            with self._lock:
+                if nbytes > self.budget_bytes:
+                    err = InsufficientHBM(
+                        f"model {name} needs {nbytes} bytes; budget is "
+                        f"{self.budget_bytes}")
+                    err.permanent = True
+                    raise err
+                plan = OrderedDict((k, v) for k, v in self._resident.items()
+                                   if k != name)
+                while True:
+                    free = self.budget_bytes - sum(
+                        r.bytes for r in plan.values())
+                    if nbytes <= free:
+                        break
+                    if not evict:
+                        raise InsufficientHBM(
+                            f"model {name} needs {nbytes} bytes; only "
+                            f"{free} free and eviction disabled")
+                    # LRU order, admission-aware: victim_ok vetoes busy
+                    # candidates and claims the one it passes.
+                    victim = None
+                    for cand in plan:
+                        if cand in skipped:
+                            continue
+                        if self.victim_ok is None or self.victim_ok(cand):
+                            victim = cand
+                            break
+                        skipped.append(cand)
+                    if victim is None:
+                        raise InsufficientHBM(
+                            f"model {name} needs {nbytes} bytes; no "
+                            f"evictable victim ({len(skipped)} "
+                            f"candidate(s) busy, nothing else to evict)")
+                    plan.pop(victim)
+                    victims.append(victim)
+                    claimed.append(victim)
+                now = time.time()
+                self._resident.pop(name, None)
+                self._resident[name] = Residency(name, nbytes, now, now)
+                victim_entries = {v: self._resident[v] for v in victims}
+                claimed = []    # reserved: the plan owns its victims now
+        except BaseException:
+            if self.victim_release is not None:
+                for cand in claimed:
+                    self.victim_release(cand)
+            self._count_skips(name, skipped, done=False)
+            raise
+        self._count_skips(name, skipped, done=True)
         for victim in victims:
             logger.info("evicting model %s to fit %s", victim, name)
             if self.evict_cb:
-                # One victim's failed unload must not strand the others:
-                # its entry is dropped below all the same.
+                # One victim's failed unload must not strand the others
+                # in their claimed state: its entry is dropped below all
+                # the same.
                 try:
                     self.evict_cb(victim)
                 except Exception:
@@ -147,12 +201,33 @@ class HBMManager:
                                      "released anyway)", victim)
         with self._lock:
             for victim, entry in victim_entries.items():
-                # Identity check: a victim re-admitted meanwhile keeps
-                # its new entry.
+                # Identity check: a victim faulted back in meanwhile
+                # keeps its new entry.
                 if self._resident.get(victim) is entry:
                     self._resident.pop(victim)
                 self.evictions[victim] = self.evictions.get(victim, 0) + 1
         return victims
+
+    def _count_skips(self, name: str, skipped: List[str],
+                     done: bool) -> None:
+        """Count the busy candidates a plan passed over, once per
+        admission episode; ``done`` (the plan committed) closes it."""
+        with self._lock:
+            counted = self._skips_counted.setdefault(name, set())
+            fresh = [c for c in skipped if c not in counted]
+            counted.update(fresh)
+            if done:
+                self._skips_counted.pop(name, None)
+            for cand in fresh:
+                self.eviction_skips[cand] = \
+                    self.eviction_skips.get(cand, 0) + 1
+
+    def end_skip_episode(self, name: str) -> None:
+        """Close a waiting admission's skip episode without a commit (a
+        fault-in that gave up or failed), so a later admission of the
+        same model counts its busy victims afresh."""
+        with self._lock:
+            self._skips_counted.pop(name, None)
 
     def touch(self, name: str) -> None:
         """Mark a model as recently used (moves it to MRU position)."""
@@ -182,8 +257,9 @@ class HBMManager:
                                              time.time())
 
     def debug(self) -> Dict[str, Any]:
-        """Budget totals and the per-model ledger in LRU order (index 0
-        is the next eviction victim)."""
+        """The ``/debug/cache`` ledger block: budget totals and the
+        per-model ledger in LRU order (index 0 is the next eviction
+        victim)."""
         with self._lock:
             residents = [
                 {"model": r.name, "bytes": r.bytes,
@@ -191,9 +267,11 @@ class HBMManager:
                  "last_used": round(r.last_used, 3)}
                 for r in self._resident.values()]
             evictions = dict(self.evictions)
+            skips = dict(self.eviction_skips)
         return {
             "budget_bytes": self.budget_bytes,
             "used_bytes": sum(r["bytes"] for r in residents),
             "resident": residents,
             "evictions": evictions,
+            "eviction_skips": skips,
         }

@@ -9,7 +9,12 @@ Port of ``kfserving_tpu/engine/jax_engine.py`` (``JaxEngine``):
   serving loop never blocks on the device and one batch's host work
   (padding, transfers, result fetch) overlaps another's kernels;
 - the device is explicit, and the model runs under
-  ``torch.inference_mode()``.
+  ``torch.inference_mode()``;
+- with a host state dict (the mmap tensors of ``engine/param_cache.py``)
+  the engine is ``offloadable``: ``offload()`` drops the device storage
+  of every parameter and buffer and ``restore()`` copies them back, for
+  demand-paged residency (``engine/residency.py``).  The module and its
+  ``Parameter`` objects stay, so nothing is rebuilt or re-warmed.
 
 PyTorch runs eagerly, so there is nothing to compile: ``compile_count``
 counts the bucket shapes warmup ran, as the JAX engine counts programs.
@@ -88,6 +93,52 @@ def _map(fn: Callable, out: Any) -> Any:
     return fn(out)
 
 
+# Offset alignment of a tensor inside a restored model's one device block.
+_SLOT_ALIGN = 256
+
+
+class _Slot:
+    """One parameter or buffer of a module: the tensor object (kept
+    across offload and restore) and the layout it is restored in, at
+    ``offset`` bytes into the model's device block."""
+
+    __slots__ = ("name", "tensor", "shape", "stride", "dtype", "nbytes",
+                 "span", "offset")
+
+    def __init__(self, name: str, tensor: torch.Tensor, offset: int = 0):
+        self.name = name
+        self.tensor = tensor
+        self.shape = tuple(tensor.shape)
+        self.stride = tuple(tensor.stride())
+        self.dtype = tensor.dtype
+        self.nbytes = tensor.numel() * tensor.element_size()
+        # Bytes the strides reach (a dense tensor: nbytes).
+        self.span = 0 if not self.nbytes else tensor.element_size() * (
+            1 + sum((n - 1) * st for n, st in zip(self.shape, self.stride)))
+        self.offset = offset
+
+
+def _tensor_slots(module: torch.nn.Module,
+                  host: Dict[str, torch.Tensor]) -> List[_Slot]:
+    """Every distinct parameter and buffer of ``module`` (a tensor shared
+    under two names appears once, so a tie survives a restore), checked
+    against its host copy."""
+    slots, offset = [], 0
+    for name, t in (list(module.named_parameters())
+                    + list(module.named_buffers())):
+        slots.append(_Slot(name, t, offset))
+        offset += -(-slots[-1].span // _SLOT_ALIGN) * _SLOT_ALIGN
+    for slot in slots:
+        src = host.get(slot.name)
+        if src is None or tuple(src.shape) != slot.shape \
+                or src.dtype != slot.dtype:
+            raise ValueError(
+                f"host params do not match the module at {slot.name}: "
+                f"{None if src is None else (tuple(src.shape), src.dtype)}"
+                f" vs {(slot.shape, slot.dtype)}")
+    return slots
+
+
 class TorchEngine:
     """Bucketed, padded batch execution of `apply_fn(params, batch)`.
 
@@ -97,16 +148,23 @@ class TorchEngine:
     params: the model (an nn.Module already on `device`).
     batch_buckets: BucketPolicy for the leading batch dimension.
     seq_buckets: optional BucketPolicy for axis 1 (sequence length).
+    host_params: optional restore source, a state dict of CPU tensors
+        holding every parameter and buffer of ``params`` by name.
     """
 
     def __init__(self, apply_fn: Callable, params: Any,
                  batch_buckets: Optional[BucketPolicy] = None,
                  seq_buckets: Optional[BucketPolicy] = None,
                  pipeline_depth: int = 2,
-                 device: Any = "cuda"):
+                 device: Any = "cuda",
+                 host_params: Optional[Dict[str, torch.Tensor]] = None):
         self.device = resolve_device(device)
         self._apply = apply_fn
         self.params = params
+        self._host_params = host_params
+        self._slots = (_tensor_slots(params, host_params)
+                       if host_params is not None else [])
+        self._offloaded = False
         self.batch_buckets = batch_buckets or BucketPolicy.pow2(32)
         self.seq_buckets = seq_buckets
         self.pipeline_depth = max(1, pipeline_depth)
@@ -180,6 +238,12 @@ class TorchEngine:
     def _execute_sync(self, inputs: Any) -> Any:
         if self.params is None:
             raise RuntimeError("engine is closed")
+        if self._offloaded:
+            # A straggler past the residency gate fails fast; it never
+            # reads freed device memory.
+            raise RuntimeError(
+                "engine params are offloaded from the device; the model "
+                "must be faulted in first")
         t0 = time.perf_counter()
         padded, n = self._prepare(inputs)
         t1 = time.perf_counter()
@@ -261,14 +325,75 @@ class TorchEngine:
         return time.perf_counter() - start
 
     def param_bytes(self) -> int:
-        """Parameter and buffer bytes held on the device."""
+        """Parameter and buffer bytes held on the device (0 while
+        offloaded)."""
         return module_bytes(self.params)
+
+    # -- residency -----------------------------------------------------------
+    @property
+    def offloadable(self) -> bool:
+        return self._host_params is not None and self.params is not None
+
+    @property
+    def host_params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The host restore source (the mapped state dict), or None."""
+        return self._host_params
+
+    def host_param_bytes(self) -> int:
+        """Device bytes a restore places (0 without a host source)."""
+        return sum(slot.nbytes for slot in self._slots)
+
+    def offload(self) -> bool:
+        """Drop the device storage of every parameter and buffer; the
+        host state dict stays as the restore source.  False when there
+        is none.  The caller (the residency manager) guarantees that no
+        batch is queued or running."""
+        if not self.offloadable:
+            return False
+        with torch.no_grad():
+            for slot in self._slots:
+                slot.tensor.data = torch.empty(
+                    0, dtype=slot.dtype, device=self.device)
+        self._offloaded = True
+        return True
+
+    def restore(self) -> float:
+        """Copy the host tensors onto the device, each shared tensor once
+        and in its own strides (channels-last convs stay channels-last),
+        into one device block, every tensor a view at an aligned offset.
+        The block an evicted model of the same size frees is then taken
+        whole, where a few hundred blocks, one a tensor, would be rounded
+        by the caching allocator as its free-block history happens to
+        fall.  A model still on the device (a freshly built one that a
+        cold fault pins) first drops its storage, as ``offload`` does.
+        Synchronizes before it returns, so the seconds returned are the
+        transfer."""
+        if self._host_params is None:
+            raise RuntimeError("engine keeps no host params to restore from")
+        t0 = time.perf_counter()
+        self.offload()
+        with torch.no_grad():
+            if self._slots:
+                last = self._slots[-1]
+                block = torch.empty(last.offset + last.span,
+                                    dtype=torch.uint8, device=self.device)
+            for slot in self._slots:
+                dst = block[slot.offset:slot.offset + slot.span].view(
+                    slot.dtype).as_strided(slot.shape, slot.stride)
+                dst.copy_(self._host_params[slot.name])
+                slot.tensor.data = dst
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._offloaded = False
+        return time.perf_counter() - t0
 
     def close(self, wait: bool = True) -> None:
         """Quiesce the workers and drop the model's device memory."""
         self._executor.shutdown(wait=wait)
         self.params = None
         self._flops_fn = None     # a bound method of the module
+        self._slots = []
+        self._host_params = None
 
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:

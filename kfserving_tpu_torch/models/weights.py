@@ -16,7 +16,8 @@
   or a seeded random init (``torch.Generator``; it does not reproduce the
   JAX package's PRNG, so parity tests share one numpy tree instead).
   4-d (conv) weights are stored channels-last, the layout the image
-  models run in.
+  models run in.  ``allocate(module, device)`` gives the same layout
+  unfilled, for a caller that copies the weights in itself.
 """
 
 import math
@@ -318,15 +319,25 @@ def seeded_init(module: nn.Module, seed: int = 0) -> None:
 
 
 def materialize(module: nn.Module, device: torch.device,
-                state_dict: Optional[Dict[str, np.ndarray]] = None,
+                state_dict: Optional[Dict[str, Any]] = None,
                 seed: int = 0) -> nn.Module:
     """Allocate ``module`` on ``device`` and fill it: the given state dict
-    (every key must match) or a seeded init.  Returns it in eval mode."""
+    of numpy arrays or CPU tensors (every key must match) or a seeded
+    init.  Returns it in eval mode."""
     module = module.to_empty(device=device)
     if state_dict is None:
         seeded_init(module, seed)
     else:
         module.load_state_dict(
-            {k: torch.from_numpy(v) for k, v in state_dict.items()},
+            {k: torch.as_tensor(v) for k, v in state_dict.items()},
             strict=True)
     return module.to(memory_format=torch.channels_last).eval()
+
+
+def allocate(module: nn.Module, device: torch.device) -> nn.Module:
+    """``module`` on ``device`` in the serving layout (4-d weights
+    channels-last), eval mode, its memory left uninitialized: for a
+    caller that copies every parameter and buffer in next
+    (``TorchEngine.restore``)."""
+    return module.to_empty(device=device).to(
+        memory_format=torch.channels_last).eval()

@@ -7,10 +7,15 @@ checkpoint.msgpack) with the PyTorch port:
     python -m kfserving_tpu_torch.predictors.jaxserver --model_name bert \
         --model_dir /path/to/model --http_port 8080 [--device cuda]
 
-With ``--multi_model``, ``--model_dir`` is the catalog root: the server
-starts with no model, and ``POST /v2/repository/models/{name}/load`` builds
-``<model_dir>/<name>`` under one device-memory ledger (``KFS_HBM_BUDGET``
-or 90% of the card), unloading least-recently-used models to make room.
+With ``--multi_model``, ``--model_dir`` is the catalog root and the
+replica is demand-paged, as the JAX package boots it: the server starts
+with no model, ``POST /v2/repository/models/{name}/load`` registers
+``<model_dir>/<name>`` (a config read, no device memory), and the first
+predict faults it onto the card under one device-memory ledger
+(``KFS_HBM_BUDGET`` or 90% of the card).  Least-recently-used idle models
+are offloaded to their mmap host params (``KFS_PARAM_CACHE``) to make
+room and fault back in on their next request; ``GET /debug/cache`` shows
+the ledger and the residency states.
 """
 
 import argparse
@@ -29,8 +34,8 @@ parser.add_argument("--model_dir", required=True,
                     help="model artifact directory (local path or file://) "
                          "or, with --multi_model, the models root dir")
 parser.add_argument("--multi_model", action="store_true",
-                    help="serve a repository of models loaded on demand "
-                         "via /v2/repository/models/{name}/load")
+                    help="serve a demand-paged repository of models "
+                         "registered via /v2/repository/models/{name}/load")
 parser.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, cuda:N or cpu)")
 

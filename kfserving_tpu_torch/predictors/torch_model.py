@@ -3,9 +3,16 @@
 Port of ``kfserving_tpu/predictors/jax_model.py`` (``JaxModel``): load a
 model from the registry plus its weights, run shape-bucketed batches on
 the card, and serve V1/V2 predict through the in-process dynamic batcher.
-With an ``HBMManager`` the model's parameter and buffer bytes are admitted
-before it is built (evicting least-recently-used models), and a reload
-is staged beside the serving generation, as in the JAX package.
+Weights load through the mmap param cache (``engine/param_cache.py``):
+the first load of an artifact materializes and stores its state dict,
+later loads map it (``param_source`` "mmap"), and the mapped tensors are
+the engine's host restore source.  With an ``HBMManager`` the model's
+parameter and buffer bytes are admitted before it is built (evicting
+least-recently-used models), and a reload is staged beside the serving
+generation, as in the JAX package.  With a ``ResidencyManager`` the model
+is demand-paged: ``register()`` only reads its config, the predict path
+faults it onto the card, and eviction offloads its params to the mapped
+host copy (``offload``/``fault_in``).
 
 Model directory layout (a local path or a ``file://`` URI):
 
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from kfserving_tpu_torch.batching import DynamicBatcher
+from kfserving_tpu_torch.engine import param_cache
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
 from kfserving_tpu_torch.engine.hbm import HBMManager, InsufficientHBM
 from kfserving_tpu_torch.engine.torch_engine import (
@@ -49,7 +57,6 @@ from kfserving_tpu_torch.engine.torch_engine import (
 )
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import apply_fn_for, create_model
-from kfserving_tpu_torch.models import weights
 from kfserving_tpu_torch.ops.flash_attention import (
     SUPPORTED_DTYPES,
     SUPPORTED_HEAD_DIMS,
@@ -64,7 +71,7 @@ from kfserving_tpu_torch.protocol.v2 import (
 from kfserving_tpu_torch.server.dataplane import is_v2_request
 
 DEFAULT_CONFIG_NAME = "config.json"
-CHECKPOINT_NAME = "checkpoint.msgpack"
+CHECKPOINT_NAME = param_cache.CHECKPOINT_NAME
 
 
 class TorchModelConfig:
@@ -136,28 +143,52 @@ class TorchModel(Model):
     def __init__(self, name: str, model_dir: str,
                  config: Optional[TorchModelConfig] = None,
                  config_overrides: Optional[Dict[str, Any]] = None,
-                 device: Any = "cuda", hbm: Optional[HBMManager] = None):
+                 device: Any = "cuda", hbm: Optional[HBMManager] = None,
+                 residency=None):
         super().__init__(name)
         self.model_dir = model_dir
         self.config = config
         self.config_overrides = dict(config_overrides or {})
         self.device = resolve_device(device)
         self.hbm = hbm
+        # ResidencyManager (engine/residency.py): when set, the model is
+        # demand-paged.
+        self.residency = residency
         self.engine: Optional[TorchEngine] = None
         self.batcher: Optional[DynamicBatcher] = None
         self.module: Optional[torch.nn.Module] = None
         self._spec = None
-        # How the weights were materialized: "checkpoint" or "init".
+        # How the weights were materialized: "mmap" (param-cache hit),
+        # "checkpoint" or "init".
         self.param_source: Optional[str] = None
+        # Seed of the random init served when the artifact has no
+        # checkpoint.  Not a config.json key (the artifact format is the
+        # JAX package's); a program building a catalog in process may set
+        # it before the first load to give each model its own weights.
+        self.init_seed = 0
 
     # -- lifecycle ---------------------------------------------------------
-    def load(self) -> bool:
-        local_dir = local_model_dir(self.model_dir)
+    def _read_config(self) -> TorchModelConfig:
         if self.config is None:
             self.config = TorchModelConfig.from_file(
-                os.path.join(local_dir, DEFAULT_CONFIG_NAME),
+                os.path.join(local_model_dir(self.model_dir),
+                             DEFAULT_CONFIG_NAME),
                 overrides=self.config_overrides)
-        cfg = self.config
+        return self.config
+
+    def register(self) -> bool:
+        """Declarative registration (residency mode): parse the config,
+        touch no device memory.  The model is ``ready`` (addressable);
+        its first predict cold-faults it in."""
+        self._read_config()
+        if self.residency is not None:
+            self.residency.register(self.name, self)
+        self.ready = True
+        return True
+
+    def load(self) -> bool:
+        local_dir = local_model_dir(self.model_dir)
+        cfg = self._read_config()
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
         check_kernel_shapes(spec.module, self.device)
         # Reload is transactional: the new generation is built aside and
@@ -184,8 +215,17 @@ class TorchModel(Model):
                     self.hbm.release(self.name)
                     self.hbm.admit(self.name, nbytes)
         try:
-            module = self._materialize(spec, local_dir)
-            engine, batcher = self._build_engine(spec, module, cfg)
+            # A managed model pins its params with one restore() of the
+            # mapped tensors, into one device block as every warm fault
+            # places them; on a cache hit they are not copied in twice.
+            pin = self.residency is not None
+            module, host, source = param_cache.load_or_materialize(
+                cfg.architecture, cfg.arch_kwargs, spec, local_dir,
+                self.device, checkpoint_name=CHECKPOINT_NAME,
+                seed=self.init_seed, fill=not pin)
+            self.param_source = source
+            engine, batcher = self._build_engine(spec, module, host, cfg,
+                                                 pin)
         except Exception:
             if self.hbm is not None:
                 self.hbm.release(staging_key if old_engine is not None
@@ -198,26 +238,14 @@ class TorchModel(Model):
             old_engine.close()
             if self.hbm is not None and zero_downtime:
                 self.hbm.commit(staging_key, self.name, engine.param_bytes())
+        if self.residency is not None:
+            # Idempotent on a cold fault (the manager holds the record);
+            # a direct load joins the managed set as resident.
+            self.residency.register(self.name, self)
         return True
 
-    def _materialize(self, spec, local_dir: str) -> torch.nn.Module:
-        """The module on the serving device: the checkpoint's weights,
-        else a seeded init."""
-        arch = self.config.architecture
-        ckpt = os.path.join(local_dir, CHECKPOINT_NAME)
-        state_dict = None
-        if os.path.exists(ckpt):
-            convert = weights.FLAX_CONVERTERS.get(arch)
-            if convert is None:
-                raise InvalidInput(
-                    f"no Flax checkpoint converter for architecture "
-                    f"{arch!r}")
-            state_dict = convert(weights.read_flax_msgpack(ckpt))
-        self.param_source = "checkpoint" if state_dict else "init"
-        return weights.materialize(spec.module, self.device,
-                                   state_dict=state_dict)
-
-    def _build_engine(self, spec, module, cfg: TorchModelConfig):
+    def _build_engine(self, spec, module, host, cfg: TorchModelConfig,
+                      pin: bool = False):
         base_apply = apply_fn_for(spec)
         # The JAX package computes x.astype(bf16) * scale with the weakly
         # typed scale rounded to bf16, and XLA keeps the product in fp32
@@ -249,8 +277,10 @@ class TorchModel(Model):
                            else BucketPolicy.pow2(cfg.max_batch_size)),
             seq_buckets=seq_buckets,
             pipeline_depth=cfg.pipeline_depth,
-            device=self.device)
+            device=self.device, host_params=host)
         try:
+            if pin and engine.offloadable:
+                engine.restore()
             if cfg.warmup:
                 engine.warmup(self._example_instance(spec))
         except Exception:
@@ -286,9 +316,47 @@ class TorchModel(Model):
         self.module, self._spec = None, None
 
     def unload(self) -> None:
+        if self.residency is not None:
+            self.residency.deregister(self.name)
         self._drop_generation()
         if self.hbm is not None:
             self.hbm.release(self.name)
+
+    # -- residency hooks (engine/residency.py contract) --------------------
+    @property
+    def offloadable(self) -> bool:
+        """Can the model leave the card and keep its warm engine?  True
+        once the engine holds a host (mmap) restore source."""
+        return self.engine is not None and self.engine.offloadable
+
+    def offload(self) -> None:
+        """Eviction body: drop the device params, keep the engine, its
+        batcher and the host mmap params.  The model stays ``ready``."""
+        if self.engine is not None:
+            self.engine.offload()
+
+    def demote(self) -> None:
+        """Eviction body of a model without a host restore source: drop
+        the engine.  The model stays registered and addressable; its next
+        predict cold-faults a fresh build."""
+        if self.engine is not None:
+            self.engine.close()
+        self.engine, self.batcher = None, None
+        self.module, self._spec = None, None
+
+    def fault_in(self) -> None:
+        """Warm fault body (blocking; residency executor): copy the host
+        params back onto the card."""
+        if self.engine is None:
+            raise InferenceError(
+                f"model {self.name} has no engine to fault in")
+        self.engine.restore()
+
+    def host_bytes(self) -> int:
+        """Device bytes a fault-in of this model claims."""
+        if self.engine is None:
+            return 0
+        return self.engine.host_param_bytes() or self.engine.param_bytes()
 
     # -- inference ---------------------------------------------------------
     def _bucket_key(self, instance: Any):
@@ -371,10 +439,19 @@ class TorchModel(Model):
         return [out[i] for i in range(n)]
 
     async def predict(self, request: Any) -> Any:
-        if self.batcher is None:
-            raise InferenceError(f"model {self.name} not loaded")
+        if self.residency is not None:
+            # The residency gate: count the request in flight (a model
+            # with queued work is never evicted), fault the model in if
+            # needed, and touch the ledger.
+            async with self.residency.serving(self.name):
+                return await self._predict_resident(request)
         if self.hbm is not None:
             self.hbm.touch(self.name)     # LRU order follows use
+        return await self._predict_resident(request)
+
+    async def _predict_resident(self, request: Any) -> Any:
+        if self.batcher is None:
+            raise InferenceError(f"model {self.name} not loaded")
         if isinstance(request, InferRequest) or is_v2_request(request):
             return await self._predict_v2(request)
         instances = v1.get_instances(request)
@@ -421,6 +498,7 @@ class TorchModel(Model):
 
     def engine_stats(self) -> Dict[str, Any]:
         stats = dict(self.engine.stats()) if self.engine else {}
+        stats["param_source"] = self.param_source
         if self.batcher:
             stats["batches_flushed"] = self.batcher.batches_flushed
             stats["instances_batched"] = self.batcher.instances_batched

@@ -1,6 +1,7 @@
-"""V2 ("Predict Protocol - Version 2") JSON tensors.
+"""V2 ("Predict Protocol - Version 2") tensors: JSON and the binary data
+extension.
 
-Port of the JSON part of ``kfserving_tpu/protocol/v2.py``:
+Port of ``kfserving_tpu/protocol/v2.py``:
 
     $inference_request = {
       "id": $string #optional, "parameters": $parameters #optional,
@@ -9,12 +10,21 @@ Port of the JSON part of ``kfserving_tpu/protocol/v2.py``:
     }
     $request_input = {"name", "shape", "datatype", "parameters"#opt, "data"}
 
-The numeric datatypes of the V2 spec (BOOL, UINT8-64, INT8-64, FP16-64;
-UINT8 carries the image models' uint8 wire).  BYTES, BF16 and the binary
-data extension are not ported yet.
+The datatypes of the V2 spec but BF16 (BOOL, UINT8-64, INT8-64, FP16-64,
+BYTES; UINT8 carries the image models' uint8 wire).
+
+The HTTP **binary data extension** (the HTTP twin of the proto's
+``raw_input_contents``): body = JSON header + the raw tensor bytes,
+split by the ``Inference-Header-Content-Length`` header; each binary
+input declares ``parameters: {"binary_data_size": N}`` and omits
+"data".  A request whose parameters ask for ``binary_data_output`` gets
+its outputs back the same way.  An image then travels as its bytes, not
+as 150,528 numbers of text parsed on the serving loop.
 """
 
-from typing import Any, Dict, List, Optional
+import json
+import struct
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -33,9 +43,13 @@ DTYPES_TO_NUMPY = {
     "FP16": np.float16,
     "FP32": np.float32,
     "FP64": np.float64,
+    "BYTES": np.object_,
 }
 
 NUMPY_TO_DTYPES = {np.dtype(v): k for k, v in DTYPES_TO_NUMPY.items()}
+
+# Header names are lower-cased by the port's HTTP layer.
+INFERENCE_HEADER_CONTENT_LENGTH = "inference-header-content-length"
 
 
 def _numpy_dtype(datatype: str):
@@ -46,36 +60,108 @@ def _numpy_dtype(datatype: str):
 
 
 def datatype_of(arr: np.ndarray) -> str:
+    dt = np.dtype(arr.dtype)
+    if dt.kind in ("U", "S", "O"):
+        return "BYTES"
     try:
-        return NUMPY_TO_DTYPES[np.dtype(arr.dtype)]
+        return NUMPY_TO_DTYPES[dt]
     except KeyError:
         raise InvalidInput(f"Unsupported numpy dtype {arr.dtype}")
+
+
+def frame_raw_bytes(elems) -> bytes:
+    """V2 raw BYTES framing: a 4-byte little-endian length before each
+    element."""
+    out = []
+    for e in elems:
+        b = (e if isinstance(e, bytes)
+             else e.encode() if isinstance(e, str) else bytes(e))
+        out.append(struct.pack("<I", len(b)) + b)
+    return b"".join(out)
+
+
+def decode_raw_bytes(raw: bytes) -> List[bytes]:
+    """The elements of a V2 raw BYTES tensor (``frame_raw_bytes``)."""
+    out: List[bytes] = []
+    offset, n = 0, len(raw)
+    while offset < n:
+        if offset + 4 > n:
+            raise InvalidInput("truncated raw BYTES tensor")
+        (length,) = struct.unpack_from("<I", raw, offset)
+        offset += 4
+        if offset + length > n:
+            raise InvalidInput("truncated raw BYTES element")
+        out.append(raw[offset:offset + length])
+        offset += length
+    return out
+
+
+def _raw_of(datatype: str, data: Any) -> bytes:
+    """A tensor's bytes on the binary wire."""
+    if datatype == "BYTES":
+        return frame_raw_bytes(
+            e if isinstance(e, bytes) else str(e).encode()
+            for e in np.asarray(data, np.object_).ravel())
+    return np.ascontiguousarray(
+        np.asarray(data, dtype=_numpy_dtype(datatype))).tobytes()
 
 
 class InferInput:
     """One named input tensor of a V2 inference request."""
 
     def __init__(self, name: str, shape: List[int], datatype: str,
-                 data: Any, parameters: Optional[Dict] = None):
+                 data: Any, parameters: Optional[Dict] = None,
+                 raw: Optional[bytes] = None):
         self.name = name
         self.shape = list(shape)
         self.datatype = datatype
         self.data = data
         self.parameters = parameters or {}
+        self.raw = raw
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "InferInput":
-        for required in ("name", "shape", "datatype", "data"):
+        for required in ("name", "shape", "datatype"):
             if required not in d:
                 raise InvalidInput(
                     f'Input tensor missing required field "{required}"')
+        params = d.get("parameters") or {}
+        if "data" not in d and not params.get("binary_data_size"):
+            raise InvalidInput('Input tensor missing required field "data"')
         if not isinstance(d["shape"], list):
             raise InvalidInput('Input tensor "shape" must be a list')
-        return cls(d["name"], d["shape"], d["datatype"], d["data"],
-                   d.get("parameters"))
+        return cls(d["name"], d["shape"], d["datatype"], d.get("data"),
+                   params)
+
+    @property
+    def binary_data_size(self) -> int:
+        return int(self.parameters.get("binary_data_size") or 0)
 
     def as_numpy(self) -> np.ndarray:
-        arr = np.asarray(self.data, dtype=_numpy_dtype(self.datatype))
+        dtype = _numpy_dtype(self.datatype)
+        if self.raw is not None:
+            if self.datatype == "BYTES":
+                arr = np.array(decode_raw_bytes(bytes(self.raw)),
+                               dtype=np.object_)
+            else:
+                try:
+                    arr = np.frombuffer(self.raw, dtype=dtype)
+                except ValueError as e:
+                    raise InvalidInput(
+                        f"Input {self.name}: binary data of "
+                        f"{len(self.raw)} bytes does not fit datatype "
+                        f"{self.datatype}: {e}")
+        elif self.data is None:
+            # binary_data_size declared on a plain JSON body: a client
+            # error, not a server fault.
+            raise InvalidInput(
+                f"Input {self.name} declares binary_data_size but the "
+                f"request has no binary body (missing "
+                f"Inference-Header-Content-Length?)")
+        elif self.datatype == "BYTES":
+            arr = np.array(self.data, dtype=np.object_)
+        else:
+            arr = np.asarray(self.data, dtype=dtype)
         try:
             return arr.reshape(self.shape)
         except ValueError:
@@ -112,6 +198,40 @@ class InferRequest:
         return cls(inputs, body.get("id"), body.get("parameters"),
                    body.get("outputs"))
 
+    @classmethod
+    def from_binary(cls, body: bytes, header_length: int) -> "InferRequest":
+        """Decode a binary-extension request: the JSON header in
+        body[:header_length], then each binary input's raw bytes in
+        input order."""
+        if header_length <= 0 or header_length > len(body):
+            raise InvalidInput(
+                f"Inference-Header-Content-Length {header_length} out of "
+                f"range for body of {len(body)} bytes")
+        try:
+            header = json.loads(body[:header_length])
+        except ValueError as e:
+            raise InvalidInput(f"invalid V2 binary header: {e}")
+        req = cls.from_dict(header)
+        offset = header_length
+        view = memoryview(body)
+        for inp in req.inputs:
+            size = inp.binary_data_size
+            if not size:
+                continue
+            if offset + size > len(body):
+                raise InvalidInput(
+                    f"binary data for input {inp.name!r} overruns the "
+                    f"request body")
+            # A view of the request buffer: np.frombuffer in as_numpy
+            # reads it in place.
+            inp.raw = view[offset:offset + size]
+            offset += size
+        if offset != len(body):
+            raise InvalidInput(
+                f"{len(body) - offset} trailing bytes after the last "
+                f"binary input")
+        return req
+
     def named_numpy(self) -> Dict[str, np.ndarray]:
         return {i.name: i.as_numpy() for i in self.inputs}
 
@@ -126,11 +246,89 @@ class InferRequest:
         return out
 
 
+def make_binary_request(tensors: Dict[str, np.ndarray],
+                        id: Optional[str] = None,
+                        binary_output: bool = False) -> Tuple[bytes, int]:
+    """Client-side encoder of the binary extension: (body, header
+    length), to POST with ``Inference-Header-Content-Length`` set.
+    ``binary_output`` asks for the outputs as raw bytes too."""
+    inputs, raws = [], []
+    for name, arr in tensors.items():
+        arr = np.ascontiguousarray(arr)
+        datatype = datatype_of(arr)
+        raw = _raw_of(datatype, arr)
+        raws.append(raw)
+        inputs.append({"name": name, "shape": list(arr.shape),
+                       "datatype": datatype,
+                       "parameters": {"binary_data_size": len(raw)}})
+    header: Dict[str, Any] = {"inputs": inputs}
+    if binary_output:
+        header["parameters"] = {"binary_data_output": True}
+    if id is not None:
+        header["id"] = id
+    hbytes = json.dumps(header).encode()
+    return hbytes + b"".join(raws), len(hbytes)
+
+
+def encode_binary_response(response: Dict[str, Any]) -> Tuple[bytes, int]:
+    """Binary-extension response: the outputs' data as raw bytes after
+    the JSON header.  Returns (body, header length)."""
+    header = dict(response)
+    outputs, raws = [], []
+    for out in response.get("outputs", []):
+        raw = _raw_of(out["datatype"], out.get("data"))
+        entry = {k: v for k, v in out.items() if k != "data"}
+        params = dict(entry.get("parameters") or {})
+        params["binary_data_size"] = len(raw)
+        entry["parameters"] = params
+        outputs.append(entry)
+        raws.append(raw)
+    header["outputs"] = outputs
+    hbytes = json.dumps(header).encode()
+    return hbytes + b"".join(raws), len(hbytes)
+
+
+def decode_binary_response(body: bytes,
+                           header_length: int) -> Dict[str, Any]:
+    """Client-side decode of a binary-extension response: the outputs'
+    data come back as numpy arrays."""
+    if header_length <= 0 or header_length > len(body):
+        raise InvalidInput(
+            f"response header length {header_length} out of range")
+    resp = json.loads(body[:header_length])
+    offset = header_length
+    for out in resp.get("outputs", []):
+        size = int((out.get("parameters") or {})
+                   .get("binary_data_size") or 0)
+        if not size:
+            continue
+        if offset + size > len(body):
+            raise InvalidInput(
+                f"binary output {out.get('name')!r} overruns the "
+                f"response body: need {offset + size} bytes, "
+                f"have {len(body)}")
+        raw = body[offset:offset + size]
+        offset += size
+        if out["datatype"] == "BYTES":
+            out["data"] = decode_raw_bytes(raw)
+        else:
+            out["data"] = np.frombuffer(
+                raw, dtype=_numpy_dtype(out["datatype"])
+            ).reshape(out["shape"])
+    return resp
+
+
 def tensor_to_output(name: str, arr: np.ndarray) -> Dict[str, Any]:
     """Encode a numpy array as a V2 response output tensor."""
     arr = np.asarray(arr)
-    return {"name": name, "shape": list(arr.shape),
-            "datatype": datatype_of(arr), "data": arr.ravel().tolist()}
+    datatype = datatype_of(arr)
+    if datatype == "BYTES":
+        data = [x.decode() if isinstance(x, bytes) else str(x)
+                for x in arr.ravel().tolist()]
+    else:
+        data = arr.ravel().tolist()
+    return {"name": name, "shape": list(arr.shape), "datatype": datatype,
+            "data": data}
 
 
 def make_response(model_name: str, outputs: Dict[str, np.ndarray],

@@ -1,0 +1,167 @@
+"""Deterministic fault injection.
+
+Port of ``kfserving_tpu/reliability/faults.py``: a process-global
+``faults`` injector that an edge calls with a stable site name
+(``fault_sites``) before doing real work.  The port calls one site so
+far:
+
+    engine.residency_swap   ResidencyManager fault-in, keyed by
+                            "<model> source:cold|warm"
+
+A site with no configuration costs one dict lookup.  Configuration comes
+from the ``KFS_FAULTS`` env var (JSON object keyed by site) or
+programmatically (``faults.configure({...})``, tests):
+
+    KFS_FAULTS='{"engine.residency_swap": {"fail_first": 1, "match": "m3"}}'
+
+Per-site knobs (the JAX module's ``error_rate``, ``latency_ms``,
+``hang_s`` and ``seed`` come with the first site of the port that needs
+them):
+
+    fail_first   deterministically fail the first N matching calls
+    match        whitespace-separated terms that must ALL appear in the
+                 call's key
+
+``FaultInjected`` subclasses ConnectionError, so retry policies classify
+an injected fault as transient, as they would a real network flake.
+"""
+
+import json
+import logging
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+logger = logging.getLogger("kfserving_tpu_torch.reliability.faults")
+
+ENV_VAR = "KFS_FAULTS"
+
+
+class FaultInjected(ConnectionError):
+    """An injected failure (classified transient by retry policies)."""
+
+    def __init__(self, site: str, key: str = ""):
+        detail = f" ({key})" if key else ""
+        super().__init__(f"injected fault at {site}{detail}")
+        self.site = site
+
+
+@dataclass
+class FaultSpec:
+    fail_first: int = 0
+    match: str = ""
+    # Per-spec mutable state.
+    calls: int = 0
+    injected: int = 0
+
+
+class FaultInjector:
+    """Process-global registry of per-site fault specs."""
+
+    def __init__(self):
+        self._sites: Dict[str, FaultSpec] = {}
+        self._env_loaded = False
+
+    # Config-surface knobs (name -> coercion); the dataclass's
+    # bookkeeping fields (calls/injected) are NOT settable —
+    # accepting them would silently disable fail_first counting.
+    # Values coerce at CONFIG time: a JSON string "x" from KFS_FAULTS
+    # must fail here, not as a TypeError inside the serving path.
+    _KNOBS = {"fail_first": int, "match": str}
+
+    # -- configuration -------------------------------------------------------
+    def configure(self, config: Dict[str, Dict]) -> None:
+        """Install per-site specs (replaces those sites; other sites
+        keep their existing spec).  Unknown keys are rejected loudly —
+        a typo'd knob must not silently disable a chaos test — and
+        validation is all-or-nothing: a bad spec for one site installs
+        NOTHING (a half-applied fault config is the worst kind of
+        lie)."""
+        specs = {}
+        for site, raw in config.items():
+            unknown = set(raw) - set(self._KNOBS)
+            if unknown:
+                raise TypeError(
+                    f"unknown fault knob(s) {sorted(unknown)} for "
+                    f"site {site!r} (valid: {sorted(self._KNOBS)})")
+            coerced = {}
+            for knob, value in raw.items():
+                try:
+                    coerced[knob] = self._KNOBS[knob](value)
+                except (TypeError, ValueError):
+                    raise TypeError(
+                        f"fault knob {knob}={value!r} for site "
+                        f"{site!r} is not "
+                        f"{self._KNOBS[knob].__name__}-coercible")
+            specs[site] = FaultSpec(**coerced)
+        self._sites.update(specs)
+        self._env_loaded = True  # explicit config wins over env
+
+    def reset(self) -> None:
+        """Drop all fault specs (tests call this in teardown)."""
+        self._sites.clear()
+        self._env_loaded = False
+
+    def _load_env(self) -> None:
+        if self._env_loaded:
+            return
+        self._env_loaded = True
+        raw = os.environ.get(ENV_VAR)
+        if not raw:
+            return
+        try:
+            config = json.loads(raw)
+        except ValueError:
+            logger.error("malformed %s (not JSON); no faults active",
+                         ENV_VAR)
+            return
+        try:
+            self.configure(config)
+        except TypeError as e:
+            logger.error("bad fault spec in %s: %s", ENV_VAR, e)
+        else:
+            logger.warning("fault injection ACTIVE at sites: %s",
+                           ", ".join(sorted(config)))
+
+    def configured(self, site: str) -> bool:
+        """Cheap hot-path guard: is any spec installed for `site`?
+        Lets latency-critical callers skip wrapper machinery (e.g. a
+        wait_for envelope) in the no-faults production case."""
+        self._load_env()
+        return site in self._sites
+
+    def _spec(self, site: str, key: str) -> Optional[FaultSpec]:
+        self._load_env()
+        spec = self._sites.get(site)
+        if spec is None:
+            return None
+        # Every whitespace-separated term must match (conjunction):
+        # "revision:ab12 :9001" scopes a fault to one revision ON one
+        # replica.  A single term without spaces behaves exactly as
+        # the original substring match.
+        if spec.match and any(term not in key
+                              for term in spec.match.split()):
+            return None
+        return spec
+
+    # -- injection -----------------------------------------------------------
+    def _decide(self, spec: FaultSpec, site: str, key: str
+                ) -> Optional[FaultInjected]:
+        spec.calls += 1
+        if spec.fail_first and spec.calls <= spec.fail_first:
+            spec.injected += 1
+            return FaultInjected(site, key)
+        return None
+
+    async def inject(self, site: str, key: str = "") -> None:
+        """Event-loop edges (async, as the JAX package's, whose other
+        knobs sleep here)."""
+        spec = self._spec(site, key)
+        if spec is None:
+            return
+        err = self._decide(spec, site, key)
+        if err is not None:
+            raise err
+
+
+faults = FaultInjector()

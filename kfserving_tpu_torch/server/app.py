@@ -20,9 +20,13 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
     POST /v2/repository/models/{name}/load    (re)load a model
     POST /v2/repository/models/{name}/unload  unload a model
     GET  /v2/repository/index               models and their states
+    GET  /debug/cache                       device-memory ledger and
+                                            residency states
 
-One asyncio process serves; batched device execution runs on the
-engines' worker threads.
+A V2 infer request may use the binary data extension
+(``Inference-Header-Content-Length``); one that asks for
+``binary_data_output`` gets a binary response.  One asyncio process
+serves; batched device execution runs on the engines' worker threads.
 """
 
 import argparse
@@ -30,11 +34,16 @@ import asyncio
 import json
 import logging
 import signal
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository
 from kfserving_tpu_torch.protocol.errors import ServingError
+from kfserving_tpu_torch.protocol.v2 import (
+    INFERENCE_HEADER_CONTENT_LENGTH,
+    InferRequest,
+    encode_binary_response,
+)
 from kfserving_tpu_torch.server.dataplane import DataPlane
 from kfserving_tpu_torch.server.http import (
     HTTPServer,
@@ -71,6 +80,19 @@ def _error(e: ServingError) -> Response:
     return _json({"error": e.reason}, status=e.status_code)
 
 
+def _encode_response(body: Any, response: Any) -> Response:
+    """A binary-extension response when the V2 request asked for
+    ``binary_data_output``, else JSON."""
+    if (isinstance(body, InferRequest)
+            and body.parameters.get("binary_data_output")
+            and isinstance(response, dict) and response.get("outputs")):
+        payload, hlen = encode_binary_response(response)
+        return Response(payload, headers={
+            "content-type": "application/octet-stream",
+            INFERENCE_HEADER_CONTENT_LENGTH: str(hlen)})
+    return _json(response)
+
+
 class ModelServer:
     def __init__(self, http_port: int = DEFAULT_HTTP_PORT,
                  registered_models: Optional[ModelRepository] = None):
@@ -102,6 +124,7 @@ class ModelServer:
         r.add("POST", "/v2/repository/models/{name}/load", self._load)
         r.add("POST", "/v2/repository/models/{name}/unload", self._unload)
         r.add("GET", "/v2/repository/index", self._repository_index)
+        r.add("GET", "/debug/cache", self._cache)
 
     # -- handlers ----------------------------------------------------------
     async def _live(self, req: Request) -> Response:
@@ -142,8 +165,8 @@ class ModelServer:
         name = req.path_params["name"]
         call = call or self.dataplane.infer
         try:
-            body = self.dataplane.decode_body(req.body)
-            return _json(await call(name, body))
+            body = self.dataplane.decode_body(req.headers, req.body)
+            return _encode_response(body, await call(name, body))
         except ServingError as e:
             return _error(e)
         except Exception as e:
@@ -154,7 +177,7 @@ class ModelServer:
         # {"stream": true} hands the request to the token stream.
         if b'"stream"' in req.body:
             try:
-                body = self.dataplane.decode_body(req.body)
+                body = self.dataplane.decode_body(req.headers, req.body)
             except ServingError as e:
                 return _error(e)
             if isinstance(body, dict) and body.get("stream"):
@@ -166,7 +189,7 @@ class ModelServer:
         name = req.path_params["name"]
         try:
             if body is None:
-                body = self.dataplane.decode_body(req.body)
+                body = self.dataplane.decode_body(req.headers, req.body)
             # Validation and submission happen here, before headers
             # are committed: errors are plain 4xx/5xx responses.
             events = await self.dataplane.generate_stream(name, body)
@@ -209,6 +232,20 @@ class ModelServer:
     async def _repository_index(self, req: Request) -> Response:
         return _json(self.dataplane.repository_index())
 
+    async def _cache(self, req: Request) -> Response:
+        return _json(self.cache_snapshot())
+
+    def cache_snapshot(self) -> Dict[str, Any]:
+        """The ``/debug/cache`` body: the device-memory ledger (``hbm``)
+        and the demand-paged residency states (``residency``), under the
+        JAX package's keys; each is null when the repository has none.
+        The generative blocks are not ported yet."""
+        hbm = getattr(self.repository, "hbm", None)
+        residency = getattr(self.repository, "residency", None)
+        return {"hbm": hbm.debug() if hbm is not None else None,
+                "residency": (residency.debug() if residency is not None
+                              else None)}
+
     # -- lifecycle ---------------------------------------------------------
     def register_model(self, model: Model) -> None:
         if not model.name:
@@ -228,6 +265,9 @@ class ModelServer:
 
     async def stop_async(self) -> None:
         await self.http_server.stop()
+        residency = getattr(self.repository, "residency", None)
+        if residency is not None:
+            residency.close()
 
     def start(self, models: List[Model]) -> None:
         """Blocking entry point: serve until SIGINT or SIGTERM."""

@@ -1,18 +1,19 @@
 """Protocol-agnostic data-plane operations over a ModelRepository.
 
 Port of ``kfserving_tpu/server/dataplane.py``: liveness, readiness, model
-listing and metadata, inference (JSON bodies, V1 or V2), the generate
-extension (``generate``, ``generate_stream``) and the repository
-extension (``load``, ``unload``, ``repository_index``).
+listing and metadata, inference (JSON bodies, V1 or V2, and the V2
+binary data extension), the generate extension (``generate``,
+``generate_stream``) and the repository extension (``load``,
+``unload``, ``repository_index``).
 """
 
 import json
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Mapping
 
 from kfserving_tpu_torch import __version__ as SERVER_VERSION
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository, maybe_await
-from kfserving_tpu_torch.protocol import v1
+from kfserving_tpu_torch.protocol import v1, v2
 from kfserving_tpu_torch.protocol.errors import (
     InvalidInput,
     ModelNotFound,
@@ -72,7 +73,17 @@ class DataPlane:
         return model
 
     @staticmethod
-    def decode_body(body: bytes) -> Any:
+    def decode_body(headers: Mapping[str, str], body: bytes) -> Any:
+        """Decode a request body: a V2 binary-extension request when the
+        ``Inference-Header-Content-Length`` header is set (header names
+        arrive lower-cased), else JSON.  CloudEvents and the native V1
+        codec are not ported yet (ROADMAP Queue 1 item f)."""
+        header_len = headers.get(v2.INFERENCE_HEADER_CONTENT_LENGTH)
+        if header_len is not None:
+            try:
+                return v2.InferRequest.from_binary(body, int(header_len))
+            except ValueError as e:
+                raise InvalidInput(str(e))
         try:
             return json.loads(body) if body else {}
         except ValueError as e:

@@ -1,8 +1,9 @@
 """The port's multi-model serving path on the CPU: the MLP against the JAX
 package's, the device-memory ledger (``engine/hbm.py``), the eager
-``TorchModelRepository`` with LRU eviction under a byte budget, staged
-reloads, the repository routes over the port's HTTP server, and the
-jaxserver entry point's ``--multi_model``.
+``TorchModelRepository`` (``residency=False``) with LRU eviction under a
+byte budget, staged reloads, the repository routes over the port's HTTP
+server, and the jaxserver entry point's ``--multi_model``.  The
+demand-paged default is tested in ``test_torch_residency.py``.
 """
 
 import asyncio
@@ -133,7 +134,7 @@ def test_repository_load_unload_and_lru_eviction(tmp_path):
     _write_model_dir(tmp_path, "m2", seed=1)
     hbm = HBMManager(budget_bytes=_model_bytes() + 100)
     repo = TorchModelRepository(models_dir=str(tmp_path), hbm=hbm,
-                                device="cpu")
+                                residency=False, device="cpu")
 
     async def run():
         assert await repo.load("m1")
@@ -161,8 +162,20 @@ def test_repository_load_missing_dir(tmp_path):
 
 
 def test_residency_mode_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 1 item c"):
-        TorchModelRepository(models_dir=str(tmp_path), residency=True)
+    """Residency is ported now and is the default, as in the JAX
+    package: a load registers the model with no device memory."""
+    _write_model_dir(tmp_path, "m1")
+    repo = TorchModelRepository(models_dir=str(tmp_path), device="cpu")
+    assert repo.residency is not None
+
+    async def run():
+        assert await repo.load("m1")
+        assert repo.is_model_ready("m1")
+        assert repo.get_model("m1").engine is None
+        assert repo.residency.state_of("m1") == "registered"
+        assert repo.hbm.resident_models() == []
+
+    asyncio.run(run())
 
 
 def test_reload_is_staged_then_committed(tmp_path, monkeypatch):
@@ -228,7 +241,7 @@ async def test_repository_routes_over_http(tmp_path):
         _write_model_dir(tmp_path, f"m{i}", seed=i)
     hbm = HBMManager(budget_bytes=2 * _model_bytes() + 100)
     repo = TorchModelRepository(models_dir=f"file://{tmp_path}", hbm=hbm,
-                                device="cpu")
+                                residency=False, device="cpu")
     server = ModelServer(http_port=0, registered_models=repo)
     await server.start_async([], host="127.0.0.1")
     port = server.http_port
@@ -277,4 +290,5 @@ def test_multi_model_flag_serves_the_catalog_root(tmp_path, monkeypatch):
     (server, models), = started
     assert models == []
     assert isinstance(server.repository, TorchModelRepository)
+    assert server.repository.residency is not None      # demand-paged
     assert server.repository.models_dir == str(tmp_path)

@@ -51,9 +51,19 @@ def artifact(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def torch_model(artifact):
-    model = TorchModel("bert", artifact, device="cpu")
-    model.load()
+def torch_model(artifact, tmp_path_factory):
+    # A module fixture is set up before the per-test private param cache
+    # of tests/conftest.py: this load gets a private cache of its own.
+    prior = os.environ.get("KFS_PARAM_CACHE")
+    os.environ["KFS_PARAM_CACHE"] = str(tmp_path_factory.mktemp("params"))
+    try:
+        model = TorchModel("bert", artifact, device="cpu")
+        model.load()
+    finally:
+        if prior is None:
+            os.environ.pop("KFS_PARAM_CACHE", None)
+        else:
+            os.environ["KFS_PARAM_CACHE"] = prior
     yield model
     model.unload()
 
@@ -224,6 +234,10 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.predictors.jaxserver.__main__\n"
         "import kfserving_tpu_torch.predictors.jaxserver.repository\n"
         "import kfserving_tpu_torch.engine.hbm\n"
+        "import kfserving_tpu_torch.engine.param_cache\n"
+        "import kfserving_tpu_torch.engine.residency\n"
+        "import kfserving_tpu_torch.reliability.faults\n"
+        "import kfserving_tpu_torch.reliability.fault_sites\n"
         "import kfserving_tpu_torch.models.resnet\n"
         "import kfserving_tpu_torch.models.vit\n"
         "import kfserving_tpu_torch.models.mlp\n"
