@@ -8,7 +8,11 @@ failure:
 
 1. print the card's name and power limit; build every kernel under
    ``kfserving_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
-   source, all started together);
+   source, all started together); build the native V1 JSON codec
+   (``csrc/tensorjson.c``, the host C compiler against this Python's
+   headers: the run fails if it does not build), parse one seeded
+   224 x 224 x 3 uint8 V1 body with it and with the pure-Python codec
+   (equal arrays) and print host us per body of each;
 2. hold each kernel (flash attention, paged decode attention) against its
    plain PyTorch version on the card at the serving paths' shapes and
    edge cases, and time kernel (device, events and host issue time),
@@ -21,7 +25,13 @@ failure:
    the port's ModelServer, send V1 and V2 requests over HTTP, check the
    answers, check that every encoder layer of every executed batch
    launched the flash kernel exactly once, and hold the served model
-   against the same weights run with the plain attention;
+   against the same weights run with the plain attention; scrape
+   ``/metrics`` (requests by model, verb and status; one
+   ``engine_stage_ms`` observation per stage and batch); one request with
+   a 1 ms ``x-request-timeout-ms`` answers 504 and moves
+   ``deadline_exceeded_total``, and one with a ``traceparent`` leaves the
+   span chain from ``server.decode`` through ``batcher.queue`` to
+   ``engine.execute`` in ``/debug/traces``;
 4. serve the generate_4k configuration (the decoder at GPT-2-small width,
    seeded random init, bf16, paged cache) over HTTP: 16 SSE streams at
    concurrency 8 behind a shared ~2980-token prompt, one V1 predict and
@@ -29,14 +39,18 @@ failure:
    exactly once per layer per decode step and the flash kernel once per
    layer in every prefill, the prefix-cache hits and the idle pool, and hold one served
    stream against a teacher-forced forward with the plain attention;
+   ``llm_ttft_ms`` counts one first token per stream; a stream with a
+   400 ms budget ends with finish_reason "timeout" and frees its slot;
    time one decode wave and one prefill on the card;
 5. serve ResNet-50 (224 px, 1000 classes, bf16, seeded random init with
    BatchNorm statistics calibrated on a seeded batch) at the resnet bench
    configuration: 128 V1 and V2 uint8 image requests at concurrency 32,
-   then the same 128 images as V2 binary UINT8 requests; every served
+   then the same 128 images as V2 binary UINT8 requests; every V1 body
+   of the JSON arm must be parsed by the native codec; every served
    argmax must equal the direct forward's on the card, but for counted
    near-ties; one ``binary_data_output`` response must decode to its JSON
-   counterpart; time a b128 forward (CUDA events, MFU);
+   counterpart; the request and stage series of the scrape; time a b128
+   forward (CUDA events, MFU);
 6. serve ViT-B/16 (224 px, L = 197) at the chain bench's predictor
    configuration; the flash kernel must launch exactly 12 times per
    executed batch, and the served model must agree with the same weights
@@ -55,8 +69,10 @@ failure:
 9. serve 20 catalog MLPs demand-paged under 40% of their bytes, four
    workers each taking 6 shuffled passes; every answer held against its
    model's direct forward;
-10. print one ``{"kernels": [...]}`` line, the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+10. print the ResNet arms' req/s and each predict model's mean engine
+   stage ms (prepare, transfer, compute, fetch) on a ``stages`` line, one
+   ``{"kernels": [...]}`` line, the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every model loads through a private mmap param cache (``KFS_PARAM_CACHE``
 points at a temporary directory for the run).
@@ -70,6 +86,7 @@ import http.client
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -183,6 +200,21 @@ RES_CONFIG = {
 # each taking 24 shuffled passes over it (2304 requests).
 DENSITY_MODELS, DENSITY_FRAC, DENSITY_WORKERS, DENSITY_PASSES = \
     24, 0.4, 4, 24
+
+
+# The request path's stage series, and one traced request's span chain.
+STAGES = ("prepare", "transfer", "compute", "fetch")
+TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+TRACEPARENT = f"00-{TRACE_ID}-00f067aa0ba902b7-01"
+SPAN_CHAIN = ("server.decode", "server.infer", "dataplane.preprocess",
+              "dataplane.predict", "batcher.queue", "engine.execute",
+              "dataplane.postprocess", "server.encode")
+# A generate stream whose budget runs out: max_tokens far past what the
+# budget lets it generate.
+GEN_TIMEOUT_MS, GEN_TIMEOUT_TOKENS = 400, 2000
+# The codec phase: host time of the C and the pure-Python parse of one
+# 224 x 224 x 3 uint8 V1 body.
+CODEC_ITERS = {"native": 20, "python": 3}
 
 
 def check(cond: bool, message: str) -> None:
@@ -629,6 +661,101 @@ def http_json(port: int, method: str, path: str, body=None):
     return resp.status, (json.loads(data) if data else None), latency_ms
 
 
+def http_raw(port: int, method: str, path: str, body=None, headers=None):
+    """One request: (status, lower-cased headers, raw body bytes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        payload = (body if body is None or isinstance(body, bytes)
+                   else json.dumps(body).encode())
+        conn.request(method, path, body=payload, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                data)
+    finally:
+        conn.close()
+
+
+def scrape(port: int) -> dict:
+    """GET /metrics: {sample name with its labels: value}."""
+    status, _, data = http_raw(port, "GET", "/metrics")
+    check(status == 200, f"/metrics: HTTP {status}")
+    out = {}
+    for line in data.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def family_total(samples: dict, family: str) -> float:
+    """The sum of a counter's samples over all label sets."""
+    return sum(v for k, v in samples.items()
+               if k == family or k.startswith(family + "{"))
+
+
+def stage_window(before: dict, after: dict, batches: int,
+                 where: str) -> dict:
+    """``kfserving_tpu_engine_stage_ms`` between two scrapes: one
+    observation per stage for each engine batch, and each stage's mean
+    ms."""
+    out = {}
+    for stage in STAGES:
+        label = f'{{stage="{stage}"}}'
+        count, total = (
+            after.get(f"kfserving_tpu_engine_stage_ms_{part}{label}", 0)
+            - before.get(f"kfserving_tpu_engine_stage_ms_{part}{label}", 0)
+            for part in ("count", "sum"))
+        check(count == batches, f"{where}: engine_stage_ms has {count} "
+              f"{stage} observations for {batches} engine batches")
+        out[f"{stage}_ms"] = total / count if count else None
+    return out
+
+
+def request_counts(samples: dict, model: str) -> dict:
+    """``kfserving_tpu_request_total`` of one model: {"verb status": n}."""
+    out = {}
+    for key, value in samples.items():
+        if key.startswith("kfserving_tpu_request_total{"):
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', key))
+            if labels["model"] == model:
+                out[f"{labels['verb']} {labels['status']}"] = int(value)
+    return out
+
+
+def check_deadline_and_trace(port: int, path: str, body) -> dict:
+    """A request with a 1 ms budget answers 504 and moves
+    deadline_exceeded_total; a request with a traceparent leaves, under
+    its trace id in /debug/traces, the spans from server.decode through
+    batcher.queue to engine.execute."""
+    before = family_total(scrape(port),
+                          "kfserving_tpu_deadline_exceeded_total")
+    status, _, data = http_raw(port, "POST", path, body,
+                               {"x-request-timeout-ms": "1"})
+    check(status == 504, f"1 ms budget: HTTP {status} {data[:200]!r}")
+    after = family_total(scrape(port),
+                         "kfserving_tpu_deadline_exceeded_total")
+    check(after == before + 1, f"deadline_exceeded_total {before} -> "
+          f"{after} for one 504")
+    status, headers, data = http_raw(port, "POST", path, body,
+                                     {"traceparent": TRACEPARENT})
+    check(status == 200 and headers.get("x-request-id") == TRACE_ID,
+          f"traced request: HTTP {status} {headers}")
+    status, _, data = http_raw(port, "GET",
+                               f"/debug/traces?trace_id={TRACE_ID}")
+    spans = {sp["name"]: sp for sp in json.loads(data)["spans"]}
+    missing = [name for name in SPAN_CHAIN if name not in spans]
+    check(status == 200 and not missing,
+          f"/debug/traces: spans {missing} missing of {sorted(spans)}")
+    starts = [spans[name]["start"] for name in
+              ("server.decode", "batcher.queue", "engine.execute")]
+    check(starts == sorted(starts), f"span starts out of order {starts}")
+    return {"deadline_504": True, "deadline_exceeded_total": after,
+            "spans": {name: round(spans[name]["duration_ms"], 3)
+                      for name in SPAN_CHAIN},
+            "engine_execute": spans["engine.execute"]["attrs"]}
+
+
 def check_topk(values, indices, length: int, vocab: int, where: str):
     values, indices = np.asarray(values), np.asarray(indices)
     check(values.shape == (length, TOPK) and indices.shape == values.shape,
@@ -669,6 +796,7 @@ async def drive_server(model, vocab: int, rng) -> dict:
                        model.engine.seq_buckets.fit(n), vocab, f"V1 len {n}")
             return latency, preds[0]
 
+        before = await asyncio.to_thread(scrape, port)
         # The main path's run: every count starts at 0 here.
         flash_attention.launches = 0
         executed0 = model.engine.execute_count
@@ -702,10 +830,20 @@ async def drive_server(model, vocab: int, rng) -> dict:
                    bucket, vocab, "V2")
         launches = flash_attention.launches
         batches = model.engine.execute_count - executed0
+        after = await asyncio.to_thread(scrape, port)
+        stages = stage_window(before, after, batches, "bert")
+        counts = request_counts(after, "bert")
+        want = {"predict 200": len(REQUEST_LENGTHS) + len(burst),
+                "infer 200": 1}
+        check(counts == want, f"bert: request_total {counts} != {want}")
+        request_path = await asyncio.to_thread(
+            check_deadline_and_trace, port, "/v1/models/bert:predict",
+            {"instances": [bodies[REQUEST_LENGTHS[0]]]})
     finally:
         await server.stop_async()
     latencies = sorted(lat for lat, _ in done)
-    return {"launches": launches, "batches": batches,
+    return {"launches": launches, "batches": batches, "stages": stages,
+            "request_total": counts, "request_path": request_path,
             "requests": len(REQUEST_LENGTHS) + len(burst) + 1,
             "burst_requests": len(burst), "burst_wall_s": wall_s,
             "burst_req_per_s": len(burst) / wall_s,
@@ -827,6 +965,9 @@ def serve_bert(card: str) -> dict:
             "achieved_tflops", "mfu", "bucket_hits") if k in stats},
         "reference": reference,
         "largest_bucket": largest,
+        "engine_stage_means": run["stages"],
+        "request_total": run["request_total"],
+        "request_path": run["request_path"],
     }
     print("serving " + json.dumps(summary), flush=True)
     return summary
@@ -841,14 +982,15 @@ def gen_prompt(i: int) -> str:
             + "x" * (GEN_TAIL_LEN - 14))
 
 
-def sse_stream(port: int, path: str, body: dict):
+def sse_stream(port: int, path: str, body: dict, headers=None):
     """POST a streaming generate and read its SSE events: (status,
     events, seconds to the first event, seconds to the end)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         t0 = time.perf_counter()
         conn.request("POST", path, body=json.dumps(body).encode(),
-                     headers={"content-type": "application/json"})
+                     headers={"content-type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         if resp.status != 200:
             return resp.status, resp.read(), None, None
@@ -898,6 +1040,7 @@ async def drive_generate(model) -> dict:
         check(status == 200, f"warm-up stream: HTTP {status} {events}")
         stream_tokens(events, "warm-up stream")
 
+        scraped = {"before": await asyncio.to_thread(scrape, port)}
         # The main path's run: every count starts at 0 here.
         flash_attention.launches = 0
         paged_attention_kernel.launches = 0
@@ -915,6 +1058,7 @@ async def drive_generate(model) -> dict:
         streams = await asyncio.gather(*(one(i)
                                          for i in range(GEN_REQUESTS)))
         wall_s = time.perf_counter() - t0
+        scraped["streams"] = await asyncio.to_thread(scrape, port)
         status, v1, _ = await asyncio.to_thread(
             http_json, port, "POST", "/v1/models/gen4k:predict",
             {"instances": [{"prompt": gen_prompt(100), "max_tokens": 8}]})
@@ -931,16 +1075,32 @@ async def drive_generate(model) -> dict:
         after = engine.stats()
         launches = {"flash_attention": flash_attention.launches,
                     "paged_attention": paged_attention_kernel.launches}
+        # A stream whose budget runs out ends "timeout" and frees its
+        # slot (the idle check below finds its blocks released too).
+        status, events, _, timeout_s = await asyncio.to_thread(
+            sse_stream, port, path,
+            {"text_input": "hello", "max_tokens": GEN_TIMEOUT_TOKENS},
+            {"x-request-timeout-ms": str(GEN_TIMEOUT_MS)})
+        check(status == 200 and events
+              and events[-1].get("finish_reason") == "timeout"
+              and events[-1]["details"]["token_count"]
+              < GEN_TIMEOUT_TOKENS,
+              f"budgeted stream: HTTP {status} ended "
+              f"{events[-1] if events else events}")
+        timed_out = {"budget_ms": GEN_TIMEOUT_MS, "stream_s": timeout_s,
+                     "tokens": events[-1]["details"]["token_count"]}
         idle = None
         for _ in range(200):
             paged = engine.stats()["paged"]
             if (paged["free_blocks"] + paged["reclaimable_blocks"]
-                    == paged["pool_blocks"]):
+                    == paged["pool_blocks"]
+                    and all(slot is None for slot in engine._slots)):
                 idle = paged
                 break
             await asyncio.sleep(0.05)
-        check(idle is not None, f"blocks not all free or reclaimable "
-              f"when idle: {engine.stats()['paged']}")
+        check(idle is not None, f"slots or blocks not all free when idle: "
+              f"{engine.stats()['paged']}")
+        scraped["end"] = await asyncio.to_thread(scrape, port)
     finally:
         await server.stop_async()
     tokens = []
@@ -949,7 +1109,18 @@ async def drive_generate(model) -> dict:
         tokens.append(stream_tokens(events, f"stream {i}"))
     ttfts = sorted(first for _, _, first, _ in streams)
     generated = sum(len(t) for t in tokens)
+    ttft = "kfserving_tpu_llm_ttft_ms_count"
+    ttfts_counted = (scraped["streams"].get(ttft, 0)
+                     - scraped["before"].get(ttft, 0))
+    check(ttfts_counted == GEN_REQUESTS, f"llm_ttft_ms counted "
+          f"{ttfts_counted} first tokens for {GEN_REQUESTS} streams")
+    counts = request_counts(scraped["end"], "gen4k")
+    want = {"generate_stream 200": GEN_REQUESTS + 2, "predict 200": 1,
+            "generate 200": 1}
+    check(counts == want, f"gen4k: request_total {counts} != {want}")
     return {"launches": launches, "before": before, "after": after,
+            "ttft_count": ttfts_counted, "request_total": counts,
+            "timed_out_stream": timed_out,
             "tokens": tokens, "generated": generated, "wall_s": wall_s,
             "tokens_per_s": generated / wall_s,
             "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
@@ -1146,6 +1317,9 @@ def serve_generate(card: str) -> dict:
             "slot_occupancy", "goodput_ratio", "depth_effective",
             "suppressed_waves") if k in after},
         "idle_pool": run["idle_paged"],
+        "ttft_count": run["ttft_count"],
+        "request_total": run["request_total"],
+        "timed_out_stream": run["timed_out_stream"],
         "reference": reference, "device": device,
     }
     print("generate " + json.dumps(summary), flush=True)
@@ -1352,6 +1526,8 @@ async def serve_over_http(model, drive):
 
 
 def serve_resnet(card: str) -> dict:
+    from kfserving_tpu_torch.protocol import native
+
     model, load_s = load_model("resnet", RESNET_CONFIG)
     module = model.module
     check(len(module.blocks) == 16 and module.head.out_features == 1000
@@ -1373,12 +1549,17 @@ def serve_resnet(card: str) -> dict:
         async def drive(port):
             # The JSON arm, then the same images over the binary wire.
             arms = {}
+            first = await asyncio.to_thread(scrape, port)
+            executed = model.engine.execute_count
             for arm in ("json", "binary"):
                 executed0 = model.engine.execute_count
                 hits0 = model.engine_stats().get("bucket_hits")
                 if arm == "json":
+                    parsed0 = native.parse_counts["native"]
                     run = await drive_images(port, "resnet", bodies,
                                              RESNET_CONCURRENCY)
+                    arms["native_parses"] = (native.parse_counts["native"]
+                                             - parsed0)
                 else:
                     run = await drive_binary_images(port, "resnet", images,
                                                     RESNET_CONCURRENCY)
@@ -1388,9 +1569,22 @@ def serve_resnet(card: str) -> dict:
                                  model.engine_stats().get("bucket_hits")))
             arms["binary_output"] = await asyncio.to_thread(
                 check_binary_output, port, "resnet", images[0])
+            last = await asyncio.to_thread(scrape, port)
+            arms["stages"] = stage_window(
+                first, last, model.engine.execute_count - executed,
+                "resnet")
+            arms["request_total"] = request_counts(last, "resnet")
             return arms
 
         arms = asyncio.run(serve_over_http(model, drive))
+        v1_bodies = sum(1 for path, _ in bodies if ":predict" in path)
+        check(arms["native_parses"] == v1_bodies,
+              f"resnet: the native codec parsed {arms['native_parses']} "
+              f"of the JSON arm's {v1_bodies} V1 bodies")
+        want = {"predict 200": v1_bodies,
+                "infer 200": len(bodies) - v1_bodies + len(images) + 2}
+        check(arms["request_total"] == want,
+              f"resnet: request_total {arms['request_total']} != {want}")
         answers, latencies, wall_s, batches, json_hits = arms["json"]
         bin_answers, bin_latencies, bin_wall_s, bin_batches, bin_hits = \
             arms["binary"]
@@ -1428,6 +1622,9 @@ def serve_resnet(card: str) -> dict:
         "p50_ms": percentile(latencies, 0.5),
         "p99_ms": percentile(latencies, 0.99),
         "batches": batches, "bucket_hits": json_hits,
+        "native_parses": arms["native_parses"],
+        "engine_stage_means": arms["stages"],
+        "request_total": arms["request_total"],
         "binary": {
             "requests": len(bin_answers), "wall_s": bin_wall_s,
             "req_per_s": len(bin_answers) / bin_wall_s,
@@ -1472,15 +1669,19 @@ def serve_vit(card: str) -> dict:
         bodies = image_bodies("vit", images)
 
         async def drive(port):
+            first = await asyncio.to_thread(scrape, port)
             # The main path's run: the count starts at 0 here.
             flash_attention.launches = 0
             executed0 = model.engine.execute_count
             answers, latencies, wall_s = await drive_images(
                 port, "vit", bodies, VIT_CONCURRENCY)
-            return (answers, latencies, wall_s, flash_attention.launches,
-                    model.engine.execute_count - executed0)
+            launches = flash_attention.launches
+            batches = model.engine.execute_count - executed0
+            stages = stage_window(first, await asyncio.to_thread(
+                scrape, port), batches, "vit")
+            return answers, latencies, wall_s, launches, batches, stages
 
-        answers, latencies, wall_s, launches, batches = asyncio.run(
+        answers, latencies, wall_s, launches, batches, stages = asyncio.run(
             serve_over_http(model, drive))
         check(batches > 0 and launches == cfg.num_layers * batches,
               f"vit: flash kernel launched {launches} times for {batches} "
@@ -1523,6 +1724,7 @@ def serve_vit(card: str) -> dict:
         "engine": {k: stats[k] for k in (
             "avg_prepare_ms", "avg_device_ms", "avg_fetch_ms",
             "achieved_tflops", "mfu") if k in stats},
+        "engine_stage_means": stages,
         "logits_max_abs_diff_vs_plain": diff, "logit_limit": limit,
         "b16_forward": b16,
         "b16_busy_tflops": module.flops(16) / b16["device_busy_ms"] / 1e9,
@@ -2014,6 +2216,44 @@ def serve_density(card: str) -> dict:
     return summary
 
 
+# -- the V1 JSON codec --------------------------------------------------------
+def check_codec(card: str) -> dict:
+    """The port's native codec builds here (the host C compiler against
+    this interpreter's Python.h) and parses a seeded 224 x 224 x 3 uint8
+    V1 body to the same array as its pure-Python fallback; host us per
+    body of each."""
+    from kfserving_tpu_torch.csrc import build
+    from kfserving_tpu_torch.protocol import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native tensorjson codec did not build "
+          f"or load: {build.build_logs.get('tensorjson', '')[-2000:]}")
+    build_s = time.perf_counter() - t0
+    image = np.random.default_rng(7).integers(0, 256, (1, 224, 224, 3))
+    body = json.dumps({"instances": image.tolist()}).encode()
+    parsers = {"native": lambda: native.parse_v1(body, "u1"),
+               "python": lambda: native._parse_v1_py(body, "u1")}
+    arrays, us = {}, {}
+    for name, parse in parsers.items():
+        arrays[name] = parse()
+        t0 = time.perf_counter()
+        for _ in range(CODEC_ITERS[name]):
+            parse()
+        us[name] = (time.perf_counter() - t0) / CODEC_ITERS[name] * 1e6
+    (fast, key), (slow, slow_key) = arrays["native"], arrays["python"]
+    check(key == slow_key == "instances" and fast.dtype == slow.dtype
+          == np.uint8 and fast.shape == slow.shape == image.shape
+          and np.array_equal(fast, slow) and np.array_equal(fast, image),
+          "native and pure-Python parses of one body differ")
+    summary = {"card": card, "body_bytes": len(body),
+               "build_and_load_s": build_s,
+               "native_us_per_body": us["native"],
+               "python_us_per_body": us["python"],
+               "speedup": us["python"] / us["native"]}
+    print("codec " + json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2035,6 +2275,7 @@ def main() -> int:
                                        "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
+    check_codec(card)
     kernels = [check_flash_attention(), check_paged_attention()]
     torch.cuda.empty_cache()
     # Every model loads through the mmap param cache: a private one.
@@ -2043,7 +2284,7 @@ def main() -> int:
     try:
         serving = serve_bert(card)
         generating = serve_generate(card)
-        serve_resnet(card)
+        resnet = serve_resnet(card)
         vit = serve_vit(card)
         serve_multi_model(card)
         residency = serve_residency(card)
@@ -2056,6 +2297,13 @@ def main() -> int:
                               + vit["flash_launches"]
                               + residency["flash_launches"])
     kernels[1]["launches"] = generating["launches"]["paged_attention"]
+    print("stages " + json.dumps({
+        "card": card, "resnet_json_req_per_s": resnet["req_per_s"],
+        "resnet_binary_req_per_s": resnet["binary"]["req_per_s"],
+        "engine_stage_means": {
+            "bert": serving["engine_stage_means"],
+            "resnet": resnet["engine_stage_means"],
+            "vit": vit["engine_stage_means"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)   # as nvidia-smi prints it: name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,6 @@
 """In-process dynamic request batcher, shape-bucket aware.
 
-Port of ``kfserving_tpu/batching/batcher.py`` without its observability,
-tracing and deadline hooks.  Semantics kept:
+Port of ``kfserving_tpu/batching/batcher.py``.  Semantics kept:
 
 - requests accumulate until `max_batch_size` instances are queued or the
   oldest request has waited `max_latency_ms`;
@@ -15,15 +14,32 @@ tracing and deadline hooks.  Semantics kept:
 - `buckets` aligns flushes to the engine's batch buckets: a flush takes
   the largest bucket-sized prefix of the queue (split at request
   boundaries) and the remainder keeps its own deadline;
-- a flush larger than `max_batch_size` runs as concurrent chunks.
+- a flush larger than `max_batch_size` runs as concurrent chunks;
+- a request's deadline (``reliability/deadline.py``) is captured at
+  submit: a waiter whose budget runs out while queued fails with 504 at
+  that moment and withdraws its instances, and expired or cancelled
+  waiters are reaped before a flush commits batch slots to them;
+- each flush records every waiter's queue wait
+  (``kfserving_tpu_batch_queue_wait_ms``), the batch's fill against its
+  bucket (``kfserving_tpu_batch_fill_ratio``) and one ``batcher.queue``
+  span per traced request.
 """
 
 import asyncio
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable, Dict, Hashable, List, Optional
 
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
+from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.reliability.deadline import (
+    Deadline,
+    DeadlineExceeded,
+    clear_deadline,
+    current_deadline,
+)
+from kfserving_tpu_torch.tracing import Span, current_request_id, tracer
 
 DEFAULT_MAX_BATCH_SIZE = 32
 DEFAULT_MAX_LATENCY_MS = 5000
@@ -49,6 +65,12 @@ class _Waiter:
     # loop.time()-based flush deadline (arrival + max_latency), so a
     # remainder left by a prefix flush re-arms at its own oldest request.
     flush_at: float = 0.0
+    # The request's budget, captured from the ambient context at submit.
+    budget: Optional[Deadline] = None
+    expiry: Optional[asyncio.TimerHandle] = None
+    # The submitting request's trace id: the flush records a
+    # `batcher.queue` span against it.
+    trace_id: Optional[str] = None
 
 
 @dataclass
@@ -99,12 +121,20 @@ class DynamicBatcher:
         self._tasks: set = set()
         self.batches_flushed = 0
         self.instances_batched = 0
+        self.last_batch_size = 0
+        # Per-bucket queue age at flush (ms), the starvation diagnostic:
+        # a bucket whose max age >> max_latency_ms is losing slot races.
+        self.queue_age_ms: Dict[Hashable, Dict[str, float]] = {}
 
     async def submit(self, instances: List[Any]) -> BatchResult:
         """Enqueue one request's instances; resolves with its own
         predictions."""
         if len(instances) == 0:
             raise ValueError("no instances in the request")
+        budget = current_deadline()
+        if budget is not None:
+            # Already over budget: 504 before touching the queue.
+            budget.raise_if_expired("batch queue admission")
         key = self.key_fn(instances[0]) if self.key_fn else None
         loop = asyncio.get_running_loop()
         pending = self._pending.get(key)
@@ -117,8 +147,15 @@ class DynamicBatcher:
         pending.instances.extend(instances)
         future = loop.create_future()
         waiter = _Waiter(start, len(instances), future,
-                         loop.time() + self.max_latency_ms / 1000.0)
+                         loop.time() + self.max_latency_ms / 1000.0,
+                         budget, trace_id=current_request_id.get())
         pending.waiters.append(waiter)
+        if budget is not None:
+            # Fail at the budget's expiry, not at the next flush: a 5 s
+            # flush deadline must not sit on a 50 ms budget's 504.
+            waiter.expiry = loop.call_later(
+                max(0.0, budget.remaining_s()),
+                self._expire_waiter, key, waiter)
         if len(pending.instances) >= self.max_batch_size:
             self._begin_flush(key)
         try:
@@ -126,11 +163,34 @@ class DynamicBatcher:
         except asyncio.CancelledError:
             # A cancelled submit withdraws its still-queued instances.
             self._discard_waiter(key, waiter)
+            if future.done() and not future.cancelled():
+                # Retrieve an exception an expiry set in the race
+                # window, or asyncio logs it as never retrieved.
+                future.exception()
             raise
+        finally:
+            if waiter.expiry is not None:
+                waiter.expiry.cancel()
+
+    def _expire_waiter(self, key: Hashable, waiter: _Waiter) -> None:
+        """The budget ran out while queued: fail THIS waiter with 504 and
+        withdraw its instances (the rest of the batch is untouched)."""
+        if waiter.future.done():
+            return
+        if not waiter.budget.expired:
+            # The timer fired early (clock granularity): the 504 follows
+            # the budget, not timer arithmetic, so re-arm.
+            waiter.expiry = asyncio.get_running_loop().call_later(
+                max(0.001, waiter.budget.remaining_s()),
+                self._expire_waiter, key, waiter)
+            return
+        waiter.future.set_exception(
+            DeadlineExceeded("expired in batch queue"))
+        self._discard_waiter(key, waiter)
 
     def _discard_waiter(self, key: Hashable, waiter: _Waiter) -> None:
-        """Remove a cancelled waiter from its pending group, rebuilding
-        sibling offsets.  No-op once flushed."""
+        """Remove a dead waiter (expired or cancelled) from its pending
+        group, rebuilding sibling offsets.  No-op once flushed."""
         pending = self._pending.get(key)
         if pending is None or waiter not in pending.waiters:
             return
@@ -143,6 +203,28 @@ class DynamicBatcher:
             if pending.timer is not None:
                 pending.timer.cancel()
             self._pending.pop(key, None)
+
+    def _reap_dead(self, pending: _Pending) -> None:
+        """Drop waiters that can no longer use a result (budget spent:
+        fail them with 504 now; future already done: cancelled) before a
+        flush commits batch slots to them."""
+        dead = [w for w in pending.waiters
+                if w.future.done()
+                or (w.budget is not None and w.budget.expired)]
+        if not dead:
+            return
+        for w in dead:
+            if not w.future.done():
+                w.future.set_exception(
+                    DeadlineExceeded("expired in batch queue"))
+            pending.waiters.remove(w)
+        instances, pos = [], 0
+        for w in pending.waiters:
+            instances.extend(
+                pending.instances[w.start:w.start + w.count])
+            w.start = pos
+            pos += w.count
+        pending.instances = instances
 
     def _flush_by_timer(self, key: Hashable):
         if key in self._pending and self._pending[key].instances:
@@ -173,6 +255,14 @@ class DynamicBatcher:
         pending = self._pending.get(key)
         if pending is None:
             return
+        # Expired and cancelled waiters must not occupy slots in the
+        # batch about to run.
+        self._reap_dead(pending)
+        if not pending.waiters:
+            if pending.timer is not None:
+                pending.timer.cancel()
+            self._pending.pop(key, None)
+            return
         if self.max_inflight is not None and \
                 self._inflight >= self.max_inflight:
             # Engine busy: keep the batch open; _on_batch_done flushes it.
@@ -194,12 +284,44 @@ class DynamicBatcher:
                                       self._flush_by_timer, key)
         else:
             self._pending.pop(key)
+        self._record_flush(key, head, loop)
         self._inflight += 1
         task = asyncio.ensure_future(self._run_batch(key, head))
         self._tasks.add(task)
         task.add_done_callback(self._tasks.discard)
         if rest is not None and len(rest.instances) >= self.max_batch_size:
             self._begin_flush(key, align=align)
+
+    def _record_flush(self, key: Hashable, head: _Pending, loop) -> None:
+        """Per-flush telemetry: the bucket's queue age, every waiter's
+        queue wait, the fill against the bucket the batch runs in (1.0 =
+        no pad slots) and one `batcher.queue` span per traced waiter."""
+        now = loop.time()
+        arrival = head.waiters[0].flush_at - self.max_latency_ms / 1000.0
+        age_ms = max(0.0, (now - arrival) * 1000.0)
+        rec = self.queue_age_ms.setdefault(key, {"max": 0.0, "last": 0.0})
+        rec["last"] = round(age_ms, 1)
+        rec["max"] = round(max(rec["max"], age_ms), 1)
+        n = len(head.instances)
+        if self._bucket_policy is not None:
+            padded = self._bucket_policy.fit(
+                min(n, self.max_batch_size)) or n
+        else:
+            padded = self.max_batch_size
+        fill = min(1.0, n / padded)
+        wait_hist = obs.batch_queue_wait_ms()
+        for w in head.waiters:
+            wait_ms = max(0.0, (now - (w.flush_at
+                                       - self.max_latency_ms / 1000.0))
+                          * 1000.0)
+            wait_hist.labels(bucket=str(key)).observe(wait_ms)
+            if w.trace_id is not None:
+                tracer.record(Span(
+                    w.trace_id, "batcher.queue",
+                    time.time() - wait_ms / 1000.0, wait_ms,
+                    {"bucket": str(key), "batch": n,
+                     "fill": round(fill, 4)}))
+        obs.batch_fill_ratio().labels(bucket=str(key)).observe(fill)
 
     def _on_batch_done(self):
         self._inflight -= 1
@@ -213,6 +335,11 @@ class DynamicBatcher:
             self._begin_flush(ripe[0][3])
 
     async def _run_batch(self, key: Hashable, pending: _Pending):
+        # This task inherits the context of whichever request's submit
+        # (or timer) triggered the flush; the batch serves many requests,
+        # so that one request's deadline must not govern it (budgets were
+        # enforced per waiter at flush time).
+        clear_deadline()
         batch_id = str(uuid.uuid4())
         try:
             predictions = await self._run_chunked(pending.instances, key)
@@ -226,6 +353,7 @@ class DynamicBatcher:
             self._on_batch_done()
         self.batches_flushed += 1
         self.instances_batched += len(pending.instances)
+        self.last_batch_size = len(pending.instances)
         for w in pending.waiters:
             if not w.future.done():
                 w.future.set_result(BatchResult(

@@ -1,15 +1,24 @@
-"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+"""Builds the port's native code at first use, into ``csrc/build/``.
 
-Each ``<name>.cu`` in this directory compiles into its own shared library
-with a plain C interface, for ``sm_90a`` (Hopper), into ``csrc/build/``:
+CUDA kernels: each ``<name>.cu`` in this directory compiles into its own
+shared library with a plain C interface, for ``sm_90a`` (Hopper), loaded
+with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<digest>.so <name>.cu
 
-The file name carries a digest of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing here runs at
-import time: the first wrapper call builds (or ``build_all`` builds every
-source at once, one nvcc process per source, all started together).
+C extensions: ``build_extension(name)`` compiles ``<name>.c`` (the V1
+JSON codec, ``tensorjson.c``) with the host C compiler against the
+running interpreter's ``Python.h`` into a CPython extension module:
+
+    cc -O3 -shared -fPIC -I<python include> \
+       -o build/_<name>-<digest><EXT_SUFFIX> <name>.c
+
+Each file name carries a digest of the source and the flags (and, for an
+extension, of the interpreter's include directory and ABI suffix), so an
+edited source rebuilds and an unchanged one is reused.  Nothing here runs
+at import time: the first wrapper call builds (or ``build_all`` builds
+every kernel at once, one nvcc process per source, all started together).
 """
 
 import ctypes
@@ -17,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 from typing import Dict, List, Optional
@@ -26,6 +36,7 @@ BUILD_DIR = os.path.join(CSRC_DIR, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -109,3 +120,51 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build_all([name])[name])
             _libraries[name] = lib
         return lib
+
+
+def find_cc() -> Optional[str]:
+    return shutil.which("cc") or shutil.which("gcc")
+
+
+def extension_path(name: str) -> str:
+    include = sysconfig.get_paths()["include"]
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    with open(os.path.join(CSRC_DIR, f"{name}.c"), "rb") as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(" ".join(CC_FLAGS + [include, suffix]).encode())
+    return os.path.join(BUILD_DIR,
+                        f"_{name}-{digest.hexdigest()[:16]}{suffix}")
+
+
+def build_extension(name: str) -> str:
+    """Compiles ``<name>.c`` into a CPython extension module unless it is
+    built already; returns its path.  Raises KernelBuildError when there
+    is no C compiler or no ``Python.h``, or the compile fails."""
+    target = extension_path(name)
+    with _lock:
+        if os.path.exists(target):
+            return target
+        cc = find_cc()
+        include = sysconfig.get_paths()["include"]
+        if cc is None:
+            raise KernelBuildError(
+                f"no C compiler (cc or gcc on PATH) to build {name}.c")
+        if not os.path.exists(os.path.join(include, "Python.h")):
+            raise KernelBuildError(
+                f"Python.h not found under {include}: {name}.c builds "
+                "only where the interpreter's headers are installed")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run(
+            [cc, *CC_FLAGS, f"-I{include}", "-o", tmp,
+             os.path.join(CSRC_DIR, f"{name}.c")],
+            capture_output=True, text=True, timeout=300)
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"{name}.c ({cc} exit {proc.returncode}):\n"
+                f"{build_logs[name]}")
+        os.replace(tmp, target)
+        return target

@@ -34,9 +34,19 @@ Port of ``kfserving_tpu/engine/generator.py``, paged mode:
   it is scheduled (preemption and resume included).  It is not JAX's
   threefry: seeded draws differ from the JAX package's.
 
+- **deadlines and telemetry**: a request carries the deadline and trace
+  id of the context that submitted it; between decode waves a request
+  whose budget ran out ends with finish_reason ``"timeout"`` and frees
+  its slot.  Tokens feed the TTFT / inter-token / tokens-per-second
+  series, the prefix index and the pool their lookup, tokens-saved and
+  eviction counters, and every finished request records a
+  ``generator.generate`` span; ``stats()`` carries the roofline
+  accounting (decode and prefill FLOP/s and MFU, decode memory
+  bandwidth) that ``/metrics`` publishes.
+
 Left for later: the dense slot mode (a config without ``block_size`` is
-refused), chunked prefill, speculative decoding, the host KV tier,
-deadlines, the timeline and metrics, and meshes.  The decode steps of a
+refused), chunked prefill, speculative decoding, the host KV tier, the
+timeline, and meshes.  The decode steps of a
 wave are a Python loop of eager launches (no CUDA graphs yet).
 """
 
@@ -54,12 +64,20 @@ from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kfserving_tpu_torch.engine.torch_engine import device_peak_flops
+from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.observability.profiling.roofline import (
+    device_peak_hbm_bw,
+)
+from kfserving_tpu_torch.ops.flash_attention import check_kernel_shapes
 from kfserving_tpu_torch.ops.paged_attention import (
     SUPPORTED_DTYPES,
     SUPPORTED_HEAD_DIMS,
     paged_insert,
 )
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
+from kfserving_tpu_torch.reliability.deadline import current_deadline
+from kfserving_tpu_torch.tracing import Span, current_request_id, tracer
 
 logger = logging.getLogger("kfserving_tpu_torch.engine.generator")
 
@@ -109,6 +127,22 @@ def mask_to_support(logits: torch.Tensor, top_ks: torch.Tensor,
     return torch.where(keep, logits, torch.finfo(logits.dtype).min)
 
 
+def check_device_shapes(module, device: torch.device) -> None:
+    """On the card, refuse a decoder that either kernel of the path is not
+    built for, at construction rather than on its first request: the
+    prefill runs the flash kernel (K1) and the decode waves the paged
+    kernel (K2)."""
+    check_kernel_shapes(module, device)
+    cfg = module.config
+    if device.type == "cuda" and (cfg.dtype not in SUPPORTED_DTYPES
+                                  or cfg.head_dim not in
+                                  SUPPORTED_HEAD_DIMS):
+        raise InvalidInput(
+            f"the paged decode kernel takes dtypes {SUPPORTED_DTYPES} and "
+            f"head dims {SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
+            f"{cfg.head_dim}")
+
+
 @dataclass
 class _Sampling:
     """One dispatch's per-row sampling parameters (device tensors) and
@@ -138,6 +172,12 @@ class _Request:
     # tokens.
     lp_chosen: List[float] = field(default_factory=list)
     lp_top: List[List[Tuple[int, float]]] = field(default_factory=list)
+    # The submitting context's budget: once it is spent, the request
+    # ends with finish_reason "timeout" at the next wave boundary.
+    deadline: Optional[Any] = None
+    trace_id: Optional[str] = None
+    submit_t: float = 0.0
+    last_emit_t: Optional[float] = None
 
 
 @dataclass
@@ -230,14 +270,7 @@ class GenerationEngine:
                     f"prefill bucket {b} must be a multiple of "
                     f"block_size {bs} (paged insert writes whole "
                     f"blocks)")
-        if self.device.type == "cuda" and (
-                cfg.dtype not in SUPPORTED_DTYPES
-                or cfg.head_dim not in SUPPORTED_HEAD_DIMS):
-            raise InvalidInput(
-                f"the paged decode kernel takes dtypes "
-                f"{SUPPORTED_DTYPES} and head dims "
-                f"{SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
-                f"{cfg.head_dim}")
+        check_device_shapes(module, self.device)
         self.blocks_per_slot = self.max_seq // bs
         self.num_blocks = int(cache_blocks or
                               self.max_slots * self.blocks_per_slot)
@@ -327,6 +360,25 @@ class GenerationEngine:
         self._decode_wait_s = 0.0
         self._prefill_wait_s = 0.0
         self._prefill_device_s = 0.0
+        # Roofline accounting over live rows: 2 x params matmul FLOPs per
+        # token plus attention's 4 x layers x heads x head_dim per
+        # resident context position; decode reads the params and every
+        # live slot's resident k/v once per token step.
+        self._flops_matmul_per_token = 2.0 * sum(
+            p.numel() for p in module.parameters())
+        self._attn_flops_coeff = (4.0 * cfg.num_layers * cfg.num_heads
+                                  * cfg.head_dim)
+        self._param_read_bytes = self.param_bytes()
+        self._kv_bytes_per_token = (
+            2 * cfg.num_layers * cfg.num_heads * cfg.head_dim
+            * torch.empty((), dtype=cfg.dtype).element_size())
+        self._peak_flops = device_peak_flops(self.device)
+        self._peak_hbm_bw = device_peak_hbm_bw(self.device)
+        self._decode_flops = 0.0
+        self._prefill_flops = 0.0
+        self._decode_hbm_bytes = 0.0
+        # Per prefill bucket: [real tokens, padded tokens].
+        self._prefill_bucket_tokens: Dict[int, List[float]] = {}
 
     # -- public API --------------------------------------------------------
     def cache_bytes(self) -> int:
@@ -398,7 +450,10 @@ class GenerationEngine:
         req = _Request(ids.astype(np.int32), budget, float(temperature),
                        top_k=int(top_k), top_p=float(top_p),
                        seed=int(seed) & 0x7FFFFFFF,
-                       logprobs=int(logprobs))
+                       logprobs=int(logprobs),
+                       deadline=current_deadline(),
+                       trace_id=current_request_id.get(),
+                       submit_t=time.perf_counter())
         self._pending.append(req)
         self._ensure_loop()
         return req
@@ -504,10 +559,35 @@ class GenerationEngine:
             "prefill_wait_s": round(self._prefill_wait_s, 4),
             "prefill_device_s": round(self._prefill_device_s, 4),
         }
+        # The roofline block (observability/profiling/roofline.py
+        # publishes these keys).  Device seconds are the union of
+        # enqueue -> fetch intervals: a floor on utilization.
+        if self._decode_flops > 0 and self._decode_device_s > 0:
+            achieved = self._decode_flops / self._decode_device_s
+            out["achieved_decode_tflops"] = round(achieved / 1e12, 6)
+            if self._peak_flops:
+                out["decode_mfu"] = round(achieved / self._peak_flops, 6)
+        if self._prefill_flops > 0 and self._prefill_device_s > 0:
+            achieved = self._prefill_flops / self._prefill_device_s
+            out["achieved_prefill_tflops"] = round(achieved / 1e12, 6)
+            if self._peak_flops:
+                out["prefill_mfu"] = round(achieved / self._peak_flops, 6)
         if self.tokens_generated + self._wasted_token_steps > 0:
             out["goodput_ratio"] = round(
                 self.tokens_generated
                 / (self.tokens_generated + self._wasted_token_steps), 4)
+        if self._decode_hbm_bytes > 0 and self._decode_device_s > 0:
+            rate = self._decode_hbm_bytes / self._decode_device_s
+            out["decode_hbm_gb_s"] = round(rate / 1e9, 3)
+            if self._peak_hbm_bw:
+                out["hbm_bw_util"] = round(
+                    min(1.0, rate / self._peak_hbm_bw), 6)
+        if self._prefill_bucket_tokens:
+            out["prefill_bucket_pad_waste"] = {
+                f"s{b}": round(1.0 - real / padded, 4)
+                for b, (real, padded)
+                in sorted(self._prefill_bucket_tokens.copy().items())
+                if padded > 0}
         with self._block_lock:
             refd = int(np.sum(self._block_ref > 0))
             resident = sum(s.length for s in self._slots if s is not None)
@@ -543,9 +623,16 @@ class GenerationEngine:
             chain = self._block_chain.pop(blk, None)
             if chain is not None and self._prefix_index.get(chain) == blk:
                 self._prefix_index.pop(chain, None)
-            self.block_evictions["capacity_dropped"] += 1
+            self._count_evictions_locked("capacity_dropped", 1)
             return blk
         return None
+
+    def _count_evictions_locked(self, cause: str, n: int) -> None:
+        if n <= 0:
+            return
+        self.block_evictions[cause] += n
+        obs.generator_block_evictions_total().labels(
+            model=self.name, cause=cause).inc(n)
 
     def _ref_block_locked(self, blk: int) -> None:
         self._block_ref[blk] += 1
@@ -569,10 +656,12 @@ class GenerationEngine:
         """Remove a slot's provisional prefix registrations (its prefill
         never enqueued, so the registered blocks hold no data)."""
         with self._block_lock:
+            dropped = 0
             for chain, blk in self._plan_regs.pop(slot, []):
                 if self._prefix_index.pop(chain, None) is not None:
-                    self.block_evictions["index_invalidation"] += 1
+                    dropped += 1
                 self._block_chain.pop(blk, None)
+            self._count_evictions_locked("index_invalidation", dropped)
 
     def _confirm_plan(self, slot: int) -> None:
         """The slot's prefill is enqueued: its registrations are backed
@@ -602,7 +691,8 @@ class GenerationEngine:
             with self._block_lock:
                 for blk in blocks:
                     self._unref_block_locked(blk)
-        self.block_evictions["zombie_deferral"] += released
+        with self._block_lock:
+            self._count_evictions_locked("zombie_deferral", released)
 
     def _plan_prompt_blocks(self, req: _Request, slot: int
                             ) -> Optional[List[int]]:
@@ -619,7 +709,7 @@ class GenerationEngine:
         dest: List[int] = []
         taken: List[int] = []
         fresh_regs: List[Tuple[bytes, int]] = []
-        plan_hits = 0
+        plan_hits = plan_misses = 0
         chains: List[bytes] = []
         chain = b""
         for c in range(full):
@@ -643,13 +733,17 @@ class GenerationEngine:
                     # Roll back; this plan's fresh registrations were
                     # never written, so a later hit on them would share
                     # unwritten blocks.
+                    dropped = 0
                     for ch, b in fresh_regs:
                         if self._prefix_index.pop(ch, None) is not None:
-                            self.block_evictions["index_invalidation"] += 1
+                            dropped += 1
                         self._block_chain.pop(b, None)
+                    self._count_evictions_locked("index_invalidation",
+                                                 dropped)
                     for b in taken:
                         self._unref_block_locked(b)
                     self._tables[slot, :] = -1
+                    self._count_lookups(plan_hits, plan_misses, 0)
                     return None
                 self._ref_block_locked(blk)
                 self._tables[slot, c] = blk
@@ -660,13 +754,28 @@ class GenerationEngine:
                     # land past the prompt); provisional until the
                     # prefill enqueues.
                     self.prefix_misses += 1
+                    plan_misses += 1
                     self._prefix_index[chains[c]] = blk
                     self._block_chain[blk] = chains[c]
                     fresh_regs.append((chains[c], blk))
             self._plan_regs[slot] = fresh_regs
             self.prefix_hits += plan_hits
             self.prefill_tokens_saved += plan_hits * bs
+        self._count_lookups(plan_hits, plan_misses, plan_hits * bs)
         return dest
+
+    def _count_lookups(self, hits: int, misses: int, saved: int) -> None:
+        """One plan's prefix-index probes and the prompt tokens its hits
+        saved, into the registry families."""
+        if hits:
+            obs.generator_prefix_lookups_total().labels(
+                model=self.name, outcome="hit").inc(hits)
+        if misses:
+            obs.generator_prefix_lookups_total().labels(
+                model=self.name, outcome="miss").inc(misses)
+        if saved:
+            obs.generator_prefill_tokens_saved_total().labels(
+                model=self.name).inc(saved)
 
     def _ensure_block_capacity(self) -> List[int]:
         """Grow active slots' tables to cover the positions the next
@@ -837,6 +946,14 @@ class GenerationEngine:
             lengths[i] = n
             slot_arr[i] = slot
             dest[i, :len(dest_rows[i])] = dest_rows[i]
+            # Real-token FLOPs: matmuls plus causal attention's
+            # triangular sum; padding burns device time without them.
+            self._prefill_flops += (self._flops_matmul_per_token * n
+                                    + self._attn_flops_coeff * n * (n + 1)
+                                    / 2.0)
+        rec = self._prefill_bucket_tokens.setdefault(bucket, [0.0, 0.0])
+        rec[0] += float(lengths[:b].sum())
+        rec[1] += b_bucket * bucket
         with torch.inference_mode(), self._device_scope():
             p = self._sampling(list(group) + [None] * (b_bucket - b),
                                b_bucket)
@@ -874,6 +991,43 @@ class GenerationEngine:
         finally:
             if self._closed:
                 self._fail_all("error: generator closed")
+
+    def _expire_deadlines(self) -> None:
+        """Between decode waves: requests whose budget ran out get a
+        terminal "timeout" event and free their slot (active) or leave
+        the queue (pending); no further wave is spent on them."""
+        for i, s in enumerate(self._slots):
+            if s is not None and s.req.deadline is not None \
+                    and s.req.deadline.expired:
+                s.req.out.put_nowait((None, "timeout"))
+                self._record_finish_span(s.req, s.generated, "timeout")
+                self._free_slot_state(i)
+                self.requests_finished += 1
+        if any(r.deadline is not None and r.deadline.expired
+               for r in self._pending):
+            keep = deque()
+            while self._pending:
+                r = self._pending.popleft()
+                if r.deadline is not None and r.deadline.expired:
+                    r.out.put_nowait((None, "timeout"))
+                    self._record_finish_span(r, 0, "timeout")
+                    self.requests_finished += 1
+                else:
+                    keep.append(r)
+            self._pending = keep
+
+    @staticmethod
+    def _record_finish_span(req: _Request, tokens: int,
+                            finished: str) -> None:
+        """One `generator.generate` span per finished generation, on
+        every terminal path (eos, length and timeout)."""
+        if req.trace_id is None:
+            return
+        duration_s = max(0.0, time.perf_counter() - req.submit_t)
+        tracer.record(Span(
+            req.trace_id, "generator.generate",
+            time.time() - duration_s, duration_s * 1000.0,
+            {"tokens": tokens, "finish_reason": finished}))
 
     def _fail_all(self, reason: str):
         for i, s in enumerate(self._slots):
@@ -994,6 +1148,7 @@ class GenerationEngine:
 
     async def _run_pipeline(self, loop, inflight: deque):
         while not self._closed:
+            self._expire_deadlines()
             admitted = await self._admit(loop, inflight)
             active = any(s is not None for s in self._slots)
             if not active and not inflight:
@@ -1026,6 +1181,7 @@ class GenerationEngine:
                     # Every stream finishes within the waves in flight:
                     # another wave could only decode garbage.
                     self.suppressed_waves += 1
+                    obs.generator_suppressed_waves_total().inc()
                     break
                 handle, snap, t0 = await loop.run_in_executor(
                     self._enqueue_executor, self._enqueue_wave)
@@ -1033,8 +1189,9 @@ class GenerationEngine:
                                            handle)
                 inflight.append(("decode", fut, snap, t0))
                 waves += 1
-            if decodable:
+            if decodable and waves != self._depth_effective:
                 self._depth_effective = waves
+                obs.generator_pipeline_depth().set(waves)
             if not inflight:
                 # A held drain reached an empty pipeline: no zombie
                 # dispatch exists, so the yielded blocks can go now.
@@ -1086,6 +1243,18 @@ class GenerationEngine:
         s = self._slots[slot]
         s.generated += 1
         self.tokens_generated += 1
+        obs.llm_tokens_total().labels(direction="out").inc()
+        # The first emission is the TTFT, later ones inter-token gaps;
+        # both carry the request's trace id as an exemplar.
+        now = time.perf_counter()
+        if s.req.last_emit_t is None:
+            obs.llm_ttft_ms().observe((now - s.req.submit_t) * 1000.0,
+                                      trace_id=s.req.trace_id)
+        else:
+            obs.llm_inter_token_ms().observe(
+                (now - s.req.last_emit_t) * 1000.0,
+                trace_id=s.req.trace_id)
+        s.req.last_emit_t = now
         finished = None
         if self.eos_id is not None and token == self.eos_id:
             finished = "eos"
@@ -1100,6 +1269,11 @@ class GenerationEngine:
             s.tokens.append(token)
             s.req.out.put_nowait((token, finished))
         if finished is not None:
+            duration_s = now - s.req.submit_t
+            if duration_s > 0:
+                obs.llm_tokens_per_second().observe(
+                    s.generated / duration_s, trace_id=s.req.trace_id)
+            self._record_finish_span(s.req, s.generated, finished)
             self._free_slot_state(slot)
             self.requests_finished += 1
         else:
@@ -1112,6 +1286,7 @@ class GenerationEngine:
         slot finishing mid-wave discards the rest of its row."""
         k = tokens.shape[1]
         self._token_steps += k
+        resident_tokens = 0
         for i, s in enumerate(snapshot):
             if s is None:
                 continue
@@ -1119,6 +1294,11 @@ class GenerationEngine:
                 self._wasted_token_steps += k
                 continue
             self._occupied_slot_steps += k
+            # Roofline accounting over live rows, at the slot's length
+            # at wave start.
+            self._decode_flops += k * (self._flops_matmul_per_token
+                                       + self._attn_flops_coeff * s.length)
+            resident_tokens += s.length
             for j in range(k):
                 if self._slots[i] is not s:
                     self._wasted_token_steps += k - j
@@ -1126,6 +1306,10 @@ class GenerationEngine:
                 s.length += 1   # step j wrote the fed token's k/v
                 self._emit(i, int(tokens[i, j]),
                            _lp_record(lp, s.req, (i, j)))
+        if resident_tokens:
+            self._decode_hbm_bytes += k * (
+                self._param_read_bytes
+                + resident_tokens * self._kv_bytes_per_token)
 
 
 def _lp_record(lp, req: _Request, index):

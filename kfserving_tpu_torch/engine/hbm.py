@@ -15,8 +15,10 @@ through ``victim_release``.
 
 The budget is ``KFS_HBM_BUDGET`` when set, else 90% of the card's memory
 (``torch.cuda.mem_get_info``), else 12 GiB when no card reports one.  The
-JAX package's registry metrics wait for the port's registry (ROADMAP
-Queue 1, slice 1 item g).
+ledger publishes ``kfserving_tpu_hbm_budget_bytes``,
+``kfserving_tpu_hbm_resident_bytes{model}`` (pruned when a model leaves),
+``kfserving_tpu_hbm_evictions_total{model}`` and
+``kfserving_tpu_hbm_eviction_skips_total{model,reason}``.
 """
 
 import logging
@@ -28,6 +30,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from kfserving_tpu_torch.observability import metrics as obs
 
 logger = logging.getLogger("kfserving_tpu_torch.hbm")
 
@@ -105,6 +109,7 @@ class HBMManager:
         # admit every ~20 ms, and a busy candidate counts once per
         # admission episode, not once per retry.
         self._skips_counted: Dict[str, set] = {}
+        obs.hbm_budget_bytes().set(float(budget_bytes))
 
     @property
     def used_bytes(self) -> int:
@@ -199,13 +204,22 @@ class HBMManager:
                 except Exception:
                     logger.exception("evict callback failed for %s (entry "
                                      "released anyway)", victim)
+        popped: List[str] = []
         with self._lock:
             for victim, entry in victim_entries.items():
                 # Identity check: a victim faulted back in meanwhile
                 # keeps its new entry.
                 if self._resident.get(victim) is entry:
                     self._resident.pop(victim)
+                    popped.append(victim)
                 self.evictions[victim] = self.evictions.get(victim, 0) + 1
+        for victim in victims:
+            obs.hbm_evictions_total().labels(model=victim).inc()
+        # Prune only victims that left the ledger: one re-admitted
+        # mid-eviction keeps its live series.
+        for victim in popped:
+            obs.hbm_resident_bytes().prune(model=victim)
+        obs.hbm_resident_bytes().labels(model=name).set(float(nbytes))
         return victims
 
     def _count_skips(self, name: str, skipped: List[str],
@@ -221,6 +235,9 @@ class HBMManager:
             for cand in fresh:
                 self.eviction_skips[cand] = \
                     self.eviction_skips.get(cand, 0) + 1
+        for cand in fresh:
+            obs.hbm_eviction_skips_total().labels(
+                model=cand, reason="busy").inc()
 
     def end_skip_episode(self, name: str) -> None:
         """Close a waiting admission's skip episode without a commit (a
@@ -240,6 +257,8 @@ class HBMManager:
     def release(self, name: str) -> None:
         with self._lock:
             self._resident.pop(name, None)
+        # Prune, not zero: a released model drops out of /metrics.
+        obs.hbm_resident_bytes().prune(model=name)
 
     def commit(self, staging: str, name: str,
                nbytes: Optional[int] = None) -> None:
@@ -255,6 +274,8 @@ class HBMManager:
             final = nbytes if nbytes is not None else src.bytes
             self._resident[name] = Residency(name, final, src.loaded_at,
                                              time.time())
+        obs.hbm_resident_bytes().prune(model=staging)
+        obs.hbm_resident_bytes().labels(model=name).set(float(final))
 
     def debug(self) -> Dict[str, Any]:
         """The ``/debug/cache`` ledger block: budget totals and the

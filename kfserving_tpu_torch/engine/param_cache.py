@@ -35,7 +35,8 @@ it; the port reads its bytes as uint16 and views them as
 ``torch.bfloat16`` (no ``ml_dtypes``).  Entries are published atomically
 (temp dir + rename); a corrupt entry is deleted on load; loads are
 zero-copy tensors over one copy-on-write memmap.  Outcomes are counted in
-``counts`` (hit / miss / store / error).  Knob: ``KFS_PARAM_CACHE``
+``kfserving_tpu_param_cache_total{outcome=hit|miss|store|error}``.  Knob:
+``KFS_PARAM_CACHE``
 (directory; ``0``/``off`` disables).
 """
 
@@ -47,12 +48,12 @@ import logging
 import os
 import shutil
 import tempfile
-import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.protocol.errors import InvalidInput
 
 logger = logging.getLogger("kfserving_tpu_torch.param_cache")
@@ -69,10 +70,6 @@ CHECKPOINT_NAME = "checkpoint.msgpack"
 # sources).
 _ALIGN = 4096
 
-# Outcome counts of this process (the registry family
-# kfserving_tpu_param_cache_total waits for the port's registry).
-counts: Dict[str, int] = {"hit": 0, "miss": 0, "store": 0, "error": 0}
-_counts_lock = threading.Lock()
 
 
 def cache_dir() -> Optional[str]:
@@ -84,8 +81,7 @@ def cache_dir() -> Optional[str]:
 
 
 def _observe(outcome: str) -> None:
-    with _counts_lock:
-        counts[outcome] += 1
+    obs.param_cache_total().labels(outcome=outcome).inc()
 
 
 def file_digest(path: str) -> str:

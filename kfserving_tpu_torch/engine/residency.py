@@ -26,9 +26,12 @@ the resource ``engine/hbm.py`` books:
 
 States: registered -> faulting -> resident <-> evicting -> host.
 
-Left for later (ROADMAP Queue 1 item g): the registry families, the
-timeline events and the flight-recorder pin of an eviction storm; the
-storm count is kept in ``debug()``.
+Published: ``kfserving_tpu_residency_state{model}`` (pruned when a model
+deregisters), ``kfserving_tpu_residency_fault_in_ms{source}`` and
+``kfserving_tpu_residency_fault_ins_total{model,outcome}``.  Left for
+later (ROADMAP Queue 1 item 9): the timeline events and the
+flight-recorder pin of an eviction storm; the storm count is kept in
+``debug()``.
 """
 
 import asyncio
@@ -42,6 +45,7 @@ from collections import deque
 from typing import Any, Dict, Optional
 
 from kfserving_tpu_torch.engine.hbm import HBMManager, InsufficientHBM
+from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.reliability import fault_sites
 from kfserving_tpu_torch.reliability.faults import FaultInjected, faults
 
@@ -56,6 +60,10 @@ DEFAULT_ADMIT_WAIT_S = 5.0
 # these tuned its flight-recorder pin, which the port does not have yet.
 STORM_WINDOW_S = 10.0
 STORM_THRESHOLD = 8
+# kfserving_tpu_residency_state values; an evicting model is still on the
+# card.
+STATE_CODES = {"registered": 0, "host": 1, "faulting": 2,
+               "resident": 3, "evicting": 3}
 
 
 class _Record:
@@ -126,9 +134,11 @@ class ResidencyManager:
         if rec.state == "resident":
             rec.nbytes = self._host_bytes(model)
         self._models[name] = rec
+        self._publish_state(rec)
 
     def deregister(self, name: str) -> None:
         self._models.pop(name, None)
+        obs.residency_state().prune(model=name)
 
     def state_of(self, name: str) -> Optional[str]:
         rec = self._models.get(name)
@@ -138,6 +148,11 @@ class ResidencyManager:
     def _host_bytes(model) -> int:
         fn = getattr(model, "host_bytes", None)
         return int(fn()) if fn is not None else 0
+
+    @staticmethod
+    def _publish_state(rec: "_Record") -> None:
+        obs.residency_state().labels(model=rec.name).set(
+            float(STATE_CODES.get(rec.state, 0)))
 
     def close(self) -> None:
         """Release the fault-in workers (server shutdown)."""
@@ -180,6 +195,8 @@ class ResidencyManager:
                 self._fault_in(rec))
         else:
             rec.fault_counts["coalesced"] += 1
+            obs.residency_fault_ins_total().labels(
+                model=name, outcome="coalesced").inc()
         # shield: one cancelled requester must not cancel the transfer
         # its coalesced peers wait on.
         await asyncio.shield(fault)
@@ -201,6 +218,7 @@ class ResidencyManager:
                     rec.state = "faulting"
             if source is None:
                 await asyncio.sleep(0.005)
+        self._publish_state(rec)
         t0 = time.perf_counter()
         try:
             if faults.configured(fault_sites.ENGINE_RESIDENCY_SWAP):
@@ -233,6 +251,9 @@ class ResidencyManager:
             with self._lock:
                 rec.state = "registered" if source == "cold" else "host"
             rec.fault_counts["error"] += 1
+            obs.residency_fault_ins_total().labels(
+                model=rec.name, outcome="error").inc()
+            self._publish_state(rec)
             if isinstance(e, (FaultInjected, InsufficientHBM)):
                 logger.warning("fault-in of %s failed (%s); the resident "
                                "set keeps serving", rec.name, e)
@@ -245,6 +266,10 @@ class ResidencyManager:
         rec.last_fault_ms = ms
         rec.fault_counts[source] += 1
         self.fault_ms[source].append(ms)
+        obs.residency_fault_in_ms().labels(source=source).observe(ms)
+        obs.residency_fault_ins_total().labels(
+            model=rec.name, outcome=source).inc()
+        self._publish_state(rec)
         logger.info("faulted %s onto the card (%s, %.1f ms)", rec.name,
                     source, ms)
 
@@ -302,6 +327,7 @@ class ResidencyManager:
         finally:
             with self._lock:
                 rec.state = "host" if offloaded else "registered"
+            self._publish_state(rec)
         logger.info("evicted %s from the card (%s)", name,
                     "host params retained" if offloaded
                     else "demoted to registered")

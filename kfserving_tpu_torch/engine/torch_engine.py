@@ -18,10 +18,21 @@ Port of ``kfserving_tpu/engine/jax_engine.py`` (``JaxEngine``):
 
 PyTorch runs eagerly, so there is nothing to compile: ``compile_count``
 counts the bucket shapes warmup ran, as the JAX engine counts programs.
+
+Each execution checks the caller's deadline first (the caller's context
+rides into the worker thread), records an ``engine.execute`` span and
+observes ``kfserving_tpu_engine_stage_ms`` per stage: prepare (pad on
+the host), transfer (the host-to-device copies are queued), compute (the
+forward is queued) and fetch (wait for the card, copy the rows back).
+Dispatch is asynchronous, so compute ends when the launches return and
+fetch holds the wait for the device; ``stats()`` says so with
+``blocking_stats`` false, as the JAX engine does in its non-blocking
+mode.
 """
 
 import asyncio
 import concurrent.futures
+import contextvars
 import os
 import threading
 import time
@@ -31,6 +42,9 @@ import numpy as np
 import torch
 
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
+from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.reliability.deadline import check_deadline
+from kfserving_tpu_torch.tracing import current_request_id, tracer
 
 # Dense bf16 tensor-core peaks (NVIDIA data sheets, SXM parts), by the
 # substring of torch.cuda.get_device_name() that names the part.
@@ -236,6 +250,10 @@ class TorchEngine:
 
     # -- execution -----------------------------------------------------------
     def _execute_sync(self, inputs: Any) -> Any:
+        # Last stop before device work: an over-budget request fails 504
+        # here.  Batched executions carry no deadline (the batcher clears
+        # it; per-request budgets were settled at the queue edge).
+        check_deadline("engine dispatch")
         if self.params is None:
             raise RuntimeError("engine is closed")
         if self._offloaded:
@@ -244,19 +262,34 @@ class TorchEngine:
             raise RuntimeError(
                 "engine params are offloaded from the device; the model "
                 "must be faulted in first")
-        t0 = time.perf_counter()
-        padded, n = self._prepare(inputs)
-        t1 = time.perf_counter()
-        with torch.inference_mode():
-            batch = _map(self._to_device, padded)
-            out = self._apply(self.params, batch)
-            t2 = time.perf_counter()
-            # The one device -> host join of a batch: waits for the
-            # kernels, then copies only the n real rows.
-            result = _map(lambda t: t[:n].cpu().numpy(), out)
-        t3 = time.perf_counter()
-        key = self._shape_key(padded)
-        bucket = key[0]
+        with tracer.span("engine.execute") as span:
+            t0 = time.perf_counter()
+            padded, n = self._prepare(inputs)
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                batch = _map(self._to_device, padded)
+                t_transfer = time.perf_counter()
+                out = self._apply(self.params, batch)
+                t2 = time.perf_counter()
+                # The one device -> host join of a batch: waits for the
+                # kernels, then copies only the n real rows.
+                result = _map(lambda t: t[:n].cpu().numpy(), out)
+            t3 = time.perf_counter()
+            key = self._shape_key(padded)
+            bucket = key[0]
+            span.update(batch=n, bucket=int(bucket),
+                        prepare_ms=round((t1 - t0) * 1e3, 3),
+                        device_ms=round((t2 - t1) * 1e3, 3),
+                        fetch_ms=round((t3 - t2) * 1e3, 3))
+        # Stage histograms, exemplared with the request's trace id (the
+        # contextvar rode into this worker thread).
+        trace_id = current_request_id.get()
+        stage_hist = obs.engine_stage_ms()
+        for stage, ms in (("prepare", (t1 - t0) * 1e3),
+                          ("transfer", (t_transfer - t1) * 1e3),
+                          ("compute", (t2 - t_transfer) * 1e3),
+                          ("fetch", (t3 - t2) * 1e3)):
+            stage_hist.labels(stage=stage).observe(ms, trace_id=trace_id)
         # Models without a sequence axis (ResNet, MLP, ViT) take None.
         flops = self._flops_fn(*key) if self._flops_fn else 0.0
         with self._stats_lock:
@@ -275,10 +308,13 @@ class TorchEngine:
         return result
 
     async def predict(self, inputs: Any) -> Any:
-        """Async batch predict: pads, executes off-loop, unpads."""
+        """Async batch predict: pads, executes off-loop, unpads.  The
+        call runs in a copy of the caller's context, so its deadline and
+        trace id ride into the worker thread."""
         loop = asyncio.get_running_loop()
+        ctx = contextvars.copy_context()
         return await loop.run_in_executor(
-            self._executor, self._execute_sync, inputs)
+            self._executor, ctx.run, self._execute_sync, inputs)
 
     def predict_sync(self, inputs: Any) -> Any:
         return self._execute_sync(inputs)
@@ -402,6 +438,7 @@ class TorchEngine:
                 "execute_count": n,
                 "compile_count": self.compile_count,
                 "pipeline_depth": self.pipeline_depth,
+                "blocking_stats": False,
                 "last_execute_ms": self.last_execute_ms,
                 "avg_pad_waste": (self.padded_waste_total / n
                                   if n else 0.0),

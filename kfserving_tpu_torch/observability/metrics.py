@@ -1,0 +1,259 @@
+"""The metric catalog: accessors for the instruments of the port's layers.
+
+Port of ``kfserving_tpu/observability/metrics.py``, holding only the
+families that layers already in the port emit; each keeps the JAX
+package's name, kind, labels and buckets.  Each accessor re-resolves its
+family from the process registry on every call (registration is an
+idempotent dict lookup), so a test-time ``REGISTRY.reset()`` never leaves
+a caller holding a stale instrument::
+
+    from kfserving_tpu_torch.observability import metrics as obs
+
+    obs.batch_queue_wait_ms().labels(bucket=str(key)).observe(age_ms)
+    obs.llm_ttft_ms().observe(ttft, trace_id=req.trace_id)
+
+Histograms are milliseconds unless the name says otherwise.  Families of
+layers the port has not ported yet (KV tier, handoff, speculative
+decoding, compile cache, SLO, history, router, monitors) are listed in
+ROADMAP under the item that ports each.
+"""
+
+from kfserving_tpu_torch.observability.registry import (
+    RATIO_BUCKETS,
+    REGISTRY,
+    THROUGHPUT_BUCKETS,
+)
+
+# The per-request accounting series (the server's Metrics feeds them).
+REQUEST_TOTAL_SERIES = "kfserving_tpu_request_total"
+REQUEST_LATENCY_SERIES = "kfserving_tpu_request_latency_ms"
+
+
+# -- batcher -------------------------------------------------------------
+def batch_queue_wait_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_batch_queue_wait_ms",
+        "Time a request's oldest instance waited in the dynamic "
+        "batcher queue before its batch flushed")
+
+
+def batch_fill_ratio():
+    return REGISTRY.histogram(
+        "kfserving_tpu_batch_fill_ratio",
+        "Flushed batch size as a fraction of the executed bucket "
+        "(1.0 = zero pad slots)", buckets=RATIO_BUCKETS)
+
+
+# -- engine --------------------------------------------------------------
+def engine_stage_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_engine_stage_ms",
+        "Per-execution engine stage timing (stage=prepare|transfer|"
+        "compute|fetch).  Dispatch is asynchronous: compute ends when "
+        "the launches return, and fetch includes the wait for the "
+        "card")
+
+
+# -- LLM generation ------------------------------------------------------
+def llm_ttft_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_llm_ttft_ms",
+        "Time from generation submit to the first emitted token")
+
+
+def llm_inter_token_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_llm_inter_token_ms",
+        "Gap between consecutive emitted tokens of one generation")
+
+
+def llm_tokens_per_second():
+    return REGISTRY.histogram(
+        "kfserving_tpu_llm_tokens_per_second",
+        "Whole-generation decode throughput at finish",
+        buckets=THROUGHPUT_BUCKETS)
+
+
+def llm_tokens_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_llm_tokens_total",
+        "Prompt and generated tokens by direction (direction=in|out)")
+
+
+def generator_pipeline_depth():
+    return REGISTRY.gauge(
+        "kfserving_tpu_generator_pipeline_depth",
+        "Effective decode pipeline depth after the adaptive governor "
+        "(configured depth when streams extend past the in-flight "
+        "horizon; 1 when speculative waves could only decode garbage)")
+
+
+def generator_suppressed_waves_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_suppressed_waves_total",
+        "Speculative decode waves the adaptive-depth governor did not "
+        "enqueue because every active stream provably finishes within "
+        "the waves already in flight")
+
+
+# -- prefix cache & block pool -------------------------------------------
+def generator_prefix_lookups_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_prefix_lookups_total",
+        "Chain-hash prefix-index probes per full prompt block at plan "
+        "time, by outcome (hit = the block's k/v were already "
+        "device-resident and the plan points at the shared block; "
+        "miss = a fresh block was allocated)")
+
+
+def generator_prefill_tokens_saved_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_prefill_tokens_saved_total",
+        "Prompt tokens whose k/v came from shared prefix blocks "
+        "instead of being stored again (hit blocks x block_size)")
+
+
+def generator_block_evictions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_block_evictions_total",
+        "Pool blocks leaving their role, by cause: capacity_dropped "
+        "= LRU reclaim of a zero-ref cached prefix block under "
+        "allocation pressure (the port has no host KV tier, so its "
+        "state is lost); index_invalidation = provisional prefix "
+        "registrations dropped because their planned writes never "
+        "dispatched (plan rollback / enqueue failure); "
+        "zombie_deferral = slot blocks released after maturing "
+        "through the zombie-wave deferral window (the normal free "
+        "path, counted so the deferral machinery is observable)")
+
+
+def generator_pool_occupancy_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_generator_pool_occupancy_ratio",
+        "Referenced (ref > 0) blocks over the whole pool at the last "
+        "scrape — 1.0 means every block is held by a live slot or "
+        "shared prefix; reclaimable cached blocks do not count")
+
+
+def generator_pool_fragmentation_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_generator_pool_fragmentation_ratio",
+        "Internal fragmentation of slot tables: 1 - resident tokens "
+        "/ (table blocks x block_size), with shared prefix blocks "
+        "counted per sharer on both sides — the tail positions "
+        "allocated for growth but not yet holding k/v")
+
+
+# -- device-memory ledger (engine/hbm.py) --------------------------------
+def hbm_resident_bytes():
+    return REGISTRY.gauge(
+        "kfserving_tpu_hbm_resident_bytes",
+        "Accounted HBM residency per model (params + cache pool as "
+        "admitted to the HBMManager budget); series are pruned when "
+        "the model is released")
+
+
+def hbm_budget_bytes():
+    return REGISTRY.gauge(
+        "kfserving_tpu_hbm_budget_bytes",
+        "The HBMManager's packing budget for this device/mesh")
+
+
+def hbm_evictions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_hbm_evictions_total",
+        "Models evicted from HBM residency by the LRU accountant to "
+        "fit an admission, labeled by the evicted model")
+
+
+def hbm_eviction_skips_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_hbm_eviction_skips_total",
+        "LRU eviction candidates the admission plan passed over, by "
+        "skipped model and reason (busy = the residency manager vetoed "
+        "a victim with queued or in-flight work — the admission-aware "
+        "guarantee that a serving model is never yanked from HBM)")
+
+
+# -- model residency (engine/residency.py) -------------------------------
+def residency_state():
+    return REGISTRY.gauge(
+        "kfserving_tpu_residency_state",
+        "Per-model residency state (0=registered, 1=host-resident "
+        "mmap-backed, 2=fault-in in flight, 3=HBM-resident serving); "
+        "series are pruned when the model deregisters")
+
+
+def residency_fault_in_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_residency_fault_in_ms",
+        "Fault-in latency of a predict that found its model outside "
+        "HBM, by source (warm = host mmap params re-placed on device; "
+        "cold = first activation paying download/materialize/compile)")
+
+
+def residency_fault_ins_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_residency_fault_ins_total",
+        "Residency fault-ins by model and outcome (warm|cold = one "
+        "physical transfer; coalesced = a concurrent request rode an "
+        "already-in-flight fault instead of issuing its own; error = "
+        "the fault failed and the incumbent resident set kept serving)")
+
+
+# -- engine roofline (published at /metrics scrape time from engine stats)
+def engine_mfu():
+    return REGISTRY.gauge(
+        "kfserving_tpu_engine_mfu",
+        "Model FLOP utilization: achieved FLOP/s over the chip's "
+        "peak, per phase (phase=infer — the bucketed TorchEngine path; "
+        "decode|prefill — the generator's device spans).  A floor on "
+        "true utilization: device seconds include the runtime round "
+        "trip in non-blocking mode")
+
+
+def engine_achieved_tflops():
+    return REGISTRY.gauge(
+        "kfserving_tpu_engine_achieved_tflops",
+        "Achieved dense-compute TFLOP/s per engine phase (the MFU "
+        "numerator, absolute)")
+
+
+def engine_padding_waste_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_engine_padding_waste_ratio",
+        "Fraction of dispatched batch/sequence slots that were "
+        "bucket padding, per compiled bucket (0 = every slot carried "
+        "a real token/row)")
+
+
+def engine_goodput_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_engine_goodput_ratio",
+        "Useful emitted tokens over useful + garbage token steps "
+        "(speculative-wave decode past a finish/cancel) — the decode "
+        "pipeline's goodput split")
+
+
+def engine_hbm_bw_util_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_engine_hbm_bw_util_ratio",
+        "Decode HBM read-bandwidth utilization estimated from the "
+        "params + resident KV-cache working set per token step over "
+        "the chip's peak HBM bandwidth (decode is bandwidth-bound: "
+        "this is its roofline axis)")
+
+
+# -- reliability ---------------------------------------------------------
+def deadline_exceeded_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_deadline_exceeded_total",
+        "Requests shed because their latency budget ran out, by stage")
+
+
+# -- mmap param cache (engine/param_cache.py) ----------------------------
+def param_cache_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_param_cache_total",
+        "mmap param-cache lookups and stores, by outcome "
+        "(hit|miss|store|error)")

@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from kfserving_tpu_torch.protocol.errors import InvalidInput
+
 # Head dims the kernel is instantiated for (csrc/flash_attention.cu).
 SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
@@ -41,6 +43,24 @@ _TENSOR_MAP_ERROR = 10000
 
 _count_lock = threading.Lock()
 _fn = None
+
+
+def check_kernel_shapes(module: torch.nn.Module,
+                        device: torch.device) -> None:
+    """On the card, refuse a model whose attention this kernel is not
+    built for (it would raise on the first batch; nothing reroutes a card
+    call to the plain version).  Models without attention pass.  The
+    predict path and the generation engine both call it at load."""
+    cfg = getattr(module, "config", None)
+    head_dim = getattr(cfg, "head_dim", None)
+    if device.type != "cuda" or head_dim is None:
+        return
+    if cfg.dtype not in SUPPORTED_DTYPES or head_dim not in \
+            SUPPORTED_HEAD_DIMS:
+        raise InvalidInput(
+            f"the flash attention kernel takes dtypes {SUPPORTED_DTYPES} "
+            f"and head dims {SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
+            f"head dim {head_dim}")
 
 
 def _check_lengths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

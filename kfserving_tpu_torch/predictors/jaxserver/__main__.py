@@ -46,12 +46,15 @@ def main(argv=None) -> None:
     if args.multi_model:
         repo = TorchModelRepository(models_dir=args.model_dir,
                                     device=args.device)
-        ModelServer(http_port=args.http_port,
-                    registered_models=repo).start([])
+        ModelServer(http_port=args.http_port, registered_models=repo,
+                    container_concurrency=args.container_concurrency
+                    ).start([])
         return
     model = TorchModel(args.model_name, args.model_dir, device=args.device)
     model.load()
-    ModelServer(http_port=args.http_port).start([model])
+    ModelServer(http_port=args.http_port,
+                container_concurrency=args.container_concurrency
+                ).start([model])
 
 
 if __name__ == "__main__":

@@ -53,6 +53,7 @@ from kfserving_tpu_torch.engine.torch_engine import resolve_device
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import create_model
 from kfserving_tpu_torch.models import weights
+from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.predictors.torch_model import (
     CHECKPOINT_NAME,
     local_model_dir,
@@ -400,6 +401,9 @@ class GenerativeModel(Model):
 
     def _submit(self, parsed: Dict[str, Any]):
         ids = self.tokenizer.encode(parsed["prompt"])
+        # Prompt-side token accounting (the "out" side counts in the
+        # engine's _emit).
+        obs.llm_tokens_total().labels(direction="in").inc(len(ids))
         return self.engine.submit(
             ids, max_new_tokens=parsed["max_tokens"],
             temperature=parsed["temperature"],

@@ -30,7 +30,9 @@ def main(argv=None) -> None:
     model = GenerativeModel(args.model_name, args.model_dir,
                             device=args.device)
     model.load()
-    ModelServer(http_port=args.http_port).start([model])
+    ModelServer(http_port=args.http_port,
+                container_concurrency=args.container_concurrency
+                ).start([model])
 
 
 if __name__ == "__main__":

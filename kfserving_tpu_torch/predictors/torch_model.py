@@ -35,7 +35,8 @@ package's defaults:
       "input_dtype": "uint8"|"float32",# client payload dtype on the wire
       "scale": 0.00392156862,          # on-device input scaling (1/255)
       "output": "logits"|"argmax"|"topk",
-      "topk": 5
+      "topk": 5,
+      "mesh": {"dp": 1, "tp": 1}       # refused above one device
     }
 """
 
@@ -57,10 +58,7 @@ from kfserving_tpu_torch.engine.torch_engine import (
 )
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import apply_fn_for, create_model
-from kfserving_tpu_torch.ops.flash_attention import (
-    SUPPORTED_DTYPES,
-    SUPPORTED_HEAD_DIMS,
-)
+from kfserving_tpu_torch.ops.flash_attention import check_kernel_shapes
 from kfserving_tpu_torch.protocol import v1
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
 from kfserving_tpu_torch.protocol.v2 import (
@@ -82,7 +80,15 @@ class TorchModelConfig:
                  input_dtype: str = "float32", scale: Optional[float] = None,
                  output: str = "logits", topk: int = 5,
                  warmup: bool = True, pipeline_depth: int = 2,
+                 mesh: Optional[Dict[str, int]] = None,
                  **_ignored):
+        # The control plane injects `mesh` as an override; the port
+        # serves one device, so a mesh of more than one device is refused
+        # rather than silently served unsharded.
+        if any(int(v) > 1 for v in (mesh or {}).values()):
+            raise InvalidInput(
+                "not supported by the PyTorch port yet: mesh "
+                f"(multi-device) {mesh}")
         self.architecture = architecture
         self.arch_kwargs = arch_kwargs or {}
         self.max_batch_size = max_batch_size
@@ -107,23 +113,6 @@ class TorchModelConfig:
         if "architecture" not in data:
             raise InvalidInput(f"{path} missing required key 'architecture'")
         return cls(**data)
-
-
-def check_kernel_shapes(module: torch.nn.Module,
-                        device: torch.device) -> None:
-    """On the card, refuse a model whose attention the flash kernel is not
-    built for (it would raise on the first batch; nothing reroutes a card
-    call to the plain version).  Models without attention pass."""
-    cfg = getattr(module, "config", None)
-    head_dim = getattr(cfg, "head_dim", None)
-    if device.type != "cuda" or head_dim is None:
-        return
-    if cfg.dtype not in SUPPORTED_DTYPES or head_dim not in \
-            SUPPORTED_HEAD_DIMS:
-        raise InvalidInput(
-            f"the flash attention kernel takes dtypes {SUPPORTED_DTYPES} "
-            f"and head dims {SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
-            f"head dim {head_dim}")
 
 
 def local_model_dir(uri: str) -> str:
@@ -358,6 +347,14 @@ class TorchModel(Model):
             return 0
         return self.engine.host_param_bytes() or self.engine.param_bytes()
 
+    @property
+    def wire_dtype(self) -> Optional[str]:
+        """Dtype hint for the server's native V1 JSON parser: a uint8
+        model takes integer image bodies straight to uint8 on the wire."""
+        if self.config is not None and self.config.input_dtype == "uint8":
+            return "u1"
+        return None
+
     # -- inference ---------------------------------------------------------
     def _bucket_key(self, instance: Any):
         """Seq-bucket key: instances whose (padded) seq length lands in
@@ -502,6 +499,12 @@ class TorchModel(Model):
         if self.batcher:
             stats["batches_flushed"] = self.batcher.batches_flushed
             stats["instances_batched"] = self.batcher.instances_batched
+            if self.batcher.queue_age_ms:
+                # Per-bucket flush-time queue age (the starvation
+                # diagnostic), exported as labeled series on /metrics.
+                stats["bucket_queue_age_max_ms"] = {
+                    str(k): v["max"]
+                    for k, v in self.batcher.queue_age_ms.items()}
         return stats
 
 

@@ -22,27 +22,50 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
     GET  /v2/repository/index               models and their states
     GET  /debug/cache                       device-memory ledger and
                                             residency states
+    GET  /metrics                           Prometheus metrics (OpenMetrics
+                                            with exemplars on request)
+    GET  /debug/traces                      the span ring (?trace_id=,
+                                            ?limit=)
 
 A V2 infer request may use the binary data extension
 (``Inference-Header-Content-Length``); one that asks for
-``binary_data_output`` gets a binary response.  One asyncio process
-serves; batched device execution runs on the engines' worker threads.
+``binary_data_output`` gets a binary response.  A CloudEvent request
+(binary or structured) gets its response in the same framing.
+
+Each inference request joins a trace (``traceparent`` or
+``x-request-id``, echoed back as ``x-request-id``), may carry a budget
+(``x-request-timeout-ms``: 504 once it is spent, at whichever stage),
+passes the admission gate (``--container_concurrency``: at most that
+many requests run at once, a bounded queue waits, the rest get 503), and
+is counted in the request series and the access log.  One asyncio
+process serves; batched device execution runs on the engines' worker
+threads.
 """
 
 import argparse
 import asyncio
+import contextlib
 import json
 import logging
 import signal
+import time
 from typing import Any, Dict, List, Optional
 
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository
+from kfserving_tpu_torch.observability.accesslog import log_access
+from kfserving_tpu_torch.observability.profiling import roofline
+from kfserving_tpu_torch.protocol import cloudevents, native
 from kfserving_tpu_torch.protocol.errors import ServingError
 from kfserving_tpu_torch.protocol.v2 import (
     INFERENCE_HEADER_CONTENT_LENGTH,
     InferRequest,
     encode_binary_response,
+)
+from kfserving_tpu_torch.reliability.deadline import (
+    Deadline,
+    DeadlineExceeded,
+    deadline_scope,
 )
 from kfserving_tpu_torch.server.dataplane import DataPlane
 from kfserving_tpu_torch.server.http import (
@@ -52,7 +75,13 @@ from kfserving_tpu_torch.server.http import (
     Router,
     StreamingResponse,
 )
+from kfserving_tpu_torch.server.metrics import Metrics
 from kfserving_tpu_torch.streams import GuardedStream, aclose_quietly
+from kfserving_tpu_torch.tracing import (
+    REQUEST_ID_HEADER,
+    ensure_request_id,
+    tracer,
+)
 
 logger = logging.getLogger("kfserving_tpu_torch.server")
 
@@ -61,6 +90,17 @@ DEFAULT_HTTP_PORT = 8080
 parser = argparse.ArgumentParser(add_help=False)
 parser.add_argument("--http_port", default=DEFAULT_HTTP_PORT, type=int,
                     help="The HTTP port listened to by the model server.")
+parser.add_argument("--container_concurrency", default=0, type=int,
+                    help="Max concurrent inference calls per replica "
+                         "(0 = unlimited; Knative containerConcurrency).")
+
+
+def _json(data: Any, status: int = 200) -> Response:
+    fast = native.dump_response(data)
+    if fast is not None:
+        return Response(fast, status=status)
+    return Response(json.dumps(data, default=_np_default).encode("utf-8"),
+                    status=status)
 
 
 def _np_default(obj):
@@ -71,37 +111,91 @@ def _np_default(obj):
         f"Object of type {type(obj).__name__} is not JSON serializable")
 
 
-def _json(data: Any, status: int = 200) -> Response:
-    return Response(json.dumps(data, default=_np_default).encode("utf-8"),
-                    status=status)
+@contextlib.contextmanager
+def _staged(stages: Dict[str, float], stage: str):
+    """Record a stage's wall time (ms) into `stages` for the access
+    log."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        stages[stage] = round((time.perf_counter() - t0) * 1000.0, 3)
 
 
 def _error(e: ServingError) -> Response:
     return _json({"error": e.reason}, status=e.status_code)
 
 
-def _encode_response(body: Any, response: Any) -> Response:
-    """A binary-extension response when the V2 request asked for
-    ``binary_data_output``, else JSON."""
-    if (isinstance(body, InferRequest)
-            and body.parameters.get("binary_data_output")
-            and isinstance(response, dict) and response.get("outputs")):
-        payload, hlen = encode_binary_response(response)
-        return Response(payload, headers={
-            "content-type": "application/octet-stream",
-            INFERENCE_HEADER_CONTENT_LENGTH: str(hlen)})
-    return _json(response)
+class _AdmissionGate:
+    """FIFO concurrency gate with a bounded wait queue.
+
+    Not an asyncio.Semaphore: acquire() permits barging, which would let
+    newcomers starve queued requests and grow the queue past its bound.
+    This gate hands a finishing request's slot directly to the oldest
+    waiter.
+    """
+
+    def __init__(self, limit: int, max_queue: int):
+        self.limit = limit
+        self.max_queue = max_queue
+        self.active = 0
+        self.queue = []  # FIFO of futures
+
+    async def enter(self) -> bool:
+        """True once a slot is held; False = queue full, reject."""
+        if self.active < self.limit and not self.queue:
+            self.active += 1
+            return True
+        if len(self.queue) >= self.max_queue:
+            return False
+        fut = asyncio.get_running_loop().create_future()
+        self.queue.append(fut)
+        try:
+            await fut
+        except asyncio.CancelledError:
+            if fut.done() and not fut.cancelled():
+                # Granted between the cancel and now: pass the slot on.
+                self.exit()
+            else:
+                try:
+                    self.queue.remove(fut)
+                except ValueError:
+                    pass
+            raise
+        return True
+
+    def exit(self) -> None:
+        while self.queue:
+            fut = self.queue.pop(0)
+            if not fut.done():
+                fut.set_result(None)  # slot transferred; active unchanged
+                return
+        self.active -= 1
 
 
 class ModelServer:
     def __init__(self, http_port: int = DEFAULT_HTTP_PORT,
-                 registered_models: Optional[ModelRepository] = None):
+                 registered_models: Optional[ModelRepository] = None,
+                 container_concurrency: int = 0,
+                 max_queue_depth: Optional[int] = None):
         self.repository = registered_models or ModelRepository()
         self.dataplane = DataPlane(self.repository)
         self.http_port = http_port
+        self.metrics = Metrics()
         self.router = Router()
         self._register_routes()
         self.http_server = HTTPServer(self.router)
+        # Per-replica admission control (Knative containerConcurrency):
+        # at most `container_concurrency` inference calls run at once; up
+        # to `max_queue_depth` more wait, the rest get 503 so the load
+        # balancer retries another replica.  0 = unlimited.
+        self.container_concurrency = container_concurrency
+        self.max_queue_depth = (
+            max_queue_depth if max_queue_depth is not None
+            else max(2 * container_concurrency, 8))
+        self._admission = (
+            _AdmissionGate(container_concurrency, self.max_queue_depth)
+            if container_concurrency > 0 else None)
 
     def _register_routes(self):
         r = self.router
@@ -115,8 +209,8 @@ class ModelServer:
         r.add("GET", "/v2/models/{name}/status", self._model_health)
         r.add("GET", "/v2/models/{name}/ready", self._model_ready)
         r.add("GET", "/v2/models/{name}", self._model_metadata)
-        r.add("POST", "/v1/models/{name}:predict", self._inference)
-        r.add("POST", "/v2/models/{name}/infer", self._inference)
+        r.add("POST", "/v1/models/{name}:predict", self._predict_v1)
+        r.add("POST", "/v2/models/{name}/infer", self._infer_v2)
         r.add("POST", "/v1/models/{name}:generate", self._generate)
         r.add("POST", "/v2/models/{name}/generate", self._generate)
         r.add("POST", "/v2/models/{name}/generate_stream",
@@ -124,6 +218,8 @@ class ModelServer:
         r.add("POST", "/v2/repository/models/{name}/load", self._load)
         r.add("POST", "/v2/repository/models/{name}/unload", self._unload)
         r.add("GET", "/v2/repository/index", self._repository_index)
+        r.add("GET", "/metrics", self._metrics)
+        r.add("GET", "/debug/traces", self._traces)
         r.add("GET", "/debug/cache", self._cache)
 
     # -- handlers ----------------------------------------------------------
@@ -161,40 +257,189 @@ class ModelServer:
         except ServingError as e:
             return _error(e)
 
-    async def _inference(self, req: Request, call=None) -> Response:
+    async def _predict_v1(self, req: Request) -> Response:
+        return await self._inference(req, "predict", self.dataplane.infer)
+
+    async def _infer_v2(self, req: Request) -> Response:
+        return await self._inference(req, "infer", self.dataplane.infer)
+
+    async def _inference(self, req: Request, verb: str, op) -> Response:
         name = req.path_params["name"]
-        call = call or self.dataplane.infer
+        rid = ensure_request_id(req.headers)
+        # The request's budget, minted here at ingress and carried by
+        # contextvar through the data plane, the batcher queue and the
+        # engine dispatch: each stage sheds the request with 504 the
+        # moment it is spent.
+        deadline = Deadline.from_headers(req.headers)
+        start = time.perf_counter()
+        if self._admission is not None:
+            admitted = await self._enter_admission(deadline)
+            if admitted is not True:
+                status, error = self._shed_reason(admitted)
+                resp = _json({"error": error}, status=status)
+                self.metrics.observe_request(
+                    name, verb, status,
+                    (time.perf_counter() - start) * 1000.0, trace_id=rid)
+                resp.headers[REQUEST_ID_HEADER] = rid
+                return resp
+            try:
+                resp = await self._inference_inner(req, verb, op, name,
+                                                   start, deadline, rid)
+            finally:
+                self._admission.exit()
+        else:
+            resp = await self._inference_inner(req, verb, op, name,
+                                               start, deadline, rid)
+        resp.headers[REQUEST_ID_HEADER] = rid
+        return resp
+
+    @staticmethod
+    def _shed_reason(admitted: Optional[bool]):
+        """Status and message of a failed admission.  False: the queue
+        is full (503, the load balancer retries elsewhere).  None: the
+        budget ran out while queued (504, no slot ever held)."""
+        if admitted is False:
+            return 503, "concurrency limit exceeded"
+        return 504, "request deadline exceeded (admission queue)"
+
+    async def _enter_admission(self, deadline) -> Optional[bool]:
+        """Admission with a budget-bounded queue wait: True = slot held,
+        False = queue full (503), None = deadline expired while queued
+        (504).  wait_for's cancellation is safe against the grant race:
+        _AdmissionGate.enter() hands a granted slot to the next waiter
+        when cancelled."""
+        if deadline is None:
+            return await self._admission.enter()
+        remaining = deadline.remaining_s()
+        if remaining <= 0:
+            return None
         try:
-            body = self.dataplane.decode_body(req.headers, req.body)
-            return _encode_response(body, await call(name, body))
+            return await asyncio.wait_for(self._admission.enter(),
+                                          timeout=remaining)
+        except asyncio.TimeoutError:
+            return None
+
+    async def _inference_inner(self, req: Request, verb: str, op,
+                               name: str, start: float, deadline,
+                               trace_id: str) -> Response:
+        status = 200
+        stages: Dict[str, float] = {}
+        tokens_out = None
+        try:
+            if deadline is not None and deadline.expired:
+                # Spent waiting for the admission slot: 504 without
+                # touching decode or the engine.
+                raise DeadlineExceeded("admission queue")
+            with deadline_scope(deadline):
+                with tracer.span("server.decode", model=name,
+                                 verb=verb), _staged(stages, "decode"):
+                    body = self.dataplane.decode_body(
+                        req.headers, req.body,
+                        dtype_hint=self.dataplane.wire_dtype_hint(name))
+                with tracer.span("server.infer", model=name,
+                                 verb=verb), _staged(stages, "infer"):
+                    response = await op(name, body)
+                with tracer.span("server.encode", model=name,
+                                 verb=verb), _staged(stages, "encode"):
+                    resp = self._encode_response(req, body, response)
+                if isinstance(response, dict) and isinstance(
+                        response.get("details"), dict):
+                    tokens_out = response["details"].get("token_count")
         except ServingError as e:
-            return _error(e)
+            status = e.status_code
+            resp = _error(e)
         except Exception as e:
-            logger.exception("inference failed for model %s", name)
-            return _json({"error": str(e)}, status=500)
+            logger.exception("%s failed for model %s", verb, name)
+            status = 500
+            resp = _json({"error": str(e)}, status=500)
+        latency_ms = (time.perf_counter() - start) * 1000.0
+        self.metrics.observe_request(name, verb, status, latency_ms,
+                                     trace_id=trace_id)
+        log_access("server", trace_id=trace_id, model=name, verb=verb,
+                   status=status, latency_ms=round(latency_ms, 3),
+                   stages=stages or None, tokens_out=tokens_out)
+        return resp
+
+    @staticmethod
+    def _encode_response(req: Request, body: Any, response: Any
+                         ) -> Response:
+        """The request's CloudEvents framing echoed back when it was a
+        CloudEvent; a binary-extension response when the V2 request
+        asked for ``binary_data_output``; else JSON."""
+        if isinstance(body, cloudevents.CloudEvent):
+            event = cloudevents.CloudEvent(body.attributes, response)
+            if cloudevents.is_structured(req.headers):
+                headers, payload = cloudevents.to_structured(event)
+            else:
+                headers, payload = cloudevents.to_binary(event)
+            return Response(payload, headers=headers)
+        if (isinstance(body, InferRequest)
+                and body.parameters.get("binary_data_output")
+                and isinstance(response, dict) and response.get("outputs")):
+            payload, hlen = encode_binary_response(response)
+            return Response(payload, headers={
+                "content-type": "application/octet-stream",
+                INFERENCE_HEADER_CONTENT_LENGTH: str(hlen)})
+        return _json(response)
 
     async def _generate(self, req: Request) -> Response:
         # {"stream": true} hands the request to the token stream.
         if b'"stream"' in req.body:
             try:
-                body = self.dataplane.decode_body(req.headers, req.body)
-            except ServingError as e:
-                return _error(e)
+                body = json.loads(req.body) if req.body else {}
+            except ValueError:
+                return _json({"error": "malformed JSON body"}, status=400)
             if isinstance(body, dict) and body.get("stream"):
                 return await self._generate_stream(req, body=body)
-        return await self._inference(req, self.dataplane.generate)
+        return await self._inference(req, "generate",
+                                     self.dataplane.generate)
 
     async def _generate_stream(self, req: Request,
                                body: Any = None) -> Response:
         name = req.path_params["name"]
+        rid = ensure_request_id(req.headers)
+        # The budget applies to submission and rides into the engine
+        # request (captured at submit): a stream whose budget runs out
+        # mid-generation finishes with reason "timeout" instead of
+        # holding its decode slot to the token budget.
+        deadline = Deadline.from_headers(req.headers)
+        if body is None:
+            try:
+                body = json.loads(req.body) if req.body else {}
+            except ValueError:
+                return _json({"error": "malformed JSON body"}, status=400)
+        # Streams pass the same admission gate as every other inference
+        # verb; the slot is held until the stream ends (released in
+        # on_close, since the body outlives this handler).
+        gated = False
+        if self._admission is not None:
+            admitted = await self._enter_admission(deadline)
+            if admitted is not True:
+                status, error = self._shed_reason(admitted)
+                resp = _json({"error": error}, status=status)
+                self.metrics.observe_request(name, "generate_stream",
+                                             status, 0.0, trace_id=rid)
+                resp.headers[REQUEST_ID_HEADER] = rid
+                return resp
+            gated = True
         try:
-            if body is None:
-                body = self.dataplane.decode_body(req.headers, req.body)
-            # Validation and submission happen here, before headers
-            # are committed: errors are plain 4xx/5xx responses.
-            events = await self.dataplane.generate_stream(name, body)
+            # Validation and submission happen here, before headers are
+            # committed: errors are plain 4xx/5xx responses.
+            with deadline_scope(deadline):
+                events = await self.dataplane.generate_stream(name, body)
         except ServingError as e:
-            return _error(e)
+            if gated:
+                self._admission.exit()
+            resp = _error(e)
+            resp.headers[REQUEST_ID_HEADER] = rid
+            return resp
+        except Exception:
+            if gated:
+                self._admission.exit()
+            raise
+        start = time.perf_counter()
+        admission = self._admission if gated else None
+        state = {"status": 200}
 
         async def sse():
             try:
@@ -203,15 +448,27 @@ class ModelServer:
                     yield f"data: {payload}\n\n".encode("utf-8")
             except Exception:
                 logger.exception("generate stream for %s failed", name)
+                state["status"] = 500
                 raise
 
         async def on_close():
             # Runs once on every exit path, a client that went away
-            # before the first event included: closing the model's
-            # event stream frees its engine slot.
+            # before the first event included: the admission slot is
+            # released and closing the model's event stream frees its
+            # engine slot.
+            if admission is not None:
+                admission.exit()
             await aclose_quietly(events, "model event stream")
+            latency_ms = (time.perf_counter() - start) * 1000.0
+            self.metrics.observe_request(name, "generate_stream",
+                                         state["status"], latency_ms,
+                                         trace_id=rid)
+            log_access("server", trace_id=rid, model=name,
+                       verb="generate_stream", status=state["status"],
+                       latency_ms=round(latency_ms, 3))
 
-        return StreamingResponse(GuardedStream(sse(), on_close))
+        return StreamingResponse(GuardedStream(sse(), on_close),
+                                 headers={REQUEST_ID_HEADER: rid})
 
     async def _load(self, req: Request) -> Response:
         name = req.path_params["name"]
@@ -231,6 +488,63 @@ class ModelServer:
 
     async def _repository_index(self, req: Request) -> Response:
         return _json(self.dataplane.repository_index())
+
+    def publish_engine_gauges(self) -> None:
+        """Refresh the scrape-time families from the engines' stats
+        dicts: the roofline gauges (MFU, achieved TFLOP/s, padding
+        waste, goodput, memory bandwidth), the paged pool's ratios, and
+        a ``kfserving_tpu_engine_<key>`` gauge per other numeric key."""
+        for model in self.repository.get_models():
+            engine_stats = getattr(model, "engine_stats", None)
+            if engine_stats is None:
+                continue
+            try:
+                stats = engine_stats()
+                consumed = roofline.publish_gauges(model.name, stats)
+                roofline.publish_cache_gauges(model.name, stats)
+                for key, value in stats.items():
+                    if key in consumed:
+                        continue
+                    if isinstance(value, dict):
+                        # Per-bucket stats export as labeled series.
+                        for bucket, v in value.items():
+                            if isinstance(v, (int, float)):
+                                self.metrics.set_gauge(
+                                    f"kfserving_tpu_engine_{key}",
+                                    float(v),
+                                    labels={"model": model.name,
+                                            "bucket": str(bucket)})
+                        continue
+                    if isinstance(value, (int, float)):
+                        self.metrics.set_gauge(
+                            f"kfserving_tpu_engine_{key}", float(value),
+                            labels={"model": model.name})
+            except Exception:
+                logger.exception("engine stats for %s failed", model.name)
+
+    async def _metrics(self, req: Request) -> Response:
+        self.publish_engine_gauges()
+        # Content negotiation: exemplars are legal only under the
+        # OpenMetrics content type; the classic text parser would reject
+        # the suffix and drop the whole scrape.
+        want_om = "application/openmetrics-text" in \
+            req.headers.get("accept", "")
+        body = self.metrics.render(exemplars=want_om)
+        if want_om:
+            body += "# EOF\n"
+            ctype = ("application/openmetrics-text; version=1.0.0; "
+                     "charset=utf-8")
+        else:
+            ctype = "text/plain; version=0.0.4"
+        return Response(body.encode("utf-8"), content_type=ctype)
+
+    async def _traces(self, req: Request) -> Response:
+        trace_id = req.query.get("trace_id")
+        try:
+            limit = int(req.query.get("limit", "100"))
+        except ValueError:
+            return _json({"error": "limit must be an integer"}, status=400)
+        return _json({"spans": tracer.spans(trace_id, limit)})
 
     async def _cache(self, req: Request) -> Response:
         return _json(self.cache_snapshot())

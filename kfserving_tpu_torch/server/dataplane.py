@@ -1,24 +1,34 @@
 """Protocol-agnostic data-plane operations over a ModelRepository.
 
 Port of ``kfserving_tpu/server/dataplane.py``: liveness, readiness, model
-listing and metadata, inference (JSON bodies, V1 or V2, and the V2
-binary data extension), the generate extension (``generate``,
+listing and metadata, inference (JSON bodies, V1 or V2, CloudEvents in
+binary or structured mode, dense V1 bodies through the native codec, and
+the V2 binary data extension), the generate extension (``generate``,
 ``generate_stream``) and the repository extension (``load``,
-``unload``, ``repository_index``).
+``unload``, ``repository_index``).  Inference checks the request's
+deadline at each stage boundary, records the ``dataplane.*`` spans and
+calls the ``dataplane.infer`` fault site.
 """
 
 import json
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 from kfserving_tpu_torch import __version__ as SERVER_VERSION
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository, maybe_await
-from kfserving_tpu_torch.protocol import v1, v2
+from kfserving_tpu_torch.protocol import cloudevents, native, v1, v2
 from kfserving_tpu_torch.protocol.errors import (
     InvalidInput,
     ModelNotFound,
     ModelNotReady,
 )
+from kfserving_tpu_torch.reliability import fault_sites
+from kfserving_tpu_torch.reliability.deadline import (
+    check_deadline,
+    deadline_scope,
+)
+from kfserving_tpu_torch.reliability.faults import faults
+from kfserving_tpu_torch.tracing import tracer
 
 SERVER_NAME = "kfserving-tpu-torch"
 
@@ -64,39 +74,78 @@ class DataPlane:
 
     # -- inference ---------------------------------------------------------
     async def get_model(self, name: str) -> Model:
-        """Fetch a model, loading it on first use."""
+        """Fetch a model, loading it on first use.  The load runs outside
+        the request's deadline scope: it is shared work for every later
+        request, so one short-budget client must not abort it; the
+        caller checks the request's own budget right after."""
         model = self.repository.get_model(name)
         if model is None:
             raise ModelNotFound(name)
         if not model.ready:
-            await maybe_await(model.load())
+            with deadline_scope(None):
+                await maybe_await(model.load())
         return model
 
+    def wire_dtype_hint(self, name: str) -> Optional[str]:
+        """The served model's preferred wire dtype ("u1" for uint8 image
+        models), handed to the native parser so integer bodies land in
+        the model's dtype directly."""
+        return getattr(self.repository.get_model(name), "wire_dtype", None)
+
     @staticmethod
-    def decode_body(headers: Mapping[str, str], body: bytes) -> Any:
-        """Decode a request body: a V2 binary-extension request when the
-        ``Inference-Header-Content-Length`` header is set (header names
-        arrive lower-cased), else JSON.  CloudEvents and the native V1
-        codec are not ported yet (ROADMAP Queue 1 item f)."""
+    def decode_body(headers: Mapping[str, str], body: bytes,
+                    dtype_hint: Optional[str] = None) -> Any:
+        """Decode a request body (header names arrive lower-cased): a
+        CloudEvent (binary or structured), a V2 binary-extension request
+        when ``Inference-Header-Content-Length`` is set, else JSON.
+
+        Dense numeric V1 bodies take the native codec
+        (``protocol/native.py``): one C pass straight into a contiguous
+        array, uint8 when ``dtype_hint`` says the model takes uint8 and
+        the values fit, else int32/float32.  Everything else (V2 tensor
+        objects, dict instances, strings) goes through json.loads."""
+        if cloudevents.has_ce_headers(headers) or \
+                cloudevents.is_structured(headers):
+            try:
+                return cloudevents.from_http(headers, body)
+            except ValueError as e:
+                raise InvalidInput(f"Cloud Event Exceptions: {e}")
         header_len = headers.get(v2.INFERENCE_HEADER_CONTENT_LENGTH)
         if header_len is not None:
             try:
                 return v2.InferRequest.from_binary(body, int(header_len))
             except ValueError as e:
                 raise InvalidInput(str(e))
+        if body[:1] == b"{" and b'"datatype"' not in body:
+            fast = native.parse_v1(body, hint=dtype_hint)
+            if fast is not None:
+                arr, key = fast
+                return {key: arr}
         try:
             return json.loads(body) if body else {}
         except ValueError as e:
             raise InvalidInput(f"Unrecognized request format: {e}")
 
     async def infer(self, name: str, body: Any) -> Any:
+        # Stage-boundary deadline checks: a request already over budget
+        # after a lazy load or a slow preprocess fails 504 here, before
+        # the batcher spends a slot on it.
         model = await self.get_model(name)
-        request = self.validate(await model.preprocess(body))
-        response = await maybe_await(model.predict(request))
-        return await model.postprocess(response)
+        if faults.configured(fault_sites.DATAPLANE_INFER):
+            await faults.inject(fault_sites.DATAPLANE_INFER, key=name)
+        check_deadline("dataplane.infer")
+        with tracer.span("dataplane.preprocess", model=name):
+            request = await model.preprocess(body)
+        request = self.validate(request)
+        check_deadline("dataplane.infer preprocess")
+        with tracer.span("dataplane.predict", model=name):
+            response = await maybe_await(model.predict(request))
+        with tracer.span("dataplane.postprocess", model=name):
+            return await model.postprocess(response)
 
     async def generate(self, name: str, body: Any) -> Any:
         model = await self.get_model(name)
+        check_deadline("dataplane.generate")
         generate = getattr(model, "generate", None)
         if generate is None:
             raise InvalidInput(f"model {name} does not support :generate")

@@ -1,0 +1,135 @@
+"""Request tracing: span ids through the server, batcher and engine.
+
+Port of ``kfserving_tpu/tracing.py`` without its ``jax.profiler`` toggle
+(``ProfilerControl``; the port's ``/debug/profiler`` routes on
+``torch.profiler`` come later).
+
+Design: a process-wide ring buffer of completed spans plus a contextvar
+carrying the current request id.  The request id enters via the W3C
+``traceparent`` header or ``x-request-id`` (or is minted at the server),
+rides the contextvar through the asyncio handler and, via
+``contextvars.copy_context``, into the engine's worker threads, so the
+``engine.execute`` span attaches to the request that caused it.  Spans
+are queryable at ``GET /debug/traces`` and logged at DEBUG.
+"""
+
+import contextlib
+import contextvars
+import logging
+import re
+import threading
+import time
+import uuid
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+logger = logging.getLogger("kfserving_tpu_torch.tracing")
+
+REQUEST_ID_HEADER = "x-request-id"
+# W3C Trace Context (https://www.w3.org/TR/trace-context/): the
+# cross-hop carrier.  `traceparent` wins over x-request-id when both
+# arrive; x-request-id stays the echo/correlation header for clients
+# that never adopted W3C.
+TRACEPARENT_HEADER = "traceparent"
+
+_HEX32 = re.compile(r"^[0-9a-f]{32}$")
+_HEX16 = re.compile(r"^[0-9a-f]{16}$")
+
+# Current request id; propagated into engine worker threads by running
+# the executor callable under contextvars.copy_context().
+current_request_id: contextvars.ContextVar[Optional[str]] = \
+    contextvars.ContextVar("kfs_request_id", default=None)
+
+
+def parse_traceparent(value: str) -> Optional[Tuple[str, str]]:
+    """(trace_id, parent_span_id) from a `traceparent` header, or None
+    when malformed (all-zero ids are invalid per spec)."""
+    parts = value.strip().lower().split("-")
+    if len(parts) < 4:
+        return None
+    _version, trace_id, span_id = parts[0], parts[1], parts[2]
+    if not _HEX32.match(trace_id) or not _HEX16.match(span_id):
+        return None
+    if trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return trace_id, span_id
+
+
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    return f"00-{trace_id}-{span_id}-01"
+
+
+@dataclass
+class Span:
+    trace_id: str
+    name: str
+    start: float          # time.time() epoch seconds
+    duration_ms: float
+    attrs: Dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"trace_id": self.trace_id, "name": self.name,
+                "start": self.start, "duration_ms": self.duration_ms,
+                "attrs": self.attrs}
+
+
+class Tracer:
+    """Process-wide completed-span ring buffer (bounded, lock-guarded)."""
+
+    def __init__(self, capacity: int = 512):
+        self._spans: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def record(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+        logger.debug("span %s %s %.2fms %s", span.trace_id, span.name,
+                     span.duration_ms, span.attrs)
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs):
+        """Time a block; attaches to the current request id (or 'untraced').
+        Yields a dict the block may add attributes to."""
+        trace_id = current_request_id.get() or "untraced"
+        start_wall = time.time()
+        start = time.perf_counter()
+        span_attrs: Dict[str, Any] = dict(attrs)
+        try:
+            yield span_attrs
+        finally:
+            self.record(Span(trace_id, name, start_wall,
+                             (time.perf_counter() - start) * 1000.0,
+                             span_attrs))
+
+    def spans(self, trace_id: Optional[str] = None,
+              limit: int = 100) -> List[Dict[str, Any]]:
+        with self._lock:
+            items = list(self._spans)
+        if trace_id is not None:
+            items = [s for s in items if s.trace_id == trace_id]
+        return [s.to_dict() for s in items[-limit:]]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+
+# The process tracer (one serving process = one trace sink).
+tracer = Tracer()
+
+
+def ensure_request_id(headers: Dict[str, str]) -> str:
+    """Read (or mint) the request's trace id, set the contextvar and
+    return the id, so the response can echo it.  Precedence: a valid
+    `traceparent` wins (its 32-hex trace id becomes THE id on every
+    layer's spans); else `x-request-id` (any string, legacy
+    correlation); else a fresh 16-hex id."""
+    tp = headers.get(TRACEPARENT_HEADER)
+    parsed = parse_traceparent(tp) if tp else None
+    if parsed is not None:
+        rid = parsed[0]
+    else:
+        rid = headers.get(REQUEST_ID_HEADER) or uuid.uuid4().hex[:16]
+    current_request_id.set(rid)
+    return rid

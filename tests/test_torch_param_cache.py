@@ -31,6 +31,7 @@ from kfserving_tpu.models import create_model as jax_create_model
 from kfserving_tpu.predictors.jax_model import JaxModel
 from kfserving_tpu_torch.engine import param_cache
 from kfserving_tpu_torch.models import create_model
+from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.predictors.torch_model import TorchModel
 
 MLP_KWARGS = {"input_dim": 32, "features": [64], "num_classes": 8}
@@ -90,10 +91,16 @@ def test_roundtrip_mixed_dtypes_bit_for_bit():
     assert all(leaf["offset"] % 4096 == 0 for leaf in leaves.values())
 
 
+def _cache_counts():
+    family = obs.param_cache_total()
+    return {k: family.labels(outcome=k).value
+            for k in ("hit", "miss", "store", "error")}
+
+
 def test_miss_corruption_and_disable(monkeypatch):
     tree = {"w": torch.ones(8)}
     key = param_cache.content_key("mlp", {})
-    counts = dict(param_cache.counts)
+    counts = _cache_counts()
     assert param_cache.load(key) is None                     # miss
     assert param_cache.store(key, tree)
     entry = os.path.join(param_cache.cache_dir(), key)
@@ -106,7 +113,8 @@ def test_miss_corruption_and_disable(monkeypatch):
     with open(os.path.join(entry, param_cache.DATA_NAME), "r+b") as f:
         f.truncate(8)
     assert param_cache.load(key) is None and not os.path.exists(entry)
-    assert {k: param_cache.counts[k] - counts[k] for k in counts} == \
+    after = _cache_counts()
+    assert {k: after[k] - counts[k] for k in counts} == \
         {"hit": 0, "miss": 1, "store": 2, "error": 2}
     for off in ("0", "off"):
         monkeypatch.setenv(param_cache.ENV_VAR, off)
