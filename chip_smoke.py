@@ -31,7 +31,10 @@ failure:
    a 1 ms ``x-request-timeout-ms`` answers 504 and moves
    ``deadline_exceeded_total``, and one with a ``traceparent`` leaves the
    span chain from ``server.decode`` through ``batcher.queue`` to
-   ``engine.execute`` in ``/debug/traces``;
+   ``engine.execute`` in ``/debug/traces``; every batch of the run a
+   compile-cache hit (the grid was captured at warmup); then each of the
+   15 buckets' CUDA graph replayed against the eager forward on the same
+   seeded padded batch, ``torch.equal``;
 4. serve the generate_4k configuration (the decoder at GPT-2-small width,
    seeded random init, bf16, paged cache) over HTTP: 16 SSE streams at
    concurrency 8 behind a shared ~2980-token prompt, one V1 predict and
@@ -41,7 +44,11 @@ failure:
    stream against a teacher-forced forward with the plain attention;
    ``llm_ttft_ms`` counts one first token per stream; a stream with a
    400 ms budget ends with finish_reason "timeout" and frees its slot;
-   time one decode wave and one prefill on the card;
+   replay the greedy and a seeded (temperature, top-k, top-p) decode
+   wave's graph against the same wave run eagerly from the same state
+   (tokens and written-back feed equal); time one decode wave eagerly
+   and from its graph (between events and busy; no host sync on the
+   graph's enqueue path) and one prefill on the card;
 5. serve ResNet-50 (224 px, 1000 classes, bf16, seeded random init with
    BatchNorm statistics calibrated on a seeded batch) at the resnet bench
    configuration: 128 V1 and V2 uint8 image requests at concurrency 32,
@@ -50,14 +57,18 @@ failure:
    argmax must equal the direct forward's on the card, but for counted
    near-ties; one ``binary_data_output`` response must decode to its JSON
    counterpart; the request and stage series of the scrape; time a b128
-   forward (CUDA events, MFU);
+   forward (CUDA events, MFU); each batch bucket's graph against the
+   eager forward;
 6. serve ViT-B/16 (224 px, L = 197) at the chain bench's predictor
    configuration; the flash kernel must launch exactly 12 times per
    executed batch, and the served model must agree with the same weights
-   run with the plain attention;
+   run with the plain attention; each batch bucket's graph against the
+   eager forward;
 7. serve the multi-model catalog (8 MLPs) through the eager repository
    routes under a device-memory budget of 4 models: LRU eviction in the
    index, evicted models freed, predictions held against direct forwards;
+   the ledger equal to the resident models' parameters and graph pools
+   (as the allocator reports them) plus the shared cuBLAS workspace;
 8. serve four BERT-base fill-mask models demand-paged (registered, then
    faulted in by their requests) under a budget of two: three rounds of
    b1 requests round-robin; after every warm fault the top-5 equals round
@@ -65,13 +76,20 @@ failure:
    bit, the ledger stays within budget, ``memory_allocated`` is the same
    after each round, 8 concurrent requests coalesce onto one fault, a
    fault-in skips a model held in flight, and the flash kernel launched
-   12 times per batch (cold-fault warmups included);
+   12 times per batch (cold-fault warmups included); after each round
+   the ledger equals the resident models' parameters and graph pools
+   plus the workspace (each warm fault's first request recaptures its
+   bucket);
 9. serve 20 catalog MLPs demand-paged under 40% of their bytes, four
    workers each taking 6 shuffled passes; every answer held against its
    model's direct forward;
-10. print the ResNet arms' req/s and each predict model's mean engine
-   stage ms (prepare, transfer, compute, fetch) on a ``stages`` line, one
-   ``{"kernels": [...]}`` line, the card line, and as the last line
+10. print a ``graphs`` line (per engine: the buckets held equal, capture
+   ms, pool bytes; compile-cache hits and misses per phase; the decode
+   wave's variants, graph and eager wave ms; the residency catalog's
+   warm fault and first-request ms), the ResNet arms' req/s and each
+   predict model's mean engine stage ms (prepare, transfer, compute,
+   fetch) on a ``stages`` line, one ``{"kernels": [...]}`` line, the
+   card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Every model loads through a private mmap param cache (``KFS_PARAM_CACHE``
@@ -832,6 +850,10 @@ async def drive_server(model, vocab: int, rng) -> dict:
         batches = model.engine.execute_count - executed0
         after = await asyncio.to_thread(scrape, port)
         stages = stage_window(before, after, batches, "bert")
+        compiles = compile_cache_window(before, after)
+        check(compiles == {"hit": batches, "miss": 0},
+              f"bert: compile cache {compiles} for {batches} batches of "
+              "warmed buckets")
         counts = request_counts(after, "bert")
         want = {"predict 200": len(REQUEST_LENGTHS) + len(burst),
                 "infer 200": 1}
@@ -843,6 +865,7 @@ async def drive_server(model, vocab: int, rng) -> dict:
         await server.stop_async()
     latencies = sorted(lat for lat, _ in done)
     return {"launches": launches, "batches": batches, "stages": stages,
+            "compile_cache": compiles,
             "request_total": counts, "request_path": request_path,
             "requests": len(REQUEST_LENGTHS) + len(burst) + 1,
             "burst_requests": len(burst), "burst_wall_s": wall_s,
@@ -920,6 +943,85 @@ def time_largest_bucket(model) -> dict:
             "forward_tflops": flops / forward_ms / 1e9}
 
 
+def compile_cache_window(before: dict, after: dict) -> dict:
+    """``kfserving_tpu_compile_cache_total`` between two scrapes."""
+    return {outcome: after.get(key, 0) - before.get(key, 0)
+            for outcome in ("hit", "miss")
+            for key in [f'kfserving_tpu_compile_cache_total'
+                        f'{{outcome="{outcome}"}}']}
+
+
+def _leaves(tree) -> list:
+    """(name, tensor) pairs of a tensor or a dict of tensors."""
+    if isinstance(tree, dict):
+        return sorted(tree.items())
+    return [("", tree)]
+
+
+def _bucket_input(name: str, static: torch.Tensor, gen, vocab: int):
+    """A seeded batch shaped and typed as one static input of a graph:
+    floats in [0, 1), uint8 pixels, suffix-padding masks, token ids."""
+    if static.dtype.is_floating_point:
+        return torch.rand(static.shape, generator=gen,
+                          device="cuda").to(static.dtype)
+    if name == "attention_mask":
+        b, s = static.shape
+        lengths = torch.randint(1, s + 1, (b, 1), generator=gen,
+                                device="cuda")
+        return (torch.arange(s, device="cuda")[None]
+                < lengths).to(static.dtype)
+    low, high = (0, 256) if static.dtype == torch.uint8 else (1, vocab)
+    return torch.randint(low, high, static.shape, generator=gen,
+                         device="cuda").to(static.dtype)
+
+
+def check_graphs(model, buckets: int, vocab: int = 1000) -> dict:
+    """Every bucket the served engine captured (``buckets`` of them): the
+    graph's replay against the model's eager forward on the same seeded
+    padded batch, both on the capture thread and the predict stream
+    where the graph was captured, ``torch.equal`` per output.  Returns
+    the engine's capture ms and pool bytes, and fails naming each bucket
+    that differs with its max abs diff."""
+    from kfserving_tpu_torch.engine import graphs
+
+    engine = model.engine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+
+    def one(program):
+        with torch.inference_mode(), torch.cuda.stream(engine._stream):
+            batch = {name: _bucket_input(name, t, gen, vocab)
+                     for name, t in _leaves(program.inputs)}
+            eager = engine._apply(engine.params, batch.get("", batch))
+            with engine._replay_lock:
+                for name, t in _leaves(program.inputs):
+                    t.copy_(batch[name])
+                graphs.replay(program.graph, program.launches)
+                pairs = list(zip((t for _, t in _leaves(eager)),
+                                 (t for _, t in _leaves(program.outputs))))
+                equal = all(torch.equal(a, b) for a, b in pairs)
+                diff = max(float((a.float() - b.float()).abs().max())
+                           for a, b in pairs)
+            torch.cuda.current_stream().synchronize()
+        return equal, diff
+
+    results = {}
+    for key, program in sorted(engine._programs.items(),
+                               key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+        equal, diff = graphs.on_capture_thread(one, program)
+        name = f"b{key[0]}" + ("" if key[1] is None else f"s{key[1]}")
+        results[name] = True if equal else diff
+    failed = {k: v for k, v in results.items() if v is not True}
+    check(not failed, f"{model.name}: graph replay differs from the eager "
+          f"forward at {failed} (bucket: max abs diff)")
+    check(len(results) == buckets, f"{model.name}: {len(results)} graphs "
+          f"for {buckets} buckets")
+    stats = engine.graph_stats()
+    return {"buckets_equal": sorted(results), "captures": stats["captures"],
+            "capture_ms_total": stats["capture_ms_total"],
+            "pool_bytes": stats["pool_bytes"]}
+
+
 def load_model(name: str, config: dict):
     from kfserving_tpu_torch.predictors.torch_model import TorchModel
 
@@ -951,10 +1053,13 @@ def serve_bert(card: str) -> dict:
                                         run["served"][100])
         stats = model.engine_stats()
         largest = time_largest_bucket(model)
+        graph_check = check_graphs(
+            model, len(SEQ_BUCKETS) * len(BATCH_BUCKETS), cfg.vocab_size)
     finally:
         model.unload()
     summary = {
         "card": card, "load_and_warmup_s": load_s,
+        "graphs": graph_check, "compile_cache": run["compile_cache"],
         "requests": run["requests"], "batches": run["batches"],
         "flash_launches": run["launches"],
         "burst_requests": run["burst_requests"],
@@ -1171,21 +1276,10 @@ def host_syncs(fn) -> list:
             if "called a synchronizing" in str(w.message)]
 
 
-def time_generate_device(model) -> dict:
-    """CUDA-event times, outside the server, at the served shapes: one
-    16-step decode wave (the engine's own device program; 8 rows of
-    ~3045 tokens sharing a 23-block prefix, as the served streams do),
-    K2 at that wave's shape, and one b8x4096 prefill (forward + pool
-    insert).  Also the wave's summed kernel time and its kernel launches
-    from torch.profiler, and a check that the wave never synchronises
-    the host with the card (torch.cuda.set_sync_debug_mode)."""
-    from kfserving_tpu_torch.ops.paged_attention import (
-        paged_attention_kernel,
-        paged_insert,
-    )
-
-    engine, module = model.engine, model.module
-    cfg = module.config
+def wave_state(engine):
+    """The served streams' decode state, outside the server: 8 rows of
+    ~3045 tokens sharing a 23-block prefix (a seeded block table, feed
+    tokens and positions)."""
     S, BS, MB = engine.max_slots, engine.block_size, engine.blocks_per_slot
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -1199,6 +1293,87 @@ def time_generate_device(model) -> dict:
     tokens = torch.randint(0, 258, (S,), generator=gen, device="cuda",
                            dtype=torch.int32)
     positions = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return table, tokens, positions
+
+
+def check_wave_graphs(model) -> dict:
+    """One greedy and one seeded decode wave (temperature 0.8, top-k 40,
+    top-p 0.9): each variant's graph replayed against the same wave run
+    eagerly from the same state (``wave_state``), on the engine's enqueue
+    thread and stream; the tokens and the feed written back must be
+    equal.  A variant not captured by the serving run is captured here
+    (its first wave runs eagerly before the capture, as in serving)."""
+    from kfserving_tpu_torch.engine import graphs
+    from kfserving_tpu_torch.engine.generator import _Request
+
+    engine = model.engine
+    S = engine.max_slots
+    table, tokens, positions = wave_state(engine)
+    table_h = table.cpu().numpy()
+    rows = {"greedy": [None] * S,
+            "seeded": [_Request(np.zeros(1, np.int32), 1, 0.8, top_k=40,
+                                top_p=0.9, seed=100 + i)
+                       for i in range(S)]}
+
+    def run(kind):
+        arrays, flags = engine._sampling_arrays(rows[kind], S)
+        key = (S, engine.steps_per_call) + flags
+        feed = (engine._feed_tokens[:S], engine._feed_positions[:S])
+        with torch.inference_mode(), engine._device_scope():
+            def reset():
+                feed[0].copy_(tokens)
+                feed[1].copy_(positions)
+
+            p = engine._stage_wave(table_h, arrays, flags)
+            if key not in engine._programs:
+                reset()
+                engine._compile_wave(key, p)
+            reset()
+            eager = [t.clone() for t in engine._wave(p)]
+            fed = [t.clone() for t in feed]
+            reset()
+            graph, outputs, tally = engine._programs[key]
+            graphs.replay(graph, tally)
+            equal = (all(torch.equal(a, b) for a, b in zip(eager, outputs))
+                     and all(torch.equal(a, b) for a, b in zip(fed, feed)))
+            torch.cuda.current_stream().synchronize()
+        return key, equal, eager[0].cpu().tolist()
+
+    out = {}
+    for kind in rows:
+        key, equal, wave_tokens = engine._enqueue_executor.submit(
+            run, kind).result()
+        check(equal, f"{kind} decode wave {key}: graph replay differs from "
+              f"the eager wave")
+        out[kind] = {"variant": list(key), "equal": equal,
+                     "row0_tokens": wave_tokens[0]}
+    check(out["greedy"]["row0_tokens"] != out["seeded"]["row0_tokens"],
+          "the seeded wave drew the greedy tokens")
+    out["graph_stats"] = engine.graph_stats()
+    return out
+
+
+def time_generate_device(model) -> dict:
+    """CUDA-event times, outside the server, at the served shapes: one
+    16-step decode wave (the engine's own device program; 8 rows of
+    ~3045 tokens sharing a 23-block prefix, as the served streams do),
+    K2 at that wave's shape, and one b8x4096 prefill (forward + pool
+    insert).  Also the wave's summed kernel time and its kernel launches
+    from torch.profiler, and a check that the wave never synchronises
+    the host with the card (torch.cuda.set_sync_debug_mode)."""
+    from kfserving_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel,
+        paged_insert,
+    )
+
+    from kfserving_tpu_torch.engine import graphs
+
+    engine, module = model.engine, model.module
+    cfg = module.config
+    S, BS = engine.max_slots, engine.block_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    table, tokens, positions = wave_state(engine)
     greedy = engine._sampling([None] * S, S)
 
     def wave():
@@ -1251,7 +1426,39 @@ def time_generate_device(model) -> dict:
                 paged_insert(pk, pv, k, v, dest)
 
     prefill_ms = cuda_time_ms(prefill, iters=3, warmup=1)
+
+    # The served wave: the greedy variant's graph, replayed on the
+    # engine's stream from the same state (its feed written back each
+    # time, so each replay starts where the last ended).
+    arrays, flags = engine._sampling_arrays([None] * S, S)
+    graph, outputs, tally = engine._programs[(S, steps) + flags]
+
+    def graph_wave():
+        graphs.replay(graph, tally)
+
+    table_h = table.cpu().numpy()
+    with torch.inference_mode(), engine._device_scope():
+        engine._stage_wave(table_h, arrays, flags)
+        engine._feed_tokens[:S].copy_(tokens)
+        engine._feed_positions[:S].copy_(positions)
+        graph_wave_ms = cuda_time_ms(graph_wave, iters=3, warmup=1)
+        graph_busy_ms, _, graph_busy_timing = profiled_device_ms(
+            graph_wave, iters=1)
+        graph_host_us = host_us_per_call(graph_wave, iters=3)
+
+        def enqueue():
+            engine._start_fetch(engine._run_wave(table_h, arrays, flags))
+
+        replay_syncs = host_syncs(enqueue)
+        torch.cuda.synchronize()
+    check(not replay_syncs, f"the graph wave's enqueue synchronised: "
+          f"{replay_syncs[:1]}")
     return {
+        "graph_wave_ms": graph_wave_ms, "graph_wave_busy_ms": graph_busy_ms,
+        "graph_wave_busy_timing": graph_busy_timing,
+        "graph_wave_idle_share": max(0.0, 1 - graph_busy_ms / graph_wave_ms),
+        "graph_wave_host_issue_us": graph_host_us,
+        "graph_wave_host_syncs": len(replay_syncs),
         "wave_steps": steps, "wave_ms": wave_ms,
         "wave_host_ms": wave_host_ms,
         "wave_kernel_busy_ms": busy_ms, "wave_busy_timing": busy_timing,
@@ -1301,6 +1508,7 @@ def serve_generate(card: str) -> dict:
         check(hits > 0, "no prefix-cache hit over the shared prompt")
         reference = check_generation_against_plain(
             model, gen_prompt(0), run["tokens"][0])
+        wave_graphs = check_wave_graphs(model)
         device = time_generate_device(model)
     finally:
         model.unload()
@@ -1320,7 +1528,7 @@ def serve_generate(card: str) -> dict:
         "ttft_count": run["ttft_count"],
         "request_total": run["request_total"],
         "timed_out_stream": run["timed_out_stream"],
-        "reference": reference, "device": device,
+        "reference": reference, "device": device, "graphs": wave_graphs,
     }
     print("generate " + json.dumps(summary), flush=True)
     return summary
@@ -1543,6 +1751,9 @@ def serve_resnet(card: str) -> dict:
         size = module.image_size
         calibrate_batch_norm(module, forward_input(bench_images(rng, 64,
                                                                 size)))
+        # The statistics were written on this thread's stream; the
+        # engine's graphs read them on the predict stream.
+        torch.cuda.synchronize()
         images = bench_images(rng, RESNET_REQUESTS, size)
         bodies = image_bodies("resnet", images)
 
@@ -1573,6 +1784,7 @@ def serve_resnet(card: str) -> dict:
             arms["stages"] = stage_window(
                 first, last, model.engine.execute_count - executed,
                 "resnet")
+            arms["compile_cache"] = compile_cache_window(first, last)
             arms["request_total"] = request_counts(last, "resnet")
             return arms
 
@@ -1612,10 +1824,15 @@ def serve_resnet(card: str) -> dict:
             b128 = forward_breakdown(lambda: module(big.float() * scale))
         b128_ms = b128["events_ms"]
         flops = module.flops(128)
+        graph_check = check_graphs(model,
+                                   len(RESNET_CONFIG["batch_buckets"]))
     finally:
         model.unload()
+    check(arms["compile_cache"]["miss"] == 0,
+          f"resnet: compile cache {arms['compile_cache']} after warmup")
     summary = {
         "card": card, "load_and_warmup_s": load_s,
+        "graphs": graph_check, "compile_cache": arms["compile_cache"],
         "requests": len(answers), "v2_requests": len(answers) // V2_EVERY,
         "concurrency": RESNET_CONCURRENCY, "wall_s": wall_s,
         "req_per_s": len(answers) / wall_s,
@@ -1677,12 +1894,16 @@ def serve_vit(card: str) -> dict:
                 port, "vit", bodies, VIT_CONCURRENCY)
             launches = flash_attention.launches
             batches = model.engine.execute_count - executed0
-            stages = stage_window(first, await asyncio.to_thread(
-                scrape, port), batches, "vit")
-            return answers, latencies, wall_s, launches, batches, stages
+            last = await asyncio.to_thread(scrape, port)
+            stages = stage_window(first, last, batches, "vit")
+            compiles = compile_cache_window(first, last)
+            return (answers, latencies, wall_s, launches, batches, stages,
+                    compiles)
 
-        answers, latencies, wall_s, launches, batches, stages = asyncio.run(
-            serve_over_http(model, drive))
+        (answers, latencies, wall_s, launches, batches, stages,
+         compiles) = asyncio.run(serve_over_http(model, drive))
+        check(compiles == {"hit": batches, "miss": 0},
+              f"vit: compile cache {compiles} for {batches} batches")
         check(batches > 0 and launches == cfg.num_layers * batches,
               f"vit: flash kernel launched {launches} times for {batches} "
               f"batches of {cfg.num_layers} layers")
@@ -1711,10 +1932,13 @@ def serve_vit(card: str) -> dict:
         with torch.inference_mode():
             b16 = forward_breakdown(lambda: module(sixteen))
         stats = model.engine_stats()
+        graph_check = check_graphs(
+            model, len(model.engine.batch_buckets.buckets))
     finally:
         model.unload()
     summary = {
         "card": card, "load_and_warmup_s": load_s,
+        "graphs": graph_check, "compile_cache": compiles,
         "requests": len(answers), "concurrency": VIT_CONCURRENCY,
         "wall_s": wall_s, "req_per_s": len(answers) / wall_s,
         "p50_ms": percentile(latencies, 0.5),
@@ -1750,6 +1974,54 @@ def requested_bytes() -> int:
     return torch.cuda.memory_stats()["requested_bytes.all.current"]
 
 
+def ledger_bytes(hbm, name: str) -> int:
+    """The bytes the ledger booked for one resident model."""
+    return next(r["bytes"] for r in hbm.debug()["resident"]
+                if r["model"] == name)
+
+
+def shared_bytes(hbm) -> int:
+    """The bytes the ledger books for every model at once (the capture
+    thread's cuBLAS workspace)."""
+    return sum(hbm.debug().get("shared", {}).values())
+
+
+def pool_requested(pool) -> int:
+    """The bytes live tensors asked for inside one graph pool."""
+    if pool is None:
+        return 0
+    return sum(seg["requested_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def check_ledger(repo, hbm, base_requested: int, where: str) -> dict:
+    """The ledger against the allocator: its total equals, for every
+    resident model, its parameter bytes plus its graph pool, the pool
+    counted as the allocator's segments report it now or, where larger,
+    as the reserve its warmed grid took (a restored engine recaptures its
+    buckets as they are hit); plus the shared cuBLAS workspaces.  And
+    every live byte the phase added (``requested_bytes``) is booked."""
+    from kfserving_tpu_torch.engine import graphs
+
+    held = shared_bytes(hbm)
+    pools = {}
+    for name in hbm.resident_models():
+        engine = repo.get_model(name).engine
+        live = (graphs.pool_bytes(engine._pool, engine.device)
+                if engine._pool is not None else 0)
+        pools[name] = {"live": live, "reserve": engine.pool_reserve,
+                       "requested": pool_requested(engine._pool)}
+        held += (engine.host_param_bytes() or engine.param_bytes()) + max(
+            live, engine.pool_reserve)
+    added = requested_bytes() - base_requested
+    check(hbm.used_bytes == held, f"{where}: ledger {hbm.used_bytes} != "
+          f"params + graph pools + workspaces on the card {held}")
+    check(added <= hbm.used_bytes, f"{where}: {added} live bytes added, "
+          f"{hbm.used_bytes} booked")
+    return {"ledger": hbm.used_bytes, "pools": pools,
+            "requested_added": added}
+
+
 async def drive_repository(root: str) -> dict:
     import gc
     import weakref
@@ -1779,6 +2051,7 @@ async def drive_repository(root: str) -> dict:
         return {m["name"]: m["state"] for m in resp}
 
     try:
+        base_requested = requested_bytes()
         load_ms, allocated, freed = {}, {"before_loads": allocated_bytes()}, []
         for i in range(MMS_MODELS):
             name = f"m{i}"
@@ -1788,12 +2061,17 @@ async def drive_repository(root: str) -> dict:
             _, load_ms[name] = await call(
                 "POST", f"/v2/repository/models/{name}/load")
             if i == 0:
-                # The budget: four models' device bytes, read from m0.
-                per_model = repo.get_model("m0").engine.param_bytes()
-                hbm.budget_bytes = MMS_RESIDENT * per_model
+                # The budget: four models' device bytes (parameters and
+                # graph pool, as the ledger booked m0) and the shared
+                # cuBLAS workspace.
+                per_model = ledger_bytes(hbm, "m0")
+                hbm.budget_bytes = (MMS_RESIDENT * per_model
+                                    + shared_bytes(hbm))
             if i == MMS_RESIDENT - 1:
                 allocated["before_evictions"] = allocated_bytes()
         allocated["after_evictions"] = allocated_bytes()
+        ledger = {"after_loads": check_ledger(repo, hbm, base_requested,
+                                              "multi-model loads")}
         gc.collect()
         check(all(ref() is None for ref in freed),
               "an evicted model's parameters are still referenced")
@@ -1836,7 +2114,9 @@ async def drive_repository(root: str) -> dict:
                   for c in cycles), f"unload freed nothing: {cycles}")
         states = await index()
         check(states == want, f"index after the m4 cycles {states}")
-        return {"per_model_bytes": per_model,
+        ledger["after_cycles"] = check_ledger(repo, hbm, base_requested,
+                                              "multi-model cycles")
+        return {"per_model_bytes": per_model, "ledger": ledger,
                 "budget_bytes": hbm.budget_bytes,
                 "load_ms": load_ms, "first_predict_ms": first_predict_ms,
                 "allocated": allocated, "m4_cycles": cycles,
@@ -1920,6 +2200,7 @@ async def drive_residency(root: str) -> dict:
         return resp, ms
 
     try:
+        base_requested = requested_bytes()
         # The main path's run: the count starts at 0 here; every batch
         # of the phase (cold-fault warmups included) runs 12 layers.
         flash_attention.launches = 0
@@ -1968,10 +2249,14 @@ async def drive_residency(root: str) -> dict:
                 warm0 = res.debug()["models"][name]["fault_ins"]["warm"]
                 pred, round_ms[name] = await predict(name)
                 if r == 0 and name == names[0]:
-                    # The budget: two models' device bytes, read from the
-                    # first cold fault (benchmarks/configs.py:1080-1088).
-                    per_model = hbm.used_bytes
-                    hbm.budget_bytes = RES_RESIDENT * per_model
+                    # The budget: two models' device bytes (parameters and
+                    # the warmed graph pool, booked through every restore),
+                    # read from the first cold fault
+                    # (benchmarks/configs.py:1080-1088), and the shared
+                    # cuBLAS workspaces.
+                    per_model = ledger_bytes(hbm, name)
+                    hbm.budget_bytes = (RES_RESIDENT * per_model
+                                        + shared_bytes(hbm))
                 ledger_max = max(ledger_max, hbm.used_bytes)
                 check(hbm.used_bytes <= hbm.budget_bytes,
                       f"ledger {hbm.used_bytes} over budget "
@@ -1989,13 +2274,24 @@ async def drive_residency(root: str) -> dict:
             allocated.append(allocated_bytes())
             requested.append(requested_bytes())
             rounds.append({"request_ms": round_ms,
-                           "resident": hbm.resident_models()})
+                           "resident": hbm.resident_models(),
+                           "ledger": check_ledger(repo, hbm, base_requested,
+                                                  f"round {r + 1}")})
         # The same two models are resident after every round: the live
         # tensor bytes must not move, nor the blocks once every request
         # is a warm fault (round 1 allocates its models by cold builds,
-        # whose block history differs).
-        check(len(set(requested)) == 1,
-              f"requested bytes moved between rounds: {requested}")
+        # whose block history differs).  Round 1's models also hold the
+        # static tensors of their whole warmed grid in their graph pools,
+        # where a restored model holds its one recaptured bucket's: the
+        # bytes outside the pools are constant over all ten rounds, and
+        # all of them over the warm rounds.
+        outside = [req - sum(p["requested"] for p in rnd["ledger"]
+                             ["pools"].values())
+                   for req, rnd in zip(requested, rounds)]
+        check(len(set(outside)) == 1, f"requested bytes outside the graph "
+              f"pools moved between rounds: {outside}")
+        check(len(set(requested[1:])) == 1,
+              f"requested bytes moved between warm rounds: {requested}")
         check(len(set(allocated[1:])) == 1,
               f"memory_allocated moved between warm rounds: {allocated}")
         # The transfer alone, without the fault's admission, eviction and
@@ -2068,13 +2364,23 @@ async def drive_residency(root: str) -> dict:
               f"{batches} batches of {layers} layers")
         debug = res.debug()
         fault_ms = debug["fault_in_ms"]
+        # What a warm fault's request takes end to end (the restore, the
+        # capture of its bucket, the batch), and one capture alone.
+        warm_request = sorted(ms for rnd in rounds[1:]
+                              for ms in rnd["request_ms"].values())
+        param_bytes = repo.get_model(names[0]).engine.host_param_bytes()
+        graph_stats = [repo.get_model(n).engine.graph_stats() for n in names]
+        recapture_ms = (sum(g["capture_ms_total"] for g in graph_stats)
+                        / sum(g["captures"] for g in graph_stats))
         return {
             "models": RES_MODELS, "per_model_bytes": per_model,
+            "param_bytes": param_bytes,
             "budget_bytes": hbm.budget_bytes, "ledger_max_bytes": ledger_max,
             "param_sources": {n: repo.get_model(n).param_source
                               for n in names},
             "rounds": rounds, "allocated_after_rounds": allocated,
             "requested_after_rounds": requested,
+            "requested_outside_pools": outside,
             "restored_bytes_checked": restored_bytes,
             "top5_max_score_diff": worst_diff,
             "coalesced": {"model": target, **coalesce,
@@ -2088,9 +2394,13 @@ async def drive_residency(root: str) -> dict:
             "warm_fault_p90_ms": percentile(res.fault_ms["warm"], 0.9),
             "warm_fault_max_ms": max(res.fault_ms["warm"]),
             "cold_fault_ms": sorted(res.fault_ms["cold"]),
-            "warm_fault_gb_per_s": per_model / fault_ms["warm_p50"] / 1e6,
+            "warm_fault_p50_ms": fault_ms["warm_p50"],
+            "warm_fault_gb_per_s": param_bytes / fault_ms["warm_p50"] / 1e6,
+            "warm_request_ms": warm_request,
+            "warm_request_p50_ms": percentile(warm_request, 0.5),
+            "capture_ms_mean": recapture_ms,
             "restore_ms": restore_ms,
-            "restore_gb_per_s": per_model / min(restore_ms) / 1e6,
+            "restore_gb_per_s": param_bytes / min(restore_ms) / 1e6,
             "residency": debug,
         }
     finally:
@@ -2148,9 +2458,9 @@ async def drive_density(root: str) -> dict:
         for name in names:
             await predict(name)
             if name == names[0]:
-                per_model = hbm.used_bytes
+                per_model = ledger_bytes(hbm, name)
                 hbm.budget_bytes = int(per_model * DENSITY_MODELS
-                                       * DENSITY_FRAC)
+                                       * DENSITY_FRAC) + shared_bytes(hbm)
             # Resident and idle right after its predict: its direct
             # forward is the reference for every later answer.
             module = repo.get_model(name).module
@@ -2297,6 +2607,29 @@ def main() -> int:
                               + vit["flash_launches"]
                               + residency["flash_launches"])
     kernels[1]["launches"] = generating["launches"]["paged_attention"]
+    print("graphs " + json.dumps({
+        "card": card,
+        "predict": {"bert": serving["graphs"], "resnet": resnet["graphs"],
+                    "vit": vit["graphs"]},
+        "compile_cache": {"bert": serving["compile_cache"],
+                          "resnet": resnet["compile_cache"],
+                          "vit": vit["compile_cache"]},
+        "decode_wave": {
+            "greedy": generating["graphs"]["greedy"],
+            "seeded": generating["graphs"]["seeded"],
+            "wave_graphs": generating["graphs"]["graph_stats"],
+            "graph_wave_ms": generating["device"]["graph_wave_ms"],
+            "graph_wave_busy_ms": generating["device"]["graph_wave_busy_ms"],
+            "eager_wave_ms": generating["device"]["wave_ms"],
+            "eager_wave_busy_ms":
+                generating["device"]["wave_kernel_busy_ms"],
+            "host_syncs": generating["device"]["graph_wave_host_syncs"]},
+        "residency": {k: residency[k] for k in (
+            "warm_fault_n", "warm_fault_p50_ms", "warm_request_p50_ms",
+            "capture_ms_mean")},
+        "launches": {"flash_attention": kernels[0]["launches"],
+                     "paged_attention": kernels[1]["launches"]}}),
+        flush=True)
     print("stages " + json.dumps({
         "card": card, "resnet_json_req_per_s": resnet["req_per_s"],
         "resnet_binary_req_per_s": resnet["binary"]["req_per_s"],

@@ -17,22 +17,37 @@ Port of ``kfserving_tpu/engine/generator.py``, paged mode:
   wave through the paged decode kernel, feeding each step's tokens to
   the next on the device.
 - **pipelined, sync-free dispatch**: all device work is enqueued on ONE
-  enqueue thread (one CUDA stream, in order) inside
+  enqueue thread, on the engine's own CUDA stream (in order), inside
   ``torch.inference_mode()``.  Results copy into pinned host memory with
   ``non_blocking=True`` behind a CUDA event; the fetch executor waits on
   the event, never the loop thread or the enqueue thread.  Nothing on the
   enqueue path reads a device value back (no ``.item()``, ``.tolist()``
   or ``.cpu()``), so ``pipeline_depth`` waves stay in flight.
+- **the decode wave as a CUDA graph**: on the card a wave's
+  ``steps_per_call`` steps, its sampling and the write-back of its last
+  tokens and positions into the device feed arrays are one captured
+  graph per (max_slots, steps_per_call, any_sampled, need_mask,
+  want_lp), the JAX generator's one decode program per (max_slots,
+  steps_per_call) split by the host's decisions below.  A wave copies
+  the block table and the four sampling arrays into one static input
+  tensor (one host-to-device copy), replays its variant's graph and
+  copies the graph's static outputs out.  The greedy variant is captured
+  when the engine starts; another is captured at its first wave, which
+  runs eagerly (its tokens are that wave's) just before the capture.
+  All variants share one memory pool; each first capture is noted to
+  ``engine/compile_cache.py``.  The prefill stays eager.  On the CPU
+  every wave runs eagerly on the same static tensors.
 - **sampling on the device**: greedy (``argmax``, first index on ties),
   temperature via the Gumbel trick, top-k and top-p.  Where JAX branches
   on the device (``lax.cond``), the port decides on the host from the
   slots' own request parameters: the noise, the support mask and the
   logprobs run only when some row needs them, and give the same result
-  for every row either way.  The noise is a counter-based hash of
-  (engine ``rng_seed``, request seed, absolute position, vocab index) in
-  torch integer ops, so a seeded request draws the same tokens however
-  it is scheduled (preemption and resume included).  It is not JAX's
-  threefry: seeded draws differ from the JAX package's.
+  for every row either way.  The noise is JAX's: each row draws
+  ``jax.random.gumbel`` under the key ``fold_in(fold_in(PRNGKey(
+  rng_seed), seed), position)``, computed in torch integer ops
+  (``engine/threefry.py``; its bits equal JAX's, its logarithm is
+  torch's), so a seeded request draws the JAX package's tokens however
+  it is scheduled (preemption and resume included).
 
 - **deadlines and telemetry**: a request carries the deadline and trace
   id of the context that submitted it; between decode waves a request
@@ -46,14 +61,14 @@ Port of ``kfserving_tpu/engine/generator.py``, paged mode:
 
 Left for later: the dense slot mode (a config without ``block_size`` is
 refused), chunked prefill, speculative decoding, the host KV tier, the
-timeline, and meshes.  The decode steps of a
-wave are a Python loop of eager launches (no CUDA graphs yet).
+timeline, meshes, and graphs for the prefill buckets.
 """
 
 import asyncio
 import concurrent.futures
 import contextlib
 import hashlib
+import itertools
 import logging
 import threading
 import time
@@ -64,6 +79,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kfserving_tpu_torch.engine import compile_cache, graphs, threefry
 from kfserving_tpu_torch.engine.torch_engine import device_peak_flops
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.observability.profiling.roofline import (
@@ -81,30 +97,16 @@ from kfserving_tpu_torch.tracing import Span, current_request_id, tracer
 
 logger = logging.getLogger("kfserving_tpu_torch.engine.generator")
 
-_M32 = 0xFFFFFFFF
+# Process-monotonic generator ids (compile-cache sources).
+_generator_seq = itertools.count()
 
-
-def _mix32(x):
-    """An avalanche hash of 32-bit values: Python ints, or int64 tensors
-    (the multipliers stay under 2**31, so no product overflows)."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x5F356495) & _M32
-    return x ^ (x >> 16)
-
-
-def gumbel_noise(rng_seed: int, seeds: torch.Tensor, positions: torch.Tensor,
-                 vocab_mix: torch.Tensor) -> torch.Tensor:
-    """[B, V] float32 Gumbel(0, 1) noise, a pure function of (rng_seed,
-    seeds[b], positions[b], vocab index).  ``vocab_mix`` is
-    ``_mix32(arange(V))``, computed once per engine."""
-    base = _mix32(rng_seed & _M32)
-    row = _mix32(_mix32((seeds.long() & _M32) ^ base)
-                 ^ (positions.long() & _M32))
-    bits = _mix32(_mix32(row[:, None] ^ vocab_mix[None, :]))
-    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))     # (0, 1)
-    return -torch.log(-torch.log(u))
+def sampling_noise(base_key: torch.Tensor, seeds: torch.Tensor,
+                   positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, V] float32 Gumbel(0, 1) noise: row b draws
+    ``jax.random.gumbel(fold_in(fold_in(base_key, seeds[b]),
+    positions[b]), (V,))``, as the JAX generator's sampler does."""
+    keys = threefry.fold_in(threefry.fold_in(base_key, seeds), positions)
+    return threefry.gumbel(keys, vocab)
 
 
 def mask_to_support(logits: torch.Tensor, top_ks: torch.Tensor,
@@ -297,8 +299,28 @@ class GenerationEngine:
             self._feed_positions = torch.zeros(self.max_slots + 1,
                                                dtype=torch.int32,
                                                device=self.device)
-            self._vocab_mix = _mix32(torch.arange(
-                cfg.vocab_size, dtype=torch.int64, device=self.device))
+            self._base_key = threefry.prng_key(self.rng_seed,
+                                               device=self.device)
+            # The wave's static input: the block table [S, MB] and the
+            # four sampling arrays [S] (temperatures and top-p as float32
+            # bits), one host-to-device copy a wave.
+            S, MB = self.max_slots, self.blocks_per_slot
+            self._wave_in = torch.zeros(S * MB + 4 * S, dtype=torch.int32,
+                                        device=self.device)
+            self._wave_table = self._wave_in[:S * MB].view(S, MB)
+            rows = [self._wave_in[S * MB + i * S:S * MB + (i + 1) * S]
+                    for i in range(4)]
+            self._wave_sampling = (rows[0].view(torch.float32), rows[1],
+                                   rows[2].view(torch.float32), rows[3])
+
+        # Decode-wave programs: variant key -> (graph, static outputs,
+        # kernel launch tally), in one pool, on the engine's stream.
+        self._stream = None
+        self._pool = None
+        self._programs: Dict[tuple, Any] = {}
+        self.compile_source = f"generator:{name}:{next(_generator_seq)}"
+        self.wave_captures = 0
+        self.capture_ms_total = 0.0
 
         # Host-side paging state, guarded by _block_lock (cancel() on
         # the loop thread races table snapshots on the enqueue thread).
@@ -379,6 +401,14 @@ class GenerationEngine:
         self._decode_hbm_bytes = 0.0
         # Per prefill bucket: [real tokens, padded tokens].
         self._prefill_bucket_tokens: Dict[int, List[float]] = {}
+        if self.device.type == "cuda":
+            # The module and the pools were written on this thread's
+            # stream; the engine's own stream starts behind them, and
+            # the greedy wave is compiled on the enqueue thread.
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._pool = torch.cuda.graph_pool_handle()
+            self._enqueue_executor.submit(self._warm_greedy_wave).result()
 
     # -- public API --------------------------------------------------------
     def cache_bytes(self) -> int:
@@ -533,6 +563,16 @@ class GenerationEngine:
             self._wakeup.set()
         self._executor.shutdown(wait=False)
         self._enqueue_executor.shutdown(wait=False)
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The decode-wave graphs: variants captured, their capture ms
+        and the pool's bytes (kept out of ``stats()``, which ``/metrics``
+        publishes)."""
+        return {"wave_graphs": sorted(self._programs),
+                "captures": self.wave_captures,
+                "capture_ms_total": self.capture_ms_total,
+                "pool_bytes": (graphs.pool_bytes(self._pool, self.device)
+                               if self._pool is not None else 0)}
 
     def stats(self) -> Dict[str, Any]:
         steps = max(1, self._token_steps)
@@ -802,16 +842,21 @@ class GenerationEngine:
 
     # -- device programs (enqueue thread) ----------------------------------
     def _device_scope(self):
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+        """The enqueue thread's device context: the card and the engine's
+        stream."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        scope = contextlib.ExitStack()
+        scope.enter_context(torch.cuda.device(self.device))
+        scope.enter_context(torch.cuda.stream(self._stream))
+        return scope
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned
         staging, non_blocking)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = self._to_host_staging(arr)
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device, non_blocking=True)
         return t.clone()
 
     def _start_fetch(self, tensors: List[torch.Tensor]) -> _Fetch:
@@ -836,9 +881,11 @@ class GenerationEngine:
         lp = tuple(arrays[1:]) if len(arrays) > 1 else None
         return arrays[0], lp, time.perf_counter() - t0
 
-    def _sampling(self, rows: List[Optional[_Request]], n: int) -> _Sampling:
-        """Per-row sampling arrays for a dispatch of n rows (None rows:
-        padding or free slots, greedy)."""
+    @staticmethod
+    def _sampling_arrays(rows: List[Optional[_Request]], n: int):
+        """Host sampling arrays (temps, top_ks, top_ps, seeds) for a
+        dispatch of n rows (None rows: padding or free slots, greedy),
+        and the (any_sampled, need_mask, want_lp) decisions."""
         temps = np.zeros(n, np.float32)
         top_ks = np.zeros(n, np.int32)
         top_ps = np.ones(n, np.float32)
@@ -851,13 +898,16 @@ class GenerationEngine:
             seeds[i] = r.seed
             want_lp = want_lp or r.logprobs > 0
         sampled = temps > 0
-        return _Sampling(
-            self._to_device(temps), self._to_device(top_ks),
-            self._to_device(top_ps), self._to_device(seeds),
-            any_sampled=bool(sampled.any()),
-            need_mask=bool(np.any(sampled & ((top_ks > 0)
-                                             | (top_ps < 1.0)))),
-            want_lp=want_lp)
+        flags = (bool(sampled.any()),
+                 bool(np.any(sampled & ((top_ks > 0) | (top_ps < 1.0)))),
+                 want_lp)
+        return (temps, top_ks, top_ps, seeds), flags
+
+    def _sampling(self, rows: List[Optional[_Request]], n: int) -> _Sampling:
+        """Per-row sampling arrays on the device for a dispatch of n
+        rows (None rows: padding or free slots, greedy)."""
+        arrays, flags = self._sampling_arrays(rows, n)
+        return _Sampling(*(self._to_device(a) for a in arrays), *flags)
 
     def _sample(self, logits: torch.Tensor, p: _Sampling,
                 noise_pos: torch.Tensor) -> torch.Tensor:
@@ -868,8 +918,8 @@ class GenerationEngine:
             return greedy.to(torch.int32)
         masked = (mask_to_support(logits, p.top_ks, p.top_ps)
                   if p.need_mask else logits)
-        noise = gumbel_noise(self.rng_seed, p.seeds, noise_pos,
-                             self._vocab_mix)
+        noise = sampling_noise(self._base_key, p.seeds, noise_pos,
+                               logits.shape[-1])
         scaled = masked / p.temps.clamp_min(1e-6)[:, None]
         sampled = (scaled + noise).argmax(dim=-1)
         return torch.where(p.temps <= 0, greedy, sampled).to(torch.int32)
@@ -890,17 +940,84 @@ class GenerationEngine:
         snapshot = list(self._slots)
         with self._block_lock:
             table_h = self._tables.copy()
+        arrays, flags = self._sampling_arrays(
+            [None if s is None else s.req for s in snapshot], S)
         with torch.inference_mode(), self._device_scope():
-            p = self._sampling([None if s is None else s.req
-                                for s in snapshot], S)
-            out, tokens, positions = self._decode_steps(
-                self._to_device(table_h), self._feed_tokens[:S],
-                self._feed_positions[:S], p)
-            self._feed_tokens[:S] = tokens
-            self._feed_positions[:S] = positions
-            handle = self._start_fetch(out)
+            handle = self._start_fetch(self._run_wave(table_h, arrays,
+                                                      flags))
         self.decode_steps += 1
         return handle, snapshot, time.perf_counter()
+
+    def _run_wave(self, table: np.ndarray, arrays, flags) -> List[
+            torch.Tensor]:
+        """Enqueue thread: stage the wave's table and sampling arrays
+        into the static input and run the wave, from its graph on the
+        card (compiled at its first wave) or eagerly on the CPU.  Returns
+        the wave's output tensors."""
+        p = self._stage_wave(table, arrays, flags)
+        if self.device.type != "cuda":
+            return self._wave(p)
+        key = (self.max_slots, self.steps_per_call) + tuple(flags)
+        program = self._programs.get(key)
+        if program is None:
+            return self._compile_wave(key, p)
+        graph, outputs, tally = program
+        graphs.replay(graph, tally)
+        return outputs
+
+    def _stage_wave(self, table: np.ndarray, arrays, flags) -> _Sampling:
+        """Queue the copy of a wave's table and sampling arrays into the
+        static input; returns the wave's sampling view of it."""
+        temps, top_ks, top_ps, seeds = arrays
+        host = np.concatenate([
+            table.astype(np.int32).ravel(), temps.view(np.int32), top_ks,
+            top_ps.view(np.int32), seeds])
+        self._wave_in.copy_(self._to_host_staging(host), non_blocking=True)
+        return _Sampling(*self._wave_sampling, *flags)
+
+    def _to_host_staging(self, arr: np.ndarray) -> torch.Tensor:
+        """A host tensor to copy from without a stream sync: pinned on
+        the card's side."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _wave(self, p: _Sampling) -> List[torch.Tensor]:
+        """The wave's device program over the static inputs: the decode
+        steps, then their last tokens and positions written back into
+        the feed arrays."""
+        S = self.max_slots
+        out, tokens, positions = self._decode_steps(
+            self._wave_table, self._feed_tokens[:S],
+            self._feed_positions[:S], p)
+        self._feed_tokens[:S] = tokens
+        self._feed_positions[:S] = positions
+        return out
+
+    def _compile_wave(self, key: tuple, p: _Sampling
+                      ) -> List[torch.Tensor]:
+        """The first wave of a variant: run it eagerly (its tokens are
+        this wave's), then capture the same program into a graph whose
+        outputs are static.  Returns the eager wave's outputs."""
+        out = self._wave(p)
+        t0 = time.perf_counter()
+        graph, outputs, tally = graphs.capture(lambda: self._wave(p),
+                                               self._stream, self._pool)
+        self._programs[key] = (graph, outputs, tally)
+        self.wave_captures += 1
+        self.capture_ms_total += (time.perf_counter() - t0) * 1e3
+        compile_cache.note_compilation(self.compile_source,
+                                       ("decode",) + key)
+        return out
+
+    def _warm_greedy_wave(self) -> None:
+        """Enqueue thread, at engine start: compile the greedy wave.  No
+        slot is live, so its eager run decodes the free rows, which
+        write only the sink block."""
+        S = self.max_slots
+        table = np.full((S, self.blocks_per_slot), -1, np.int32)
+        arrays, flags = self._sampling_arrays([None] * S, S)
+        with torch.inference_mode(), self._device_scope():
+            self._run_wave(table, arrays, flags)
 
     def _decode_steps(self, table: torch.Tensor, tokens: torch.Tensor,
                       positions: torch.Tensor, p: _Sampling):

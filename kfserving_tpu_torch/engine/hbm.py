@@ -13,6 +13,11 @@ candidate is counted in ``eviction_skips`` (once per admission
 episode), and a plan that fails after claiming victims gives them back
 through ``victim_release``.
 
+Beside the models, the ledger books what the process keeps on the card
+for all of them (``set_shared``: the capture thread's cuBLAS workspace,
+whose address every predict graph bakes in), and a model's entry grows
+with its engine's graph pool as buckets are captured (``resize``).
+
 The budget is ``KFS_HBM_BUDGET`` when set, else 90% of the card's memory
 (``torch.cuda.mem_get_info``), else 12 GiB when no card reports one.  The
 ledger publishes ``kfserving_tpu_hbm_budget_bytes``,
@@ -100,6 +105,8 @@ class HBMManager:
         self.victim_ok = victim_ok
         self.victim_release: Optional[Callable[[str], None]] = None
         self._resident: "OrderedDict[str, Residency]" = OrderedDict()
+        # Bytes held for every model at once (not evictable).
+        self._shared: Dict[str, int] = {}
         self._lock = threading.Lock()
         # Lifetime evictions and admission skips per model.
         self.evictions: Dict[str, int] = {}
@@ -114,7 +121,8 @@ class HBMManager:
     @property
     def used_bytes(self) -> int:
         with self._lock:
-            return sum(r.bytes for r in self._resident.values())
+            return (sum(r.bytes for r in self._resident.values())
+                    + sum(self._shared.values()))
 
     @property
     def free_bytes(self) -> int:
@@ -156,7 +164,8 @@ class HBMManager:
                                    if k != name)
                 while True:
                     free = self.budget_bytes - sum(
-                        r.bytes for r in plan.values())
+                        r.bytes for r in plan.values()) - sum(
+                            self._shared.values())
                     if nbytes <= free:
                         break
                     if not evict:
@@ -246,6 +255,23 @@ class HBMManager:
         with self._lock:
             self._skips_counted.pop(name, None)
 
+    def resize(self, name: str, nbytes: int) -> None:
+        """Set a resident model's booked bytes (its engine captured a
+        graph and its pool grew).  Evicts nothing: the next admission
+        plans against the new total."""
+        with self._lock:
+            res = self._resident.get(name)
+            if res is None:
+                return
+            res.bytes = int(nbytes)
+        obs.hbm_resident_bytes().labels(model=name).set(float(nbytes))
+
+    def set_shared(self, name: str, nbytes: int) -> None:
+        """Book ``nbytes`` that the process holds for all models at once
+        under ``name`` (never evicted)."""
+        with self._lock:
+            self._shared[name] = int(nbytes)
+
     def touch(self, name: str) -> None:
         """Mark a model as recently used (moves it to MRU position)."""
         with self._lock:
@@ -289,10 +315,15 @@ class HBMManager:
                 for r in self._resident.values()]
             evictions = dict(self.evictions)
             skips = dict(self.eviction_skips)
-        return {
+            shared = dict(self._shared)
+        out = {
             "budget_bytes": self.budget_bytes,
-            "used_bytes": sum(r["bytes"] for r in residents),
+            "used_bytes": (sum(r["bytes"] for r in residents)
+                           + sum(shared.values())),
             "resident": residents,
             "evictions": evictions,
             "eviction_skips": skips,
         }
+        if shared:
+            out["shared"] = shared
+        return out

@@ -14,25 +14,52 @@ Port of ``kfserving_tpu/engine/jax_engine.py`` (``JaxEngine``):
   the engine is ``offloadable``: ``offload()`` drops the device storage
   of every parameter and buffer and ``restore()`` copies them back, for
   demand-paged residency (``engine/residency.py``).  The module and its
-  ``Parameter`` objects stay, so nothing is rebuilt or re-warmed.
+  ``Parameter`` objects stay, so nothing is rebuilt.
 
-PyTorch runs eagerly, so there is nothing to compile: ``compile_count``
-counts the bucket shapes warmup ran, as the JAX engine counts programs.
+On the card each (batch, seq) bucket is compiled, as the JAX engine jits
+one executable per bucket: the first dispatch of a shape runs the model
+eagerly (its answer is the batch's; it also does the kernels' one-time
+set-up outside any capture) and then records the same forward into a
+CUDA graph with static input and output tensors (``engine/graphs.py``);
+every later dispatch copies the padded batch into the static inputs,
+replays the graph and copies the real rows out.  The capture runs on the
+process's one capture thread, on a stream of its own; every predict
+engine launches on one stream, and an engine's graphs share one memory
+pool.  The pool is
+shared, so one graph's temporaries may lie where another graph keeps its
+static inputs or outputs: the engine's workers take one lock from the
+copy in until the copy out is enqueued, which keeps each batch's copy,
+replay and copy out together in stream order.  A failed capture
+or replay raises; nothing falls back to eager launches.  ``offload()``
+drops the graphs and their pool (a graph bakes in the parameters'
+addresses, which ``restore()`` changes), so each bucket is captured
+again at its first dispatch after a restore.  On the CPU the engine runs
+eagerly.  ``compile_count`` counts captured graphs on the card and warmed
+shapes on the CPU; every dispatch counts
+``kfserving_tpu_compile_cache_total`` ``miss`` (the first dispatch of a
+shape: on the card, its capture) or ``hit``, as the JAX engine counts
+them, and the first compile of a shape is noted to
+``engine/compile_cache.py``.  ``booked_bytes()`` is what the HBM ledger
+books for the engine: its parameters and its graph pool, or the warmed
+grid's pool while a restored engine captures its buckets again (the
+capture thread's cuBLAS workspaces, which every predict engine's graphs
+share, are booked once).
 
 Each execution checks the caller's deadline first (the caller's context
 rides into the worker thread), records an ``engine.execute`` span and
 observes ``kfserving_tpu_engine_stage_ms`` per stage: prepare (pad on
 the host), transfer (the host-to-device copies are queued), compute (the
-forward is queued) and fetch (wait for the card, copy the rows back).
-Dispatch is asynchronous, so compute ends when the launches return and
-fetch holds the wait for the device; ``stats()`` says so with
-``blocking_stats`` false, as the JAX engine does in its non-blocking
-mode.
+forward, or the replay, is queued) and fetch (wait for the card, copy
+the rows back).  Dispatch is asynchronous, so compute ends when the
+launches return and fetch holds the wait for the device; ``stats()``
+says so with ``blocking_stats`` false, as the JAX engine does in its
+non-blocking mode.
 """
 
 import asyncio
 import concurrent.futures
 import contextvars
+import itertools
 import os
 import threading
 import time
@@ -41,6 +68,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kfserving_tpu_torch.engine import compile_cache, graphs
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.reliability.deadline import check_deadline
@@ -107,8 +135,39 @@ def _map(fn: Callable, out: Any) -> Any:
     return fn(out)
 
 
+def _map2(fn: Callable, a: Any, b: Any) -> Any:
+    """``_map`` over two trees of one structure (a dict or one leaf)."""
+    if isinstance(a, dict):
+        return {k: fn(v, b[k]) for k, v in a.items()}
+    return fn(a, b)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """Queue a device -> pinned host copy of ``t`` on the current
+    stream."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)
+
+
 # Offset alignment of a tensor inside a restored model's one device block.
 _SLOT_ALIGN = 256
+
+# Process-monotonic engine ids: the compile-cache source of an engine
+# (a recycled id would hand a new engine its predecessor's warmup).
+_engine_seq = itertools.count()
+
+
+class _Program:
+    """One bucket's CUDA graph: its static input and output tensors and
+    the kernel launches a replay makes."""
+
+    __slots__ = ("graph", "inputs", "outputs", "launches")
+
+    def __init__(self, graph, inputs, outputs, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
 
 
 class _Slot:
@@ -188,6 +247,35 @@ class TorchEngine:
         self._flops_fn = getattr(params, "flops", None)
         self._peak_flops = device_peak_flops(self.device)
         self._stats_lock = threading.Lock()
+        # Compiled programs.  On the card: bucket -> captured graph, all
+        # in one memory pool, launched on the predict stream (the module
+        # was built on this thread's stream: the predict stream waits for
+        # it) and captured on the capture stream.  On the CPU: the
+        # buckets dispatched so far.
+        self._cuda = self.device.type == "cuda"
+        self._stream = self._capture_stream = None
+        if self._cuda:
+            self._stream, self._capture_stream = graphs.predict_streams(
+                self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._pool = None
+        self._programs: Dict[Any, _Program] = {}
+        self._dispatched: set = set()
+        self._noted: set = set()
+        self._compile_lock = threading.Lock()
+        # Held from a batch's copy in to its copy out being enqueued (the
+        # graphs share a pool: see the module note).
+        self._replay_lock = threading.Lock()
+        self.compile_source = f"torch_engine:{next(_engine_seq)}"
+        # Called with booked_bytes() after each capture (the predictor
+        # books a pool grown past its reserve in the HBM ledger).
+        self.on_capture: Optional[Callable[[int], None]] = None
+        self.pool_bytes = 0
+        # The pool of the grid warmup captured: what a restored engine's
+        # buckets are booked for while they are captured again.
+        self.pool_reserve = 0
+        self.captures = 0
+        self.capture_ms_total = 0.0
         self.compile_count = 0
         self.execute_count = 0
         self.last_execute_ms = 0.0
@@ -265,17 +353,10 @@ class TorchEngine:
         with tracer.span("engine.execute") as span:
             t0 = time.perf_counter()
             padded, n = self._prepare(inputs)
-            t1 = time.perf_counter()
-            with torch.inference_mode():
-                batch = _map(self._to_device, padded)
-                t_transfer = time.perf_counter()
-                out = self._apply(self.params, batch)
-                t2 = time.perf_counter()
-                # The one device -> host join of a batch: waits for the
-                # kernels, then copies only the n real rows.
-                result = _map(lambda t: t[:n].cpu().numpy(), out)
-            t3 = time.perf_counter()
             key = self._shape_key(padded)
+            t1 = time.perf_counter()
+            run = self._run_on_card if self._cuda else self._run_eager
+            result, miss, t_transfer, t2, t3 = run(key, padded, n)
             bucket = key[0]
             span.update(batch=n, bucket=int(bucket),
                         prepare_ms=round((t1 - t0) * 1e3, 3),
@@ -292,7 +373,13 @@ class TorchEngine:
             stage_hist.labels(stage=stage).observe(ms, trace_id=trace_id)
         # Models without a sequence axis (ResNet, MLP, ViT) take None.
         flops = self._flops_fn(*key) if self._flops_fn else 0.0
+        first = False
         with self._stats_lock:
+            obs.compile_cache_events().labels(
+                outcome="miss" if miss else "hit").inc()
+            if miss and key not in self._noted:
+                self._noted.add(key)
+                first = True
             self.last_execute_ms = (t3 - t1) * 1000.0
             self.execute_count += 1
             self.padded_waste_total += (bucket - n) / bucket
@@ -305,7 +392,87 @@ class TorchEngine:
                 self._bucket_waste.get(key, 0.0) + (bucket - n) / bucket
             self._slots_total += bucket
             self._padded_slots_total += bucket - n
+        if first:
+            compile_cache.note_compilation(self.compile_source, key)
         return result
+
+    def _run_eager(self, key, padded: Any, n: int):
+        """CPU: one eager forward.  The first dispatch of a bucket is its
+        compile-cache miss."""
+        with torch.inference_mode():
+            batch = _map(self._to_device, padded)
+            t_transfer = time.perf_counter()
+            out = self._apply(self.params, batch)
+            t2 = time.perf_counter()
+            result = _map(lambda t: t[:n].cpu().numpy(), out)
+        t3 = time.perf_counter()
+        with self._stats_lock:
+            miss = key not in self._dispatched
+            self._dispatched.add(key)
+        return result, miss, t_transfer, t2, t3
+
+    def _run_on_card(self, key, padded: Any, n: int):
+        """The card: replay the bucket's graph, or compile it (a miss)."""
+        program = self._programs.get(key)
+        if program is None:
+            with self._compile_lock:
+                program = self._programs.get(key)
+                if program is None:
+                    return graphs.on_capture_thread(self._compile, key,
+                                                    padded, n)
+        staged = _map(lambda a: torch.from_numpy(np.ascontiguousarray(a)),
+                      padded)
+        with self._replay_lock, torch.inference_mode(), \
+                torch.cuda.stream(self._stream):
+            _map2(lambda dst, src: dst.copy_(src, non_blocking=True),
+                  program.inputs, staged)
+            t_transfer = time.perf_counter()
+            graphs.replay(program.graph, program.launches)
+            t2 = time.perf_counter()
+            host = _map(lambda t: _pinned_copy(t[:n]), program.outputs)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        # The one device -> host join of a batch.
+        done.synchronize()
+        result = _map(lambda h: h.numpy().copy(), host)
+        return result, False, t_transfer, t2, time.perf_counter()
+
+    def _compile(self, key, padded: Any, n: int):
+        """Capture thread: run the bucket eagerly on the predict stream
+        (the batch's answer; it also does every kernel's one-time set-up
+        outside the capture), then record the same forward, on the
+        capture stream, into a graph whose static inputs and outputs
+        live in the engine's pool."""
+        with torch.inference_mode(), torch.cuda.stream(self._stream):
+            batch = _map(self._to_device, padded)
+            t_transfer = time.perf_counter()
+            out = self._apply(self.params, batch)
+            t2 = time.perf_counter()
+            result = _map(lambda t: t[:n].cpu().numpy(), out)
+            t3 = time.perf_counter()
+            del out
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+
+            def forward():
+                inputs = _map(torch.empty_like, batch)
+                return inputs, self._apply(self.params, inputs)
+
+            graph, (inputs, outputs), tally = graphs.capture(
+                forward, self._capture_stream, self._pool)
+            del batch
+        self._programs[key] = _Program(graph, inputs, outputs, tally)
+        pool = graphs.pool_bytes(self._pool, self.device)
+        with self._stats_lock:
+            self.pool_bytes = pool
+            self.captures += 1
+            self.compile_count += 1
+            self.capture_ms_total += (time.perf_counter() - t3) * 1e3
+        if self.on_capture is not None:
+            self.on_capture(self.booked_bytes())
+        # The batch's stages end at its fetch; the capture after it is
+        # in ``capture_ms``.
+        return result, True, t_transfer, t2, t3
 
     async def predict(self, inputs: Any) -> Any:
         """Async batch predict: pads, executes off-loop, unpads.  The
@@ -322,10 +489,12 @@ class TorchEngine:
     # -- lifecycle -----------------------------------------------------------
     def warmup(self, example: Any, buckets: Optional[List[int]] = None,
                minimal: bool = False) -> float:
-        """Run every shape a request can hit once: all batch buckets x
-        all seq buckets (minimal=True: only the largest batch bucket per
-        seq bucket).  `example` is a single instance (no batch dim) as
-        array or dict of arrays.  Returns the seconds it took."""
+        """Dispatch every shape a request can hit once, which on the card
+        captures its graph: all batch buckets x all seq buckets
+        (minimal=True: only the largest batch bucket per seq bucket; the
+        others compile at their first request).  `example` is a single
+        instance (no batch dim) as array or dict of arrays.  Returns the
+        seconds it took."""
         start = time.perf_counter()
         batch_buckets = buckets or self.batch_buckets.buckets
         if minimal:
@@ -350,10 +519,12 @@ class TorchEngine:
                 else:
                     batch = np.stack([np.asarray(inst)] * b)
                 self._execute_sync(batch)
-                self.compile_count += 1
+                if not self._cuda:
+                    self.compile_count += 1
         # Warmup batches are exactly full: leaving them in the traffic
         # counters would report phantom bucket hits.
         with self._stats_lock:
+            self.pool_reserve = max(self.pool_reserve, self.pool_bytes)
             self._bucket_hits.clear()
             self._bucket_waste.clear()
             self._slots_total = 0
@@ -364,6 +535,22 @@ class TorchEngine:
         """Parameter and buffer bytes held on the device (0 while
         offloaded)."""
         return module_bytes(self.params)
+
+    def booked_bytes(self) -> int:
+        """What the HBM ledger books for the engine while it is resident:
+        its parameters, and its graph pool or, when larger, the pool its
+        warmed grid took (a restored engine captures its buckets again
+        as they are hit, and the booking holds their room)."""
+        params = self.host_param_bytes() or self.param_bytes()
+        return params + max(self.pool_bytes, self.pool_reserve)
+
+    def _drop_programs(self) -> None:
+        """Forget the captured graphs and their pool; each bucket is
+        captured again at its next dispatch."""
+        with self._stats_lock:
+            self._programs = {}
+            self._pool = None
+            self.pool_bytes = 0
 
     # -- residency -----------------------------------------------------------
     @property
@@ -386,6 +573,8 @@ class TorchEngine:
         batch is queued or running."""
         if not self.offloadable:
             return False
+        # The graphs hold the parameters' addresses: they go with them.
+        self._drop_programs()
         with torch.no_grad():
             for slot in self._slots:
                 slot.tensor.data = torch.empty(
@@ -418,18 +607,34 @@ class TorchEngine:
                     slot.dtype).as_strided(slot.shape, slot.stride)
                 dst.copy_(self._host_params[slot.name])
                 slot.tensor.data = dst
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._cuda:
+            # This thread's stream, not the device: a device-wide
+            # synchronize must not overlap another thread's capture.
+            torch.cuda.current_stream(self.device).synchronize()
         self._offloaded = False
         return time.perf_counter() - t0
 
     def close(self, wait: bool = True) -> None:
         """Quiesce the workers and drop the model's device memory."""
         self._executor.shutdown(wait=wait)
+        self._drop_programs()
+        self.on_capture = None
         self.params = None
         self._flops_fn = None     # a bound method of the module
         self._slots = []
         self._host_params = None
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The compiled programs: graphs captured (recaptures after a
+        restore included), their capture ms and the pool's bytes.  Kept
+        out of ``stats()``, whose keys ``/metrics`` publishes as the JAX
+        engine's gauges."""
+        with self._stats_lock:
+            return {"graphs": len(self._programs),
+                    "captures": self.captures,
+                    "capture_ms_total": self.capture_ms_total,
+                    "pool_bytes": self.pool_bytes,
+                    "pool_reserve_bytes": self.pool_reserve}
 
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:

@@ -14,7 +14,7 @@ a caller holding a stale instrument::
 
 Histograms are milliseconds unless the name says otherwise.  Families of
 layers the port has not ported yet (KV tier, handoff, speculative
-decoding, compile cache, SLO, history, router, monitors) are listed in
+decoding, SLO, history, router, monitors) are listed in
 ROADMAP under the item that ports each.
 """
 
@@ -52,6 +52,13 @@ def engine_stage_ms():
         "compute|fetch).  Dispatch is asynchronous: compute ends when "
         "the launches return, and fetch includes the wait for the "
         "card")
+
+
+def compile_cache_events():
+    return REGISTRY.counter(
+        "kfserving_tpu_compile_cache_total",
+        "Compiled-executable cache lookups by outcome (outcome=hit "
+        "means the shape was already compiled; miss paid a compile)")
 
 
 # -- LLM generation ------------------------------------------------------

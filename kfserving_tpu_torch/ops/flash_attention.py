@@ -24,11 +24,11 @@ tensor it launches the kernel or raises.
 
 import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
 
+from kfserving_tpu_torch.ops import launches
 from kfserving_tpu_torch.protocol.errors import InvalidInput
 
 # Head dims the kernel is instantiated for (csrc/flash_attention.cu).
@@ -41,7 +41,6 @@ _MAX_GRID_Y = 65535
 # kfs_flash_attention returns this + the CUresult of a refused tensor map.
 _TENSOR_MAP_ERROR = 10000
 
-_count_lock = threading.Lock()
 _fn = None
 
 
@@ -186,11 +185,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{_launch_error(rc)}")
-    with _count_lock:
-        flash_attention.launches += 1
+    launches.count(flash_attention)
     return out
 
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads
-# it to show that the serving path ran through the kernel).
+# Kernel executions since the count was last set to 0, graph replays
+# included (ops/launches.py; chip_smoke.py reads it to show that the
+# serving path ran through the kernel).
 flash_attention.launches = 0

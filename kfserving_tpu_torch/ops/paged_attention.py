@@ -30,10 +30,11 @@ on a CUDA tensor it launches the kernel or raises.
 
 import ctypes
 import math
-import threading
 from typing import Tuple
 
 import torch
+
+from kfserving_tpu_torch.ops import launches
 
 # Head dims and dtypes the kernel is instantiated for.
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -45,7 +46,6 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 PARTITION_TOKENS = 256
 _MAX_GRID_YZ = 65535
 
-_count_lock = threading.Lock()
 _fn = None
 
 
@@ -173,13 +173,13 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {rc}")
-    with _count_lock:
-        paged_attention_kernel.launches += 1
+    launches.count(paged_attention_kernel)
     return out
 
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads
-# it to show that the decode path ran through the kernel).
+# Kernel executions since the count was last set to 0, graph replays
+# included (ops/launches.py; chip_smoke.py reads it to show that the
+# decode path ran through the kernel).
 paged_attention_kernel.launches = 0
 
 

@@ -48,6 +48,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
 
+from kfserving_tpu_torch.engine import compile_cache
 from kfserving_tpu_torch.engine.generator import GenerationEngine
 from kfserving_tpu_torch.engine.torch_engine import resolve_device
 from kfserving_tpu_torch.model.model import Model
@@ -345,6 +346,9 @@ class GenerativeModel(Model):
             block_size=cfg.block_size, cache_blocks=cfg.cache_blocks,
             adaptive_depth=cfg.adaptive_depth,
             logprob_topk=cfg.logprob_topk, name=self.name)
+        # The engine compiled its greedy wave; a sampled variant compiled
+        # later is a note after warmup.
+        compile_cache.declare_warmup_complete(engine.compile_source)
         old = self.engine
         self.module, self.engine = module, engine
         self.ready = True

@@ -31,7 +31,7 @@ package's defaults:
       "max_latency_ms": 5.0,           # batcher flush deadline
       "seq_buckets": [64, 128, 256],   # seq-len buckets (token models)
       "pipeline_depth": 2,             # engine worker threads
-      "warmup": true,                  # run every bucket shape at load
+      "warmup": true,                  # compile every bucket shape at load
       "input_dtype": "uint8"|"float32",# client payload dtype on the wire
       "scale": 0.00392156862,          # on-device input scaling (1/255)
       "output": "logits"|"argmax"|"topk",
@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from kfserving_tpu_torch.batching import DynamicBatcher
-from kfserving_tpu_torch.engine import param_cache
+from kfserving_tpu_torch.engine import compile_cache, graphs, param_cache
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
 from kfserving_tpu_torch.engine.hbm import HBMManager, InsufficientHBM
 from kfserving_tpu_torch.engine.torch_engine import (
@@ -215,6 +215,16 @@ class TorchModel(Model):
             self.param_source = source
             engine, batcher = self._build_engine(spec, module, host, cfg,
                                                  pin)
+            if self.hbm is not None and engine.booked_bytes() != nbytes:
+                # The warmed graphs' pool joins the booking, evicting as
+                # the parameters' admission did.
+                staged = old_engine is not None
+                try:
+                    self.hbm.admit(staging_key if staged else self.name,
+                                   engine.booked_bytes(), evict=not staged)
+                except Exception:
+                    engine.close()
+                    raise
         except Exception:
             if self.hbm is not None:
                 self.hbm.release(staging_key if old_engine is not None
@@ -226,7 +236,13 @@ class TorchModel(Model):
         if old_engine is not None:
             old_engine.close()
             if self.hbm is not None and zero_downtime:
-                self.hbm.commit(staging_key, self.name, engine.param_bytes())
+                self.hbm.commit(staging_key, self.name,
+                                engine.booked_bytes())
+        if self.hbm is not None:
+            # A bucket captured later (past a minimal warmup, or after a
+            # restore beyond the warmed grid's pool) grows the booking.
+            engine.on_capture = lambda nbytes: self.hbm.resize(
+                self.name, nbytes)
         if self.residency is not None:
             # Idempotent on a cold fault (the manager holds the record);
             # a direct load joins the managed set as resident.
@@ -267,11 +283,24 @@ class TorchModel(Model):
             seq_buckets=seq_buckets,
             pipeline_depth=cfg.pipeline_depth,
             device=self.device, host_params=host)
+        if self.hbm is not None and self.device.type == "cuda":
+            self.hbm.set_shared("cublas_workspace", graphs.workspace_bytes[
+                self.device.index if self.device.index is not None
+                else torch.cuda.current_device()])
         try:
             if pin and engine.offloadable:
                 engine.restore()
             if cfg.warmup:
-                engine.warmup(self._example_instance(spec))
+                # Recycle successors trim the grid, as the JAX predictor
+                # does: the largest batch bucket per seq bucket, the rest
+                # compiled at their first request.
+                minimal = os.environ.get("KFS_MINIMAL_WARMUP", "") \
+                    not in ("", "0", "false")
+                engine.warmup(self._example_instance(spec),
+                              minimal=minimal)
+                if not minimal:
+                    compile_cache.declare_warmup_complete(
+                        engine.compile_source)
         except Exception:
             engine.close()
             raise
@@ -342,10 +371,12 @@ class TorchModel(Model):
         self.engine.restore()
 
     def host_bytes(self) -> int:
-        """Device bytes a fault-in of this model claims."""
+        """Device bytes a fault-in of this model claims: its parameters
+        and its warmed grid's graph pool (a restored engine captures its
+        buckets again as they are hit)."""
         if self.engine is None:
             return 0
-        return self.engine.host_param_bytes() or self.engine.param_bytes()
+        return self.engine.booked_bytes()
 
     @property
     def wire_dtype(self) -> Optional[str]:

@@ -27,7 +27,6 @@ from kfserving_tpu_torch.observability import REGISTRY
 # not yet, each with the ROADMAP item that ports it.  The history
 # sampler's families appear once its background tick has run.
 NOT_PORTED = {
-    "kfserving_tpu_compile_cache_total": "Queue 1 item 4a",
     "kfserving_tpu_flightrecorder_pinned_total": "Queue 1 item 9",
     "kfserving_tpu_history_tick_ms": "Queue 1 item 9",
     "kfserving_tpu_history_samples_total": "Queue 1 item 9",
