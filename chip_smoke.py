@@ -15,7 +15,7 @@ failure:
    (equal arrays) and print host us per body of each;
 2. hold each kernel (flash attention, paged decode attention) against its
    plain PyTorch version on the card at the serving paths' shapes and
-   edge cases, and time kernel (device, events and host issue time),
+   edge cases (K1 also at head dims 16 and 32), and time kernel (device, events and host issue time),
    plain version and the library call that computes the same function (a
    yardstick only; SDPA's flash backend forced where there is no mask,
    else the backend it picks, named from its kernels).  Device time comes
@@ -49,6 +49,22 @@ failure:
    (tokens and written-back feed equal); time one decode wave eagerly
    and from its graph (between events and busy; no host sync on the
    graph's enqueue path) and one prefill on the card;
+   Before it, bert_tiny (head dim 32), vit_tiny (16) and decoder_tiny
+   (32) load and serve on the card through K1, each against the plain
+   attention.  After it, the generator's other modes at their published
+   widths (GPT-2-small width, vocab 32000, bf16, seeded random init):
+   ``generate`` on dense slots (24 SSE streams of 64 tokens at
+   concurrency 8; K1 once per layer per prefill, K2 never; a stream
+   against the plain teacher-forced forward; the dense wave's graphs
+   against the eager wave; one cache), ``generate_cold4k`` (four live
+   streams while five salted 3900-token prompts land, once chunked and
+   once monolithic: decode gaps, chunk counts and the stall histogram;
+   the greedy cold outputs equal across the arms; a chunk's graph
+   against its eager run) and ``specdec`` (the arms off, ngram and a
+   self-draft: six repetitive prompts' greedy ids identical across the
+   arms, a seeded stream equal to its plain run, tokens/s, acceptance
+   and accepted length; K1 = layers x (prefills + K x draft waves); the
+   verify and draft graphs against their eager runs);
 5. serve ResNet-50 (224 px, 1000 classes, bf16, seeded random init with
    BatchNorm statistics calibrated on a seeded batch) at the resnet bench
    configuration: 128 V1 and V2 uint8 image requests at concurrency 32,
@@ -163,6 +179,51 @@ GEN_CONFIG = {
 }
 GEN_REQUESTS, GEN_CONCURRENCY, GEN_MAX_TOKENS = 16, 8, 48
 GEN_SYSTEM_LEN, GEN_TAIL_LEN = 2980, 40
+
+# GPT-2-small width with a 32000 vocabulary, as the three configurations
+# below publish it.
+GPT2_SMALL = {"vocab_size": 32000, "hidden_size": 768, "num_layers": 12,
+              "num_heads": 12, "intermediate_size": 3072}
+# The generate configuration (benchmarks/configs.py:1458-1466): dense
+# slots, 8 x 512, buckets 64/512, 16 steps a wave at depth 2; 24 SSE
+# streams of 64 tokens at concurrency 8.
+DENSE_CONFIG = {
+    "architecture": "decoder", "arch_kwargs": dict(GPT2_SMALL, max_seq=512),
+    "max_slots": 8, "max_seq": 512, "prefill_buckets": [64, 512],
+    "steps_per_call": 16, "pipeline_depth": 2, "tokenizer": "byte",
+}
+DENSE_REQUESTS, DENSE_CONCURRENCY, DENSE_MAX_TOKENS = 24, 8, 64
+DENSE_PROMPT_LENS = (40, 120, 300, 420)
+# The generate_cold4k configuration (benchmarks/configs.py:2058-2073):
+# 4096-token slots, 176 blocks of 128, chunks of 512 in one arm and
+# monolithic prefill in the other; four live streams (60-token prompts,
+# 128 tokens) while five unique, salted 3900-token cold prompts land
+# (24 tokens each).  The published smallest bucket, 64, is not a
+# multiple of the block size, which both engines refuse (a paged insert
+# writes whole blocks): 128 takes its place.
+COLD_CONFIG = {
+    "architecture": "decoder", "arch_kwargs": dict(GPT2_SMALL, max_seq=4096),
+    "max_slots": 8, "max_seq": 4096, "prefill_buckets": [128, 512, 4096],
+    "block_size": 128, "cache_blocks": 176, "steps_per_call": 16,
+    "tokenizer": "byte",
+}
+COLD_CHUNK = 512
+COLD_STREAMS, COLD_STREAM_LEN, COLD_STREAM_TOKENS = 4, 60, 128
+COLD_PROMPTS, COLD_LEN, COLD_TOKENS = 5, 3900, 24
+# The specdec configuration (benchmarks/configs.py:2990-3010): 4 slots x
+# 2048, 96 blocks of 128, chunks of 256, 16 steps a wave; K = 4 proposals
+# a spec wave, a 128-token draft window; 6 repetitive 640-character
+# prompts, 64 greedy tokens each, in the arms off, ngram and draft (a
+# self-draft on the target's weights).
+SPEC_CONFIG = {
+    "architecture": "decoder", "arch_kwargs": dict(GPT2_SMALL, max_seq=2048),
+    "max_slots": 4, "max_seq": 2048, "prefill_buckets": [256, 1024, 2048],
+    "block_size": 128, "cache_blocks": 96, "prefill_chunk_tokens": 256,
+    "steps_per_call": 16, "tokenizer": "byte",
+}
+SPEC_K, SPEC_WINDOW = 4, 128
+SPEC_PROMPTS, SPEC_CTX_LEN, SPEC_MAX_TOKENS = 6, 640, 64
+SPEC_SEED = 7
 
 # The resnet bench configuration (benchmarks/configs.py:207-219).
 RESNET_CONFIG = {
@@ -481,6 +542,21 @@ def check_flash_attention() -> dict:
         ("b1 L197 bf16", 1, 12, 197, 197, 64, bf16, False, None),
         ("b2 L197 fp32", 2, 12, 197, 197, 64, fp32, False, None),
         ("b2 L13 bf16", 2, 12, 13, 13, 64, bf16, False, None),
+        # The head dims of the tiny models (the mma.sync path): bert_tiny's
+        # buckets (D32, lengths), decoder_tiny's causal + lengths prefill
+        # (D32), vit_tiny's L = 17 (D16); bf16 and fp32 each.
+        ("bert_tiny b16 L32 bf16 D32 kv_lengths", 16, 4, 32, 32, 32, bf16,
+         False, "ragged"),
+        ("bert_tiny b16 L128 bf16 D32 kv_lengths", 16, 4, 128, 128, 32,
+         bf16, False, "ragged"),
+        ("bert_tiny b16 L128 fp32 D32 kv_lengths", 16, 4, 128, 128, 32,
+         fp32, False, "ragged"),
+        ("decoder_tiny b8 L256 fp32 D32 causal kv_lengths", 8, 4, 256, 256,
+         32, fp32, True, "ragged"),
+        ("decoder_tiny b8 L256 bf16 D32 causal kv_lengths", 8, 4, 256, 256,
+         32, bf16, True, "ragged"),
+        ("vit_tiny b16 L17 bf16 D16", 16, 4, 17, 17, 16, bf16, False, None),
+        ("vit_tiny b16 L17 fp32 D16", 16, 4, 17, 17, 16, fp32, False, None),
     ]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -541,6 +617,9 @@ def check_flash_attention() -> dict:
         results.append(row)
         del q, k, v, qt, kt, vt, out, mask
     main_row = next(r for r in results if r["case"] == PREFILL_CASE)
+    small = [{k: r[k] for k in ("case", "ms", "bound_ms", "bound_by",
+                                "plain_ms", "library_ms", "max_abs_err")}
+             for r in results if " D32" in r["case"] or " D16" in r["case"]]
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -553,6 +632,8 @@ def check_flash_attention() -> dict:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        # The head dims 16 and 32 (the tiny models' shapes).
+        "small_head_dim_cases": small,
     }
 
 
@@ -1087,9 +1168,11 @@ def gen_prompt(i: int) -> str:
             + "x" * (GEN_TAIL_LEN - 14))
 
 
-def sse_stream(port: int, path: str, body: dict, headers=None):
+def sse_stream(port: int, path: str, body: dict, headers=None,
+               times=None):
     """POST a streaming generate and read its SSE events: (status,
-    events, seconds to the first event, seconds to the end)."""
+    events, seconds to the first event, seconds to the end).  ``times``,
+    when given, collects each event's arrival (perf_counter)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         t0 = time.perf_counter()
@@ -1105,20 +1188,22 @@ def sse_stream(port: int, path: str, body: dict, headers=None):
             if not line:
                 break
             if line.startswith(b"data: "):
+                now = time.perf_counter()
                 if first is None:
-                    first = time.perf_counter() - t0
+                    first = now - t0
+                if times is not None:
+                    times.append(now)
                 events.append(json.loads(line[len(b"data: "):]))
         return resp.status, events, first, time.perf_counter() - t0
     finally:
         conn.close()
 
 
-def stream_tokens(events, where: str):
+def stream_tokens(events, where: str, max_tokens: int = GEN_MAX_TOKENS):
     check(bool(events) and events[-1].get("finish_reason") is not None,
           f"{where}: stream ended without a finish_reason")
     count = events[-1]["details"]["token_count"]
-    check(count <= GEN_MAX_TOKENS, f"{where}: {count} tokens > "
-          f"{GEN_MAX_TOKENS}")
+    check(count <= max_tokens, f"{where}: {count} tokens > {max_tokens}")
     ids = [e["token"]["id"] for e in events
            if e.get("token") and e["token"]["id"] is not None]
     check(len(ids) == count, f"{where}: {len(ids)} token events for "
@@ -1296,19 +1381,21 @@ def wave_state(engine):
     return table, tokens, positions
 
 
-def check_wave_graphs(model) -> dict:
+def check_wave_graphs(model, state=None) -> dict:
     """One greedy and one seeded decode wave (temperature 0.8, top-k 40,
     top-p 0.9): each variant's graph replayed against the same wave run
-    eagerly from the same state (``wave_state``), on the engine's enqueue
-    thread and stream; the tokens and the feed written back must be
-    equal.  A variant not captured by the serving run is captured here
-    (its first wave runs eagerly before the capture, as in serving)."""
+    eagerly from the same state (``state(engine)``, by default
+    ``wave_state``), on the engine's enqueue thread and stream; the
+    tokens and the feed written back must be equal (a wave's cache
+    writes are the same both times).  A variant not captured by the
+    serving run is captured here (its first wave runs eagerly before the
+    capture, as in serving)."""
     from kfserving_tpu_torch.engine import graphs
     from kfserving_tpu_torch.engine.generator import _Request
 
     engine = model.engine
     S = engine.max_slots
-    table, tokens, positions = wave_state(engine)
+    table, tokens, positions = (state or wave_state)(engine)
     table_h = table.cpu().numpy()
     rows = {"greedy": [None] * S,
             "seeded": [_Request(np.zeros(1, np.int32), 1, 0.8, top_k=40,
@@ -1317,7 +1404,7 @@ def check_wave_graphs(model) -> dict:
 
     def run(kind):
         arrays, flags = engine._sampling_arrays(rows[kind], S)
-        key = (S, engine.steps_per_call) + flags
+        key = engine._wave_key(flags)
         feed = (engine._feed_tokens[:S], engine._feed_positions[:S])
         with torch.inference_mode(), engine._device_scope():
             def reset():
@@ -1327,7 +1414,7 @@ def check_wave_graphs(model) -> dict:
             p = engine._stage_wave(table_h, arrays, flags)
             if key not in engine._programs:
                 reset()
-                engine._compile_wave(key, p)
+                engine._compile_program(key, lambda: engine._wave(p))
             reset()
             eager = [t.clone() for t in engine._wave(p)]
             fed = [t.clone() for t in feed]
@@ -1431,7 +1518,7 @@ def time_generate_device(model) -> dict:
     # engine's stream from the same state (its feed written back each
     # time, so each replay starts where the last ended).
     arrays, flags = engine._sampling_arrays([None] * S, S)
-    graph, outputs, tally = engine._programs[(S, steps) + flags]
+    graph, outputs, tally = engine._programs[engine._wave_key(flags)]
 
     def graph_wave():
         graphs.replay(graph, tally)
@@ -1532,6 +1619,637 @@ def serve_generate(card: str) -> dict:
     }
     print("generate " + json.dumps(summary), flush=True)
     return summary
+
+
+# -- phase 4b-4e: the generator's other modes and the tiny models -------------
+def load_generative(name: str, config: dict, **extra):
+    """A GenerativeModel of ``config`` (plus ``extra`` keys) on the card,
+    loaded from a temporary directory: (model, load seconds)."""
+    from kfserving_tpu_torch.predictors.llm import GenerativeModel
+
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(dict(config, **extra), f)
+        model = GenerativeModel(name, model_dir, device="cuda")
+        t0 = time.perf_counter()
+        model.load()
+        return model, time.perf_counter() - t0
+
+
+def reset_launches() -> None:
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+    from kfserving_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel,
+    )
+
+    flash_attention.launches = 0
+    paged_attention_kernel.launches = 0
+
+
+def read_launches() -> dict:
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+    from kfserving_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel,
+    )
+
+    return {"flash_attention": flash_attention.launches,
+            "paged_attention": paged_attention_kernel.launches}
+
+
+def gaps_ms(times) -> list:
+    return [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+
+
+def gap_summary(gaps) -> dict:
+    if not gaps:
+        return {"n": 0}
+    return {"n": len(gaps), "p50_ms": percentile(gaps, 0.5),
+            "p99_ms": percentile(gaps, 0.99), "max_ms": max(gaps)}
+
+
+def on_enqueue_thread(engine, fn):
+    """Run ``fn()`` on the engine's enqueue thread, in inference mode on
+    the engine's stream, and synchronise that stream."""
+    def run():
+        with torch.inference_mode(), engine._device_scope():
+            out = fn()
+            torch.cuda.current_stream().synchronize()
+            return out
+
+    return engine._enqueue_executor.submit(run).result()
+
+
+def graph_equal(engine, key, eager_fn) -> bool:
+    """Program ``key``'s graph against the same program run eagerly over
+    the same static inputs (staged by the caller): outputs equal."""
+    from kfserving_tpu_torch.engine import graphs
+
+    eager = [t.clone() for t in eager_fn()]
+    graph, outputs, tally = engine._programs[key]
+    graphs.replay(graph, tally)
+    return all(torch.equal(a, b) for a, b in zip(eager, outputs))
+
+
+def dense_prompt(i: int) -> str:
+    text = ("the quick brown fox jumps over the lazy dog. " * 12)
+    return (f"request {i:04d} " + text)[:DENSE_PROMPT_LENS[i % 4]]
+
+
+def dense_wave_state(engine):
+    """8 dense rows at positions 300-328, random feed tokens; no table."""
+    S = engine.max_slots
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tokens = torch.randint(0, 258, (S,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    positions = torch.tensor([300 + 4 * i for i in range(S)],
+                             dtype=torch.int32, device="cuda")
+    table = torch.zeros((S, 0), dtype=torch.int32, device="cuda")
+    return table, tokens, positions
+
+
+async def drive_dense(model) -> dict:
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    port = server.http_port
+    path = "/v2/models/generate/generate_stream"
+    engine = model.engine
+    try:
+        for i in (9998, 9999):   # one prompt in each bucket
+            status, events, _, _ = await asyncio.to_thread(
+                sse_stream, port, path, {"text_input": dense_prompt(i),
+                                         "max_tokens": 8})
+            check(status == 200, f"dense warm-up: HTTP {status} {events}")
+        before = engine.stats()
+        sem = asyncio.Semaphore(DENSE_CONCURRENCY)
+
+        async def one(i):
+            async with sem:
+                return await asyncio.to_thread(
+                    sse_stream, port, path,
+                    {"text_input": dense_prompt(i),
+                     "max_tokens": DENSE_MAX_TOKENS})
+
+        # The main path's run: every count starts at 0 here.
+        reset_launches()
+        t0 = time.perf_counter()
+        streams = await asyncio.gather(*(one(i)
+                                         for i in range(DENSE_REQUESTS)))
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        after = engine.stats()
+    finally:
+        await server.stop_async()
+    tokens = []
+    for i, (status, events, _, _) in enumerate(streams):
+        check(status == 200, f"dense stream {i}: HTTP {status} {events}")
+        tokens.append(stream_tokens(events, f"dense stream {i}",
+                                    DENSE_MAX_TOKENS))
+    ttfts = sorted(first for _, _, first, _ in streams)
+    generated = sum(len(t) for t in tokens)
+    return {"launches": launches, "before": before, "after": after,
+            "tokens": tokens, "generated": generated, "wall_s": wall_s,
+            "tokens_per_s": generated / wall_s,
+            "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3}
+
+
+def serve_generate_dense(card: str) -> dict:
+    """The generate configuration on dense slots: K1 once per layer per
+    prefill, K2 never; a served stream against the plain teacher-forced
+    forward; the dense wave's greedy and seeded graphs against the eager
+    wave; one cache (cache_bytes) and its device bytes."""
+    model, load_s = load_generative("generate", DENSE_CONFIG)
+    engine, cfg = model.engine, model.module.config
+    check(engine.block_size is None and (cfg.num_layers, cfg.hidden_size,
+                                         cfg.max_seq) == tuple(
+        DENSE_CONFIG["arch_kwargs"][k] for k in ("num_layers", "hidden_size",
+                                                 "max_seq")),
+          "not the dense generate decoder")
+    try:
+        run = asyncio.run(drive_dense(model))
+        before, after = run["before"], run["after"]
+        prefills = after["prefills"] - before["prefills"]
+        waves = after["decode_steps"] - before["decode_steps"]
+        got = run["launches"]
+        check(prefills > 0
+              and got["flash_attention"] == cfg.num_layers * prefills,
+              f"dense: flash kernel launched {got['flash_attention']} times "
+              f"for {prefills} prefills")
+        check(got["paged_attention"] == 0,
+              f"dense: paged kernel launched {got['paged_attention']} times")
+        reference = check_generation_against_plain(
+            model, dense_prompt(0), run["tokens"][0])
+        wave_graphs = check_wave_graphs(model, dense_wave_state)
+        S, H, D = engine.max_slots, cfg.num_heads, cfg.head_dim
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        want_bytes = (2 * cfg.num_layers * S * engine.max_seq * H * D
+                      * itemsize)
+        check(engine.cache_bytes() == want_bytes,
+              f"dense cache_bytes {engine.cache_bytes()} != {want_bytes}")
+        cache_device_bytes = sum(k.numel() * k.element_size()
+                                 + v.numel() * v.element_size()
+                                 for k, v in engine._caches)
+    finally:
+        model.unload()
+    summary = {
+        "card": card, "load_s": load_s, "requests": DENSE_REQUESTS,
+        "concurrency": DENSE_CONCURRENCY,
+        "generated_tokens": run["generated"], "wall_s": run["wall_s"],
+        "tokens_per_s": run["tokens_per_s"],
+        "ttft_p50_ms": run["ttft_p50_ms"], "prefills": prefills,
+        "decode_waves": waves, "launches": got,
+        "cache_bytes": engine.cache_bytes(),
+        "cache_device_bytes": cache_device_bytes,
+        "engine": {k: after[k] for k in (
+            "decode_device_s", "prefill_device_s", "slot_occupancy",
+            "goodput_ratio", "depth_effective") if k in after},
+        "reference": reference,
+        "graphs": {k: wave_graphs[k] for k in ("greedy", "seeded")},
+        "graph_stats": wave_graphs["graph_stats"],
+    }
+    print("generate_dense " + json.dumps(summary), flush=True)
+    return summary
+
+
+def cold_prompt(i: int) -> str:
+    """Unique from its first block on: the salt leads."""
+    return f"cold{i:06d} " + "y" * (COLD_LEN - 11)
+
+
+def live_prompt(i: int) -> str:
+    return f"s{i:04d} " + "x" * (COLD_STREAM_LEN - 6)
+
+
+async def drive_cold(port: int, name: str) -> dict:
+    """Four live streams; once each has its first token, the five cold
+    prompts land at once.  Returns the live streams' decode gaps, the
+    cold streams' ids and TTFTs, and the /metrics scrape after."""
+    path = f"/v2/models/{name}/generate_stream"
+    live_times = [[] for _ in range(COLD_STREAMS)]
+    lives = [asyncio.create_task(asyncio.to_thread(
+        sse_stream, port, path,
+        {"text_input": live_prompt(i), "max_tokens": COLD_STREAM_TOKENS},
+        None, live_times[i])) for i in range(COLD_STREAMS)]
+    for _ in range(600):
+        if all(live_times):
+            break
+        await asyncio.sleep(0.01)
+    check(all(live_times), f"{name}: a live stream never started")
+    t_cold = time.perf_counter()
+    colds = await asyncio.gather(*(asyncio.to_thread(
+        sse_stream, port, path,
+        {"text_input": cold_prompt(i), "max_tokens": COLD_TOKENS})
+        for i in range(COLD_PROMPTS)))
+    lives = await asyncio.gather(*lives)
+    for i, (status, events, _, _) in enumerate(lives + colds):
+        check(status == 200, f"{name} stream {i}: HTTP {status} {events}")
+    cold_ids = [stream_tokens(events, f"{name} cold {i}", COLD_TOKENS)
+                for i, (_, events, _, _) in enumerate(colds)]
+    # Decode gaps of the live streams while the cold prompts landed.
+    gaps = []
+    for times in live_times:
+        gaps += gaps_ms([t for t in times if t >= t_cold])
+    return {"gaps": gaps, "cold_ids": cold_ids,
+            "cold_ttft_ms": sorted(first * 1e3 for _, _, first, _ in colds),
+            "scrape": await asyncio.to_thread(scrape, port)}
+
+
+def check_chunk_graph(engine) -> dict:
+    """A middle chunk of a 3900-token prompt (index 2: table blocks 0-11
+    of the row) from its graph against the same chunk run eagerly over
+    the same static input: the sampled token and the chunk's written
+    blocks in every layer equal."""
+    from kfserving_tpu_torch.engine.generator import _Sampling
+
+    C, MB, BS = (engine.prefill_chunk_tokens, engine.blocks_per_slot,
+                 engine.block_size)
+    idx = 2
+    nb = (idx + 1) * C // BS
+    key = ("chunk", nb, False, False, False)
+    check(key in engine._programs, f"chunk program {key} not captured")
+    rng = np.random.default_rng(6)
+    host = np.zeros(2 * C + MB + 8, np.int32)
+    host[:C] = rng.integers(0, 258, size=C)
+    host[C:2 * C] = idx * C + np.arange(C)
+    host[2 * C:2 * C + MB] = np.arange(MB)
+    tail = 2 * C + MB
+    host[tail:tail + 4] = (C - 1, 0, engine.max_slots, COLD_LEN)
+    host[tail + 4:] = engine._sampling_bits(
+        engine._sampling_arrays([None], 1)[0])
+    written = slice(idx * C // BS, nb)
+
+    def run():
+        engine._stage(engine._chunk_in, host)
+        p = _Sampling(*engine._sampling_views(engine._chunk_in[tail + 4:],
+                                              1), False, False, False)
+        eager = [t.clone() for t in engine._chunk_program(nb, p)]
+        blocks = [pk[written].clone() for pk, _ in engine._caches]
+        from kfserving_tpu_torch.engine import graphs
+
+        graph, outputs, tally = engine._programs[key]
+        graphs.replay(graph, tally)
+        return (all(torch.equal(a, b) for a, b in zip(eager, outputs))
+                and all(torch.equal(b, pk[written])
+                        for b, (pk, _) in zip(blocks, engine._caches)))
+
+    equal = on_enqueue_thread(engine, run)
+    check(equal, f"chunk graph {key} differs from the eager chunk")
+    return {"key": list(key), "equal": equal}
+
+
+def serve_cold4k(card: str) -> dict:
+    """generate_cold4k: the chunked and the monolithic arm on one server,
+    one after the other.  Live decode gaps p50/p99 while the cold prompts
+    land, chunk counts and the stall histogram per arm, the greedy cold
+    outputs equal across the arms, the chunk graph against its eager
+    run, and the K1/K2 launches of the run."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    chunked, load_c = load_generative("cold-chunked", COLD_CONFIG,
+                                      prefill_chunk_tokens=COLD_CHUNK)
+    mono, load_m = load_generative("cold-monolithic", COLD_CONFIG)
+    arms = {}
+    try:
+        async def drive():
+            server = ModelServer(http_port=0)
+            await server.start_async([chunked, mono], host="127.0.0.1")
+            port = server.http_port
+            try:
+                # Warm each arm's programs (the chunk graphs, the bucket
+                # prefill, the waves) on a cold prompt outside the run.
+                for name in ("cold-chunked", "cold-monolithic"):
+                    status, events, _, _ = await asyncio.to_thread(
+                        sse_stream, port,
+                        f"/v2/models/{name}/generate_stream",
+                        {"text_input": cold_prompt(999), "max_tokens": 4})
+                    check(status == 200, f"{name} warm-up: {status}")
+                out = {}
+                for name, model in (("cold-chunked", chunked),
+                                    ("cold-monolithic", mono)):
+                    before = model.engine.stats()
+                    scraped = await asyncio.to_thread(scrape, port)
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    run = await drive_cold(port, name)
+                    run["scrape_before"] = scraped
+                    run["wall_s"] = time.perf_counter() - t0
+                    run["launches"] = read_launches()
+                    run["before"], run["after"] = before, model.engine.stats()
+                    out[name] = run
+                return out
+            finally:
+                await server.stop_async()
+
+        runs = asyncio.run(drive())
+        chunk_graph = check_chunk_graph(chunked.engine)
+    finally:
+        chunked.unload()
+        mono.unload()
+    layers = COLD_CONFIG["arch_kwargs"]["num_layers"]
+    steps = COLD_CONFIG["steps_per_call"]
+    for name, run in runs.items():
+        before, after = run["before"], run["after"]
+        waves = after["decode_steps"] - before["decode_steps"]
+        prefills = after["prefills"] - before["prefills"]
+        got = run["launches"]
+        check(got["flash_attention"] == layers * prefills,
+              f"{name}: flash kernel launched {got['flash_attention']} "
+              f"times for {prefills} prefills")
+        check(waves > 0 and got["paged_attention"] == layers * steps * waves,
+              f"{name}: paged kernel launched {got['paged_attention']} "
+              f"times for {waves} waves")
+        # The two chunk families carry no model label: this arm's share
+        # is the difference of the scrapes around its run.
+        delta = {k: v - run["scrape_before"].get(k, 0.0)
+                 for k, v in run["scrape"].items()}
+        stall = {k.split("_ms_")[-1]: v for k, v in delta.items()
+                 if k.startswith("kfserving_tpu_generator_prefill_chunk_"
+                                 "stall_ms_")}
+        chunks = {k: v for k, v in delta.items()
+                  if k.startswith("kfserving_tpu_generator_prefill_chunks_"
+                                  "total")}
+        arms[name] = {
+            "decode_gap": gap_summary(run["gaps"]),
+            "cold_ttft_p50_ms": percentile(run["cold_ttft_ms"], 0.5),
+            "wall_s": run["wall_s"], "decode_waves": waves,
+            "prefills": prefills, "launches": got,
+            "chunked_prefill": after.get("chunked_prefill"),
+            "prefill_chunks_total": chunks, "chunk_stall_ms": stall,
+        }
+    c, m = runs["cold-chunked"], runs["cold-monolithic"]
+    check(c["cold_ids"] == m["cold_ids"],
+          "greedy cold outputs differ between the chunked and the "
+          "monolithic arm")
+    cp = arms["cold-chunked"]["chunked_prefill"]
+    want_chunks = COLD_PROMPTS * -(-(COLD_LEN + 1) // COLD_CHUNK)
+    check(cp["admissions"] - c["before"]["chunked_prefill"]["admissions"]
+          == COLD_PROMPTS
+          and cp["chunks_dispatched"]
+          - c["before"]["chunked_prefill"]["chunks_dispatched"]
+          == want_chunks,
+          f"chunked arm: {cp}, want {want_chunks} chunks")
+    check(arms["cold-monolithic"]["chunked_prefill"] is None,
+          "the monolithic arm chunked")
+    summary = {"card": card, "load_s": [load_c, load_m], "arms": arms,
+               "cold_outputs_equal": True, "chunk_graph": chunk_graph}
+    print("generate_cold4k " + json.dumps(summary), flush=True)
+    return summary
+
+
+def spec_prompt(i: int) -> str:
+    """Repetitive prompts, each led by its own salt (benchmarks/
+    configs.py's specdec traffic)."""
+    head = f"request {i:04d} "
+    return (head + "alpha beta gamma delta epsilon " * 40)[:SPEC_CTX_LEN]
+
+
+def check_spec_graphs(engine) -> dict:
+    """The verify (and the draft) program's graph against the same
+    program run eagerly over the same static inputs: four rows at
+    positions ~700 over fresh table rows, random last tokens and
+    proposals (the draft arm: random windows, whose proposals the verify
+    then reads)."""
+    from kfserving_tpu_torch.engine.generator import _Sampling
+
+    S, K, MB = engine.max_slots, engine.spec_tokens, engine.blocks_per_slot
+    rng = np.random.default_rng(7)
+    last = rng.integers(0, 258, size=S).astype(np.int32)
+    draft = rng.integers(0, 258, size=(S, K)).astype(np.int32)
+    qpos = (700 + 3 * np.arange(S, dtype=np.int32))[:, None] + np.arange(
+        K + 1, dtype=np.int32)
+    table = (np.arange(S * MB) % engine.num_blocks).astype(
+        np.int32).reshape(S, MB)
+    arrays, flags = engine._sampling_arrays([None] * S, S)
+    host = np.concatenate([last, draft.ravel(), qpos.ravel(),
+                           table.ravel(), engine._sampling_bits(arrays)])
+    verify_key = ("spec_verify", S, K + 1) + flags
+    draft_key = ("spec_draft", S, engine._draft_window)
+    out = {}
+
+    def run():
+        engine._stage(engine._spec_in, host)
+        if engine._draft_module is not None:
+            check(draft_key in engine._programs,
+                  f"draft program {draft_key} not captured")
+            engine._stage(engine._draft_in, rng.integers(
+                0, 258, size=S * engine._draft_window).astype(np.int32))
+            out["draft"] = graph_equal(engine, draft_key,
+                                       engine._draft_program)
+        check(verify_key in engine._programs,
+              f"verify program {verify_key} not captured")
+        p = _Sampling(*engine._spec_views()[4], *flags)
+        out["verify"] = graph_equal(engine, verify_key,
+                                    lambda: engine._verify_program(p))
+
+    on_enqueue_thread(engine, run)
+    check(all(out.values()), f"spec graphs differ from eager runs: {out}")
+    return out
+
+
+def serve_specdec(card: str) -> dict:
+    """specdec: the arms off, ngram and draft on one server.  The six
+    greedy streams' ids identical across the arms, one seeded stream of
+    each speculative arm equal to the off arm's, tokens/s, acceptance and
+    accepted length per arm, K1 launches = 12 x (prefills + K x draft
+    waves) and K2 launches = 12 x (16 x plain waves + (K + 1) x spec
+    waves), and the verify and draft graphs against their eager runs."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    arms = {"off": {},
+            "ngram": {"speculative": {"tokens": SPEC_K}},
+            "draft": {"speculative": {"tokens": SPEC_K, "draft": {
+                "architecture": SPEC_CONFIG["architecture"],
+                "arch_kwargs": SPEC_CONFIG["arch_kwargs"],
+                "window": SPEC_WINDOW}}}}
+    models = {}
+    for arm, extra in arms.items():
+        models[arm], _ = load_generative(f"specdec_{arm}", SPEC_CONFIG,
+                                         **extra)
+    out = {}
+    try:
+        async def drive():
+            server = ModelServer(http_port=0)
+            await server.start_async(list(models.values()), host="127.0.0.1")
+            port = server.http_port
+            try:
+                runs = {}
+                for arm, model in models.items():
+                    path = f"/v2/models/specdec_{arm}/generate_stream"
+                    status, events, _, _ = await asyncio.to_thread(
+                        sse_stream, port, path,
+                        {"text_input": "warm " + spec_prompt(99),
+                         "max_tokens": 8})
+                    check(status == 200, f"{arm} warm-up: HTTP {status}")
+                    before = model.engine.stats()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    streams = await asyncio.gather(*(asyncio.to_thread(
+                        sse_stream, port, path,
+                        {"text_input": spec_prompt(i),
+                         "max_tokens": SPEC_MAX_TOKENS})
+                        for i in range(SPEC_PROMPTS)))
+                    wall_s = time.perf_counter() - t0
+                    launches = read_launches()
+                    after = model.engine.stats()
+                    seeded = await asyncio.to_thread(
+                        sse_stream, port, path,
+                        {"text_input": spec_prompt(50),
+                         "max_tokens": SPEC_MAX_TOKENS,
+                         "temperature": 0.8, "seed": SPEC_SEED})
+                    runs[arm] = {"streams": streams, "wall_s": wall_s,
+                                 "launches": launches, "before": before,
+                                 "after": after, "seeded": seeded}
+                return runs
+            finally:
+                await server.stop_async()
+
+        runs = asyncio.run(drive())
+        graphs_equal = {arm: check_spec_graphs(models[arm].engine)
+                        for arm in ("ngram", "draft")}
+    finally:
+        for model in models.values():
+            model.unload()
+    ids = {}
+    for arm, run in runs.items():
+        toks = []
+        for i, (status, events, _, _) in enumerate(run["streams"]):
+            check(status == 200, f"{arm} stream {i}: HTTP {status}")
+            toks.append(stream_tokens(events, f"{arm} stream {i}",
+                                      SPEC_MAX_TOKENS))
+        status, events, _, _ = run["seeded"]
+        check(status == 200, f"{arm} seeded stream: HTTP {status}")
+        ids[arm] = (toks, stream_tokens(events, f"{arm} seeded",
+                                        SPEC_MAX_TOKENS))
+        before, after = run["before"], run["after"]
+        prefills = after["prefills"] - before["prefills"]
+        waves = after["decode_steps"] - before["decode_steps"]
+        spec = after.get("speculative") or {}
+        spec_waves = spec.get("waves", 0) - (
+            (before.get("speculative") or {}).get("waves", 0))
+        draft_waves = spec_waves if arm == "draft" else 0
+        got = run["launches"]
+        layers = SPEC_CONFIG["arch_kwargs"]["num_layers"]
+        want_k1 = layers * (prefills + SPEC_K * draft_waves)
+        # Plain waves: K2 once per layer per step; a verify runs its
+        # K + 1 positions at the decode step's shapes, K2 included.
+        want_k2 = layers * (SPEC_CONFIG["steps_per_call"]
+                            * (waves - spec_waves)
+                            + (SPEC_K + 1) * spec_waves)
+        check(got["flash_attention"] == want_k1,
+              f"{arm}: flash kernel launched {got['flash_attention']} times, "
+              f"want {layers} x ({prefills} prefills + {SPEC_K} x "
+              f"{draft_waves} draft waves)")
+        check(got["paged_attention"] == want_k2,
+              f"{arm}: paged kernel launched {got['paged_attention']} "
+              f"times for {waves - spec_waves} plain and {spec_waves} "
+              f"spec waves")
+        if arm != "off":
+            check(spec_waves > 0, f"{arm}: no speculative wave ran")
+        generated = sum(len(t) for t in toks)
+        out[arm] = {"tokens_per_s": generated / run["wall_s"],
+                    "generated": generated, "wall_s": run["wall_s"],
+                    "waves": waves, "spec_waves": spec_waves,
+                    "prefills": prefills, "launches": got,
+                    "acceptance_rate": spec.get("acceptance_rate"),
+                    "accepted_length_p50": spec.get("accepted_length_p50"),
+                    "accepted_length_p99": spec.get("accepted_length_p99"),
+                    "draft_device_s": spec.get("draft_device_s"),
+                    "verify_device_s": spec.get("verify_device_s"),
+                    "fallbacks": spec.get("fallbacks")}
+    for arm in ("ngram", "draft"):
+        check(ids[arm][0] == ids["off"][0],
+              f"{arm}: streamed ids differ from the off arm's")
+        check(ids[arm][1] == ids["off"][1],
+              f"{arm}: the seeded stream differs from its plain run")
+    summary = {"card": card, "arms": out, "ids_identical": True,
+               "seeded_identical": True, "graphs": graphs_equal}
+    print("specdec " + json.dumps(summary), flush=True)
+    return summary
+
+
+def load_tiny_models(card: str) -> dict:
+    """bert_tiny (D32), vit_tiny (D16) and decoder_tiny (D32) load and
+    serve on the card through K1: each model's warmup or prefill
+    launched the kernel, its forward agrees with the plain attention,
+    and decoder_tiny's greedy tokens with the teacher-forced plain
+    forward."""
+    from kfserving_tpu_torch.ops.attention import _torch_attention
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {}
+    for name, config in (
+            ("bert_tiny", {"architecture": "bert_tiny",
+                           "seq_buckets": [32, 128], "batch_buckets": [1, 4],
+                           "max_batch_size": 4, "warmup": True,
+                           "output": "topk", "topk": 5}),
+            ("vit_tiny", {"architecture": "vit_tiny",
+                          "batch_buckets": [1, 4], "max_batch_size": 4,
+                          "warmup": True, "output": "argmax"})):
+        flash_attention.launches = 0
+        model, load_s = load_model(name, config)
+        try:
+            launches = flash_attention.launches
+            cfg = model.module.config
+            check(launches > 0, f"{name}: warmup launched no flash kernel")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(8)
+            with torch.inference_mode():
+                if name == "bert_tiny":
+                    x = torch.randint(0, cfg.vocab_size, (4, 128),
+                                      generator=gen, device="cuda")
+                    mask = torch.ones((4, 128), dtype=torch.int32,
+                                      device="cuda")
+                    mask[1, 70:] = 0
+                    inputs = (x, mask)
+                else:
+                    inputs = (torch.rand((4, cfg.image_size,
+                                          cfg.image_size, 3),
+                                         generator=gen, device="cuda"),)
+                kernel = model.module(*inputs).float()
+                cfg.attn_fn = lambda q, k, v, m: _torch_attention(q, k, v, m)
+                try:
+                    plain = model.module(*inputs).float()
+                finally:
+                    cfg.attn_fn = None
+            diff = float((kernel - plain).abs().max())
+            scale = float(plain.abs().max())
+            check(math.isfinite(diff) and diff <= VIT_LOGIT_RTOL * scale,
+                  f"{name}: kernel vs plain differ by {diff} (max |plain| "
+                  f"{scale})")
+            out[name] = {"head_dim": cfg.head_dim, "dtype": str(cfg.dtype),
+                         "load_s": load_s, "warmup_flash_launches": launches,
+                         "max_abs_diff": diff, "max_abs": scale}
+        finally:
+            model.unload()
+    tiny, load_s = load_generative("decoder_tiny", {
+        "architecture": "decoder_tiny", "max_slots": 2, "max_seq": 256,
+        "prefill_buckets": [64, 256], "block_size": 32,
+        "steps_per_call": 4, "tokenizer": "byte"})
+    try:
+        flash_attention.launches = 0
+
+        async def run():
+            try:
+                return await tiny.engine.complete(
+                    tiny.tokenizer.encode(dense_prompt(1)),
+                    max_new_tokens=16)
+            finally:
+                await tiny.engine.close()
+
+        tokens, _ = asyncio.run(run())
+        check(flash_attention.launches
+              == tiny.module.config.num_layers * tiny.engine.prefills,
+              "decoder_tiny: flash launches != layers x prefills")
+        reference = check_generation_against_plain(tiny, dense_prompt(1),
+                                                   tokens)
+        out["decoder_tiny"] = {"head_dim": tiny.module.config.head_dim,
+                               "load_s": load_s, "reference": reference}
+    finally:
+        tiny.unload()
+    print("tiny_models " + json.dumps({"card": card, **out}), flush=True)
+    return out
 
 
 # -- phase 5: ResNet-50 through the port's server -----------------------------
@@ -2592,8 +3310,12 @@ def main() -> int:
     cache = tempfile.mkdtemp(prefix="kfs-chip-smoke-params-")
     os.environ["KFS_PARAM_CACHE"] = cache
     try:
+        tiny = load_tiny_models(card)
         serving = serve_bert(card)
         generating = serve_generate(card)
+        dense = serve_generate_dense(card)
+        cold = serve_cold4k(card)
+        spec = serve_specdec(card)
         resnet = serve_resnet(card)
         vit = serve_vit(card)
         serve_multi_model(card)
@@ -2601,12 +3323,16 @@ def main() -> int:
         serve_density(card)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
-    # K1 runs on four serving paths; each path's count was read from 0.
+    # K1 and K2 run on these serving paths; each path's count was read
+    # from 0 just before it ran.
+    generative = ([generating["launches"], dense["launches"]]
+                  + [arm["launches"] for arm in cold["arms"].values()]
+                  + [arm["launches"] for arm in spec["arms"].values()])
     kernels[0]["launches"] = (serving["flash_launches"]
-                              + generating["launches"]["flash_attention"]
                               + vit["flash_launches"]
-                              + residency["flash_launches"])
-    kernels[1]["launches"] = generating["launches"]["paged_attention"]
+                              + residency["flash_launches"]
+                              + sum(g["flash_attention"] for g in generative))
+    kernels[1]["launches"] = sum(g["paged_attention"] for g in generative)
     print("graphs " + json.dumps({
         "card": card,
         "predict": {"bert": serving["graphs"], "resnet": resnet["graphs"],
@@ -2628,7 +3354,12 @@ def main() -> int:
             "warm_fault_n", "warm_fault_p50_ms", "warm_request_p50_ms",
             "capture_ms_mean")},
         "launches": {"flash_attention": kernels[0]["launches"],
-                     "paged_attention": kernels[1]["launches"]}}),
+                     "paged_attention": kernels[1]["launches"]},
+        "generator": {"dense_wave": dense["graphs"],
+                      "chunk": cold["chunk_graph"],
+                      "spec": spec["graphs"]},
+        "tiny_models": {k: v.get("warmup_flash_launches")
+                        for k, v in tiny.items()}}),
         flush=True)
     print("stages " + json.dumps({
         "card": card, "resnet_json_req_per_s": resnet["req_per_s"],

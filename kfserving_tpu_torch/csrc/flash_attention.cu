@@ -53,11 +53,18 @@
 // of Q past a row's length are computed (as by the plain version) and
 // stored.
 //
-// fp32 path: the first version's mma.sync m16n8k16 kernel.  fp32 inputs are
+// mma.sync path (fp32 at every head dim, bf16 at D = 16 and 32): the first
+// version's m16n8k16 kernel, templated on the element type.  fp32 inputs are
 // split into bf16 hi + lo halves and multiplied as hi*hi + hi*lo + lo*hi
 // (about 16 mantissa bits).  wgmma's tf32 form needs a K-major B operand,
 // which V (keys by head dim, head dim contiguous) is not, and no served path
-// runs fp32, so this path keeps synchronous 64 x 64 tiles.
+// runs fp32, so this path keeps synchronous 64 x 64 tiles.  A 16- or
+// 32-wide bf16 row is 32 or 64 bytes, under the 128-byte swizzle row the
+// wgmma path's TMA boxes and descriptors are built on, so those head dims
+// (bert_tiny, decoder_tiny, vit_tiny) take this path with bf16 tiles loaded
+// as they are: one product a step, P rounded to bf16 before P V.  Simple
+// and right first; at these widths a call moves few bytes and does few
+// operations, so launch latency bounds it on the card.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,7 +90,8 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 path: mma.sync over bf16 hi + lo halves.
+// mma.sync path: fp32 at every head dim (bf16 hi + lo halves), and bf16 at
+// the head dims the wgmma path does not take (16 and 32).
 
 constexpr int F32_BLOCK_Q = 64;
 constexpr int F32_BLOCK_K = 64;
@@ -121,41 +129,60 @@ __device__ __forceinline__ uint32_t pack_rows(const bf16* p, int ld) {
          ((uint32_t)__bfloat16_as_ushort(p[ld]) << 16);
 }
 
-// Copies a [64, D] fp32 tile (rows past `rows_valid` zero-filled) into
-// shared memory as bf16 hi and lo halves.
-template <int D>
-__device__ void load_tile_split(bf16* hi, bf16* lo, const float* base,
-                                long long stride_l, int rows_valid) {
+// Copies a [64, D] tile (rows past `rows_valid` zero-filled) into shared
+// memory: fp32 as bf16 hi and lo halves, bf16 as it is (`lo` unused).
+template <typename T, int D>
+__device__ void load_tile(bf16* hi, bf16* lo, const T* base,
+                          long long stride_l, int rows_valid) {
   constexpr int LD = D + PAD;
-  constexpr int CPR = D / 4;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < F32_BLOCK_Q * CPR; i += F32_THREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 4;
-    uint2 h = make_uint2(0u, 0u), l = make_uint2(0u, 0u);
-    if (r < rows_valid) {
-      const float4 f =
-          *reinterpret_cast<const float4*>(base + r * stride_l + c);
-      split_pack(f.x, f.y, h.x, l.x);
-      split_pack(f.z, f.w, h.y, l.y);
+  if constexpr (sizeof(T) == 4) {
+    constexpr int CPR = D / 4;  // 16-byte chunks per row
+    for (int i = threadIdx.x; i < F32_BLOCK_Q * CPR; i += F32_THREADS) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * 4;
+      uint2 h = make_uint2(0u, 0u), l = make_uint2(0u, 0u);
+      if (r < rows_valid) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(base + r * stride_l + c);
+        split_pack(f.x, f.y, h.x, l.x);
+        split_pack(f.z, f.w, h.y, l.y);
+      }
+      *reinterpret_cast<uint2*>(hi + r * LD + c) = h;
+      *reinterpret_cast<uint2*>(lo + r * LD + c) = l;
     }
-    *reinterpret_cast<uint2*>(hi + r * LD + c) = h;
-    *reinterpret_cast<uint2*>(lo + r * LD + c) = l;
+  } else {
+    constexpr int CPR = D / 8;  // 16-byte chunks per row
+    for (int i = threadIdx.x; i < F32_BLOCK_Q * CPR; i += F32_THREADS) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * 8;
+      uint4 h = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows_valid)
+        h = *reinterpret_cast<const uint4*>(base + r * stride_l + c);
+      *reinterpret_cast<uint4*>(hi + r * LD + c) = h;
+    }
   }
 }
 
-template <int D>
+// One 64-query tile of one (b, h) per thread block.  T = float: every
+// product is hi*hi + hi*lo + lo*hi over the split halves (about 16
+// mantissa bits); T = bf16: one product per step, P rounded to bf16 before
+// P V as in the wgmma path.
+template <typename T, int D>
 __global__ void __launch_bounds__(F32_THREADS)
-    flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o,
-                   const int* __restrict__ kv_lengths, int H, int Lq, int Lk,
-                   int causal, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale_log2) {
+    flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
+                  const int* __restrict__ kv_lengths, int H, int Lq, int Lk,
+                  int causal, Strides qs, Strides ks, Strides vs, Strides os,
+                  float scale_log2) {
+  constexpr bool kSplit = sizeof(T) == 4;
   constexpr int LD = D + PAD;
   constexpr int TILE = F32_BLOCK_Q * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
   bf16* sk = sq + TILE;
   bf16* sv = sk + TILE;
+  // The lo halves exist only for fp32 (the launch sizes shared memory to
+  // match); a bf16 launch never touches them.
   bf16* sq_lo = sv + TILE;
   bf16* sk_lo = sq_lo + TILE;
   bf16* sv_lo = sk_lo + TILE;
@@ -175,10 +202,10 @@ __global__ void __launch_bounds__(F32_THREADS)
   // Keys past the tile's last query row never attend (causal skip).
   if (causal) kv_end = min(kv_end, q0 + F32_BLOCK_Q);
 
-  const float* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.l;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  load_tile_split<D>(sq, sq_lo, qb, qs.l, min(F32_BLOCK_Q, Lq - q0));
+  const T* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.l;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  load_tile<T, D>(sq, sq_lo, qb, qs.l, min(F32_BLOCK_Q, Lq - q0));
 
   float acc[D / 8][4];
 #pragma unroll
@@ -193,8 +220,8 @@ __global__ void __launch_bounds__(F32_THREADS)
   for (int k0 = 0; k0 < kv_end; k0 += F32_BLOCK_K) {
     __syncthreads();  // the previous tile's readers are done
     const int rows = min(F32_BLOCK_K, Lk - k0);
-    load_tile_split<D>(sk, sk_lo, kb + (long long)k0 * ks.l, ks.l, rows);
-    load_tile_split<D>(sv, sv_lo, vb + (long long)k0 * vs.l, vs.l, rows);
+    load_tile<T, D>(sk, sk_lo, kb + (long long)k0 * ks.l, ks.l, rows);
+    load_tile<T, D>(sv, sv_lo, vb + (long long)k0 * vs.l, vs.l, rows);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys.
@@ -206,19 +233,21 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const bf16* qr = sq + wrow * LD + kk * 16 + t * 2;
-      const bf16* ql = sq_lo + wrow * LD + kk * 16 + t * 2;
       const uint32_t a[4] = {ld32(qr), ld32(qr + 8 * LD), ld32(qr + 8),
                              ld32(qr + 8 * LD + 8)};
-      const uint32_t al[4] = {ld32(ql), ld32(ql + 8 * LD), ld32(ql + 8),
-                              ld32(ql + 8 * LD + 8)};
 #pragma unroll
       for (int n = 0; n < F32_BLOCK_K / 8; ++n) {
         const bf16* kr = sk + (n * 8 + g) * LD + kk * 16 + t * 2;
-        const bf16* kl = sk_lo + (n * 8 + g) * LD + kk * 16 + t * 2;
         const uint32_t b0 = ld32(kr), b1 = ld32(kr + 8);
         mma_bf16(s[n], a, b0, b1);
-        mma_bf16(s[n], a, ld32(kl), ld32(kl + 8));
-        mma_bf16(s[n], al, b0, b1);
+        if constexpr (kSplit) {
+          const bf16* ql = sq_lo + wrow * LD + kk * 16 + t * 2;
+          const uint32_t al[4] = {ld32(ql), ld32(ql + 8 * LD), ld32(ql + 8),
+                                  ld32(ql + 8 * LD + 8)};
+          const bf16* kl = sk_lo + (n * 8 + g) * LD + kk * 16 + t * 2;
+          mma_bf16(s[n], a, ld32(kl), ld32(kl + 8));
+          mma_bf16(s[n], al, b0, b1);
+        }
       }
     }
 
@@ -270,19 +299,29 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
     for (int kk = 0; kk < F32_BLOCK_K / 16; ++kk) {
       uint32_t a[4], al[4];
-      split_pack(s[2 * kk][0], s[2 * kk][1], a[0], al[0]);
-      split_pack(s[2 * kk][2], s[2 * kk][3], a[1], al[1]);
-      split_pack(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], al[2]);
-      split_pack(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], al[3]);
+      if constexpr (kSplit) {
+        split_pack(s[2 * kk][0], s[2 * kk][1], a[0], al[0]);
+        split_pack(s[2 * kk][2], s[2 * kk][3], a[1], al[1]);
+        split_pack(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], al[2]);
+        split_pack(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], al[3]);
+      } else {
+        a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const bf16* vr = sv + (kk * 16 + t * 2) * LD + n * 8 + g;
-        const bf16* vl = sv_lo + (kk * 16 + t * 2) * LD + n * 8 + g;
         const uint32_t b0 = pack_rows(vr, LD);
         const uint32_t b1 = pack_rows(vr + 8 * LD, LD);
         mma_bf16(acc[n], a, b0, b1);
-        mma_bf16(acc[n], a, pack_rows(vl, LD), pack_rows(vl + 8 * LD, LD));
-        mma_bf16(acc[n], al, b0, b1);
+        if constexpr (kSplit) {
+          const bf16* vl = sv_lo + (kk * 16 + t * 2) * LD + n * 8 + g;
+          mma_bf16(acc[n], a, pack_rows(vl, LD),
+                   pack_rows(vl + 8 * LD, LD));
+          mma_bf16(acc[n], al, b0, b1);
+        }
       }
     }
   }
@@ -293,11 +332,15 @@ __global__ void __launch_bounds__(F32_THREADS)
     const int qrow = row0 + 8 * r;
     if (qrow >= Lq) continue;
     const float inv = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
-    float* orow = o + b * os.b + h * os.h + (long long)qrow * os.l;
+    T* orow = o + b * os.b + h * os.h + (long long)qrow * os.l;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(orow + n * 8 + t * 2) =
-          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      const float x0 = acc[n][2 * r] * inv, x1 = acc[n][2 * r + 1] * inv;
+      if constexpr (kSplit)
+        *reinterpret_cast<float2*>(orow + n * 8 + t * 2) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + t * 2) =
+            __floats2bfloat162_rn(x0, x1);
     }
   }
 }
@@ -841,21 +884,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* o,
-                const int* kv_lengths, int B, int H, int Lq, int Lk,
-                int causal, Strides qs, Strides ks, Strides vs, Strides os,
-                float scale_log2, cudaStream_t stream) {
-  constexpr int smem = 6 * F32_BLOCK_Q * (D + PAD) * (int)sizeof(bf16);
-  auto kernel = flash_fwd_fp32<D>;
+template <typename T, int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               const int* kv_lengths, int B, int H, int Lq, int Lk,
+               int causal, Strides qs, Strides ks, Strides vs, Strides os,
+               float scale_log2, cudaStream_t stream) {
+  // Q, K and V tiles, plus their lo halves for fp32.
+  constexpr int tiles = sizeof(T) == 4 ? 6 : 3;
+  constexpr int smem = tiles * F32_BLOCK_Q * (D + PAD) * (int)sizeof(bf16);
+  auto kernel = flash_fwd_mma<T, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Lq + F32_BLOCK_Q - 1) / F32_BLOCK_Q, B * H);
   kernel<<<grid, F32_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), kv_lengths, H, Lq,
-      Lk, causal, qs, ks, vs, os, scale_log2);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), kv_lengths, H, Lq, Lk,
+      causal, qs, ks, vs, os, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -876,17 +921,22 @@ extern "C" int kfs_flash_attention(
   const float sl2 = scale * 1.4426950408889634f;
   const int* lens = static_cast<const int*>(kv_lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_bf16<64>(q, k, v, o, lens, B, H, Lq, Lk, causal, qs, ks, vs,
-                           os, sl2, st);
-  if (dtype == 0 && D == 128)
-    return launch_bf16<128>(q, k, v, o, lens, B, H, Lq, Lk, causal, qs, ks,
-                            vs, os, sl2, st);
-  if (dtype == 1 && D == 64)
-    return launch_fp32<64>(q, k, v, o, lens, B, H, Lq, Lk, causal, qs, ks, vs,
-                           os, sl2, st);
-  if (dtype == 1 && D == 128)
-    return launch_fp32<128>(q, k, v, o, lens, B, H, Lq, Lk, causal, qs, ks,
-                            vs, os, sl2, st);
+#define KFS_ARGS q, k, v, o, lens, B, H, Lq, Lk, causal, qs, ks, vs, os, sl2, st
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return launch_mma<bf16, 16>(KFS_ARGS);
+      case 32: return launch_mma<bf16, 32>(KFS_ARGS);
+      case 64: return launch_bf16<64>(KFS_ARGS);
+      case 128: return launch_bf16<128>(KFS_ARGS);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 16: return launch_mma<float, 16>(KFS_ARGS);
+      case 32: return launch_mma<float, 32>(KFS_ARGS);
+      case 64: return launch_mma<float, 64>(KFS_ARGS);
+      case 128: return launch_mma<float, 128>(KFS_ARGS);
+    }
+  }
+#undef KFS_ARGS
   return (int)cudaErrorInvalidValue;
 }

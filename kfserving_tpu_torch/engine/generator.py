@@ -1,21 +1,49 @@
-"""GenerationEngine: paged KV-cache decoding with continuous batching.
+"""GenerationEngine: KV-cache decoding with continuous batching.
 
-Port of ``kfserving_tpu/engine/generator.py``, paged mode:
+Port of ``kfserving_tpu/engine/generator.py``: its two cache modes, its
+chunked prefill and its speculative decoding.
 
-- **paged cache**: per layer a shared block pool [NB + 1, BS, H, D] (the
-  last block is the sink that dropped writes land in, see
-  ``ops/paged_attention.py``) plus per-slot block tables [S, MB] on the
-  host.  Device memory scales with resident tokens; identical prompt
-  prefixes share blocks through a chain-hash index; pool pressure queues
-  admissions; block release is deferred past in-flight waves (the
+- **paged cache** (``block_size`` set): per layer a shared block pool
+  [NB + 1, BS, H, D] (the last block is the sink that dropped writes land
+  in, see ``ops/paged_attention.py``) plus per-slot block tables [S, MB]
+  on the host.  Device memory scales with resident tokens; identical
+  prompt prefixes share blocks through a chain-hash index; pool pressure
+  queues admissions; block release is deferred past in-flight waves (the
   zombie-wave hazard); a slot that cannot grow is preempted and resumes
   exactly.
+- **dense slots** (no ``block_size``): per layer one [S, max_seq + 1, H,
+  D] cache per slot row, written in place (the last position is the sink
+  that parked rows' and out-of-window writes land in), so the engine
+  holds one cache, as the JAX engine's donated caches are one.  Decode
+  attends with the masked plain attention (XLA in the reference).
 - **prefill/decode split**: a prompt group runs one bucket-padded
   forward (causal + lengths: the CUDA flash kernel on the card), its k/v
-  scatter into the pool, and the first tokens land in the device feed
-  arrays.  Decode then runs ``steps_per_call`` single-token steps per
-  wave through the paged decode kernel, feeding each step's tokens to
-  the next on the device.
+  scatter into the pool blocks or slot rows (bucket-padding rows drop),
+  and the first tokens land in the device feed arrays.  Decode then runs
+  ``steps_per_call`` single-token steps per wave (paged: through the
+  paged decode kernel), feeding each step's tokens to the next on the
+  device.
+- **chunked prefill** (paged, ``prefill_chunk_tokens``): a cold prompt
+  longer than the chunk lands in block-aligned chunks that ride the
+  in-flight FIFO between decode waves: one chunk in flight while other
+  streams decode, ``pipeline_depth`` otherwise.  A chunk writes its k/v
+  through the slot's table and attends over the pool per query
+  (``paged_prefill_attention``, a gather, as in the reference); fresh
+  prefix registrations wait until their chunk dispatches; a chunk whose
+  every block was a prefix hit is skipped; the final chunk samples the
+  stream's first token, noise-keyed on the full prompt length.  Under
+  pool pressure a mid-prefill slot yields its blocks first and restarts.
+- **speculative decoding** (``speculative``): at depth 1, a wave
+  proposes K tokens a live slot (the n-gram head on the host, or a draft
+  model's K greedy forwards over a rolling window) and verifies all K + 1
+  positions in one dispatch whose every position samples with the decode
+  wave's (seed, position) noise (the positions run layer by layer at the
+  decode step's shapes, so their logits are a sequential decode's bit for
+  bit on the card too); the longest prefix on which
+  the proposal equals the target's own draw is accepted, so the tokens
+  equal non-speculative decode's.  The ``engine.spec_draft`` and
+  ``engine.spec_verify`` fault sites degrade one wave to a plain wave
+  (after re-syncing the device feed from the host).
 - **pipelined, sync-free dispatch**: all device work is enqueued on ONE
   enqueue thread, on the engine's own CUDA stream (in order), inside
   ``torch.inference_mode()``.  Results copy into pinned host memory with
@@ -23,20 +51,18 @@ Port of ``kfserving_tpu/engine/generator.py``, paged mode:
   the event, never the loop thread or the enqueue thread.  Nothing on the
   enqueue path reads a device value back (no ``.item()``, ``.tolist()``
   or ``.cpu()``), so ``pipeline_depth`` waves stay in flight.
-- **the decode wave as a CUDA graph**: on the card a wave's
-  ``steps_per_call`` steps, its sampling and the write-back of its last
-  tokens and positions into the device feed arrays are one captured
-  graph per (max_slots, steps_per_call, any_sampled, need_mask,
-  want_lp), the JAX generator's one decode program per (max_slots,
-  steps_per_call) split by the host's decisions below.  A wave copies
-  the block table and the four sampling arrays into one static input
-  tensor (one host-to-device copy), replays its variant's graph and
-  copies the graph's static outputs out.  The greedy variant is captured
-  when the engine starts; another is captured at its first wave, which
-  runs eagerly (its tokens are that wave's) just before the capture.
-  All variants share one memory pool; each first capture is noted to
-  ``engine/compile_cache.py``.  The prefill stays eager.  On the CPU
-  every wave runs eagerly on the same static tensors.
+- **compiled programs**: on the card every program but the bucketed
+  prefill is a CUDA graph over static inputs (one host-to-device copy a
+  dispatch), the JAX engine's one compiled program per shape split by
+  the host's sampling decisions: the decode wave per ("decode", S, K,
+  flags), a chunk per ("chunk", table blocks, flags), the verify per
+  ("spec_verify", S, K + 1, flags), the draft per ("spec_draft", S, W)
+  and the feed re-sync per ("feed_resync", S).  A program's first
+  dispatch runs eagerly (its results are that dispatch's) and is then
+  captured; the greedy wave is captured when the engine starts.  All of
+  an engine's graphs share one memory pool; each first capture is noted
+  to ``engine/compile_cache.py``.  On the CPU every program runs eagerly
+  on the same static tensors.
 - **sampling on the device**: greedy (``argmax``, first index on ties),
   temperature via the Gumbel trick, top-k and top-p.  Where JAX branches
   on the device (``lax.cond``), the port decides on the host from the
@@ -47,21 +73,20 @@ Port of ``kfserving_tpu/engine/generator.py``, paged mode:
   rng_seed), seed), position)``, computed in torch integer ops
   (``engine/threefry.py``; its bits equal JAX's, its logarithm is
   torch's), so a seeded request draws the JAX package's tokens however
-  it is scheduled (preemption and resume included).
-
+  it is scheduled (preemption, chunking and speculation included).
 - **deadlines and telemetry**: a request carries the deadline and trace
   id of the context that submitted it; between decode waves a request
   whose budget ran out ends with finish_reason ``"timeout"`` and frees
   its slot.  Tokens feed the TTFT / inter-token / tokens-per-second
-  series, the prefix index and the pool their lookup, tokens-saved and
-  eviction counters, and every finished request records a
-  ``generator.generate`` span; ``stats()`` carries the roofline
-  accounting (decode and prefill FLOP/s and MFU, decode memory
-  bandwidth) that ``/metrics`` publishes.
+  series, the prefix index and the pool their lookup, reuse-depth,
+  tokens-saved and eviction counters, chunks and speculation their
+  families, and every finished request records a ``generator.generate``
+  span; ``stats()`` carries the roofline accounting (decode and prefill
+  FLOP/s and MFU, decode memory bandwidth) that ``/metrics`` publishes,
+  and ``cache_debug()`` the ``/debug/cache`` block.
 
-Left for later: the dense slot mode (a config without ``block_size`` is
-refused), chunked prefill, speculative decoding, the host KV tier, the
-timeline, meshes, and graphs for the prefill buckets.
+Left for later: the host KV tier, the timeline, meshes, and graphs for
+the prefill buckets.
 """
 
 import asyncio
@@ -70,6 +95,7 @@ import contextlib
 import hashlib
 import itertools
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -80,6 +106,12 @@ import numpy as np
 import torch
 
 from kfserving_tpu_torch.engine import compile_cache, graphs, threefry
+from kfserving_tpu_torch.engine.speculative import (
+    DEFAULT_DRAFT_WINDOW,
+    NGramProposer,
+    make_draft_proposer,
+    rolling_windows,
+)
 from kfserving_tpu_torch.engine.torch_engine import device_peak_flops
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.observability.profiling.roofline import (
@@ -92,7 +124,9 @@ from kfserving_tpu_torch.ops.paged_attention import (
     paged_insert,
 )
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
+from kfserving_tpu_torch.reliability import fault_sites
 from kfserving_tpu_torch.reliability.deadline import current_deadline
+from kfserving_tpu_torch.reliability.faults import FaultInjected, faults
 from kfserving_tpu_torch.tracing import Span, current_request_id, tracer
 
 logger = logging.getLogger("kfserving_tpu_torch.engine.generator")
@@ -129,16 +163,17 @@ def mask_to_support(logits: torch.Tensor, top_ks: torch.Tensor,
     return torch.where(keep, logits, torch.finfo(logits.dtype).min)
 
 
-def check_device_shapes(module, device: torch.device) -> None:
-    """On the card, refuse a decoder that either kernel of the path is not
+def check_device_shapes(module, device: torch.device,
+                        paged: bool = True) -> None:
+    """On the card, refuse a decoder that a kernel of its path is not
     built for, at construction rather than on its first request: the
-    prefill runs the flash kernel (K1) and the decode waves the paged
-    kernel (K2)."""
+    prefill runs the flash kernel (K1), and the paged mode's decode waves
+    the paged kernel (K2)."""
     check_kernel_shapes(module, device)
     cfg = module.config
-    if device.type == "cuda" and (cfg.dtype not in SUPPORTED_DTYPES
-                                  or cfg.head_dim not in
-                                  SUPPORTED_HEAD_DIMS):
+    if paged and device.type == "cuda" and (
+            cfg.dtype not in SUPPORTED_DTYPES
+            or cfg.head_dim not in SUPPORTED_HEAD_DIMS):
         raise InvalidInput(
             f"the paged decode kernel takes dtypes {SUPPORTED_DTYPES} and "
             f"head dims {SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
@@ -191,14 +226,31 @@ class _Active:
     # Content tokens emitted so far: preemption re-prefills prompt +
     # tokens to resume the stream exactly.
     tokens: List[int] = field(default_factory=list)
+    # -- chunked prefill (paged mode, cold prompts) ---------------------
+    # A prefilling slot is not decodable yet: decode waves park its feed
+    # row on the out-of-range position, so their writes drop, and
+    # discard its rows.
+    prefilling: bool = False
+    chunk_next: int = 0        # next chunk index to dispatch
+    chunk_total: int = 0
+    chunks_inflight: int = 0   # chunk dispatches not yet fetched
+    # Per-block insert destinations of the plan (-1 = prefix hit: a
+    # chunk of hits only skips its dispatch).
+    chunk_dest: List[int] = field(default_factory=list)
+    # block index -> (chain, block): fresh full-block registrations,
+    # published when the chunk that writes the block dispatches.
+    chunk_regs: Dict[int, Tuple[bytes, int]] = field(default_factory=dict)
 
 
 @dataclass
 class _Fetch:
     """Device results on their way to pinned host memory: ``event``
-    fires when the copies are done (None on the CPU, where they are)."""
+    fires when the copies are done (None on the CPU, where they are);
+    ``draft_event``, in a draft-model speculative wave, when the draft
+    program is."""
     host: List[torch.Tensor]
     event: Optional[Any]
+    draft_event: Optional[Any] = None
 
 
 class GenerationEngine:
@@ -217,7 +269,9 @@ class GenerationEngine:
                  pipeline_depth: int = 2,
                  block_size: Optional[int] = None,
                  cache_blocks: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
                  adaptive_depth: bool = True,
+                 speculative: Optional[Dict[str, Any]] = None,
                  rng_seed: int = 0,
                  logprob_topk: int = 5,
                  name: str = "decoder"):
@@ -256,65 +310,154 @@ class GenerationEngine:
         self.logprob_topk = max(1, int(logprob_topk))
         # Default per-request seeds: a deterministic counter.
         self._seed_counter = 0
+        S = self.max_slots
 
-        if not block_size:
-            raise InvalidInput(
-                "the PyTorch port serves the paged KV cache only: set "
-                "block_size (the dense slot mode is not ported yet)")
-        bs = self.block_size = int(block_size)
-        if self.max_seq % bs != 0:
-            raise InvalidInput(
-                f"max_seq {self.max_seq} must be a multiple of "
-                f"block_size {bs}")
-        for b in buckets:
-            if b % bs != 0:
+        # -- paged vs dense cache ------------------------------------------
+        self.block_size = int(block_size) if block_size else None
+        if self.block_size is not None:
+            bs = self.block_size
+            if self.max_seq % bs != 0:
                 raise InvalidInput(
-                    f"prefill bucket {b} must be a multiple of "
-                    f"block_size {bs} (paged insert writes whole "
-                    f"blocks)")
-        check_device_shapes(module, self.device)
-        self.blocks_per_slot = self.max_seq // bs
-        self.num_blocks = int(cache_blocks or
-                              self.max_slots * self.blocks_per_slot)
-        self._cache_dtype = cfg.dtype
-        self._cache_shape = (self.num_blocks, bs, cfg.num_heads,
-                             cfg.head_dim)
-        with torch.inference_mode():
+                    f"max_seq {self.max_seq} must be a multiple of "
+                    f"block_size {bs}")
+            for b in buckets:
+                if b % bs != 0:
+                    raise InvalidInput(
+                        f"prefill bucket {b} must be a multiple of "
+                        f"block_size {bs} (paged insert writes whole "
+                        f"blocks)")
+            check_device_shapes(module, self.device)
+            self.blocks_per_slot = self.max_seq // bs
+            self.num_blocks = int(cache_blocks or
+                                  self.max_slots * self.blocks_per_slot)
+            self._cache_shape = (self.num_blocks, bs, cfg.num_heads,
+                                 cfg.head_dim)
             # NB + 1 blocks: the last is the sink no table names.
-            pool_shape = (self.num_blocks + 1,) + self._cache_shape[1:]
+            alloc_shape = (self.num_blocks + 1,) + self._cache_shape[1:]
+        else:
+            check_device_shapes(module, self.device, paged=False)
+            self.blocks_per_slot = 0
+            self.num_blocks = 0
+            self._cache_shape = (S, self.max_seq, cfg.num_heads,
+                                 cfg.head_dim)
+            # max_seq + 1 positions: the last is the sink no query reads.
+            alloc_shape = (S, self.max_seq + 1, cfg.num_heads,
+                           cfg.head_dim)
+        self._cache_dtype = cfg.dtype
+
+        # -- chunked prefill (paged mode only) -----------------------------
+        self.prefill_chunk_tokens = (int(prefill_chunk_tokens)
+                                     if prefill_chunk_tokens else None)
+        if self.prefill_chunk_tokens is not None:
+            if self.block_size is None:
+                raise InvalidInput(
+                    "prefill_chunk_tokens requires the paged cache "
+                    "(set block_size): chunk state is carried in the "
+                    "block table")
+            if self.prefill_chunk_tokens % self.block_size != 0:
+                raise InvalidInput(
+                    f"prefill_chunk_tokens {self.prefill_chunk_tokens} "
+                    f"must be a multiple of block_size "
+                    f"{self.block_size} (chunks write whole blocks)")
+            if self.prefill_chunk_tokens > self.max_seq:
+                raise InvalidInput(
+                    f"prefill_chunk_tokens {self.prefill_chunk_tokens} "
+                    f"exceeds max_seq {self.max_seq}")
+            if self.prefill_chunk_tokens > self.prefill_buckets[-1]:
+                # Prompts between the two would fit neither path, and a
+                # preempted stream whose merged length lands there
+                # could never resume.
+                raise InvalidInput(
+                    f"prefill_chunk_tokens {self.prefill_chunk_tokens} "
+                    f"must not exceed the largest prefill bucket "
+                    f"{self.prefill_buckets[-1]} (prompts between the "
+                    f"two would fit neither the bucketed nor the "
+                    f"chunked prefill path)")
+
+        # -- speculative decoding ------------------------------------------
+        # {"tokens": K, optional "draft_module" (a materialized decoder on
+        # this device) and "draft_window"}; None defers to the
+        # KFS_SPECDEC_TOKENS env twin (n-gram proposer only).
+        if speculative is None:
+            try:
+                env_spec = int(os.environ.get("KFS_SPECDEC_TOKENS", "0"))
+            except ValueError:
+                env_spec = 0
+            if env_spec > 0:
+                speculative = {"tokens": env_spec}
+        self.spec_tokens = 0
+        self._draft_module = None
+        self._draft_window = 0
+        if speculative:
+            self.spec_tokens = int(speculative.get("tokens", 0))
+            if self.spec_tokens < 0:
+                raise InvalidInput("speculative tokens must be >= 0")
+            if self.spec_tokens > 0:
+                self._draft_module = speculative.get("draft_module")
+                if self._draft_module is not None:
+                    self._draft_window = int(speculative.get(
+                        "draft_window", DEFAULT_DRAFT_WINDOW))
+                    # The draft's forwards run the flash kernel on the
+                    # card at L = window.
+                    check_kernel_shapes(self._draft_module, self.device)
+        self._ngram = (NGramProposer(self.spec_tokens)
+                       if self.spec_tokens else None)
+        self._draft_proposer = (
+            make_draft_proposer(self._draft_module, S, self._draft_window,
+                                self.spec_tokens)
+            if self._draft_module is not None else None)
+
+        MB = self.blocks_per_slot
+        with torch.inference_mode():
             self._caches = [
-                (torch.zeros(pool_shape, dtype=cfg.dtype,
+                (torch.zeros(alloc_shape, dtype=cfg.dtype,
                              device=self.device),
-                 torch.zeros(pool_shape, dtype=cfg.dtype,
+                 torch.zeros(alloc_shape, dtype=cfg.dtype,
                              device=self.device))
                 for _ in range(cfg.num_layers)]
             # Device feed state: the token each slot feeds next and its
             # position, plus a sink row (index max_slots) that a
-            # prefill batch's padding rows write.  Rows of free slots go
-            # stale by design: a garbage decode there writes to the sink
-            # block and its tokens are dropped at distribute.
-            self._feed_tokens = torch.zeros(self.max_slots + 1,
-                                            dtype=torch.int32,
+            # prefill batch's padding rows, a non-final chunk and a
+            # re-sync's kept rows write.  Rows of free slots go stale by
+            # design: a garbage decode there writes to the sink and its
+            # tokens are dropped at distribute.
+            self._feed_tokens = torch.zeros(S + 1, dtype=torch.int32,
                                             device=self.device)
-            self._feed_positions = torch.zeros(self.max_slots + 1,
-                                               dtype=torch.int32,
+            self._feed_positions = torch.zeros(S + 1, dtype=torch.int32,
                                                device=self.device)
             self._base_key = threefry.prng_key(self.rng_seed,
                                                device=self.device)
-            # The wave's static input: the block table [S, MB] and the
-            # four sampling arrays [S] (temperatures and top-p as float32
-            # bits), one host-to-device copy a wave.
-            S, MB = self.max_slots, self.blocks_per_slot
-            self._wave_in = torch.zeros(S * MB + 4 * S, dtype=torch.int32,
-                                        device=self.device)
+            # Each program's static input, one int32 tensor a program
+            # (float32 arrays as their bits), filled by one host-to-
+            # device copy a dispatch.  The wave: the block table [S, MB]
+            # (none in dense mode) and the four sampling arrays [S].
+            self._wave_in = self._static_input(S * MB + 4 * S)
             self._wave_table = self._wave_in[:S * MB].view(S, MB)
-            rows = [self._wave_in[S * MB + i * S:S * MB + (i + 1) * S]
-                    for i in range(4)]
-            self._wave_sampling = (rows[0].view(torch.float32), rows[1],
-                                   rows[2].view(torch.float32), rows[3])
+            self._wave_sampling = self._sampling_views(
+                self._wave_in[S * MB:], S)
+            if self.prefill_chunk_tokens is not None:
+                # A chunk: ids [C], query positions [C], the slot's
+                # table row [MB], then the last real query's index, the
+                # slot to park, the feed row to write (the slot on the
+                # final chunk, else the sink row), the prompt length and
+                # the four sampling values.
+                C = self.prefill_chunk_tokens
+                self._chunk_in = self._static_input(2 * C + MB + 8)
+            if self.spec_tokens:
+                # A verify: last tokens [S], proposals [S, K], query
+                # positions [S, K + 1], the table [S, MB], the sampling
+                # arrays; the draft's windows [S, W]; a re-sync's slot
+                # rows, tokens and positions [3, S].
+                K = self.spec_tokens
+                self._spec_in = self._static_input(
+                    S + S * K + S * (K + 1) + S * MB + 4 * S)
+                self._resync_in = self._static_input(3 * S)
+                if self._draft_module is not None:
+                    self._draft_in = self._static_input(
+                        S * self._draft_window)
 
-        # Decode-wave programs: variant key -> (graph, static outputs,
-        # kernel launch tally), in one pool, on the engine's stream.
+        # Compiled programs: key -> (graph, static outputs, kernel launch
+        # tally), in one pool, on the engine's stream.
         self._stream = None
         self._pool = None
         self._programs: Dict[tuple, Any] = {}
@@ -325,8 +468,7 @@ class GenerationEngine:
         # Host-side paging state, guarded by _block_lock (cancel() on
         # the loop thread races table snapshots on the enqueue thread).
         self._block_lock = threading.Lock()
-        self._tables = np.full((self.max_slots, self.blocks_per_slot), -1,
-                               np.int32)
+        self._tables = np.full((S, MB), -1, np.int32)
         self._free_blocks: deque = deque(range(self.num_blocks))
         self._block_ref = np.zeros(self.num_blocks, np.int64)
         # chain digest -> block of a FULL prompt block (prefix reuse);
@@ -335,6 +477,9 @@ class GenerationEngine:
         self._prefix_index: Dict[bytes, int] = {}
         self._block_chain: Dict[int, bytes] = {}
         self._reclaimable: "OrderedDict[int, None]" = OrderedDict()
+        # Hits per live index entry (reuse depth): the /debug/cache
+        # census reads it; an entry's count goes with the entry.
+        self._chain_hits: Dict[bytes, int] = {}
         self.block_evictions: Dict[str, int] = {
             "capacity_dropped": 0, "index_invalidation": 0,
             "zombie_deferral": 0}
@@ -354,7 +499,7 @@ class GenerationEngine:
             max_workers=2, thread_name_prefix=f"generator-{name}")
         self._enqueue_executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix=f"generator-enq-{name}")
-        self._slots: List[Optional[_Active]] = [None] * self.max_slots
+        self._slots: List[Optional[_Active]] = [None] * S
         self._pending: deque = deque()
         # Growth starvation: a slot cannot grow while freed blocks are
         # still maturing through the deferral window; the scheduler
@@ -366,14 +511,27 @@ class GenerationEngine:
 
         # stats
         self.tokens_generated = 0
-        self.decode_steps = 0       # decode waves dispatched
+        self.decode_steps = 0       # decode and spec waves dispatched
         self._token_steps = 0       # waves fetched x steps_per_call
         self.prefills = 0           # prefill dispatches fetched
         self.prefill_requests = 0
         self.requests_finished = 0
         self.preemptions = 0
+        self.prefill_chunks = 0     # chunked-prefill dispatches
+        self.prefill_chunks_skipped = 0  # whole-chunk prefix hits
+        self.chunked_admissions = 0
         self.suppressed_waves = 0
         self._depth_effective = self.pipeline_depth
+        # Speculative decoding (engine twins of the specdec families).
+        self.spec_waves = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_emitted_tokens = 0
+        self.spec_fallbacks: Dict[str, int] = {}
+        # Bounded accepted-length reservoir for the p50/p99.
+        self._spec_lengths: deque = deque(maxlen=4096)
+        self._spec_draft_s = 0.0
+        self._spec_verify_s = 0.0
         self._occupied_slot_steps = 0
         self._wasted_token_steps = 0
         # Union of enqueue->fetch intervals (overlap-corrected).
@@ -402,7 +560,7 @@ class GenerationEngine:
         # Per prefill bucket: [real tokens, padded tokens].
         self._prefill_bucket_tokens: Dict[int, List[float]] = {}
         if self.device.type == "cuda":
-            # The module and the pools were written on this thread's
+            # The module and the caches were written on this thread's
             # stream; the engine's own stream starts behind them, and
             # the greedy wave is compiled on the enqueue thread.
             self._stream = torch.cuda.Stream(self.device)
@@ -410,9 +568,21 @@ class GenerationEngine:
             self._pool = torch.cuda.graph_pool_handle()
             self._enqueue_executor.submit(self._warm_greedy_wave).result()
 
+    def _static_input(self, n: int) -> torch.Tensor:
+        return torch.zeros(n, dtype=torch.int32, device=self.device)
+
+    @staticmethod
+    def _sampling_views(buf: torch.Tensor, n: int) -> tuple:
+        """(temps, top_ks, top_ps, seeds) over ``buf``'s first 4 n int32
+        values: float32 arrays as their bits."""
+        rows = [buf[i * n:(i + 1) * n] for i in range(4)]
+        return (rows[0].view(torch.float32), rows[1],
+                rows[2].view(torch.float32), rows[3])
+
     # -- public API --------------------------------------------------------
     def cache_bytes(self) -> int:
-        """Bytes of the KV pools (the sink block not counted)."""
+        """Bytes of the KV caches: the block pools or the slot rows (the
+        sink block or position not counted)."""
         itemsize = torch.empty((), dtype=self._cache_dtype).element_size()
         return (int(np.prod(self._cache_shape)) * itemsize * 2
                 * len(self._caches))
@@ -445,7 +615,11 @@ class GenerationEngine:
         ids = np.asarray(prompt_ids, np.int64).reshape(-1)
         if ids.size == 0:
             raise InvalidInput("empty prompt")
-        if ids.size > self.prefill_buckets[-1]:
+        chunked = (self.prefill_chunk_tokens is not None
+                   and ids.size > self.prefill_chunk_tokens)
+        if ids.size > self.prefill_buckets[-1] and not chunked:
+            # Cold (chunked) prompts ride no bucket: max_seq bounds
+            # them, through the budget below.
             raise InvalidInput(
                 f"prompt length {ids.size} exceeds the largest prefill "
                 f"bucket {self.prefill_buckets[-1]}")
@@ -454,11 +628,12 @@ class GenerationEngine:
             # device assert on CUDA (XLA clamped it silently).
             raise InvalidInput(
                 f"token ids must be in [0, {self.vocab_size})")
-        need = -(-int(ids.size) // self.block_size)
-        if need > self.num_blocks:
-            raise InvalidInput(
-                f"prompt needs {need} cache blocks but the pool "
-                f"holds {self.num_blocks}")
+        if self.block_size is not None:
+            need = -(-int(ids.size) // self.block_size)
+            if need > self.num_blocks:
+                raise InvalidInput(
+                    f"prompt needs {need} cache blocks but the pool "
+                    f"holds {self.num_blocks}")
         if max_new_tokens < 1:
             raise InvalidInput("max_new_tokens must be >= 1")
         if not 0.0 < float(top_p) <= 1.0:
@@ -565,10 +740,12 @@ class GenerationEngine:
         self._enqueue_executor.shutdown(wait=False)
 
     def graph_stats(self) -> Dict[str, Any]:
-        """The decode-wave graphs: variants captured, their capture ms
-        and the pool's bytes (kept out of ``stats()``, which ``/metrics``
-        publishes)."""
-        return {"wave_graphs": sorted(self._programs),
+        """The compiled programs: the keys captured (``wave_graphs`` the
+        decode waves'), their capture ms and the pool's bytes (kept out
+        of ``stats()``, which ``/metrics`` publishes)."""
+        keys = sorted(self._programs, key=repr)
+        return {"programs": keys,
+                "wave_graphs": [k for k in keys if k[0] == "decode"],
                 "captures": self.wave_captures,
                 "capture_ms_total": self.capture_ms_total,
                 "pool_bytes": (graphs.pool_bytes(self._pool, self.device)
@@ -628,6 +805,20 @@ class GenerationEngine:
                 for b, (real, padded)
                 in sorted(self._prefill_bucket_tokens.copy().items())
                 if padded > 0}
+        if self.block_size is not None:
+            out["paged"] = self._pool_stats()
+            if self.prefill_chunk_tokens is not None:
+                out["chunked_prefill"] = {
+                    "chunk_tokens": self.prefill_chunk_tokens,
+                    "admissions": self.chunked_admissions,
+                    "chunks_dispatched": self.prefill_chunks,
+                    "chunks_skipped_shared": self.prefill_chunks_skipped,
+                }
+        if self.spec_tokens:
+            out["speculative"] = self.spec_debug()
+        return out
+
+    def _pool_stats(self) -> Dict[str, Any]:
         with self._block_lock:
             refd = int(np.sum(self._block_ref > 0))
             resident = sum(s.length for s in self._slots if s is not None)
@@ -636,7 +827,7 @@ class GenerationEngine:
             table_blocks = int(np.sum(self._tables >= 0))
             frag = (1.0 - resident / (table_blocks * self.block_size)
                     if table_blocks else 0.0)
-            out["paged"] = {
+            return {
                 "block_size": self.block_size,
                 "pool_blocks": self.num_blocks,
                 "free_blocks": len(self._free_blocks),
@@ -651,7 +842,86 @@ class GenerationEngine:
                 "evictions": dict(self.block_evictions),
                 "preemptions": self.preemptions,
             }
+
+    def spec_debug(self) -> Dict[str, Any]:
+        """The speculative-decoding block of ``stats()`` and
+        ``/debug/cache``, under the JAX engine's keys."""
+        lengths = sorted(self._spec_lengths)
+
+        def lpct(q: float) -> int:
+            if not lengths:
+                return 0
+            return lengths[min(len(lengths) - 1, int(len(lengths) * q))]
+
+        proposed = self.spec_proposed_tokens
+        return {
+            "tokens": self.spec_tokens,
+            "proposer": self._proposer_name(),
+            "waves": self.spec_waves,
+            "proposed_tokens": proposed,
+            "accepted_tokens": self.spec_accepted_tokens,
+            "emitted_tokens": self.spec_emitted_tokens,
+            "acceptance_rate": (round(
+                self.spec_accepted_tokens / proposed, 4)
+                if proposed else 0.0),
+            "accepted_length_p50": lpct(0.50),
+            "accepted_length_p99": lpct(0.99),
+            "draft_device_s": round(self._spec_draft_s, 4),
+            "verify_device_s": round(self._spec_verify_s, 4),
+            "draft_param_bytes": self.draft_param_bytes(),
+            "fallbacks": dict(self.spec_fallbacks),
+        }
+
+    def _proposer_name(self) -> str:
+        return "draft" if self._draft_module is not None else "ngram"
+
+    def cache_debug(self, top_k: int = 10) -> Dict[str, Any]:
+        """The engine's ``GET /debug/cache`` block: the prefix index's
+        census (entries, reuse-depth distribution, the top-K hot chains
+        by hit count) and the pool's state, plus the speculative block;
+        a dense engine reports ``{"paged": False}``."""
+        if self.block_size is None:
+            out: Dict[str, Any] = {"paged": False}
+            if self.spec_tokens:
+                out["speculative"] = self.spec_debug()
+            return out
+        with self._block_lock:
+            census = {chain: self._chain_hits.get(chain, 0)
+                      for chain in self._prefix_index}
+        depths = sorted(census.values())
+
+        def pct(q: float) -> int:
+            if not depths:
+                return 0
+            return depths[min(len(depths) - 1, int(len(depths) * q))]
+
+        hot = sorted(census.items(), key=lambda kv: (-kv[1], kv[0]))
+        hot = hot[:max(0, int(top_k))]
+        out = {
+            "paged": True,
+            "index_entries": len(census),
+            "reuse_depth": {
+                "p50": pct(0.50),
+                "p99": pct(0.99),
+                "max": depths[-1] if depths else 0,
+                "mean": (round(sum(depths) / len(depths), 3)
+                         if depths else 0.0),
+            },
+            "hot_chains": [{"chain": chain.hex(), "hits": hits}
+                           for chain, hits in hot],
+            "pool": self._pool_stats(),
+        }
+        if self.spec_tokens:
+            out["speculative"] = self.spec_debug()
         return out
+
+    def draft_param_bytes(self) -> int:
+        """The draft model's parameter bytes (0 with the n-gram head or
+        no speculation): what the ledger books for it."""
+        if self._draft_module is None:
+            return 0
+        return sum(p.numel() * p.element_size()
+                   for p in self._draft_module.parameters())
 
     # -- paged-cache bookkeeping (under _block_lock) -----------------------
     def _alloc_block_locked(self) -> Optional[int]:
@@ -663,6 +933,7 @@ class GenerationEngine:
             chain = self._block_chain.pop(blk, None)
             if chain is not None and self._prefix_index.get(chain) == blk:
                 self._prefix_index.pop(chain, None)
+                self._chain_hits.pop(chain, None)
             self._count_evictions_locked("capacity_dropped", 1)
             return blk
         return None
@@ -700,6 +971,7 @@ class GenerationEngine:
             for chain, blk in self._plan_regs.pop(slot, []):
                 if self._prefix_index.pop(chain, None) is not None:
                     dropped += 1
+                    self._chain_hits.pop(chain, None)
                 self._block_chain.pop(blk, None)
             self._count_evictions_locked("index_invalidation", dropped)
 
@@ -734,14 +1006,24 @@ class GenerationEngine:
         with self._block_lock:
             self._count_evictions_locked("zombie_deferral", released)
 
-    def _plan_prompt_blocks(self, req: _Request, slot: int
+    def _plan_prompt_blocks(self, req: _Request, slot: int,
+                            chunk_regs: Optional[Dict[int, Tuple[
+                                bytes, int]]] = None
                             ) -> Optional[List[int]]:
         """Allocate or share blocks for a prompt (loop thread).  Full
         blocks probe the prefix index by chain digest: causal attention
         makes the k/v of positions [0, m) a pure function of the first m
         tokens.  Returns the per-block insert destinations (-1 = shared
         hit, its write drops), or None when the pool cannot hold the
-        prompt now (the request stays pending)."""
+        prompt now (the request stays pending).
+
+        chunk_regs (a chunked admission): fresh full-block registrations
+        land here by block index instead of in the index; the scheduler
+        publishes each chunk's when that chunk dispatches (a sharer
+        must never read a block no dispatch was enqueued for).  Hits
+        are then taken only as a prefix of whole chunks, never into the
+        final chunk: a chunk writes every position it covers, so a chunk
+        mixing shared and fresh blocks would rewrite shared ones."""
         bs = self.block_size
         n = int(req.prompt_ids.size)
         full = n // bs
@@ -750,6 +1032,8 @@ class GenerationEngine:
         taken: List[int] = []
         fresh_regs: List[Tuple[bytes, int]] = []
         plan_hits = plan_misses = 0
+        hit_chains: List[bytes] = []
+        depth_obs: List[int] = []
         chains: List[bytes] = []
         chain = b""
         for c in range(full):
@@ -758,15 +1042,30 @@ class GenerationEngine:
                 digest_size=16).digest()
             chains.append(chain)
         with self._block_lock:
+            max_hit_blocks = None
+            if chunk_regs is not None:
+                bpc = self.prefill_chunk_tokens // bs
+                h = 0
+                while h < full and self._prefix_index.get(chains[h]) \
+                        is not None:
+                    h += 1
+                n_chunks = -(-n // self.prefill_chunk_tokens)
+                max_hit_blocks = min((h // bpc) * bpc,
+                                     bpc * (n_chunks - 1))
             for c in range(total):
                 if c < full:
                     hit = self._prefix_index.get(chains[c])
-                    if hit is not None:
+                    if hit is not None and (max_hit_blocks is None
+                                            or c < max_hit_blocks):
                         self._ref_block_locked(hit)
                         self._tables[slot, c] = hit
                         taken.append(hit)
                         dest.append(-1)
                         plan_hits += 1
+                        hit_chains.append(chains[c])
+                        depth = self._chain_hits.get(chains[c], 0) + 1
+                        self._chain_hits[chains[c]] = depth
+                        depth_obs.append(depth)
                         continue
                 blk = self._alloc_block_locked()
                 if blk is None:
@@ -777,13 +1076,22 @@ class GenerationEngine:
                     for ch, b in fresh_regs:
                         if self._prefix_index.pop(ch, None) is not None:
                             dropped += 1
+                            self._chain_hits.pop(ch, None)
                         self._block_chain.pop(b, None)
                     self._count_evictions_locked("index_invalidation",
                                                  dropped)
                     for b in taken:
                         self._unref_block_locked(b)
+                    # The replan probes these chains again.
+                    for ch in hit_chains:
+                        d = self._chain_hits.get(ch)
+                        if d is not None:
+                            if d <= 1:
+                                self._chain_hits.pop(ch, None)
+                            else:
+                                self._chain_hits[ch] = d - 1
                     self._tables[slot, :] = -1
-                    self._count_lookups(plan_hits, plan_misses, 0)
+                    self._count_lookups(plan_hits, plan_misses, 0, [])
                     return None
                 self._ref_block_locked(blk)
                 self._tables[slot, c] = blk
@@ -791,25 +1099,37 @@ class GenerationEngine:
                 dest.append(blk)
                 if c < full:
                     # Full prompt blocks become shareable (decode writes
-                    # land past the prompt); provisional until the
-                    # prefill enqueues.
+                    # land past the prompt).
                     self.prefix_misses += 1
                     plan_misses += 1
-                    self._prefix_index[chains[c]] = blk
-                    self._block_chain[blk] = chains[c]
-                    fresh_regs.append((chains[c], blk))
-            self._plan_regs[slot] = fresh_regs
+                    if chunk_regs is not None:
+                        # A demoted hit keeps the canonical entry.
+                        if self._prefix_index.get(chains[c]) is None:
+                            chunk_regs[c] = (chains[c], blk)
+                    else:
+                        # Provisional until the prefill enqueues.
+                        self._prefix_index[chains[c]] = blk
+                        self._block_chain[blk] = chains[c]
+                        fresh_regs.append((chains[c], blk))
+            if chunk_regs is None:
+                self._plan_regs[slot] = fresh_regs
             self.prefix_hits += plan_hits
             self.prefill_tokens_saved += plan_hits * bs
-        self._count_lookups(plan_hits, plan_misses, plan_hits * bs)
+        self._count_lookups(plan_hits, plan_misses, plan_hits * bs,
+                            depth_obs)
         return dest
 
-    def _count_lookups(self, hits: int, misses: int, saved: int) -> None:
-        """One plan's prefix-index probes and the prompt tokens its hits
-        saved, into the registry families."""
+    def _count_lookups(self, hits: int, misses: int, saved: int,
+                       depths: List[int]) -> None:
+        """One plan's prefix-index probes, the reuse depth each hit
+        reached and the prompt tokens its hits saved, into the registry
+        families."""
         if hits:
             obs.generator_prefix_lookups_total().labels(
                 model=self.name, outcome="hit").inc(hits)
+            fam = obs.generator_prefix_reuse_depth_hits()
+            for depth in depths:
+                fam.labels(model=self.name).observe(depth)
         if misses:
             obs.generator_prefix_lookups_total().labels(
                 model=self.name, outcome="miss").inc(misses)
@@ -818,15 +1138,21 @@ class GenerationEngine:
                 model=self.name).inc(saved)
 
     def _ensure_block_capacity(self) -> List[int]:
-        """Grow active slots' tables to cover the positions the next
-        pipeline_depth waves can reach.  Returns the slots that could
-        not grow."""
+        """Grow decodable slots' tables to cover the positions the next
+        pipeline_depth waves (or one spec wave's K + 1 positions) can
+        reach.  Returns the slots that could not grow."""
+        if self.block_size is None:
+            return []
         bs = self.block_size
         horizon = self.steps_per_call * self.pipeline_depth + 1
+        if self.spec_tokens:
+            horizon = max(horizon, self.spec_tokens + 2)
         failed: List[int] = []
         with self._block_lock:
             for i, s in enumerate(self._slots):
-                if s is None:
+                if s is None or s.prefilling:
+                    # A prefilling slot holds its whole prompt's blocks
+                    # and decodes nothing yet.
                     continue
                 need = min((s.length + horizon + bs - 1) // bs,
                            self.blocks_per_slot)
@@ -859,10 +1185,25 @@ class GenerationEngine:
             return t.to(self.device, non_blocking=True)
         return t.clone()
 
+    def _stage(self, static: torch.Tensor, host: np.ndarray) -> None:
+        """Queue the copy of ``host`` (int32) into a static input."""
+        static.copy_(self._to_host_staging(host.astype(np.int32)),
+                     non_blocking=True)
+
+    def _kv(self, table: torch.Tensor) -> list:
+        """The decoder's per-layer cache argument: (pool_k, pool_v,
+        table) 3-tuples in paged mode, the (k, v) slot caches in dense
+        mode (which take no table)."""
+        if self.block_size is None:
+            return self._caches
+        return [(pk, pv, table) for pk, pv in self._caches]
+
     def _start_fetch(self, tensors: List[torch.Tensor]) -> _Fetch:
-        """Queue device -> pinned host copies behind an event."""
+        """Queue device -> pinned host copies behind an event (on the
+        CPU, copies: a static input may be staged again before the
+        fetch)."""
         if self.device.type != "cuda":
-            return _Fetch(list(tensors), None)
+            return _Fetch([t.clone() for t in tensors], None)
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for h, t in zip(host, tensors):
@@ -903,6 +1244,14 @@ class GenerationEngine:
                  want_lp)
         return (temps, top_ks, top_ps, seeds), flags
 
+    @staticmethod
+    def _sampling_bits(arrays) -> np.ndarray:
+        """The four sampling arrays as one int32 array (floats as their
+        bits), in the static inputs' order."""
+        temps, top_ks, top_ps, seeds = arrays
+        return np.concatenate([temps.view(np.int32), top_ks,
+                               top_ps.view(np.int32), seeds])
+
     def _sampling(self, rows: List[Optional[_Request]], n: int) -> _Sampling:
         """Per-row sampling arrays on the device for a dispatch of n
         rows (None rows: padding or free slots, greedy)."""
@@ -932,47 +1281,68 @@ class GenerationEngine:
         top_lps, top_ids = torch.topk(lps, self.logprob_topk, dim=-1)
         return chosen_lp, top_ids.to(torch.int32), top_lps
 
+    def _run_program(self, key: tuple, fn) -> List[torch.Tensor]:
+        """Enqueue thread: run program ``key`` (``fn`` over its static
+        inputs) from its graph on the card, captured at its first
+        dispatch, which runs eagerly; eagerly on the CPU.  Returns the
+        program's outputs."""
+        if self.device.type != "cuda":
+            return fn()
+        program = self._programs.get(key)
+        if program is None:
+            return self._compile_program(key, fn)
+        graph, outputs, tally = program
+        graphs.replay(graph, tally)
+        return outputs
+
+    def _compile_program(self, key: tuple, fn) -> List[torch.Tensor]:
+        """The first dispatch of a program: run it eagerly (its results
+        are this dispatch's), then capture the same program into a
+        graph whose outputs are static.  Returns the eager outputs."""
+        out = fn()
+        t0 = time.perf_counter()
+        graph, outputs, tally = graphs.capture(fn, self._stream,
+                                               self._pool)
+        self._programs[key] = (graph, outputs, tally)
+        self.wave_captures += 1
+        self.capture_ms_total += (time.perf_counter() - t0) * 1e3
+        compile_cache.note_compilation(self.compile_source, key)
+        return out
+
     def _enqueue_wave(self):
         """Dispatch one decode wave of steps_per_call steps over every
         slot; the feed arrays carry the last step's tokens/positions to
-        the next wave on the device."""
+        the next wave on the device.  Prefilling slots are None in the
+        snapshot: the wave decodes their parked rows, whose writes drop
+        and whose tokens are discarded."""
         S = self.max_slots
-        snapshot = list(self._slots)
+        snapshot = [None if (s is not None and s.prefilling) else s
+                    for s in self._slots]
         with self._block_lock:
             table_h = self._tables.copy()
         arrays, flags = self._sampling_arrays(
-            [None if s is None else s.req for s in snapshot], S)
+            [None if s is None else s.req for s in self._slots], S)
         with torch.inference_mode(), self._device_scope():
             handle = self._start_fetch(self._run_wave(table_h, arrays,
                                                       flags))
         self.decode_steps += 1
         return handle, snapshot, time.perf_counter()
 
+    def _wave_key(self, flags) -> tuple:
+        return ("decode", self.max_slots, self.steps_per_call) + tuple(flags)
+
     def _run_wave(self, table: np.ndarray, arrays, flags) -> List[
             torch.Tensor]:
         """Enqueue thread: stage the wave's table and sampling arrays
-        into the static input and run the wave, from its graph on the
-        card (compiled at its first wave) or eagerly on the CPU.  Returns
-        the wave's output tensors."""
+        into the static input and run the wave.  Returns its outputs."""
         p = self._stage_wave(table, arrays, flags)
-        if self.device.type != "cuda":
-            return self._wave(p)
-        key = (self.max_slots, self.steps_per_call) + tuple(flags)
-        program = self._programs.get(key)
-        if program is None:
-            return self._compile_wave(key, p)
-        graph, outputs, tally = program
-        graphs.replay(graph, tally)
-        return outputs
+        return self._run_program(self._wave_key(flags), lambda: self._wave(p))
 
     def _stage_wave(self, table: np.ndarray, arrays, flags) -> _Sampling:
         """Queue the copy of a wave's table and sampling arrays into the
         static input; returns the wave's sampling view of it."""
-        temps, top_ks, top_ps, seeds = arrays
-        host = np.concatenate([
-            table.astype(np.int32).ravel(), temps.view(np.int32), top_ks,
-            top_ps.view(np.int32), seeds])
-        self._wave_in.copy_(self._to_host_staging(host), non_blocking=True)
+        self._stage(self._wave_in, np.concatenate([
+            table.astype(np.int32).ravel(), self._sampling_bits(arrays)]))
         return _Sampling(*self._wave_sampling, *flags)
 
     def _to_host_staging(self, arr: np.ndarray) -> torch.Tensor:
@@ -993,26 +1363,10 @@ class GenerationEngine:
         self._feed_positions[:S] = positions
         return out
 
-    def _compile_wave(self, key: tuple, p: _Sampling
-                      ) -> List[torch.Tensor]:
-        """The first wave of a variant: run it eagerly (its tokens are
-        this wave's), then capture the same program into a graph whose
-        outputs are static.  Returns the eager wave's outputs."""
-        out = self._wave(p)
-        t0 = time.perf_counter()
-        graph, outputs, tally = graphs.capture(lambda: self._wave(p),
-                                               self._stream, self._pool)
-        self._programs[key] = (graph, outputs, tally)
-        self.wave_captures += 1
-        self.capture_ms_total += (time.perf_counter() - t0) * 1e3
-        compile_cache.note_compilation(self.compile_source,
-                                       ("decode",) + key)
-        return out
-
     def _warm_greedy_wave(self) -> None:
         """Enqueue thread, at engine start: compile the greedy wave.  No
         slot is live, so its eager run decodes the free rows, which
-        write only the sink block."""
+        write only the sink."""
         S = self.max_slots
         table = np.full((S, self.blocks_per_slot), -1, np.int32)
         arrays, flags = self._sampling_arrays([None] * S, S)
@@ -1025,8 +1379,8 @@ class GenerationEngine:
         feeding the last one's tokens.  Returns ([tokens [S, K], then
         the logprob arrays when asked], last tokens, next positions)."""
         toks, lps = [], []
+        kv = self._kv(table)
         for _ in range(self.steps_per_call):
-            kv = [(pk, pv, table) for pk, pv in self._caches]
             logits, _ = self.module(tokens[:, None], positions=positions,
                                     kv_cache=kv)
             lg = logits[:, 0]
@@ -1044,11 +1398,13 @@ class GenerationEngine:
 
     def _enqueue_prefill_group(self, group: List[_Request],
                                slots: List[int], bucket: int,
-                               dest_rows: List[List[int]]) -> _Fetch:
+                               dest_rows: Optional[List[List[int]]]
+                               ) -> _Fetch:
         """Dispatch one bucket-padded prefill for the group, insert its
-        k/v into the pool and its first tokens into the feed arrays; no
-        host sync.  Rows pad to a power of two (padding rows: length 1,
-        feed row = the sink row, every block dropped)."""
+        k/v into the pool blocks (paged) or the group's slot rows
+        (dense), and its first tokens into the feed arrays; no host
+        sync.  Rows pad to a power of two (padding rows: length 1, feed
+        row = the sink row, every write dropped)."""
         b = len(group)
         b_bucket = 1
         while b_bucket < b:
@@ -1056,13 +1412,11 @@ class GenerationEngine:
         ids = np.zeros((b_bucket, bucket), np.int32)
         lengths = np.ones(b_bucket, np.int32)
         slot_arr = np.full(b_bucket, self.max_slots, np.int64)
-        dest = np.full((b_bucket, bucket // self.block_size), -1, np.int64)
         for i, (req, slot) in enumerate(zip(group, slots)):
             n = req.prompt_ids.size
             ids[i, :n] = req.prompt_ids
             lengths[i] = n
             slot_arr[i] = slot
-            dest[i, :len(dest_rows[i])] = dest_rows[i]
             # Real-token FLOPs: matmuls plus causal attention's
             # triangular sum; padding burns device time without them.
             self._prefill_flops += (self._flops_matmul_per_token * n
@@ -1080,17 +1434,232 @@ class GenerationEngine:
                                          logit_positions=lengths_d - 1)
             last = logits[:, 0]
             firsts = self._sample(last, p, lengths_d)
-            dest_d = self._to_device(dest)
-            for (pk, pv), (k, v) in zip(self._caches, caches):
-                paged_insert(pk, pv, k, v, dest_d)
-            del caches
             slot_d = self._to_device(slot_arr)
+            if dest_rows is not None:
+                dest = np.full((b_bucket, bucket // self.block_size), -1,
+                               np.int64)
+                for i, row in enumerate(dest_rows):
+                    dest[i, :len(row)] = row
+                dest_d = self._to_device(dest)
+                for (pk, pv), (k, v) in zip(self._caches, caches):
+                    paged_insert(pk, pv, k, v, dest_d)
+            else:
+                # Dense: the real rows into their slots' first `bucket`
+                # positions (the padding rows are not written).
+                rows = slot_d[:b]
+                for (kc, vc), (k, v) in zip(self._caches, caches):
+                    kc[rows, :bucket] = k[:b].to(kc.dtype)
+                    vc[rows, :bucket] = v[:b].to(vc.dtype)
+            del caches
             self._feed_tokens[slot_d] = firsts
             self._feed_positions[slot_d] = lengths_d
             out = [firsts]
             if p.want_lp:
                 out += list(self._logprob_of(last, firsts))
             return self._start_fetch(out)
+
+    # -- chunked prefill (device side) --------------------------------------
+    def _enqueue_chunk(self, slot: int, act: _Active, idx: int,
+                       final: bool) -> _Fetch:
+        """Enqueue thread: dispatch chunk ``idx`` of a cold prompt.  The
+        program parks the slot's feed row (decode waves' writes for it
+        must drop until its first token exists), writes the chunk's k/v
+        through the slot's table row, attends per query over the pool,
+        and samples at the chunk's last real query; the final chunk's
+        token and the prompt length land in the slot's feed row, so the
+        next wave decodes the slot without a host round trip.  The table
+        row is cut to the blocks chunks 0..idx cover (one program per
+        chunk index, as the JAX engine's)."""
+        req = act.req
+        C = self.prefill_chunk_tokens
+        MB = self.blocks_per_slot
+        n = int(req.prompt_ids.size)
+        start = idx * C
+        end = min(start + C, n)
+        width = end - start
+        # This chunk's queries attend the resident prefix up to their own
+        # positions: the monolithic path's triangular term, per chunk.
+        self._prefill_flops += (
+            self._flops_matmul_per_token * width
+            + self._attn_flops_coeff * width * (start + end) / 2.0)
+        nb = min((idx + 1) * (C // self.block_size), MB)
+        with self._block_lock:
+            row = self._tables[slot].copy()
+        host = np.zeros(2 * C + MB + 8, np.int32)
+        host[:width] = req.prompt_ids[start:end]
+        # Padding queries of a partial final chunk park on the
+        # out-of-range position: their writes drop.
+        host[C:2 * C] = self.max_seq
+        host[C:C + width] = np.arange(start, end, dtype=np.int32)
+        host[2 * C:2 * C + MB] = row
+        tail = 2 * C + MB
+        host[tail:tail + 4] = (max(width - 1, 0), slot,
+                               slot if final else self.max_slots, n)
+        arrays, flags = self._sampling_arrays([req], 1)
+        host[tail + 4:] = self._sampling_bits(arrays)
+        with torch.inference_mode(), self._device_scope():
+            self._stage(self._chunk_in, host)
+            p = _Sampling(*self._sampling_views(
+                self._chunk_in[tail + 4:], 1), *flags)
+            out = self._run_program(("chunk", nb) + flags,
+                                    lambda: self._chunk_program(nb, p))
+            return self._start_fetch(out)
+
+    def _chunk_program(self, nb: int, p: _Sampling) -> List[torch.Tensor]:
+        C = self.prefill_chunk_tokens
+        MB = self.blocks_per_slot
+        ci = self._chunk_in
+        ids = ci[:C].view(1, C)
+        qpos = ci[C:2 * C].view(1, C)
+        row = ci[2 * C:2 * C + MB].view(1, MB)[:, :nb]
+        tail = 2 * C + MB
+        last_idx, park, feed, length = (ci[tail + i:tail + i + 1]
+                                        for i in range(4))
+        park, feed = park.long(), feed.long()
+        self._feed_tokens.index_fill_(0, park, 0)
+        self._feed_positions.index_fill_(0, park, self.max_seq)
+        logits, _ = self.module(ids, positions=qpos, kv_cache=self._kv(row),
+                                logit_positions=last_idx)
+        lg = logits[:, 0]
+        # Noise keyed on the full prompt length: the monolithic prefill's
+        # first-token draw.
+        first = self._sample(lg, p, length)
+        self._feed_tokens[feed] = first
+        self._feed_positions[feed] = length
+        out = [first]
+        if p.want_lp:
+            out += list(self._logprob_of(lg, first))
+        return out
+
+    # -- speculative decoding (device side) ---------------------------------
+    def _spec_views(self):
+        """(last [S], proposals [S, K], query positions [S, K + 1],
+        table [S, MB], sampling) views of the verify's static input."""
+        S, K, MB = self.max_slots, self.spec_tokens, self.blocks_per_slot
+        si = self._spec_in
+        o1, o2 = S, S + S * K
+        o3 = o2 + S * (K + 1)
+        o4 = o3 + S * MB
+        return (si[:o1], si[o1:o2].view(S, K), si[o2:o3].view(S, K + 1),
+                si[o3:o4].view(S, MB), self._sampling_views(si[o4:], S))
+
+    def _enqueue_spec_wave(self, eligible, ngram: Optional[np.ndarray],
+                           windows: Optional[np.ndarray],
+                           host_draft_ms: float):
+        """Enqueue thread: stage the verify (and the draft's windows),
+        run the draft program when a draft model proposes (it writes its
+        proposals into the verify's input on the card: no host round
+        trip between them) and the K + 1-position verify.  Rows not in
+        ``eligible`` park on the max_seq position: their writes drop and
+        their samples are discarded."""
+        S, K = self.max_slots, self.spec_tokens
+        last = np.zeros(S, np.int32)
+        qpos = np.full((S, K + 1), self.max_seq, np.int32)
+        for i, s in eligible:
+            last[i] = s.last_token
+            qpos[i] = s.length + np.arange(K + 1, dtype=np.int32)
+        with self._block_lock:
+            table = self._tables.copy()
+        arrays, flags = self._sampling_arrays(
+            [None if s is None else s.req for s in self._slots], S)
+        draft = ngram if ngram is not None else np.zeros((S, K), np.int32)
+        host = np.concatenate([last, draft.ravel(), qpos.ravel(),
+                               table.ravel(), self._sampling_bits(arrays)])
+        draft_event = None
+        with torch.inference_mode(), self._device_scope():
+            self._stage(self._spec_in, host)
+            if windows is not None:
+                self._stage(self._draft_in, windows.ravel())
+                self._run_program(("spec_draft", S, self._draft_window),
+                                  self._draft_program)
+                if self.device.type == "cuda":
+                    draft_event = torch.cuda.Event()
+                    draft_event.record()
+            p = _Sampling(*self._spec_views()[4], *flags)
+            handle = self._start_fetch(self._run_program(
+                ("spec_verify", S, K + 1) + flags,
+                lambda: self._verify_program(p)))
+        handle.draft_event = draft_event
+        self.decode_steps += 1
+        self.spec_waves += 1
+        return handle, (list(eligible), host_draft_ms), time.perf_counter()
+
+    def _draft_program(self) -> List[torch.Tensor]:
+        S, W = self.max_slots, self._draft_window
+        proposals = self._draft_proposer(self._draft_in.view(S, W))
+        self._spec_views()[1].copy_(proposals)
+        return [proposals]
+
+    def _verify_program(self, p: _Sampling) -> List[torch.Tensor]:
+        """Row i feeds [last token, proposals] at positions [L, L + K];
+        the head runs at all K + 1 positions, and position j's draw uses
+        the noise a sequential decode would use there, (seed, position +
+        1).  The forward is the decoder's stepwise mode: the JAX verify
+        is one Lq = K + 1 forward, whose logits equal a sequential
+        decode's only where products round alike at every shape; on the
+        card they do not (a bf16 product at M = S(K + 1) and one at
+        M = S differ in the last bit, and a greedy stream forks at the
+        next near-tie), so each position runs at the decode step's
+        shapes, through the paged kernel.  No cache rollback: the host's
+        length advances only over accepted positions, and later writes
+        replace the rest before any query reads them."""
+        S, K = self.max_slots, self.spec_tokens
+        last, draft, qpos, table, _ = self._spec_views()
+        tokens = torch.cat([last[:, None], draft], dim=1)
+        logits, _ = self.module(tokens, positions=qpos,
+                                kv_cache=self._kv(table), stepwise=True)
+        flat = logits.reshape(S * (K + 1), -1)
+        rep = [a.repeat_interleave(K + 1)
+               for a in (p.temps, p.top_ks, p.top_ps, p.seeds)]
+        samples = self._sample(flat, _Sampling(*rep, p.any_sampled,
+                                               p.need_mask, p.want_lp),
+                               (qpos + 1).reshape(-1))
+        out = [samples.view(S, K + 1), draft]
+        if p.want_lp:
+            chosen, ids, lps = self._logprob_of(flat, samples)
+            out += [chosen.view(S, K + 1), ids.view(S, K + 1, -1),
+                    lps.view(S, K + 1, -1)]
+        return out
+
+    def _fetch_spec(self, handle: _Fetch):
+        """Fetch executor: join a spec wave.  The draft's event first:
+        its time splits the wave's busy interval into draft and
+        verify."""
+        t0 = time.perf_counter()
+        draft_ready_s = 0.0
+        if handle.draft_event is not None:
+            handle.draft_event.synchronize()
+            draft_ready_s = time.perf_counter() - t0
+        if handle.event is not None:
+            handle.event.synchronize()
+        arrays = [h.numpy() for h in handle.host]
+        lp = tuple(arrays[2:]) if len(arrays) > 2 else None
+        return ((arrays[0], arrays[1], draft_ready_s), lp,
+                time.perf_counter() - t0)
+
+    def _enqueue_resynced_wave(self):
+        """Enqueue thread: write the device feed rows from host slot
+        state, then dispatch a plain decode wave.  Spec waves are
+        host-fed and leave the device feed behind; rows whose first
+        token is still in the FIFO (last_token < 0) keep the values the
+        prefill wrote, and parked or free rows their stale ones."""
+        S = self.max_slots
+        host = np.zeros((3, S), np.int32)
+        host[0] = S      # the sink row: keep
+        for i, s in enumerate(self._slots):
+            if s is not None and not s.prefilling and s.last_token >= 0:
+                host[:, i] = (i, s.last_token, s.length)
+        with torch.inference_mode(), self._device_scope():
+            self._stage(self._resync_in, host.ravel())
+            self._run_program(("feed_resync", S), self._resync_program)
+        return self._enqueue_wave()
+
+    def _resync_program(self) -> List[torch.Tensor]:
+        S = self.max_slots
+        rows = self._resync_in[:S].long()
+        self._feed_tokens[rows] = self._resync_in[S:2 * S]
+        self._feed_positions[rows] = self._resync_in[2 * S:]
+        return []
 
     # -- scheduler ---------------------------------------------------------
     def _free_slot(self) -> Optional[int]:
@@ -1158,32 +1727,38 @@ class GenerationEngine:
         return next(b for b in self.prefill_buckets if b >= n)
 
     def _take_prefill_group(self):
-        """Pop the front run of pending requests that share a prefill
-        bucket, up to the free slot count, planning each one's blocks;
-        strict FIFO.  A request the pool cannot hold yet stays pending.
-        Returns (group, slots, bucket, dest_rows)."""
+        """Pop the front run of pending (not cold) requests that share a
+        prefill bucket, up to the free slot count, planning each one's
+        blocks in paged mode; strict FIFO.  A request the pool cannot
+        hold yet stays pending.  Returns (group, slots, bucket,
+        dest_rows), dest_rows None in dense mode."""
         free = [i for i, s in enumerate(self._slots) if s is None]
         group: List[_Request] = []
         bucket = 0
-        dest_rows: List[List[int]] = []
+        dest_rows: Optional[List[List[int]]] = (
+            [] if self.block_size is not None else None)
         while self._pending and len(group) < len(free):
+            if self._is_cold(self._pending[0]):
+                break  # cold prompts take the chunked path
             b = self._bucket_for(self._pending[0].prompt_ids.size)
             if not group:
                 bucket = b
             elif b != bucket:
                 break
-            plan = self._plan_prompt_blocks(self._pending[0],
-                                            free[len(group)])
-            if plan is None:
-                break  # pool pressure: wait for released blocks
-            dest_rows.append(plan)
+            if dest_rows is not None:
+                plan = self._plan_prompt_blocks(self._pending[0],
+                                                free[len(group)])
+                if plan is None:
+                    break  # pool pressure: wait for released blocks
+                dest_rows.append(plan)
             group.append(self._pending.popleft())
         return group, free[:len(group)], bucket, dest_rows
 
     async def _run_inner(self):
         loop = asyncio.get_running_loop()
-        # Decode waves and prefill groups share one FIFO of dispatched,
-        # unfetched work: ("decode" | "prefill", fetch future, meta, t0).
+        # Decode waves, spec waves, prefill groups and chunks share one
+        # FIFO of dispatched, unfetched work: (kind, fetch future, meta,
+        # t0).
         inflight: deque = deque()
         try:
             await self._run_pipeline(loop, inflight)
@@ -1193,10 +1768,17 @@ class GenerationEngine:
                     lambda f: f.cancelled() or f.exception())
 
     async def _admit(self, loop, inflight: deque) -> bool:
-        """Admit pending requests while slots and blocks allow."""
+        """Admit pending requests while slots (and blocks) allow: a cold
+        prompt at the front takes the chunked path, the rest ride
+        bucketed prefill groups."""
         admitted = False
         while (not self._growth_starved and self._pending
                and self._free_slot() is not None):
+            if self._is_cold(self._pending[0]):
+                if not await self._admit_chunked(loop, inflight):
+                    break  # pool pressure: wait for frees
+                admitted = True
+                continue
             group, slots, bucket, dest_rows = self._take_prefill_group()
             if not group:
                 break  # pool pressure: wait for frees
@@ -1234,21 +1816,151 @@ class GenerationEngine:
             admitted = True
         return admitted
 
+    # -- chunked prefill (scheduler side) -----------------------------------
+    def _is_cold(self, req: _Request) -> bool:
+        return (self.prefill_chunk_tokens is not None
+                and int(req.prompt_ids.size) > self.prefill_chunk_tokens)
+
+    def _chunk_shared(self, act: _Active, idx: int) -> bool:
+        """Every block of chunk ``idx`` was a prefix hit: the pool holds
+        its k/v already, and its dispatch is skipped."""
+        bpc = self.prefill_chunk_tokens // self.block_size
+        lo = idx * bpc
+        hi = min(lo + bpc, len(act.chunk_dest))
+        return all(act.chunk_dest[c] == -1 for c in range(lo, hi))
+
+    async def _admit_chunked(self, loop, inflight: deque) -> bool:
+        """Admit the front (cold) request onto a free slot: plan all its
+        blocks now (hits share; fresh registrations wait for their
+        chunk), install the slot as prefilling and dispatch the first
+        chunk.  False on pool pressure: the request stays pending."""
+        slot = self._free_slot()
+        req = self._pending[0]
+        chunk_regs: Dict[int, Tuple[bytes, int]] = {}
+        dest = self._plan_prompt_blocks(req, slot, chunk_regs=chunk_regs)
+        if dest is None:
+            return False
+        self._pending.popleft()
+        n = int(req.prompt_ids.size)
+        act = _Active(req=req, length=n, last_token=-1, generated=0,
+                      prefilling=True,
+                      chunk_total=-(-n // self.prefill_chunk_tokens),
+                      chunk_dest=dest, chunk_regs=chunk_regs)
+        self._slots[slot] = act
+        self.chunked_admissions += 1
+        await self._step_chunk(loop, inflight, slot, act)
+        return True
+
+    async def _step_chunk(self, loop, inflight: deque, slot: int,
+                          act: _Active) -> None:
+        """Dispatch the next chunk of a prefilling slot into the FIFO,
+        skipping chunks of prefix hits (never the final one: it samples
+        the first token)."""
+        idx = act.chunk_next
+        # kfslint: disable=spin-loop — bounded by chunk_total (each pass
+        # increments idx); no other coroutine gates the exit.
+        while idx < act.chunk_total - 1 and self._chunk_shared(act, idx):
+            self.prefill_chunks_skipped += 1
+            obs.generator_prefill_chunks_total().labels(
+                outcome="skipped_shared").inc()
+            idx += 1
+        final = idx >= act.chunk_total - 1
+        act.chunk_next = idx + 1
+        try:
+            handle = await loop.run_in_executor(
+                self._enqueue_executor, self._enqueue_chunk, slot, act,
+                idx, final)
+        except Exception as e:
+            # As a failed prefill enqueue: fail this request, release its
+            # blocks; its deferred registrations were never published.
+            logger.exception("chunk-prefill enqueue failed")
+            if self._slots[slot] is act:
+                self._free_slot_state(slot)
+                act.req.out.put_nowait((None, f"error: prefill failed: {e}"))
+            return
+        if self._slots[slot] is act:
+            # This chunk's fresh blocks are backed by a dispatched write
+            # now (a cancel during the enqueue released them: no
+            # publish then).
+            self._register_chunk_blocks(act, idx)
+            if final:
+                # The first token is in the feed arrays: waves enqueued
+                # from here decode the slot.
+                act.prefilling = False
+        self.prefill_chunks += 1
+        obs.generator_prefill_chunks_total().labels(
+            outcome="dispatched").inc()
+        act.chunks_inflight += 1
+        fut = loop.run_in_executor(self._executor, self._fetch, handle)
+        inflight.append(("chunk", fut, (slot, act, idx, final),
+                         time.perf_counter()))
+
+    def _register_chunk_blocks(self, act: _Active, idx: int) -> None:
+        if not act.chunk_regs:
+            return
+        bpc = self.prefill_chunk_tokens // self.block_size
+        lo = idx * bpc
+        hi = min(lo + bpc, len(act.chunk_dest))
+        with self._block_lock:
+            for c in range(lo, hi):
+                reg = act.chunk_regs.pop(c, None)
+                if reg is None:
+                    continue
+                chain, blk = reg
+                if self._prefix_index.get(chain) is not None:
+                    # An identical admission registered the chain first:
+                    # keep the canonical entry; this block stays private.
+                    continue
+                self._prefix_index[chain] = blk
+                self._block_chain[blk] = chain
+
+    async def _dispatch_chunks(self, loop, inflight: deque) -> None:
+        """Mid-prefill slots dispatch their next chunks: one chunk in
+        flight a slot while streams decode (chunks and waves alternate
+        in the FIFO, so a stream stalls one chunk at a time), up to
+        max(2, pipeline_depth) with no decodable stream."""
+        decodable_now = any(s is not None and not s.prefilling
+                            for s in self._slots)
+        limit = 1 if decodable_now else max(2, self.pipeline_depth)
+        for i, s in enumerate(list(self._slots)):
+            while (s is not None and s.prefilling
+                   and self._slots[i] is s
+                   and s.chunks_inflight < limit
+                   and s.chunk_next < s.chunk_total):
+                await self._step_chunk(loop, inflight, i, s)
+
     def _preempt_or_hold(self) -> bool:
-        """Grow every active slot's table; returns True to HOLD.  A slot
-        the pool cannot grow is preempted: its request re-queues at the
-        front with prompt = prompt + tokens so far, and resumes exactly
-        (the noise is keyed on the absolute position).  While freed
-        blocks are still maturing, the scheduler holds instead."""
+        """Grow every decodable slot's table; returns True to HOLD.  On
+        pool pressure prefilling slots yield their blocks first (nothing
+        was sampled for them: they restart from the queue's front), and
+        the failing streams hold while those blocks, or frees already
+        maturing through the deferral window, come back.  Otherwise a
+        slot the pool cannot grow is preempted: its request re-queues at
+        the front with prompt = prompt + tokens so far and resumes
+        exactly (the noise is keyed on the absolute position)."""
         failed = self._ensure_block_capacity()
-        if failed and self._deferred_frees:
+        if not failed:
+            return False
+        yielded = False
+        for i, s in enumerate(self._slots):
+            if s is not None and s.prefilling:
+                self._free_slot_state(i)
+                self._pending.appendleft(s.req)
+                self.preemptions += 1
+                yielded = True
+        if yielded or self._deferred_frees:
             return True
         for i in failed:
             s = self._slots[i]
             if s is None:
                 continue
             merged_len = int(s.req.prompt_ids.size) + len(s.tokens)
-            if (merged_len > self.prefill_buckets[-1]
+            # A merged sequence past the largest bucket still resumes
+            # when the chunked path can carry it.
+            fits = (merged_len <= self.prefill_buckets[-1]
+                    or (self.prefill_chunk_tokens is not None
+                        and merged_len > self.prefill_chunk_tokens))
+            if (not fits
                     or -(-merged_len // self.block_size) > self.num_blocks
                     or s.req.max_new_tokens - s.generated < 1):
                 s.req.out.put_nowait((None,
@@ -1285,12 +1997,23 @@ class GenerationEngine:
                                 s is not None for s in self._slots):
                             return  # idle; a submit restarts the loop
                 continue
+            # Chunks first: a slot whose final chunk lands here becomes
+            # decodable, and its table must grow to the decode horizon
+            # before this iteration's waves.
+            await self._dispatch_chunks(loop, inflight)
             held = self._preempt_or_hold()
             self._growth_starved = held
-            decodable = [] if held else [s for s in self._slots
-                                         if s is not None]
-            waves = sum(1 for it in inflight if it[0] == "decode")
-            while decodable and waves < self.pipeline_depth:
+            decodable = [] if held else [
+                s for s in self._slots if s is not None and not s.prefilling]
+            waves = sum(1 for it in inflight if it[0] in ("decode", "spec"))
+            if self.spec_tokens and decodable and waves == 0:
+                # Speculative mode runs at depth 1: a spec wave is fed
+                # from the host's committed histories, so it waits for
+                # the last wave's verdicts.
+                await self._spec_or_fallback_wave(loop, inflight)
+                waves = 1
+            while not self.spec_tokens and decodable \
+                    and waves < self.pipeline_depth:
                 if (self.adaptive_depth and waves >= 1 and all(
                         s.req.max_new_tokens - s.generated
                         <= waves * self.steps_per_call
@@ -1328,6 +2051,15 @@ class GenerationEngine:
                             act.req.out.put_nowait(
                                 (None, f"error: prefill failed: {e}"))
                     continue
+                if kind == "chunk":
+                    slot, act, _idx, _final = meta
+                    act.chunks_inflight -= 1
+                    logger.exception("chunk prefill failed")
+                    if self._slots[slot] is act:
+                        self._free_slot_state(slot)
+                        act.req.out.put_nowait(
+                            (None, f"error: prefill failed: {e}"))
+                    continue
                 raise
             now = time.perf_counter()
             busy = now - max(t0, self._last_fetch_done)
@@ -1336,11 +2068,31 @@ class GenerationEngine:
                 self._decode_device_s += busy
                 self._decode_wait_s += wait_s
                 self._distribute(fetched, lp, meta)
+            elif kind == "spec":
+                self._decode_device_s += busy
+                self._decode_wait_s += wait_s
+                self._finish_spec(fetched, lp, meta, busy)
+            elif kind == "chunk":
+                self._prefill_device_s += busy
+                self._prefill_wait_s += wait_s
+                # The stall this chunk put between decode fetches.
+                obs.generator_prefill_chunk_stall_ms().observe(busy * 1e3)
+                self._finish_chunk(fetched, lp, meta)
             else:
                 self._prefill_device_s += busy
                 self._prefill_wait_s += wait_s
                 self._finish_prefill(fetched, lp, meta)
             self._process_deferred_frees()
+
+    def _finish_chunk(self, first: np.ndarray, lp, meta) -> None:
+        """A fetched chunk; the final one carries the stream's first
+        token (the feed arrays had it at enqueue, so waves in between
+        decoded the slot; FIFO order delivers this token first)."""
+        slot, act, _idx, final = meta
+        act.chunks_inflight -= 1
+        if final and self._slots[slot] is act:
+            self.prefill_requests += 1
+            self._emit(slot, int(first[0]), _lp_record(lp, act.req, 0))
 
     def _finish_prefill(self, firsts: np.ndarray, lp, entries):
         """Deliver a prefill batch's first tokens; a slot whose _Active
@@ -1427,6 +2179,156 @@ class GenerationEngine:
             self._decode_hbm_bytes += k * (
                 self._param_read_bytes
                 + resident_tokens * self._kv_bytes_per_token)
+
+
+    # -- speculative decoding (scheduler side) ------------------------------
+    async def _spec_or_fallback_wave(self, loop, inflight: deque) -> None:
+        """Enqueue one wave in speculative mode: a draft/verify wave over
+        the host-feedable slots, or a plain wave after re-syncing the
+        device feed when a spec fault site trips or no slot has a
+        host-visible last token yet (a prefill's first token still in
+        the FIFO: its device feed row is right, so the plain wave
+        decodes it).  The tokens are the same either way."""
+        eligible = [(i, s) for i, s in enumerate(self._slots)
+                    if s is not None and not s.prefilling
+                    and s.last_token >= 0]
+        fall_site = await self._probe_spec_fault() if eligible else None
+        if eligible and fall_site is None:
+            ngram = windows = None
+            host_ms = 0.0
+            if self._draft_module is not None:
+                windows = rolling_windows(
+                    [self._spec_history(s) for _, s in eligible],
+                    self.max_slots, [i for i, _ in eligible],
+                    self._draft_window)
+            else:
+                ngram, host_ms = self._propose_ngram(eligible)
+            handle, meta, t0 = await loop.run_in_executor(
+                self._enqueue_executor, self._enqueue_spec_wave,
+                eligible, ngram, windows, host_ms)
+            fut = loop.run_in_executor(self._executor, self._fetch_spec,
+                                       handle)
+            inflight.append(("spec", fut, meta, t0))
+            return
+        if fall_site is not None:
+            self._count_spec_fallback(fall_site)
+        handle, snap, t0 = await loop.run_in_executor(
+            self._enqueue_executor, self._enqueue_resynced_wave)
+        fut = loop.run_in_executor(self._executor, self._fetch, handle)
+        inflight.append(("decode", fut, snap, t0))
+
+    async def _probe_spec_fault(self) -> Optional[str]:
+        """The speculative path's fault sites, probed on the loop: an
+        injected error at either degrades THIS wave to plain decode."""
+        if faults.configured(fault_sites.ENGINE_SPEC_DRAFT):
+            try:
+                await faults.inject(fault_sites.ENGINE_SPEC_DRAFT,
+                                    key=self.name)
+            except FaultInjected:
+                return "draft"
+        if faults.configured(fault_sites.ENGINE_SPEC_VERIFY):
+            try:
+                await faults.inject(fault_sites.ENGINE_SPEC_VERIFY,
+                                    key=self.name)
+            except FaultInjected:
+                return "verify"
+        return None
+
+    def _count_spec_fallback(self, site: str) -> None:
+        self.spec_fallbacks[site] = self.spec_fallbacks.get(site, 0) + 1
+        obs.specdec_fallbacks_total().labels(model=self.name,
+                                             site=site).inc()
+
+    @staticmethod
+    def _spec_history(s: _Active) -> List[int]:
+        """A slot's committed stream: prompt + emitted content tokens
+        (which end with last_token), the prefix the next draw extends."""
+        return [int(t) for t in s.req.prompt_ids] + s.tokens
+
+    def _propose_ngram(self, eligible) -> Tuple[np.ndarray, float]:
+        """Host-side prompt-lookup proposals for the eligible rows, and
+        their host ms (the n-gram arm's draft cost)."""
+        t0 = time.perf_counter()
+        draft = np.zeros((self.max_slots, self.spec_tokens), np.int32)
+        for i, s in eligible:
+            draft[i] = self._ngram.propose(self._spec_history(s))
+        return draft, (time.perf_counter() - t0) * 1000.0
+
+    def _finish_spec(self, fetched, lp, meta, busy: float) -> None:
+        """Split a fetched spec wave's busy interval into draft and
+        verify (the draft model's program completes before the verify
+        on the stream; the n-gram head's cost is host time), then
+        commit its rows."""
+        samples, draft, draft_ready_s = fetched
+        entries, host_draft_ms = meta
+        dev_ms = max(0.0, busy) * 1e3
+        if self._draft_module is not None:
+            draft_ms = min(max(draft_ready_s * 1e3, 0.0), dev_ms)
+            verify_ms = max(0.0, dev_ms - draft_ms)
+        else:
+            draft_ms, verify_ms = host_draft_ms, dev_ms
+        self._spec_draft_s += draft_ms / 1e3
+        self._spec_verify_s += verify_ms / 1e3
+        self._distribute_spec(samples, draft, lp, entries, draft_ms)
+
+    def _distribute_spec(self, samples: np.ndarray, draft: np.ndarray, lp,
+                         entries, draft_ms: float) -> None:
+        """samples [S, K + 1], draft [S, K]: commit each live row's
+        longest agreeing prefix.  Row acceptance a (1..K + 1): draw j
+        extends a prefix that is right only if every earlier proposal
+        matched, so emission stops at the first mismatch, whose TARGET
+        draw is still right and is emitted; all K matching emits the
+        K + 1'th (bonus) draw too."""
+        K = self.spec_tokens
+        kp1 = K + 1
+        self._token_steps += kp1
+        live = [(i, s) for i, s in entries if self._slots[i] is s]
+        # Rows freed after enqueue: K + 1 garbage positions each.
+        self._wasted_token_steps += (len(entries) - len(live)) * kp1
+        accepted_wave = 0
+        resident_tokens = 0
+        length_fam = obs.specdec_accepted_length_tokens()
+        for i, s in live:
+            a = 1
+            while a <= K and int(draft[i, a - 1]) == int(samples[i, a - 1]):
+                a += 1
+            self.spec_proposed_tokens += K
+            self.spec_accepted_tokens += a - 1
+            accepted_wave += a - 1
+            self._spec_lengths.append(a)
+            length_fam.labels(model=self.name).observe(float(a))
+            # Roofline over accepted tokens only: rejected positions are
+            # the acceptance trade (goodput_ratio shows them).
+            self._decode_flops += a * (self._flops_matmul_per_token
+                                       + self._attn_flops_coeff * s.length)
+            resident_tokens += s.length
+            emitted = 0
+            for j in range(a):
+                if self._slots[i] is not s:
+                    break  # finished mid-row: the rest is past its end
+                s.length += 1
+                self._emit(i, int(samples[i, j]),
+                           _lp_record(lp, s.req, (i, j)))
+                emitted += 1
+            self.spec_emitted_tokens += emitted
+            self._occupied_slot_steps += emitted
+            self._wasted_token_steps += kp1 - emitted
+        if live:
+            proposer = self._proposer_name()
+            obs.specdec_proposed_tokens_total().labels(
+                model=self.name, proposer=proposer).inc(len(live) * K)
+            obs.specdec_accepted_tokens_total().labels(
+                model=self.name, proposer=proposer).inc(accepted_wave)
+            obs.specdec_draft_ms().labels(
+                model=self.name, proposer=proposer).observe(draft_ms)
+            obs.specdec_acceptance_ratio().labels(model=self.name).set(
+                self.spec_accepted_tokens / self.spec_proposed_tokens)
+        if resident_tokens:
+            # One parameter read serves all K + 1 positions, while each
+            # query streams the resident k/v.
+            self._decode_hbm_bytes += (
+                self._param_read_bytes
+                + kp1 * resident_tokens * self._kv_bytes_per_token)
 
 
 def _lp_record(lp, req: _Request, index):

@@ -18,12 +18,20 @@ module, these executions:
   second copy exists), then Lq == 1 attends through the paged decode
   kernel and Lq > 1 with per-query causal masking.  The returned caches
   are the same pools.
-- **dense decode**: ``kv_cache`` of (k_cache, v_cache) [B, max_seq, H, D]
-  2-tuples; writes past ``max_seq`` drop.  This branch returns new
-  caches.
+- **dense decode / verify**: ``kv_cache`` of (k_cache, v_cache)
+  [B, M + 1, H, D] 2-tuples: positions [0, M) hold keys, and the last
+  position is a sink that every write outside [0, M) lands in (a parked
+  row's, or one past the window), so the step writes IN PLACE and the
+  engine holds one cache (the JAX module returns new caches, written
+  with ``mode="drop"``).  A query at position p attends the keys at
+  positions <= p over the window, with the masked plain attention (XLA
+  in the reference).  The returned caches are the same tensors.
 
 ``logit_positions`` ([B] or [B, P]) runs the final norm and head only at
-those positions.  Every gather index (positions, logit positions) is
+those positions.  ``stepwise=True`` (with a cache) runs a multi-token
+step position by position at the decode step's shapes, so each
+position's logits are a sequential decode's bit for bit (the speculative
+verify).  Every gather index (positions, logit positions) is
 clamped explicitly: on CUDA an out-of-range gather is a device assert.
 """
 
@@ -85,9 +93,11 @@ class DecoderBlock(nn.Module):
                 kv_lengths: Optional[torch.Tensor] = None,
                 cache: Optional[tuple] = None,
                 positions: Optional[torch.Tensor] = None,
-                paged_step: Optional[tuple] = None):
-        """paged_step: with a paged ``cache``, the step's (write slots,
-        decode lengths), the same for every layer (``_paged_step``)."""
+                paged_step: Optional[tuple] = None,
+                dense_step: Optional[tuple] = None):
+        """paged_step / dense_step: with a paged or a dense ``cache``,
+        what every layer of the step shares (``_paged_step``,
+        ``_dense_step``)."""
         cfg = self.cfg
         B, L, _ = hidden.shape
         heads = (B, L, cfg.num_heads, cfg.head_dim)
@@ -110,22 +120,13 @@ class DecoderBlock(nn.Module):
             new_cache = (pool_k, pool_v)
         elif cache is not None:
             k_cache, v_cache = cache
-            max_seq = k_cache.shape[1]
-            rows = torch.arange(B, device=hidden.device)[:, None]
-            pos = positions.long()
-            # Writes at or past max_seq drop: they go to one extra
-            # position that is sliced off again.
-            dest = torch.where((pos >= 0) & (pos < max_seq), pos,
-                               torch.full_like(pos, max_seq))
-            k_cache = F.pad(k_cache, (0, 0, 0, 0, 0, 1))
-            v_cache = F.pad(v_cache, (0, 0, 0, 0, 0, 1))
+            rows, dest, attn_mask = dense_step
             k_cache[rows, dest] = k.to(k_cache.dtype)
             v_cache[rows, dest] = v.to(v_cache.dtype)
-            k_cache, v_cache = k_cache[:, :max_seq], v_cache[:, :max_seq]
             new_cache = (k_cache, v_cache)
-            keys = torch.arange(max_seq, device=hidden.device)
-            attn_mask = (keys[None, None, :] <= pos[:, :, None])[:, None]
-            out = dot_product_attention(q, k_cache, v_cache, mask=attn_mask)
+            width = k_cache.shape[1] - 1
+            out = dot_product_attention(q, k_cache[:, :width],
+                                        v_cache[:, :width], mask=attn_mask)
         elif cfg.attn_fn is not None:
             mask = torch.ones((L, L), dtype=torch.bool,
                               device=hidden.device).tril()[None, None]
@@ -158,6 +159,21 @@ def _paged_step(pool: torch.Tensor, table: torch.Tensor,
     return paged_slots(table, pos, pool.shape[0], pool.shape[1]), lengths
 
 
+def _dense_step(cache: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """What every layer of one dense-cache step shares, for positions
+    [B, L]: the write rows and positions (a position outside the cache's
+    window goes to its last position, the sink) and the attention mask
+    over the window (a query at position p attends keys <= p)."""
+    width = cache.shape[1] - 1
+    pos = positions.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    dest = torch.where((pos >= 0) & (pos < width), pos,
+                       torch.full_like(pos, width))
+    keys = torch.arange(width, device=pos.device)
+    mask = (keys[None, None, :] <= pos[:, :, None])[:, None]
+    return rows, dest, mask
+
+
 class DecoderLM(nn.Module):
     """Token ids -> next-token logits, with optional KV-cache modes (see
     the module docstring).  Returns logits [B, L or P, V] (float32), plus
@@ -180,8 +196,11 @@ class DecoderLM(nn.Module):
                 kv_cache: Optional[Any] = None,
                 kv_lengths: Optional[torch.Tensor] = None,
                 return_cache: bool = False,
-                logit_positions: Optional[torch.Tensor] = None):
+                logit_positions: Optional[torch.Tensor] = None,
+                stepwise: bool = False):
         cfg = self.config
+        if stepwise:
+            return self._stepwise(input_ids, positions, kv_cache)
         B, L = input_ids.shape
         device = input_ids.device
         if positions is None:
@@ -192,17 +211,19 @@ class DecoderLM(nn.Module):
         hidden = hidden + self.wpe(pos.clamp(0, cfg.max_seq - 1))
         # A paged step's write slots and lengths are computed once, from
         # layer 0: every layer shares one block table and pool geometry.
-        paged_step = None
+        paged_step = dense_step = None
         if kv_cache is not None and len(kv_cache[0]) == 3:
             pool0, _, table = kv_cache[0]
             paged_step = _paged_step(pool0, table, pos)
+        elif kv_cache is not None:
+            dense_step = _dense_step(kv_cache[0][0], pos)
         caches = []
         for i, layer in enumerate(self.layers):
             hidden, new_cache = layer(
                 hidden, kv_lengths=kv_lengths,
                 cache=None if kv_cache is None else kv_cache[i],
                 positions=None if kv_cache is None else pos,
-                paged_step=paged_step)
+                paged_step=paged_step, dense_step=dense_step)
             caches.append(new_cache)
         if logit_positions is not None:
             idx = logit_positions.reshape(B, -1, 1).long().clamp(0, L - 1)
@@ -212,6 +233,38 @@ class DecoderLM(nn.Module):
         if kv_cache is not None or return_cache:
             return logits, caches
         return logits
+
+    def _stepwise(self, input_ids: torch.Tensor, positions: torch.Tensor,
+                  kv_cache: Any):
+        """Lq positions of a cached step, each run at the single-token
+        decode step's shapes: layer by layer, every position's products
+        at M = B and its attention through the decode path (the paged
+        kernel, or the dense masked attention), logits at every
+        position [B, Lq, V].  A product's rounding on the card depends
+        on its shape, so only this gives each position the logits a
+        sequential decode computes, bit for bit; a layer's weights serve
+        all Lq positions back to back (from L2 on the card)."""
+        cfg = self.config
+        B, L = input_ids.shape
+        pos = positions.reshape(B, -1).long()
+        hidden = self.wte(input_ids.long())
+        hidden = hidden + self.wpe(pos.clamp(0, cfg.max_seq - 1))
+        cols = [pos[:, j:j + 1] for j in range(L)]
+        if len(kv_cache[0]) == 3:
+            pool0, _, table = kv_cache[0]
+            steps = [dict(paged_step=_paged_step(pool0, table, c))
+                     for c in cols]
+        else:
+            steps = [dict(dense_step=_dense_step(kv_cache[0][0], c))
+                     for c in cols]
+        hs = [hidden[:, j:j + 1].contiguous() for j in range(L)]
+        for i, layer in enumerate(self.layers):
+            hs = [layer(h, cache=kv_cache[i], positions=c, **st)[0]
+                  for h, c, st in zip(hs, cols, steps)]
+        logits = torch.cat([
+            F.linear(self.final_norm(h), self.wte.weight).float()
+            for h in hs], dim=1)
+        return logits, [tuple(c[:2]) for c in kv_cache]
 
     def flops(self, batch: int, seq: Optional[int]) -> float:
         """Multiply-add operations (x2) of one full forward at this

@@ -13,12 +13,12 @@ a caller holding a stale instrument::
     obs.llm_ttft_ms().observe(ttft, trace_id=req.trace_id)
 
 Histograms are milliseconds unless the name says otherwise.  Families of
-layers the port has not ported yet (KV tier, handoff, speculative
-decoding, SLO, history, router, monitors) are listed in
-ROADMAP under the item that ports each.
+layers the port has not ported yet (KV tier, handoff, SLO, history,
+router, monitors) are listed in ROADMAP under the item that ports each.
 """
 
 from kfserving_tpu_torch.observability.registry import (
+    LATENCY_BUCKETS_MS,
     RATIO_BUCKETS,
     REGISTRY,
     THROUGHPUT_BUCKETS,
@@ -87,6 +87,22 @@ def llm_tokens_total():
         "Prompt and generated tokens by direction (direction=in|out)")
 
 
+def generator_prefill_chunks_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_prefill_chunks_total",
+        "Chunked-prefill chunks by outcome (outcome=dispatched — one "
+        "device call riding the decode FIFO; skipped_shared — every "
+        "block was a prefix-cache hit, no compute dispatched)")
+
+
+def generator_prefill_chunk_stall_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_generator_prefill_chunk_stall_ms",
+        "Device-busy time one prefill chunk inserted between decode "
+        "fetches — the stall a cold prompt adds to live streams per "
+        "chunk (the monolithic-prefill stall divided by chunk count)")
+
+
 def generator_pipeline_depth():
     return REGISTRY.gauge(
         "kfserving_tpu_generator_pipeline_depth",
@@ -111,6 +127,20 @@ def generator_prefix_lookups_total():
         "time, by outcome (hit = the block's k/v were already "
         "device-resident and the plan points at the shared block; "
         "miss = a fresh block was allocated)")
+
+
+# Reuse depth of an index entry: hit counts per entry, shallow to hot.
+REUSE_DEPTH_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
+
+
+def generator_prefix_reuse_depth_hits():
+    return REGISTRY.histogram(
+        "kfserving_tpu_generator_prefix_reuse_depth_hits",
+        "Cumulative hit count of a prefix-index entry at each hit "
+        "(observed per hit event: an entry hit for the Nth time "
+        "lands in the N bucket) — deep entries are hot shared "
+        "system prompts, the routing-affinity signal",
+        buckets=REUSE_DEPTH_BUCKETS)
 
 
 def generator_prefill_tokens_saved_total():
@@ -149,6 +179,64 @@ def generator_pool_fragmentation_ratio():
         "/ (table blocks x block_size), with shared prefix blocks "
         "counted per sharer on both sides — the tail positions "
         "allocated for growth but not yet holding k/v")
+
+
+# -- speculative decoding (GenerationEngine draft/verify waves) ---------
+def specdec_proposed_tokens_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_specdec_proposed_tokens_total",
+        "Draft tokens proposed to the verify dispatch, per model and "
+        "proposer (draft = registered draft model, ngram = the "
+        "prompt-lookup head)")
+
+
+def specdec_accepted_tokens_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_specdec_accepted_tokens_total",
+        "Proposed draft tokens the target's own sampled draw agreed "
+        "with (the longest-agreeing-prefix rule), per model and "
+        "proposer — accepted/proposed is the acceptance rate")
+
+
+def specdec_fallbacks_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_specdec_fallbacks_total",
+        "Speculative waves degraded to plain non-speculative decode "
+        "by an injected fault, per model and seam (site=draft|"
+        "verify) — output stays bit-exact, only tokens-per-dispatch "
+        "drops")
+
+
+# Accepted length per spec wave row is 1 (first draft token rejected;
+# the target's own draw still lands) up to K+1 (all K accepted + the
+# bonus draw).
+SPECDEC_LENGTH_BUCKETS = [1, 2, 3, 4, 6, 8, 12, 16]
+
+
+def specdec_accepted_length_tokens():
+    return REGISTRY.histogram(
+        "kfserving_tpu_specdec_accepted_length_tokens",
+        "Tokens committed per live slot per speculative wave "
+        "(1 = proposal rejected outright, K+1 = fully accepted plus "
+        "the bonus draw), per model",
+        buckets=SPECDEC_LENGTH_BUCKETS)
+
+
+def specdec_draft_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_specdec_draft_ms",
+        "Draft-proposal overhead per speculative wave (device time "
+        "for a registered draft model, host time for the n-gram "
+        "head), per model and proposer",
+        buckets=LATENCY_BUCKETS_MS)
+
+
+def specdec_acceptance_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_specdec_acceptance_ratio",
+        "Running acceptance rate (accepted/proposed draft tokens, "
+        "0..1) per model — the knob that decides whether K is paying "
+        "for itself")
 
 
 # -- device-memory ledger (engine/hbm.py) --------------------------------

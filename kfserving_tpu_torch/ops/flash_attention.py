@@ -13,10 +13,12 @@ be a multiple of 8 came from its lane tiling, while this kernel masks
 keys past Lk in the tile that crosses it and stores no query row past Lq
 (ViT-B/16 at 224 px runs L = 197).
 
-The kernel, for an H100: bf16 runs a warp-specialized kernel (a TMA
-producer warp feeding a ring of K/V tiles to two ``wgmma`` consumer
-warpgroups); fp32 runs an ``mma.sync`` kernel over bf16 hi + lo halves.
-Its source note says what bounds each and why.
+The kernel, for an H100: bf16 at head dims 64 and 128 runs a
+warp-specialized kernel (a TMA producer warp feeding a ring of K/V tiles
+to two ``wgmma`` consumer warpgroups); fp32 at every head dim runs an
+``mma.sync`` kernel over bf16 hi + lo halves, and bf16 at head dims 16
+and 32 the same kernel on bf16 tiles.  Its source note says what bounds
+each and why.
 
 On a CPU tensor the wrapper runs ``flash_attention_plain``; on a CUDA
 tensor it launches the kernel or raises.
@@ -32,7 +34,7 @@ from kfserving_tpu_torch.ops import launches
 from kfserving_tpu_torch.protocol.errors import InvalidInput
 
 # Head dims the kernel is instantiated for (csrc/flash_attention.cu).
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # Elements per 16-byte vector load, by dtype.

@@ -1,9 +1,10 @@
 """GenerativeModel: the decoder-serving predictor.
 
 Port of ``kfserving_tpu/predictors/llm.py``: load a decoder from the
-registry plus its weights, run it in the paged ``GenerationEngine`` on
-the card, and serve V1 ``:predict``, ``:generate`` and
-``generate_stream``.
+registry plus its weights, run it in the ``GenerationEngine`` on the card
+(paged or dense slots, chunked prefill, speculative decoding with the
+n-gram head or a draft model), and serve V1 ``:predict``, ``:generate``
+and ``generate_stream``.
 
 Model directory layout (a local path or a ``file://`` URI):
 
@@ -21,13 +22,21 @@ config.json keys are the JAX package's (unknown keys are ignored):
       "max_new_tokens": 64, "temperature": 0.0,
       "tokenizer": "byte",
       "steps_per_call": 1, "pipeline_depth": 2, "logprob_topk": 5,
-      "block_size": 128,           # required by the port: paged cache
+      "block_size": 128,           # paged cache; absent: dense slots
       "cache_blocks": 48,
-      "adaptive_depth": true
+      "prefill_chunk_tokens": 256, # paged only: cold prompts in chunks
+      "adaptive_depth": true,
+      "speculative": {"tokens": 4, # K proposals a wave (n-gram head)
+                      "draft": {"architecture": "decoder",
+                                "arch_kwargs": {...},
+                                "model_dir": "...",  # default: this dir
+                                "window": 128}}
     }
-The port refuses, with InvalidInput, what it has not ported yet: no
-``block_size`` (dense slots), ``prefill_chunk_tokens``,
-``host_tier_blocks``, ``speculative`` and ``hf:`` tokenizers.
+The draft materializes through the mmap param cache beside the target;
+with no model_dir of its own it shares the target's directory (a
+self-draft on the target's weights).  The port refuses, with
+InvalidInput, what it has not ported yet: ``host_tier_blocks``, a mesh
+of more than one device and ``hf:`` tokenizers.
 
 Request shapes (V1 predict and the generate routes):
     {"instances": ["a prompt", {"prompt": "...", "max_tokens": 32,
@@ -48,8 +57,12 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
 
-from kfserving_tpu_torch.engine import compile_cache
+from kfserving_tpu_torch.engine import compile_cache, param_cache
 from kfserving_tpu_torch.engine.generator import GenerationEngine
+from kfserving_tpu_torch.engine.speculative import (
+    DEFAULT_DRAFT_WINDOW,
+    DraftModel,
+)
 from kfserving_tpu_torch.engine.torch_engine import resolve_device
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import create_model
@@ -282,12 +295,8 @@ class GenerativeConfig:
     def check_ported(self) -> None:
         """Refuse what the PyTorch port does not serve yet."""
         missing = []
-        if self.prefill_chunk_tokens:
-            missing.append("prefill_chunk_tokens (chunked prefill)")
         if self.host_tier_blocks:
             missing.append("host_tier_blocks (host KV tier)")
-        if self.speculative and int(self.speculative.get("tokens", 0)):
-            missing.append("speculative (speculative decoding)")
         if any(int(v) > 1 for v in self.mesh.values()):
             missing.append("mesh (multi-device)")
         if missing:
@@ -296,20 +305,31 @@ class GenerativeConfig:
 
 
 class GenerativeModel(Model):
-    """A served decoder with continuous batching and token streaming."""
+    """A served decoder with continuous batching and token streaming.
+
+    hbm: an optional ``HBMManager``; the load books the target's
+        parameters, its KV cache and the draft's parameters under the
+        model's name.
+    residency: an optional ``ResidencyManager``; a configured draft
+        registers there as ``"<name>:draft"``, resident and pinned while
+        the target serves.
+    """
 
     def __init__(self, name: str, model_dir: str,
                  config: Optional[GenerativeConfig] = None,
                  config_overrides: Optional[Dict[str, Any]] = None,
-                 device: Any = "cuda"):
+                 device: Any = "cuda", hbm=None, residency=None):
         super().__init__(name)
         self.model_dir = model_dir
         self.config = config
         self.config_overrides = dict(config_overrides or {})
         self.device = resolve_device(device)
+        self.hbm = hbm
+        self.residency = residency
         self.engine: Optional[GenerationEngine] = None
         self.module: Optional[torch.nn.Module] = None
         self.tokenizer = None
+        self._draft_handle: Optional[DraftModel] = None
         # "checkpoint" or "init" once loaded.
         self.param_source: Optional[str] = None
 
@@ -337,6 +357,7 @@ class GenerativeModel(Model):
         self.param_source = "checkpoint" if state_dict else "init"
         module = weights.materialize(spec.module, self.device,
                                      state_dict=state_dict)
+        speculative, draft = self._speculative(cfg, local)
         engine = GenerationEngine(
             module, max_slots=cfg.max_slots, max_seq=cfg.max_seq,
             prefill_buckets=cfg.prefill_buckets,
@@ -344,22 +365,75 @@ class GenerativeModel(Model):
             steps_per_call=cfg.steps_per_call,
             pipeline_depth=cfg.pipeline_depth,
             block_size=cfg.block_size, cache_blocks=cfg.cache_blocks,
-            adaptive_depth=cfg.adaptive_depth,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            adaptive_depth=cfg.adaptive_depth, speculative=speculative,
             logprob_topk=cfg.logprob_topk, name=self.name)
-        # The engine compiled its greedy wave; a sampled variant compiled
-        # later is a note after warmup.
+        # The engine compiled its greedy wave; a variant compiled later
+        # is a note after warmup.
         compile_cache.declare_warmup_complete(engine.compile_source)
+        if self.hbm is not None:
+            # Generation residency: parameters + the KV cache, plus the
+            # draft's parameters (the ledger books both models).
+            try:
+                self.hbm.admit(self.name,
+                               engine.param_bytes() + engine.cache_bytes()
+                               + engine.draft_param_bytes())
+            except Exception:
+                engine.shutdown_nowait()
+                raise
         old = self.engine
         self.module, self.engine = module, engine
+        if draft is not None:
+            module_d, window = draft
+            self._draft_handle = DraftModel(f"{self.name}:draft", module_d,
+                                            engine, window=window)
+            if self.residency is not None:
+                # Registers as resident and pinned: the manager never
+                # evicts the draft from under its serving target.
+                self.residency.register(self._draft_handle.name,
+                                        self._draft_handle)
         self.ready = True
         if old is not None:
             old.shutdown_nowait()
         return True
 
+    def _speculative(self, cfg: GenerativeConfig, local: str):
+        """The engine's ``speculative`` argument and (draft module,
+        window), or (None, None) when speculation is off.  The draft is
+        a second model materialized through the mmap param cache; it
+        shares the target's directory when it names none of its own."""
+        spec_cfg = cfg.speculative or {}
+        if int(spec_cfg.get("tokens", 0)) <= 0:
+            return None, None
+        speculative: Dict[str, Any] = {"tokens": int(spec_cfg["tokens"])}
+        draft_cfg = spec_cfg.get("draft")
+        if not draft_cfg:
+            return speculative, None
+        draft_kwargs = dict(draft_cfg.get("arch_kwargs") or {})
+        draft_spec = create_model(draft_cfg["architecture"], **draft_kwargs)
+        draft_dir = draft_cfg.get("model_dir")
+        draft_local = local_model_dir(draft_dir) if draft_dir else local
+        module_d, _, _ = param_cache.load_or_materialize(
+            draft_cfg["architecture"], draft_kwargs, draft_spec,
+            draft_local, self.device)
+        window = int(draft_cfg.get("window", 0) or 0) or DEFAULT_DRAFT_WINDOW
+        speculative.update({"draft_module": module_d,
+                            "draft_window": window})
+        return speculative, (module_d, window)
+
     def unload(self) -> None:
         if self.engine is not None:
             self.engine.shutdown_nowait()
             self.engine = None
+        if self._draft_handle is not None:
+            if self.residency is not None:
+                self.residency.deregister(self._draft_handle.name)
+            # Unpin: a registration that outlives this unload must not
+            # keep vetoing eviction.
+            self._draft_handle.release()
+            self._draft_handle = None
+        if self.hbm is not None:
+            self.hbm.release(self.name)
         self.module = None
         self.ready = False
 

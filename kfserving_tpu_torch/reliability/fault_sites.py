@@ -14,3 +14,12 @@ DATAPLANE_INFER = "dataplane.infer"
 # injected failure fails that model's fault-in alone while the resident
 # set keeps serving.
 ENGINE_RESIDENCY_SWAP = "engine.residency_swap"
+
+# GenerationEngine draft-proposal seam of a speculative decode wave, keyed
+# by engine name: an injected error degrades that wave to plain decode
+# with the same tokens (specdec_fallbacks_total{site="draft"}).
+ENGINE_SPEC_DRAFT = "engine.spec_draft"
+
+# GenerationEngine K+1-position verify seam of a speculative decode wave,
+# keyed by engine name: as above, counted under site="verify".
+ENGINE_SPEC_VERIFY = "engine.spec_verify"

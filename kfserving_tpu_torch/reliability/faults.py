@@ -7,6 +7,10 @@ Port of ``kfserving_tpu/reliability/faults.py``: a process-global
     dataplane.infer         DataPlane.infer, keyed by model name
     engine.residency_swap   ResidencyManager fault-in, keyed by
                             "<model> source:cold|warm"
+    engine.spec_draft       a speculative wave's draft seam, keyed by
+                            engine name
+    engine.spec_verify      a speculative wave's verify seam, keyed by
+                            engine name
 
 A site with no configuration costs one dict lookup.  Configuration comes
 from the ``KFS_FAULTS`` env var (JSON object keyed by site) or

@@ -20,8 +20,10 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
     POST /v2/repository/models/{name}/load    (re)load a model
     POST /v2/repository/models/{name}/unload  unload a model
     GET  /v2/repository/index               models and their states
-    GET  /debug/cache                       device-memory ledger and
-                                            residency states
+    GET  /debug/cache                       generative models' prefix
+                                            census and pools, the
+                                            device-memory ledger and
+                                            residency states (?top_k=)
     GET  /metrics                           Prometheus metrics (OpenMetrics
                                             with exemplars on request)
     GET  /debug/traces                      the span ring (?trace_id=,
@@ -547,18 +549,47 @@ class ModelServer:
         return _json({"spans": tracer.spans(trace_id, limit)})
 
     async def _cache(self, req: Request) -> Response:
-        return _json(self.cache_snapshot())
+        """``?top_k=`` bounds each generative model's hot-chain list
+        (default 10); ``?top_cost=K`` asks for the attribution ring's
+        top-K cost records, which the port does not keep yet (null)."""
+        try:
+            top_k = int(req.query.get("top_k", "10"))
+            top_cost = int(req.query.get("top_cost", "0"))
+        except ValueError:
+            return _json({"error": "top_k and top_cost must be "
+                                   "integers"}, status=400)
+        body = self.cache_snapshot(top_k=top_k)
+        if top_cost > 0:
+            body["top_cost"] = None
+        return _json(body)
 
-    def cache_snapshot(self) -> Dict[str, Any]:
-        """The ``/debug/cache`` body: the device-memory ledger (``hbm``)
-        and the demand-paged residency states (``residency``), under the
-        JAX package's keys; each is null when the repository has none.
-        The generative blocks are not ported yet."""
+    def cache_snapshot(self, top_k: int = 10) -> Dict[str, Any]:
+        """The ``/debug/cache`` body under the JAX package's keys: per
+        generative model its engine's block (``cache_debug``: prefix
+        census, reuse depth, hot chains, pool, speculative), the
+        device-memory ledger (``hbm``: the repository's, else the one
+        the models book into) and the demand-paged residency states
+        (``residency``); ``host_tier`` is null until the host KV tier is
+        ported."""
+        models: Dict[str, Any] = {}
         hbm = getattr(self.repository, "hbm", None)
         residency = getattr(self.repository, "residency", None)
-        return {"hbm": hbm.debug() if hbm is not None else None,
+        for model in self.repository.get_models():
+            engine = getattr(model, "engine", None)
+            debug = getattr(engine, "cache_debug", None)
+            if debug is not None:
+                try:
+                    models[model.name] = debug(top_k=top_k)
+                except Exception:
+                    logger.exception("cache debug for %s failed",
+                                     model.name)
+            if hbm is None:
+                hbm = getattr(model, "hbm", None)
+        return {"models": models,
+                "hbm": hbm.debug() if hbm is not None else None,
                 "residency": (residency.debug() if residency is not None
-                              else None)}
+                              else None),
+                "host_tier": None}
 
     # -- lifecycle ---------------------------------------------------------
     def register_model(self, model: Model) -> None:

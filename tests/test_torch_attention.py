@@ -82,6 +82,64 @@ def test_flash_plain_matches_pallas_interpret(causal, lengths, L, Lk):
             assert np.all(got[b] == 0.0) and np.all(expect[b] == 0.0)
 
 
+@pytest.mark.parametrize("case", ["decoder_tiny", "bert_tiny",
+                                  "vit_tiny"])
+def test_small_head_dims_plain_matches_pallas_interpret(case):
+    """The head dims K1 gained for the tiny models: decoder_tiny's causal
+    + lengths prefill at D = 32, bert_tiny's lengths at D = 32, and
+    vit_tiny's L = 17 at D = 16.  The Pallas kernel needs a power-of-two
+    block divisor of L, so L = 17 runs there padded to 32 with the 15
+    padding keys masked by lengths (and its first 17 query rows kept)."""
+    if case == "decoder_tiny":
+        L, D, causal, lengths = 64, 32, True, [64, 17, 1, 0]
+    elif case == "bert_tiny":
+        L, D, causal, lengths = 32, 32, False, [32, 5, 0]
+    else:
+        L, D, causal, lengths = 17, 16, False, None
+    B = 2 if lengths is None else len(lengths)
+    q, k, v = _qkv(5, B, L, 4, D)
+    if L % 8:
+        pad = [(0, 0), (0, 32 - L), (0, 0), (0, 0)]
+        expect = _jax_flash_interpret(
+            *(np.pad(a, pad, constant_values=3.0) for a in (q, k, v)),
+            kv_lengths=[L] * B)[:, :L]
+    else:
+        expect = _jax_flash_interpret(q, k, v, causal=causal,
+                                      kv_lengths=lengths)
+    got = flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal,
+        kv_lengths=None if lengths is None else torch.tensor(lengths))
+    assert got.shape == (B, L, 4, D)
+    np.testing.assert_allclose(got.numpy(), expect, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("head_dim,dtype,ok", [
+    (16, "float32", True), (32, "float32", True), (16, "bfloat16", True),
+    (32, "bfloat16", True), (64, "bfloat16", True), (128, "float32", True),
+    (48, "bfloat16", False), (8, "float32", False)])
+def test_kernel_shapes_at_every_built_head_dim(head_dim, dtype, ok):
+    """On the card ``check_kernel_shapes`` takes exactly the head dims
+    K1 is instantiated for (16, 32, 64, 128), in bf16 and fp32."""
+    from kfserving_tpu_torch.models import create_model
+    from kfserving_tpu_torch.ops.flash_attention import (
+        SUPPORTED_HEAD_DIMS,
+        check_kernel_shapes,
+    )
+    from kfserving_tpu_torch.protocol.errors import InvalidInput
+
+    assert SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    module = create_model("bert_tiny", num_heads=2,
+                          hidden_size=2 * head_dim, dtype=dtype).module
+    assert module.config.head_dim == head_dim
+    check_kernel_shapes(module, torch.device("cpu"))
+    if ok:
+        check_kernel_shapes(module, torch.device("cuda"))
+    else:
+        with pytest.raises(InvalidInput, match=f"head dim {head_dim}"):
+            check_kernel_shapes(module, torch.device("cuda"))
+
+
 def test_flash_rejects_seq_len_without_block_divisor():
     """The Pallas kernel refuses L = 12 (its blocks need a power-of-two
     divisor >= 8, from the TPU's lane tiling).  The port takes any L: at

@@ -273,18 +273,28 @@ async def _serve_keep(models, drive):
 
 def test_generator_refuses_shapes_either_kernel_lacks():
     """On a CUDA device the engine checks K1's head dims as well as K2's
-    at construction (decoder_tiny's head dim 32 is not built in K1)."""
+    at construction: head dim 48 is built in neither; head dim 16 is in
+    K1 but not in K2, so only the dense slot mode (which decodes without
+    K2) takes it; decoder_tiny's 32 is in both."""
     from kfserving_tpu_torch.engine.generator import check_device_shapes
     from kfserving_tpu_torch.models import create_model
     from kfserving_tpu_torch.protocol.errors import InvalidInput
 
+    cuda = torch.device("cuda")
     module = create_model("decoder_tiny", **GEN_CONFIG["arch_kwargs"]).module
     check_device_shapes(module, torch.device("cpu"))
+    check_device_shapes(module, cuda)
+    d48 = create_model("decoder_tiny", num_heads=2, hidden_size=96).module
+    check_device_shapes(d48, torch.device("cpu"))
     with pytest.raises(InvalidInput, match="flash attention kernel"):
-        check_device_shapes(module, torch.device("cuda"))
+        check_device_shapes(d48, cuda)
+    d16 = create_model("decoder_tiny", num_heads=4, hidden_size=64).module
+    with pytest.raises(InvalidInput, match="paged decode kernel"):
+        check_device_shapes(d16, cuda)
+    check_device_shapes(d16, cuda, paged=False)
     wide = create_model("decoder_tiny", num_heads=1, hidden_size=64,
                         dtype=torch.bfloat16).module
-    check_device_shapes(wide, torch.device("cuda"))
+    check_device_shapes(wide, cuda)
 
 
 @pytest.mark.parametrize("mesh,refused", [

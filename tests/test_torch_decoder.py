@@ -159,7 +159,10 @@ def test_paged_multi_token_step_matches_jax(jax_side):
 
 
 def test_dense_cache_step_matches_jax(jax_side):
-    """The dense 2-tuple cache: writes at or past max_seq drop."""
+    """The dense 2-tuple cache: writes at or past max_seq drop.  The
+    port's cache carries one sink position past the window, which the
+    dropped writes land in; the step writes the given tensors in place
+    and returns them."""
     module, variables = jax_side
     rng = np.random.default_rng(6)
     caches = [(rng.normal(size=(B, 64, H, D)).astype(np.float32),
@@ -170,17 +173,21 @@ def test_dense_cache_step_matches_jax(jax_side):
     want_logits, want_caches = _jit_cached(module)(
         variables, jnp.asarray(ids), jnp.asarray(positions),
         [(jnp.asarray(k), jnp.asarray(v)) for k, v in caches])
+    sink = [(0, 0), (0, 1), (0, 0), (0, 0)]
+    port_caches = [(torch.from_numpy(np.pad(k, sink)),
+                    torch.from_numpy(np.pad(v, sink))) for k, v in caches]
     with torch.no_grad():
         got_logits, got_caches = _port(variables)(
             torch.from_numpy(ids), positions=torch.from_numpy(positions),
-            kv_cache=[(torch.from_numpy(k), torch.from_numpy(v))
-                      for k, v in caches])
+            kv_cache=port_caches)
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
                                atol=FP32_ATOL, rtol=0)
-    for (gk, gv), (wk, wv) in zip(got_caches, want_caches):
-        np.testing.assert_allclose(gk.numpy(), np.asarray(wk),
+    for (gk, gv), (pk, pv), (wk, wv) in zip(got_caches, port_caches,
+                                            want_caches):
+        assert gk is pk and gv is pv
+        np.testing.assert_allclose(gk[:, :64].numpy(), np.asarray(wk),
                                    atol=FP32_ATOL, rtol=0)
-        np.testing.assert_allclose(gv.numpy(), np.asarray(wv),
+        np.testing.assert_allclose(gv[:, :64].numpy(), np.asarray(wv),
                                    atol=FP32_ATOL, rtol=0)
 
 

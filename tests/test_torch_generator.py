@@ -252,7 +252,8 @@ async def test_logprobs_equal_log_softmax_of_full_forward(tiny):
     (dict(pipeline_depth=0), "pipeline_depth must be >= 1"),
     (dict(max_seq=128), "exceeds the model's position table"),
     (dict(prefill_buckets=[16, 128]), "prefill bucket 128 exceeds max_seq"),
-    (dict(block_size=None), "paged KV cache only"),
+    (dict(block_size=None, prefill_chunk_tokens=32),
+     "prefill_chunk_tokens requires the paged cache"),
     (dict(block_size=24, prefill_buckets=[48]), "must be a multiple of "
      "block_size 24"),
     (dict(block_size=32, prefill_buckets=[16, 64]), "prefill bucket 16 "

@@ -238,9 +238,8 @@ async def test_stream_slot_freed_on_client_disconnect(served):
 
 
 @pytest.mark.parametrize("extra,message", [
-    ({"block_size": None}, "paged KV cache only"),
-    ({"prefill_chunk_tokens": 32}, "chunked prefill"),
-    ({"speculative": {"tokens": 2}}, "speculative decoding"),
+    ({"host_tier_blocks": 8}, "host KV tier"),
+    ({"mesh": {"tp": 2}}, "multi-device"),
     ({"tokenizer": "hf:gpt2"}, "hf: tokenizers are not supported"),
 ])
 def test_unported_config_is_refused(tmp_path, extra, message):
@@ -295,3 +294,48 @@ def test_incremental_decoder_matches_jax(text, stops, tokenizer):
         assert port.finish() == ref.finish()
     assert port.text() == ref.text()
     assert port.degraded == ref.degraded
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+async def test_debug_cache_carries_the_generative_block(served):
+    """GET /debug/cache: per generative model the engine's prefix census
+    (reuse depth, hot chains by hits) and pool, under the JAX server's
+    keys; ?top_k= bounds the hot chains; a bad query is a 400."""
+    model, _ = served
+    server = await _serve(model)
+    port = server.http_port
+    shared = "a shared system prompt of two blocks or so. " * 2
+    try:
+        for tail in ("one", "two", "three"):
+            status, _ = await asyncio.to_thread(
+                _post, port, "/v2/models/gen/generate",
+                {"text_input": shared + tail,
+                 "parameters": {"max_tokens": 2}})
+            assert status == 200
+        status, body = await asyncio.to_thread(
+            _get, port, "/debug/cache?top_k=1&top_cost=2")
+        assert status == 200
+        assert set(body) == {"models", "hbm", "residency", "host_tier",
+                             "top_cost"}
+        assert body["host_tier"] is None and body["top_cost"] is None
+        gen = body["models"]["gen"]
+        assert set(gen) == {"paged", "index_entries", "reuse_depth",
+                            "hot_chains", "pool"}
+        assert gen["paged"] is True and gen["index_entries"] >= 5
+        assert len(gen["hot_chains"]) == 1
+        assert gen["hot_chains"][0]["hits"] == gen["reuse_depth"]["max"] >= 2
+        assert gen["pool"] == model.engine.stats()["paged"]
+        status, _ = await asyncio.to_thread(_get, port,
+                                            "/debug/cache?top_k=x")
+        assert status == 400
+    finally:
+        await server.stop_async()

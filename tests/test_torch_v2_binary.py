@@ -295,7 +295,8 @@ async def test_debug_cache_shows_ledger_and_residency(tmp_path):
             json.dumps({"instances": [[0.0] * 8]}).encode())
         assert status == 200
         cache = await asyncio.to_thread(_get, port, "/debug/cache")
-        assert set(cache) == {"hbm", "residency"}
+        assert set(cache) == {"models", "hbm", "residency", "host_tier"}
+        assert cache["models"] == {} and cache["host_tier"] is None
         assert set(cache["hbm"]) == {"budget_bytes", "used_bytes",
                                      "resident", "evictions",
                                      "eviction_skips"}
@@ -312,4 +313,5 @@ async def test_debug_cache_shows_ledger_and_residency(tmp_path):
         for model in repo.get_models():
             model.unload()
     bare = ModelServer(http_port=0)
-    assert bare.cache_snapshot() == {"hbm": None, "residency": None}
+    assert bare.cache_snapshot() == {"models": {}, "hbm": None,
+                                     "residency": None, "host_tier": None}

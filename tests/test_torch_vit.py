@@ -160,21 +160,23 @@ def test_flops_and_sequence_length():
 
 
 def test_head_dim_outside_the_kernel_is_refused_on_the_card(tmp_path):
-    """vit_tiny's head dim 16 is not one the flash kernel is built for:
-    on a CUDA device the model is refused at load, before anything is
-    allocated, rather than sent to the plain version.  ViT-B/16 (64)
-    passes; on the CPU every head dim serves."""
+    """A head dim the flash kernel is not built for (48; it takes 16, 32,
+    64 and 128) is refused at load on a CUDA device, before anything is
+    allocated, rather than sent to the plain version.  vit_tiny (16) and
+    ViT-B/16 (64) pass; on the CPU every head dim serves."""
     model_dir = os.path.join(str(tmp_path), "vit")
     os.makedirs(model_dir)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump({"architecture": "vit_tiny", "warmup": False}, f)
+        json.dump({"architecture": "vit_tiny", "warmup": False,
+                   "arch_kwargs": {"hidden_size": 96, "num_heads": 2}}, f)
     model = TorchModel("vit", model_dir, device="cpu")
     model.device = torch.device("cuda")       # as a CUDA-built model
-    with pytest.raises(InvalidInput, match="head dim 16"):
+    with pytest.raises(InvalidInput, match="head dim 48"):
         model.load()
     assert model.engine is None and not model.ready
     cuda = torch.device("cuda")
     check_kernel_shapes(create_model("vit_b16").module, cuda)
+    check_kernel_shapes(create_model("vit_tiny").module, cuda)
     check_kernel_shapes(create_model("mlp").module, cuda)   # no attention
     with pytest.raises(InvalidInput, match="float16"):
         check_kernel_shapes(create_model("vit_b16", dtype="float16").module,
