@@ -64,7 +64,20 @@ failure:
    self-draft: six repetitive prompts' greedy ids identical across the
    arms, a seeded stream equal to its plain run, tokens/s, acceptance
    and accepted length; K1 = layers x (prefills + K x draft waves); the
-   verify and draft graphs against their eager runs);
+   verify and draft graphs against their eager runs), ``kvtier`` (the
+   host KV tier: tier, drop and keep arms on one server, 8 conversations
+   of a 1920-token context through a 72-block pool, the return visits
+   timed; the tier arm's ids equal the keep arm's, its faulted-back and
+   spilled blocks equal the keep arm's bytes, tokens saved == (faulted +
+   coalesced) x 128, no spill or fault-back failure; K2 = layers x steps
+   x waves, K1 never (every prompt is chunked); the fault-back and spill
+   of 12 blocks timed with their GB/s beside a 1920-token prefill
+   forward) and ``kvhandoff`` (a recycle per arm: the incumbent serves 6
+   conversations and, in the handoff arm, exports into a persistent tier;
+   a successor on the same directory adopts it and serves the return
+   visits with the unbroken session's ids; the adopted payloads equal
+   the exported ones; export ms and outcomes, adopted blocks, return
+   TTFT against the cold arm);
 5. serve ResNet-50 (224 px, 1000 classes, bf16, seeded random init with
    BatchNorm statistics calibrated on a seeded batch) at the resnet bench
    configuration: 128 V1 and V2 uint8 image requests at concurrency 32,
@@ -224,6 +237,31 @@ SPEC_CONFIG = {
 SPEC_K, SPEC_WINDOW = 4, 128
 SPEC_PROMPTS, SPEC_CTX_LEN, SPEC_MAX_TOKENS = 6, 640, 64
 SPEC_SEED = 7
+
+# The kvtier configuration (benchmarks/configs.py:2569-2585): 4 slots x
+# 4096, 72 blocks of 128, chunks of 512, 16 steps a wave; a host tier of
+# 256 blocks in the "tier" arm, none in "drop", and in "keep" a pool of
+# 256 blocks that never evicts (the reference for the tier arm's ids and
+# block bytes).  8 conversations of a 1920-character salted context (+
+# " turn NNN"), 16 tokens a turn, turns 0 and 1 to warm up, turn 2 the
+# measured return visits at Poisson gaps of 50 ms mean.
+KVTIER_SETUP = {
+    "config": {
+        "architecture": "decoder",
+        "arch_kwargs": dict(GPT2_SMALL, max_seq=4096),
+        "max_slots": 4, "max_seq": 4096, "prefill_buckets": [512, 2048, 4096],
+        "block_size": 128, "cache_blocks": 72, "prefill_chunk_tokens": 512,
+        "steps_per_call": 16, "tokenizer": "byte"},
+    "tier_blocks": 256, "keep_blocks": 256, "convs": 8, "ctx_len": 1920,
+    "tokens": 16, "gap_mean_s": 0.05, "timed_blocks": 12,
+}
+# The kvhandoff configuration (benchmarks/configs.py:2778-2800): as kvtier
+# with 120 blocks, so the pool holds every conversation; 6 conversations;
+# both arms carry a 256-block tier, the "handoff" arm's persistent (the
+# incumbent exports into it within 10 s and the successor adopts it), the
+# "cold" arm's ephemeral.
+KVHANDOFF_SETUP = dict(KVTIER_SETUP, convs=6, export_budget_s=10.0,
+                       config=dict(KVTIER_SETUP["config"], cache_blocks=120))
 
 # The resnet bench configuration (benchmarks/configs.py:207-219).
 RESNET_CONFIG = {
@@ -2169,6 +2207,408 @@ def serve_specdec(card: str) -> dict:
     return summary
 
 
+def kv_prompt(conv: int, turn: int, ctx_len: int) -> str:
+    """benchmarks/configs.py's conversation turn: the salt leads, so each
+    conversation owns its chains from the first block on."""
+    head = f"conversation {conv:04d} "
+    return (head + "history " * 400)[:ctx_len] + f" turn {turn:03d}"
+
+
+async def drive_kv_turns(port: int, name: str, setup: dict, turn: int,
+                         convs, rng=None) -> tuple:
+    """One turn of each conversation in order over SSE (after a Poisson
+    gap when ``rng`` is given): ({conv: ids}, [TTFT ms])."""
+    ids, ttfts = {}, []
+    for conv in convs:
+        if rng is not None:
+            await asyncio.sleep(float(rng.exponential(setup["gap_mean_s"])))
+        status, events, first, _ = await asyncio.to_thread(
+            sse_stream, port, f"/v2/models/{name}/generate_stream",
+            {"text_input": kv_prompt(conv, turn, setup["ctx_len"]),
+             "max_tokens": setup["tokens"]})
+        check(status == 200, f"{name} conversation {conv} turn {turn}: "
+              f"HTTP {status} {events}")
+        ids[conv] = stream_tokens(events, f"{name} conversation {conv}",
+                                  setup["tokens"])
+        ttfts.append(first * 1e3)
+    return ids, ttfts
+
+
+def ttft_summary(ttfts) -> dict:
+    return {"n": len(ttfts), "p50_ms": percentile(ttfts, 0.5),
+            "p99_ms": percentile(ttfts, 0.99)}
+
+
+def context_chains(model, setup: dict, conv: int) -> list:
+    """Chain digests of a conversation's full context blocks, as the
+    engine's plan computes them."""
+    import hashlib
+
+    bs = setup["config"]["block_size"]
+    ids = np.asarray(model.tokenizer.encode(
+        kv_prompt(conv, 0, setup["ctx_len"])), np.int32)
+    full = (setup["ctx_len"] + 1) // bs   # + BOS; the turn varies after
+    chains, chain = [], b""
+    for c in range(full):
+        chain = hashlib.blake2b(chain + ids[c * bs:(c + 1) * bs].tobytes(),
+                                digest_size=16).digest()
+        chains.append(chain)
+    return chains
+
+
+def block_bytes(engine, blk: int) -> torch.Tensor:
+    """A pool block's payload bytes in the tier's layout [layers, (k, v),
+    BS, H, D], as uint8 on the host."""
+    return torch.stack([torch.stack((pk[blk], pv[blk]))
+                        for pk, pv in engine._caches]).view(
+                            torch.uint8).cpu()
+
+
+def check_tier_blocks(tier_model, keep_model, setup: dict) -> dict:
+    """Every context block the tier arm holds, on the card (faulted back
+    or recomputed) or in the host tier, byte-equal to the same chain's
+    block in the keep arm, whose pool never evicted it (the same chunk
+    programs over the same tokens wrote both).  The blocks a device-
+    resident conversation's return visit faulted back are the first
+    ``chunk // block`` x (chunks - 1) of its context."""
+    tier_eng, keep_eng = tier_model.engine, keep_model.engine
+    cfg = setup["config"]
+    faulted_span = (cfg["prefill_chunk_tokens"] // cfg["block_size"]) * (
+        -(-(setup["ctx_len"] + 10) // cfg["prefill_chunk_tokens"]) - 1)
+
+    def keep_bytes(chains):
+        return [block_bytes(keep_eng, keep_eng._prefix_index[c])
+                for c in chains]
+
+    out = {"device_equal": 0, "faulted_back_equal": 0, "tier_equal": 0}
+    for conv in range(setup["convs"]):
+        chains = context_chains(tier_model, setup, conv)
+        check(all(c in keep_eng._prefix_index for c in chains),
+              f"keep arm lost conversation {conv}'s blocks")
+        want = on_enqueue_thread(keep_eng, lambda: keep_bytes(chains))
+        dev = {i: tier_eng._prefix_index.get(c)
+               for i, c in enumerate(chains)}
+        got = on_enqueue_thread(tier_eng, lambda: {
+            i: block_bytes(tier_eng, b) for i, b in dev.items()
+            if b is not None})
+        for i, b in got.items():
+            check(torch.equal(b, want[i]), f"conversation {conv} block {i}: "
+                  f"the tier arm's device bytes differ from the keep arm's")
+            out["device_equal"] += 1
+            if all(j in got for j in range(faulted_span)) \
+                    and i < faulted_span:
+                out["faulted_back_equal"] += 1
+        for i, c in enumerate(chains):
+            if tier_eng.kv_tier.contains(c):
+                payload = torch.frombuffer(
+                    bytearray(tier_eng.kv_tier.read(c)), dtype=torch.uint8)
+                check(torch.equal(payload, want[i].reshape(-1)),
+                      f"conversation {conv} block {i}: the tier's payload "
+                      f"differs from the keep arm's block")
+                out["tier_equal"] += 1
+    check(out["faulted_back_equal"] > 0 and out["tier_equal"] > 0,
+          f"no faulted-back or tier block was compared: {out}")
+    return out
+
+
+def time_tier_paths(engine, setup: dict, reps: int = 3) -> dict:
+    """On the engine's enqueue thread, outside the counted run: the
+    fault-back of ``timed_blocks`` tier blocks (mmap read into pinned
+    memory, host-to-device copy, paged_insert into the sink block,
+    synchronised), the spill of as many resident blocks (gather, copy to
+    pinned memory, mmap write into a scratch tier), and a 1920-token
+    re-prefill forward (the bucketed prefill's K1 path, CUDA events).
+    Medians of ``reps``; GB/s over the payload bytes."""
+    from kfserving_tpu_torch.engine.kv_tier import HostKVTier
+    from kfserving_tpu_torch.ops.paged_attention import paged_insert
+
+    n = setup["timed_blocks"]
+    tier = engine.kv_tier
+    chains = [bytes.fromhex(c) for c in tier.chains()[-n:]]
+    resident = list(engine._prefix_index.values())[:n]
+    check(len(chains) == n and len(resident) == n,
+          f"time_tier_paths: {len(chains)} tier and {len(resident)} "
+          f"resident blocks, want {n}")
+    nbytes = n * tier.block_bytes
+    # A fresh chain every rep: a duplicate put copies nothing.
+    scratch = HostKVTier(block_bytes=tier.block_bytes,
+                         capacity_blocks=n * reps, model="chip-smoke-scratch")
+
+    def faultback():
+        t0 = time.perf_counter()
+        buf = torch.empty((n,) + engine._payload_shape,
+                          dtype=engine._cache_dtype, pin_memory=True)
+        rows = buf.view(torch.uint8).numpy().reshape(n, -1)
+        for row, c in zip(rows, chains):
+            tier.read_into(c, row)
+        t1 = time.perf_counter()
+        dev = buf.to(engine.device, non_blocking=True)
+        dest = torch.full((n, 1), -1, dtype=torch.int64,
+                          device=engine.device)
+        for li, (pk, pv) in enumerate(engine._caches):
+            paged_insert(pk, pv, dev[:, li, 0], dev[:, li, 1], dest)
+        torch.cuda.current_stream().synchronize()
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    def spill(rep):
+        t0 = time.perf_counter()
+        rows = engine._payload_rows(engine._gather_blocks(resident))
+        t1 = time.perf_counter()
+        for i, row in enumerate(rows):
+            check(scratch.put(bytes([rep, i]) * 8, row),
+                  "scratch spill failed")
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    try:
+        fb = [on_enqueue_thread(engine, faultback) for _ in range(reps)]
+        sp = [on_enqueue_thread(engine, lambda r=r: spill(r))
+              for r in range(reps)]
+        check(scratch.debug()["spills"] == n * reps,
+              f"scratch tier: {scratch.debug()}")
+    finally:
+        scratch.close()
+    fb_ms = float(np.median([t for t, _ in fb]))
+    sp_ms = float(np.median([t for t, _ in sp]))
+    L = setup["ctx_len"]
+    ids = torch.randint(0, 258, (1, 2048), device=engine.device,
+                        generator=torch.Generator(engine.device).manual_seed(5))
+    lengths = torch.tensor([L], dtype=torch.int32, device=engine.device)
+
+    def prefill():
+        with torch.inference_mode():
+            engine.module(ids, kv_lengths=lengths, return_cache=True,
+                          logit_positions=lengths - 1)
+
+    return {"blocks": n, "bytes": nbytes,
+            "faultback_ms": fb_ms,
+            "faultback_read_ms": float(np.median([r for _, r in fb])),
+            "faultback_gb_s": nbytes / fb_ms / 1e6,
+            "spill_ms": sp_ms,
+            "spill_gather_copy_ms": float(np.median([g for _, g in sp])),
+            "spill_gb_s": nbytes / sp_ms / 1e6,
+            "reprefill_tokens": L,
+            "reprefill_device_ms": cuda_time_ms(prefill, iters=5)}
+
+
+def serve_kvtier(card: str, setup: dict = KVTIER_SETUP) -> dict:
+    """kvtier: the tier, drop and keep arms on one server.  Turns 0 and 1
+    of every conversation warm each arm up (the tier arm's pool churns
+    already); then each arm's return visits (turn 2) at Poisson gaps, the
+    K1/K2 counts read from 0 around them.  Holds: the tier arm's ids equal
+    the keep arm's bit for bit, its device and tier blocks equal the keep
+    arm's bytes, tokens saved == (faulted + coalesced) x block size, no
+    spill or fault-back failed.  Then the fault-back, spill and
+    re-prefill timings."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    cfg = setup["config"]
+    arms = {"tier": {"host_tier_blocks": setup["tier_blocks"]},
+            "drop": {}, "keep": {"cache_blocks": setup["keep_blocks"]}}
+    models, loads = {}, {}
+    for arm, extra in arms.items():
+        models[arm], loads[arm] = load_generative(f"kvtier_{arm}", cfg,
+                                                  **extra)
+    convs = range(setup["convs"])
+    try:
+        async def drive():
+            server = ModelServer(http_port=0)
+            await server.start_async(list(models.values()), host="127.0.0.1")
+            port = server.http_port
+            try:
+                for arm in arms:
+                    for turn in (0, 1):
+                        await drive_kv_turns(port, f"kvtier_{arm}", setup,
+                                             turn, convs)
+                before = {a: m.engine.stats() for a, m in models.items()}
+                rng = np.random.default_rng(1234)
+                reset_launches()
+                runs = {}
+                for arm in arms:
+                    runs[arm] = await drive_kv_turns(
+                        port, f"kvtier_{arm}", setup, 2, convs, rng)
+                launches = read_launches()
+                after = {a: m.engine.stats() for a, m in models.items()}
+                return runs, launches, before, after
+            finally:
+                await server.stop_async()
+
+        runs, launches, before, after = asyncio.run(drive())
+        blocks = check_tier_blocks(models["tier"], models["keep"], setup)
+        timing = time_tier_paths(models["tier"].engine, setup)
+    finally:
+        for model in models.values():
+            model.unload()
+    layers = cfg["arch_kwargs"]["num_layers"]
+    waves = sum(after[a]["decode_steps"] - before[a]["decode_steps"]
+                for a in arms)
+    check(waves > 0 and launches["paged_attention"]
+          == layers * cfg["steps_per_call"] * waves,
+          f"kvtier: paged kernel launched {launches['paged_attention']} "
+          f"times for {waves} waves")
+    check(launches["flash_attention"] == layers * sum(
+        after[a]["prefills"] - before[a]["prefills"] for a in arms),
+        f"kvtier: flash kernel launched {launches['flash_attention']} times")
+    check(runs["tier"][0] == runs["keep"][0],
+          "kvtier: the tier arm's return-visit ids differ from the keep "
+          "arm's")
+    ht = after["tier"]["host_tier"]
+    bs = cfg["block_size"]
+    saved = after["tier"]["paged"]["host_tier_tokens_saved"]
+    check(saved == (ht["faulted_blocks"] + ht["coalesced_blocks"]) * bs,
+          f"kvtier: tokens saved {saved} != (faulted + coalesced) x {bs}")
+    check(ht["spill_failures"] == 0 and ht["fault_failures"] == 0,
+          f"kvtier: spill or fault-back failures: {ht}")
+    d_faulted = ht["faulted_blocks"] - before["tier"]["host_tier"][
+        "faulted_blocks"]
+    check(d_faulted > 0, "kvtier: the return visits faulted nothing back")
+    check(after["keep"]["paged"]["evictions"]["capacity_dropped"] == 0,
+          "kvtier: the keep arm evicted")
+    summary = {
+        "card": card, "load_s": loads,
+        "return_ttft": {a: ttft_summary(runs[a][1]) for a in arms},
+        "ids_tier_equal_keep": True,
+        "ids_drop_equal_keep": runs["drop"][0] == runs["keep"][0],
+        "spills": ht["spills"],
+        "spills_run": ht["spills"] - before["tier"]["host_tier"]["spills"],
+        "faulted_blocks": ht["faulted_blocks"],
+        "faulted_blocks_run": d_faulted,
+        "coalesced_blocks": ht["coalesced_blocks"],
+        "tokens_saved": saved, "tokens_saved_consistent": True,
+        "faultback_batch_ms_p50": ht["faultback_ms"]["p50"],
+        "faultback_batch_ms_p99": ht["faultback_ms"]["p99"],
+        "evictions": {a: after[a]["paged"]["evictions"] for a in arms},
+        "block_bytes": ht["block_bytes"], "blocks_equal": blocks,
+        "timing": timing, "launches": launches, "decode_waves": waves,
+    }
+    print("kvtier " + json.dumps(summary), flush=True)
+    return summary
+
+
+def serve_kvhandoff(card: str, setup: dict = KVHANDOFF_SETUP) -> dict:
+    """kvhandoff: a simulated recycle per arm, in one process.  The
+    incumbent serves turn 0 of every conversation; in the "cold" arm it
+    then serves turn 1 too (the unbroken session's ids), in the "handoff"
+    arm it exports into the persistent tier; it closes, and a successor
+    on the same directory (handoff: adopting the generation) serves turn
+    1.  Holds: the handoff successor's ids equal the unbroken session's,
+    its adopted payloads equal the exported ones (digests), and nothing
+    was dropped or failed.  The K1/K2 counts are read from 0 around both
+    arms (4 engine starts, each compiling its greedy wave eagerly)."""
+    from kfserving_tpu_torch.engine.kv_tier import payload_digest
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    cfg = setup["config"]
+    convs = range(setup["convs"])
+    kv_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-kv-")
+    waves = [0]
+
+    async def incarnation(extra, work):
+        model, load_s = load_generative("kvhandoff", cfg, **extra)
+        server = ModelServer(http_port=0)
+        await server.start_async([model], host="127.0.0.1")
+        try:
+            out = await work(model, server.http_port)
+            out["load_s"] = load_s
+            waves[0] += model.engine.stats()["decode_steps"]
+            return out
+        finally:
+            await server.stop_async()
+            await model.close()
+            model.unload()
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        recs = {}
+        for arm in ("cold", "handoff"):
+            extra = {"host_tier_blocks": setup["tier_blocks"]}
+            if arm == "handoff":
+                extra["host_tier_dir"] = kv_dir
+
+            async def incumbent(model, port, arm=arm):
+                rec = {}
+                await drive_kv_turns(port, "kvhandoff", setup, 0, convs)
+                if arm == "cold":
+                    rec["ids"], rec["ttft"] = await drive_kv_turns(
+                        port, "kvhandoff", setup, 1, convs)
+                    return rec
+                t0 = time.perf_counter()
+                rec["export"] = await loop.run_in_executor(
+                    None, model.engine.export_kv, setup["export_budget_s"])
+                rec["export_ms"] = (time.perf_counter() - t0) * 1e3
+                tier = model.engine.kv_tier
+                rec["block_bytes"] = tier.block_bytes
+                rec["digests"] = {c: payload_digest(tier.read(bytes.fromhex(c)))
+                                  for c in tier.chains()}
+                return rec
+
+            async def successor(model, port):
+                tier = model.engine.kv_tier
+                rec = {"handoff": dict(tier.handoff),
+                       "digests": {c: payload_digest(tier.read(
+                           bytes.fromhex(c))) for c in tier.chains()}}
+                rec["ids"], rec["ttft"] = await drive_kv_turns(
+                    port, "kvhandoff", setup, 1, convs)
+                st = model.engine.stats()
+                rec["faulted_blocks"] = st["host_tier"]["faulted_blocks"]
+                rec["tokens_saved"] = st["paged"]["host_tier_tokens_saved"]
+                return rec
+
+            recs[arm] = (await incarnation(extra, incumbent),
+                         await incarnation(extra, successor))
+        return recs
+
+    try:
+        reset_launches()
+        recs = asyncio.run(drive())
+        launches = read_launches()
+    finally:
+        shutil.rmtree(kv_dir, ignore_errors=True)
+    (unbroken, cold), (incumbent, handoff) = recs["cold"], recs["handoff"]
+    layers = cfg["arch_kwargs"]["num_layers"]
+    check(launches["paged_attention"]
+          == layers * cfg["steps_per_call"] * (waves[0] + 4),
+          f"kvhandoff: paged kernel launched {launches['paged_attention']} "
+          f"times for {waves[0]} waves and 4 warm waves")
+    check(launches["flash_attention"] == 0,
+          f"kvhandoff: flash kernel launched {launches['flash_attention']} "
+          f"times; every prompt is chunked")
+    exp = incumbent["export"]
+    check(exp["exported"] > 0 and exp["dropped"] == 0 and exp["failed"] == 0,
+          f"kvhandoff: export {exp}")
+    adopted = handoff["handoff"]
+    check(adopted["adopted"] == exp["exported"] and all(
+        adopted[k] == 0 for k in ("corrupt", "truncated", "torn",
+                                  "version_skew", "dropped_capacity",
+                                  "failed")),
+          f"kvhandoff: adoption {adopted} after exporting {exp}")
+    check(handoff["digests"] == incumbent["digests"],
+          "kvhandoff: the adopted payloads differ from the exported ones")
+    check(handoff["ids"] == unbroken["ids"],
+          "kvhandoff: the successor's ids differ from the unbroken "
+          "session's")
+    check(handoff["faulted_blocks"] > 0 and cold["faulted_blocks"] == 0,
+          f"kvhandoff: faulted {handoff['faulted_blocks']} (handoff), "
+          f"{cold['faulted_blocks']} (cold)")
+    summary = {
+        "card": card, "export": exp, "export_ms": incumbent["export_ms"],
+        "export_gb_s": (exp["exported"] * incumbent["block_bytes"]
+                        / incumbent["export_ms"] / 1e6),
+        "adopted_blocks": adopted["adopted"], "adoption": adopted,
+        "return_ttft": {"handoff": ttft_summary(handoff["ttft"]),
+                        "cold": ttft_summary(cold["ttft"]),
+                        "unbroken": ttft_summary(unbroken["ttft"])},
+        "faulted_blocks": handoff["faulted_blocks"],
+        "tokens_saved": handoff["tokens_saved"],
+        "ids_handoff_equal_unbroken": True,
+        "ids_cold_equal_unbroken": cold["ids"] == unbroken["ids"],
+        "load_s": [unbroken["load_s"], cold["load_s"],
+                   incumbent["load_s"], handoff["load_s"]],
+        "launches": launches, "decode_waves": waves[0],
+    }
+    print("kvhandoff " + json.dumps(summary), flush=True)
+    return summary
+
+
 def load_tiny_models(card: str) -> dict:
     """bert_tiny (D32), vit_tiny (D16) and decoder_tiny (D32) load and
     serve on the card through K1: each model's warmup or prefill
@@ -3316,6 +3756,8 @@ def main() -> int:
         dense = serve_generate_dense(card)
         cold = serve_cold4k(card)
         spec = serve_specdec(card)
+        kvtier = serve_kvtier(card)
+        kvhandoff = serve_kvhandoff(card)
         resnet = serve_resnet(card)
         vit = serve_vit(card)
         serve_multi_model(card)
@@ -3327,7 +3769,8 @@ def main() -> int:
     # from 0 just before it ran.
     generative = ([generating["launches"], dense["launches"]]
                   + [arm["launches"] for arm in cold["arms"].values()]
-                  + [arm["launches"] for arm in spec["arms"].values()])
+                  + [arm["launches"] for arm in spec["arms"].values()]
+                  + [kvtier["launches"], kvhandoff["launches"]])
     kernels[0]["launches"] = (serving["flash_launches"]
                               + vit["flash_launches"]
                               + residency["flash_launches"]

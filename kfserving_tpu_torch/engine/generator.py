@@ -74,6 +74,20 @@ chunked prefill and its speculative decoding.
   (``engine/threefry.py``; its bits equal JAX's, its logarithm is
   torch's), so a seeded request draws the JAX package's tokens however
   it is scheduled (preemption, chunking and speculation included).
+- **host KV tier** (paged, ``host_tier_blocks``): a capacity-evicted
+  prefix block's k/v spill to a host mmap tier (``engine/kv_tier.py``)
+  instead of being dropped, and a returning turn's plan probes device
+  index -> host tier -> re-prefill.  The spill gathers the blocks
+  (``index_select`` over the real blocks) on the engine's stream before
+  any dispatch that could rewrite them, copies them into pinned memory
+  behind an event, and the fetch executor writes the tier.  A fault-back
+  reads the payloads into pinned memory, copies them to the card on the
+  engine's stream and writes them into the pool in place
+  (``paged_insert``), before the plan's own dispatches; each staging
+  buffer is held until its copy's event.  A failed spill degrades to a
+  drop, a failed fault-back rolls the plan back to a re-prefill, both
+  counted.  ``export_kv`` copies live slots' and hot chains' blocks into
+  a persistent tier for a successor; ``kv_import`` admits a peer's.
 - **deadlines and telemetry**: a request carries the deadline and trace
   id of the context that submitted it; between decode waves a request
   whose budget ran out ends with finish_reason ``"timeout"`` and frees
@@ -85,8 +99,8 @@ chunked prefill and its speculative decoding.
   FLOP/s and MFU, decode memory bandwidth) that ``/metrics`` publishes,
   and ``cache_debug()`` the ``/debug/cache`` block.
 
-Left for later: the host KV tier, the timeline, meshes, and graphs for
-the prefill buckets.
+Left for later: the timeline, meshes, and graphs for the prefill
+buckets.
 """
 
 import asyncio
@@ -106,6 +120,7 @@ import numpy as np
 import torch
 
 from kfserving_tpu_torch.engine import compile_cache, graphs, threefry
+from kfserving_tpu_torch.engine.kv_tier import HostKVTier
 from kfserving_tpu_torch.engine.speculative import (
     DEFAULT_DRAFT_WINDOW,
     NGramProposer,
@@ -133,6 +148,10 @@ logger = logging.getLogger("kfserving_tpu_torch.engine.generator")
 
 # Process-monotonic generator ids (compile-cache sources).
 _generator_seq = itertools.count()
+
+# Blocks per spill gather, fault-back insert and export gather: bounds the
+# device snapshot (4.7 MB a block at GPT-2-small width in bf16).
+TIER_GROUP_BLOCKS = 32
 
 def sampling_noise(base_key: torch.Tensor, seeds: torch.Tensor,
                    positions: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -215,6 +234,10 @@ class _Request:
     trace_id: Optional[str] = None
     submit_t: float = 0.0
     last_emit_t: Optional[float] = None
+    # Prompt blocks faulted back from the host KV tier instead of
+    # re-prefilled (kept apart from device prefix hits).
+    host_tier_hit_blocks: int = 0
+    host_tier_saved_tokens: int = 0
 
 
 @dataclass
@@ -251,6 +274,9 @@ class _Fetch:
     host: List[torch.Tensor]
     event: Optional[Any]
     draft_event: Optional[Any] = None
+    # A device tensor the copies read (a spill snapshot): held until the
+    # event fired, so the allocator cannot hand it out under the copy.
+    source: Optional[torch.Tensor] = None
 
 
 class GenerationEngine:
@@ -272,6 +298,8 @@ class GenerationEngine:
                  prefill_chunk_tokens: Optional[int] = None,
                  adaptive_depth: bool = True,
                  speculative: Optional[Dict[str, Any]] = None,
+                 host_tier_blocks: Optional[int] = None,
+                 host_tier_dir: Optional[str] = None,
                  rng_seed: int = 0,
                  logprob_topk: int = 5,
                  name: str = "decoder"):
@@ -480,9 +508,11 @@ class GenerationEngine:
         # Hits per live index entry (reuse depth): the /debug/cache
         # census reads it; an entry's count goes with the entry.
         self._chain_hits: Dict[bytes, int] = {}
+        # Capacity evictions split by fate: spilled (the chain survives in
+        # the host tier) or dropped.
         self.block_evictions: Dict[str, int] = {
-            "capacity_dropped": 0, "index_invalidation": 0,
-            "zombie_deferral": 0}
+            "capacity_dropped": 0, "capacity_spilled": 0,
+            "index_invalidation": 0, "zombie_deferral": 0}
         self.prefill_tokens_saved = 0
         # (release_at_decode_step, [block ids]): see
         # _schedule_block_release.
@@ -491,6 +521,47 @@ class GenerationEngine:
         self._plan_regs: Dict[int, List[Tuple[bytes, int]]] = {}
         self.prefix_hits = 0
         self.prefix_misses = 0
+
+        # -- host KV tier (paged mode only) --------------------------------
+        # KFS_KV_TIER_BLOCKS and KFS_KV_TIER_DIR are the env twins.  One
+        # block's payload is its k/v in the JAX layout: [layers, (k, v),
+        # BS, H, D].
+        self.kv_tier: Optional[HostKVTier] = None
+        if self.block_size is not None:
+            self._payload_shape = ((cfg.num_layers, 2)
+                                   + tuple(alloc_shape[1:]))
+            if host_tier_blocks is None:
+                try:
+                    host_tier_blocks = int(os.environ.get(
+                        "KFS_KV_TIER_BLOCKS", "0"))
+                except ValueError:
+                    host_tier_blocks = 0
+            if host_tier_blocks and int(host_tier_blocks) > 0:
+                self.kv_tier = HostKVTier(
+                    block_bytes=(int(np.prod(self._payload_shape))
+                                 * torch.empty((), dtype=cfg.dtype
+                                               ).element_size()),
+                    capacity_blocks=int(host_tier_blocks),
+                    directory=(host_tier_dir
+                               or os.environ.get("KFS_KV_TIER_DIR")),
+                    model=name)
+        # Spills awaiting their gather: (chain, block), appended under
+        # _block_lock at eviction and drained on the enqueue thread before
+        # any dispatch that could rewrite the block (that thread's FIFO is
+        # the stream's order, so the gather reads the evicted bytes).
+        self._spill_pending: List[Tuple[bytes, int]] = []
+        # Fault-backs awaiting their insert: (chain, block, request,
+        # primary); a primary=False row rides a primary's read of the
+        # same chain.
+        self._faultback_pending: List[Tuple[bytes, int, _Request,
+                                            bool]] = []
+        # chain -> destination block of a pending fault-back: a second
+        # plan in the same admission shares the block (single-flight).
+        self._faultback_by_chain: Dict[bytes, int] = {}
+        self.host_tier_tokens_saved = 0
+        # Fault-back copies to the card in flight: (event, pinned
+        # staging buffer), each buffer held until its copy's event.
+        self._h2d_inflight: deque = deque()
 
         # `_executor` waits for fetches (two workers, so a decode wave's
         # tokens never queue behind a prefill's); `_enqueue_executor`
@@ -728,6 +799,8 @@ class GenerationEngine:
                 pass
         self._executor.shutdown(wait=True)
         self._enqueue_executor.shutdown(wait=True)
+        if self.kv_tier is not None:
+            self.kv_tier.close()
 
     def shutdown_nowait(self):
         """Synchronous teardown (unload runs outside async context):
@@ -738,6 +811,17 @@ class GenerationEngine:
             self._wakeup.set()
         self._executor.shutdown(wait=False)
         self._enqueue_executor.shutdown(wait=False)
+        if self.kv_tier is not None:
+            self.kv_tier.close()
+
+    def load_gauges(self) -> Dict[str, int]:
+        """Occupied slots and queued requests: a generative replica
+        saturates by slots, not by request count (the server's drain
+        waits for both to reach 0)."""
+        return {"active_slots": sum(1 for s in self._slots
+                                    if s is not None),
+                "pending": len(self._pending),
+                "max_slots": self.max_slots}
 
     def graph_stats(self) -> Dict[str, Any]:
         """The compiled programs: the keys captured (``wave_graphs`` the
@@ -807,6 +891,10 @@ class GenerationEngine:
                 if padded > 0}
         if self.block_size is not None:
             out["paged"] = self._pool_stats()
+            if self.kv_tier is not None:
+                out["paged"]["host_tier_tokens_saved"] = \
+                    self.host_tier_tokens_saved
+                out["host_tier"] = self.kv_tier.debug()
             if self.prefill_chunk_tokens is not None:
                 out["chunked_prefill"] = {
                     "chunk_tokens": self.prefill_chunk_tokens,
@@ -934,7 +1022,16 @@ class GenerationEngine:
             if chain is not None and self._prefix_index.get(chain) == blk:
                 self._prefix_index.pop(chain, None)
                 self._chain_hits.pop(chain, None)
-            self._count_evictions_locked("capacity_dropped", 1)
+            # The evicted state's fate: with a tier and a chain it spills
+            # (counted spilled or dropped when the tier write resolves),
+            # else it drops.
+            if self.kv_tier is None or chain is None:
+                self._count_evictions_locked("capacity_dropped", 1)
+            elif self.kv_tier.contains(chain):
+                # Spilled before and faulted back since: already safe.
+                self._count_evictions_locked("capacity_spilled", 1)
+            else:
+                self._spill_pending.append((chain, blk))
             return blk
         return None
 
@@ -1013,27 +1110,34 @@ class GenerationEngine:
         """Allocate or share blocks for a prompt (loop thread).  Full
         blocks probe the prefix index by chain digest: causal attention
         makes the k/v of positions [0, m) a pure function of the first m
-        tokens.  Returns the per-block insert destinations (-1 = shared
-        hit, its write drops), or None when the pool cannot hold the
-        prompt now (the request stays pending).
+        tokens.  A device miss probes the host tier: a chain it holds
+        gets a fresh block that the fault-back drain fills (dest -1, as
+        a hit), or rides a pending fault-back of the same chain.  Returns
+        the per-block insert destinations (-1 = its write drops), or
+        None when the pool cannot hold the prompt now (the request stays
+        pending).
 
         chunk_regs (a chunked admission): fresh full-block registrations
         land here by block index instead of in the index; the scheduler
         publishes each chunk's when that chunk dispatches (a sharer
         must never read a block no dispatch was enqueued for).  Hits
-        are then taken only as a prefix of whole chunks, never into the
-        final chunk: a chunk writes every position it covers, so a chunk
-        mixing shared and fresh blocks would rewrite shared ones."""
+        (device or host) are then taken only as a prefix of whole
+        chunks, never into the final chunk: a chunk writes every
+        position it covers, so a chunk mixing shared and fresh blocks
+        would rewrite shared ones."""
         bs = self.block_size
+        tier = self.kv_tier
         n = int(req.prompt_ids.size)
         full = n // bs
         total = (n + bs - 1) // bs
         dest: List[int] = []
         taken: List[int] = []
         fresh_regs: List[Tuple[bytes, int]] = []
-        plan_hits = plan_misses = 0
+        plan_hits = plan_misses = plan_host_hits = 0
         hit_chains: List[bytes] = []
         depth_obs: List[int] = []
+        # (chain, block, primary) fault-backs this plan claims.
+        host_faults: List[Tuple[bytes, int, bool]] = []
         chains: List[bytes] = []
         chain = b""
         for c in range(full):
@@ -1046,17 +1150,21 @@ class GenerationEngine:
             if chunk_regs is not None:
                 bpc = self.prefill_chunk_tokens // bs
                 h = 0
-                while h < full and self._prefix_index.get(chains[h]) \
-                        is not None:
+                while h < full and (
+                        self._prefix_index.get(chains[h]) is not None
+                        or (tier is not None and (
+                            chains[h] in self._faultback_by_chain
+                            or tier.contains(chains[h])))):
                     h += 1
                 n_chunks = -(-n // self.prefill_chunk_tokens)
                 max_hit_blocks = min((h // bpc) * bpc,
                                      bpc * (n_chunks - 1))
             for c in range(total):
+                host_chain: Optional[bytes] = None
+                accept = max_hit_blocks is None or c < max_hit_blocks
                 if c < full:
                     hit = self._prefix_index.get(chains[c])
-                    if hit is not None and (max_hit_blocks is None
-                                            or c < max_hit_blocks):
+                    if hit is not None and accept:
                         self._ref_block_locked(hit)
                         self._tables[slot, c] = hit
                         taken.append(hit)
@@ -1067,7 +1175,22 @@ class GenerationEngine:
                         self._chain_hits[chains[c]] = depth
                         depth_obs.append(depth)
                         continue
+                    if tier is not None and accept:
+                        shared = self._faultback_by_chain.get(chains[c])
+                        if shared is not None:
+                            # Ride the pending fault-back's block.
+                            self._ref_block_locked(shared)
+                            self._tables[slot, c] = shared
+                            taken.append(shared)
+                            dest.append(-1)
+                            plan_host_hits += 1
+                            host_faults.append((chains[c], shared, False))
+                            continue
+                        if tier.begin_fault(chains[c]):
+                            host_chain = chains[c]
                 blk = self._alloc_block_locked()
+                if blk is None and host_chain is not None:
+                    tier.end_fault(host_chain)
                 if blk is None:
                     # Roll back; this plan's fresh registrations were
                     # never written, so a later hit on them would share
@@ -1082,6 +1205,12 @@ class GenerationEngine:
                                                  dropped)
                     for b in taken:
                         self._unref_block_locked(b)
+                    # Release this plan's tier claims: the replan probes
+                    # the tier from scratch.
+                    for ch, _b, primary in host_faults:
+                        if primary:
+                            tier.end_fault(ch)
+                            self._faultback_by_chain.pop(ch, None)
                     # The replan probes these chains again.
                     for ch in hit_chains:
                         d = self._chain_hits.get(ch)
@@ -1091,11 +1220,20 @@ class GenerationEngine:
                             else:
                                 self._chain_hits[ch] = d - 1
                     self._tables[slot, :] = -1
-                    self._count_lookups(plan_hits, plan_misses, 0, [])
+                    self._count_lookups(plan_hits, plan_misses, 0, [],
+                                        plan_host_hits)
                     return None
                 self._ref_block_locked(blk)
                 self._tables[slot, c] = blk
                 taken.append(blk)
+                if host_chain is not None:
+                    # The fault-back drain writes the chain's k/v into
+                    # blk before any dispatch of this plan reads it.
+                    dest.append(-1)
+                    plan_host_hits += 1
+                    host_faults.append((host_chain, blk, True))
+                    self._faultback_by_chain[host_chain] = blk
+                    continue
                 dest.append(blk)
                 if c < full:
                     # Full prompt blocks become shareable (decode writes
@@ -1113,23 +1251,32 @@ class GenerationEngine:
                         fresh_regs.append((chains[c], blk))
             if chunk_regs is None:
                 self._plan_regs[slot] = fresh_regs
+            # The caller drains these (a tier read and a pool insert on
+            # the enqueue thread) before any dispatch of this plan, and
+            # rolls the plan back if the drain fails.
+            for ch, b, primary in host_faults:
+                self._faultback_pending.append((ch, b, req, primary))
             self.prefix_hits += plan_hits
             self.prefill_tokens_saved += plan_hits * bs
         self._count_lookups(plan_hits, plan_misses, plan_hits * bs,
-                            depth_obs)
+                            depth_obs, plan_host_hits)
         return dest
 
     def _count_lookups(self, hits: int, misses: int, saved: int,
-                       depths: List[int]) -> None:
+                       depths: List[int], host_hits: int = 0) -> None:
         """One plan's prefix-index probes, the reuse depth each hit
         reached and the prompt tokens its hits saved, into the registry
-        families."""
+        families.  Host-tier answers count as ``host_hit``; their saved
+        tokens are counted when the fault-back lands."""
         if hits:
             obs.generator_prefix_lookups_total().labels(
                 model=self.name, outcome="hit").inc(hits)
             fam = obs.generator_prefix_reuse_depth_hits()
             for depth in depths:
                 fam.labels(model=self.name).observe(depth)
+        if host_hits:
+            obs.generator_prefix_lookups_total().labels(
+                model=self.name, outcome="host_hit").inc(host_hits)
         if misses:
             obs.generator_prefix_lookups_total().labels(
                 model=self.name, outcome="miss").inc(misses)
@@ -1165,6 +1312,320 @@ class GenerationEngine:
                     self._ref_block_locked(blk)
                     self._tables[i, c] = blk
         return failed
+
+    # -- host KV tier: spill and fault-back --------------------------------
+    # Both ride the enqueue thread, whose FIFO is the engine stream's
+    # order: a gather enqueued before an overwriting dispatch reads the
+    # evicted bytes whenever its copy completes, and a fault-back insert
+    # enqueued before the plan's own dispatches is in the pool before
+    # anything reads the block.
+
+    def _drain_spills(self) -> None:
+        """Enqueue thread, before any dispatch that could rewrite a
+        spill-pending block: gather the pending blocks on the engine's
+        stream and queue their copy into pinned memory; the fetch
+        executor waits for it and writes the tier (no tier I/O on the
+        scheduler loop, no host sync here)."""
+        if self.kv_tier is None:
+            return
+        with self._block_lock:
+            if not self._spill_pending:
+                return
+            pending, self._spill_pending = self._spill_pending, []
+        for i in range(0, len(pending), TIER_GROUP_BLOCKS):
+            grp = pending[i:i + TIER_GROUP_BLOCKS]
+            try:
+                handle = self._gather_blocks([b for _, b in grp])
+            except Exception:
+                # Counted as failed spills (drops) by _spill_write.
+                logger.exception("kv spill gather failed")
+                handle = None
+            self._executor.submit(self._spill_write, grp, handle)
+
+    def _gather_blocks(self, blocks: List[int]) -> _Fetch:
+        """Enqueue thread: one [N, layers, 2, BS, H, D] snapshot of pool
+        blocks (row n: block n's payload in the JAX layout), gathered
+        with ``index_select`` over the named blocks on the engine's
+        stream, and its copy to pinned host memory behind an event.  The
+        snapshot rides the handle until the event fired."""
+        with torch.inference_mode(), self._device_scope():
+            idx = self._to_device(np.asarray(blocks, np.int64))
+            snap = torch.empty((len(blocks),) + self._payload_shape,
+                               dtype=self._cache_dtype, device=self.device)
+            for li, (pk, pv) in enumerate(self._caches):
+                snap[:, li, 0] = pk.index_select(0, idx)
+                snap[:, li, 1] = pv.index_select(0, idx)
+            handle = self._start_fetch([snap])
+        handle.source = snap
+        return handle
+
+    def _payload_rows(self, handle: _Fetch) -> np.ndarray:
+        """Wait for a gather's copy; its rows as [N, block_bytes] uint8
+        (bfloat16 as its bit patterns)."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        handle.source = None
+        host = handle.host[0]
+        return host.view(torch.uint8).numpy().reshape(host.shape[0], -1)
+
+    def _spill_write(self, grp: List[Tuple[bytes, int]],
+                     handle: Optional[_Fetch]) -> None:
+        """Fetch executor: write each gathered block into the tier.
+        Per block transactional: any failure (the ``engine.kv_spill``
+        fault site, a full tier, an mmap error) degrades that eviction
+        to a drop, and the tier publishes only complete payloads.  The
+        eviction's cause lands here: capacity_spilled when the tier
+        committed, capacity_dropped otherwise."""
+        outcomes: List[Tuple[int, str]] = []
+        try:
+            if handle is not None:
+                if faults.configured(fault_sites.ENGINE_KV_SPILL):
+                    faults.inject_sync(fault_sites.ENGINE_KV_SPILL,
+                                       key=self.name)
+                rows = self._payload_rows(handle)
+                for row, (chain, blk) in zip(rows, grp):
+                    ok = self.kv_tier.put(chain, row)
+                    outcomes.append((blk, "capacity_spilled" if ok
+                                     else "capacity_dropped"))
+        except FaultInjected:
+            pass  # the remaining blocks degrade to drops below
+        except Exception:
+            logger.exception("kv spill batch failed")
+        finally:
+            aborted = len(grp) - len(outcomes)
+            if aborted:
+                self.kv_tier.note_spill_failure(aborted)
+                outcomes.extend((blk, "capacity_dropped")
+                                for _, blk in grp[len(outcomes):])
+            with self._block_lock:
+                for _blk, cause in outcomes:
+                    self._count_evictions_locked(cause, 1)
+
+    def _drain_faultbacks(self) -> bool:
+        """Enqueue thread, after planning and before the plans'
+        dispatches: read every pending primary fault-back's payload from
+        the tier into pinned memory, copy it to the card and write it
+        into its pool block in place.  Returns False on any read failure
+        (the ``engine.kv_faultback`` fault site, an entry evicted since
+        the probe) having dispatched nothing: the failed chains leave the
+        tier, and the caller rolls the plans back so the requests
+        re-admit as plain re-prefills.  Spills drain first: this
+        admission's fresh blocks may be spill-pending evictions."""
+        self._drain_spills()
+        if self.kv_tier is None:
+            return True
+        with self._block_lock:
+            if not self._faultback_pending:
+                return True
+            pending, self._faultback_pending = self._faultback_pending, []
+        primaries = [(ch, blk) for ch, blk, _r, prim in pending if prim]
+        riders = len(pending) - len(primaries)
+        t0 = time.perf_counter()
+        staged: List[Tuple[torch.Tensor, List[int]]] = []
+        try:
+            if faults.configured(fault_sites.ENGINE_KV_FAULTBACK):
+                faults.inject_sync(fault_sites.ENGINE_KV_FAULTBACK,
+                                   key=self.name)
+            for i in range(0, len(primaries), TIER_GROUP_BLOCKS):
+                grp = primaries[i:i + TIER_GROUP_BLOCKS]
+                buf = torch.empty((len(grp),) + self._payload_shape,
+                                  dtype=self._cache_dtype,
+                                  pin_memory=self.device.type == "cuda")
+                rows = buf.view(torch.uint8).numpy().reshape(len(grp), -1)
+                for row, (ch, _blk) in zip(rows, grp):
+                    self.kv_tier.read_into(ch, row)
+                staged.append((buf, [blk for _, blk in grp]))
+        except Exception as e:
+            # Nothing dispatched, nothing published: the suspect chains
+            # leave the tier so the replanned turns miss it.
+            if not isinstance(e, (FaultInjected, KeyError)):
+                logger.warning("kv fault-back failed: %r", e)
+            self.kv_tier.note_fault_failure(len(pending))
+            with self._block_lock:
+                for ch, _blk in primaries:
+                    self._faultback_by_chain.pop(ch, None)
+            for ch, _blk in primaries:
+                self.kv_tier.drop(ch)
+                self.kv_tier.end_fault(ch)
+            return False
+        with torch.inference_mode(), self._device_scope():
+            for buf, blocks in staged:
+                self._insert_payloads(buf, blocks)
+        elapsed_ms = (time.perf_counter() - t0) * 1000.0
+        saved = 0
+        with self._block_lock:
+            for ch, blk in primaries:
+                # The insert is enqueued: the block is ordinary prefix
+                # state.  An identical admission may have registered
+                # the chain first; its entry stays canonical.
+                if self._prefix_index.get(ch) is None:
+                    self._prefix_index[ch] = blk
+                    self._block_chain[blk] = ch
+                self._faultback_by_chain.pop(ch, None)
+            for _ch, _blk, req, _prim in pending:
+                req.host_tier_hit_blocks += 1
+                req.host_tier_saved_tokens += self.block_size
+                saved += self.block_size
+            self.host_tier_tokens_saved += saved
+        for ch, _blk in primaries:
+            self.kv_tier.end_fault(ch)
+        obs.generator_kv_tier_tokens_saved_total().labels(
+            model=self.name).inc(saved)
+        self.kv_tier.note_faultback(len(primaries), elapsed_ms)
+        if riders:
+            self.kv_tier.note_coalesced(riders)
+        return True
+
+    def _insert_payloads(self, buf: torch.Tensor, blocks: List[int]) -> None:
+        """Enqueue thread, in the device scope: copy staged payloads [N,
+        layers, 2, BS, H, D] to the card on the engine's stream and write
+        them into pool blocks ``blocks`` in place (the pools' addresses
+        are baked into the captured graphs).  On the card the pinned
+        buffer is held until the copy's event fired."""
+        dev = (buf.to(self.device, non_blocking=True)
+               if self.device.type == "cuda" else buf)
+        dest = self._to_device(np.asarray(blocks, np.int64)[:, None])
+        for li, (pk, pv) in enumerate(self._caches):
+            paged_insert(pk, pv, dev[:, li, 0], dev[:, li, 1], dest)
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self._h2d_inflight.append((event, buf))
+        while self._h2d_inflight and self._h2d_inflight[0][0].query():
+            self._h2d_inflight.popleft()
+
+    # -- durable handoff: drain export and peer import ----------------------
+    def export_kv(self, budget_s: float = 2.0) -> Dict[str, int]:
+        """Drain export: copy live slots' blocks, then the prefix index's
+        chains hottest first, into the host tier within ``budget_s``, so a
+        successor process (or a peer pulling ``/kv/chains``) serves the
+        returning conversations by fault-back instead of re-prefill.
+        Blocking: call it off the event loop.  It runs on the enqueue
+        thread, after every dispatch already enqueued.  What the budget
+        cannot cover is counted dropped."""
+        zeros = {"exported": 0, "skipped": 0, "dropped": 0, "failed": 0}
+        if self.block_size is None or self.kv_tier is None:
+            return zeros
+        deadline = time.monotonic() + max(0.0, float(budget_s))
+        try:
+            fut = self._enqueue_executor.submit(self._export_kv_worker,
+                                                deadline)
+        except RuntimeError:
+            return zeros  # executor already shut down
+        return fut.result()
+
+    def _export_kv_worker(self, deadline: float) -> Dict[str, int]:
+        """Enqueue thread: the export.  Candidates in eviction-value
+        order (live slots first, whose return is the most certain, then
+        registered chains by reuse depth).  Per block transactional; the
+        ``engine.kv_export`` fault site fails the whole pass before any
+        tier write (every candidate counted failed)."""
+        out = {"exported": 0, "skipped": 0, "dropped": 0, "failed": 0}
+        t0 = time.perf_counter()
+        bs = self.block_size
+        cand: List[Tuple[bytes, int]] = []
+        seen: set = set()
+        with self._block_lock:
+            for si, s in enumerate(self._slots):
+                if s is None or s.prefilling:
+                    continue
+                ids = s.req.prompt_ids
+                ext = max(0, int(s.length) - int(ids.size))
+                # The return visit's prompt extends prompt + output: its
+                # plan probes chains over the concatenation.
+                allids = (np.concatenate(
+                    [ids, np.asarray(s.tokens[:ext], np.int32)])
+                    if ext > 0 and s.tokens else ids)
+                chain = b""
+                for c in range(min(int(s.length), int(allids.size)) // bs):
+                    chain = hashlib.blake2b(
+                        chain + allids[c * bs:(c + 1) * bs].tobytes(),
+                        digest_size=16).digest()
+                    blk = int(self._tables[si, c])
+                    if blk < 0 or chain in seen:
+                        continue
+                    seen.add(chain)
+                    if self.kv_tier.contains(chain):
+                        out["skipped"] += 1
+                        continue
+                    cand.append((chain, blk))
+            hot = sorted(((self._chain_hits.get(ch, 0), ch, blk)
+                          for ch, blk in self._prefix_index.items()
+                          if ch not in seen),
+                         key=lambda t: t[0], reverse=True)
+            for _depth, ch, blk in hot:
+                seen.add(ch)
+                if self.kv_tier.contains(ch):
+                    out["skipped"] += 1
+                    continue
+                cand.append((ch, blk))
+        try:
+            if cand and faults.configured(fault_sites.ENGINE_KV_EXPORT):
+                faults.inject_sync(fault_sites.ENGINE_KV_EXPORT,
+                                   key=self.name)
+        except FaultInjected:
+            out["failed"] = len(cand)
+            cand = []
+        for i in range(0, len(cand), TIER_GROUP_BLOCKS):
+            if time.monotonic() >= deadline:
+                # The coldest tail: counted, never stretching the drain.
+                out["dropped"] += len(cand) - i
+                break
+            grp = cand[i:i + TIER_GROUP_BLOCKS]
+            try:
+                rows = self._payload_rows(
+                    self._gather_blocks([b for _, b in grp]))
+            except Exception:
+                logger.exception("kv export gather failed")
+                out["failed"] += len(grp)
+                continue
+            for row, (chain, _blk) in zip(rows, grp):
+                out["exported" if self.kv_tier.put(chain, row)
+                    else "failed"] += 1
+        elapsed_ms = (time.perf_counter() - t0) * 1000.0
+        for outcome, count in out.items():
+            if count:
+                obs.kv_handoff_exported_blocks_total().labels(
+                    model=self.name, outcome=outcome).inc(count)
+        obs.kv_handoff_export_ms().labels(model=self.name).observe(
+            elapsed_ms)
+        if any(out.values()):
+            logger.info("kv export (%s): exported=%d skipped=%d "
+                        "dropped=%d failed=%d in %.1fms", self.name,
+                        out["exported"], out["skipped"], out["dropped"],
+                        out["failed"], elapsed_ms)
+        return out
+
+    def kv_import(self, pairs: List[Tuple[bytes, bytes]]
+                  ) -> Dict[str, int]:
+        """Admit peer-transferred (chain, payload) pairs into the host
+        tier (the ``/kv/reattach`` pull; the server verified each payload
+        against its digest header).  Blocking but dispatch-free.  The
+        ``engine.kv_import`` fault site rejects the whole batch before
+        any tier publication (every pair counted failed)."""
+        out = {"imported": 0, "skipped": 0, "failed": 0}
+        if self.block_size is None or self.kv_tier is None or not pairs:
+            return out
+        try:
+            if faults.configured(fault_sites.ENGINE_KV_IMPORT):
+                faults.inject_sync(fault_sites.ENGINE_KV_IMPORT,
+                                   key=self.name)
+        except FaultInjected:
+            out["failed"] = len(pairs)
+            obs.kv_handoff_peer_blocks_total().labels(
+                model=self.name, outcome="failed").inc(len(pairs))
+            return out
+        for chain, payload in pairs:
+            if self.kv_tier.contains(chain):
+                out["skipped"] += 1
+                continue
+            out["imported" if self.kv_tier.put(chain, payload)
+                else "failed"] += 1
+        for outcome, count in out.items():
+            if count:
+                obs.kv_handoff_peer_blocks_total().labels(
+                    model=self.name, outcome=outcome).inc(count)
+        return out
 
     # -- device programs (enqueue thread) ----------------------------------
     def _device_scope(self):
@@ -1315,6 +1776,9 @@ class GenerationEngine:
         the next wave on the device.  Prefilling slots are None in the
         snapshot: the wave decodes their parked rows, whose writes drop
         and whose tokens are discarded."""
+        # Slot growth for this wave may have evicted spill-pending
+        # blocks the wave writes: gather first.
+        self._drain_spills()
         S = self.max_slots
         snapshot = [None if (s is not None and s.prefilling) else s
                     for s in self._slots]
@@ -1405,6 +1869,7 @@ class GenerationEngine:
         (dense), and its first tokens into the feed arrays; no host
         sync.  Rows pad to a power of two (padding rows: length 1, feed
         row = the sink row, every write dropped)."""
+        self._drain_spills()
         b = len(group)
         b_bucket = 1
         while b_bucket < b:
@@ -1470,6 +1935,7 @@ class GenerationEngine:
         next wave decodes the slot without a host round trip.  The table
         row is cut to the blocks chunks 0..idx cover (one program per
         chunk index, as the JAX engine's)."""
+        self._drain_spills()
         req = act.req
         C = self.prefill_chunk_tokens
         MB = self.blocks_per_slot
@@ -1552,6 +2018,7 @@ class GenerationEngine:
         trip between them) and the K + 1-position verify.  Rows not in
         ``eligible`` park on the max_seq position: their writes drop and
         their samples are discarded."""
+        self._drain_spills()
         S, K = self.max_slots, self.spec_tokens
         last = np.zeros(S, np.int32)
         qpos = np.full((S, K + 1), self.max_seq, np.int32)
@@ -1782,6 +2249,15 @@ class GenerationEngine:
             group, slots, bucket, dest_rows = self._take_prefill_group()
             if not group:
                 break  # pool pressure: wait for frees
+            if not await self._land_faultbacks(loop):
+                # Nothing was dispatched: roll the group's plans back and
+                # re-queue it at the front; the replans miss the tier
+                # (the failed chains were dropped) and re-prefill.
+                for slot in slots:
+                    self._deregister_plan(slot)
+                    self._schedule_block_release(slot)
+                self._pending.extendleft(reversed(group))
+                continue
             try:
                 handle = await loop.run_in_executor(
                     self._enqueue_executor, self._enqueue_prefill_group,
@@ -1816,6 +2292,14 @@ class GenerationEngine:
             admitted = True
         return admitted
 
+    async def _land_faultbacks(self, loop) -> bool:
+        """Drain the admission's planned fault-backs on the enqueue
+        thread, before its dispatches; False when they failed."""
+        if self.kv_tier is None or not self._faultback_pending:
+            return True
+        return await loop.run_in_executor(self._enqueue_executor,
+                                          self._drain_faultbacks)
+
     # -- chunked prefill (scheduler side) -----------------------------------
     def _is_cold(self, req: _Request) -> bool:
         return (self.prefill_chunk_tokens is not None
@@ -1840,6 +2324,12 @@ class GenerationEngine:
         dest = self._plan_prompt_blocks(req, slot, chunk_regs=chunk_regs)
         if dest is None:
             return False
+        if not await self._land_faultbacks(loop):
+            # Nothing was dispatched: release the plan's blocks (its fresh
+            # registrations were never published) and leave the request
+            # pending; its replan misses the tier and re-prefills.
+            self._schedule_block_release(slot)
+            return True
         self._pending.popleft()
         n = int(req.prompt_ids.size)
         act = _Active(req=req, length=n, last_token=-1, generated=0,

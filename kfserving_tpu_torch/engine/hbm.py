@@ -55,6 +55,20 @@ def device_hbm_in_use(device: Any = None) -> Optional[int]:
     return torch.cuda.memory_allocated(device)
 
 
+def host_memory_bytes() -> int:
+    """Available host memory (bytes), 0 when unknowable: the host-side
+    twin of ``device_hbm_bytes``, against which the host KV tier
+    (``engine/kv_tier.py``) clamps its spill file."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return 0
+
+
 class InsufficientHBM(Exception):
     """No room for an admission.  ``permanent`` tells "can never fit"
     (bigger than the whole budget) from the transient case of no

@@ -53,6 +53,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kfserving_tpu_torch import startup
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.protocol.errors import InvalidInput
 
@@ -321,6 +322,7 @@ def load_or_materialize(architecture: str, arch_kwargs: Optional[Dict],
                       code=code_digest(spec.module))
     cached = load(key)
     if cached is not None:
+        startup.mark("params_mmap")
         module = (weights.materialize(spec.module, device, state_dict=cached)
                   if fill else weights.allocate(spec.module, device))
         return module, cached, "mmap"
@@ -332,16 +334,19 @@ def load_or_materialize(architecture: str, arch_kwargs: Optional[Dict],
                 f"no Flax checkpoint converter for architecture "
                 f"{architecture!r}")
         state_dict = convert(weights.read_flax_msgpack(ckpt_path))
+        startup.mark("checkpoint_restore")
         source = "checkpoint"
     else:
         logger.warning("no checkpoint at %s; serving a seeded init",
                        ckpt_path)
     module = weights.materialize(spec.module, device, state_dict=state_dict,
                                  seed=seed)
+    startup.mark("init_params")
     # Serve the mapped bytes just written, not this process's copy: they
     # are the host restore source, and the page cache shares them with
     # every later load.
     if store(key, module.state_dict()):
+        startup.mark("param_cache_store")
         mapped = load(key)
         if mapped is not None:
             return module, mapped, source

@@ -13,8 +13,7 @@ a caller holding a stale instrument::
     obs.llm_ttft_ms().observe(ttft, trace_id=req.trace_id)
 
 Histograms are milliseconds unless the name says otherwise.  Families of
-layers the port has not ported yet (KV tier, handoff, SLO, history,
-router, monitors) are listed in ROADMAP under the item that ports each.
+layers the port has not ported yet (SLO, history, router, monitors) are listed in ROADMAP under the item that ports each.
 """
 
 from kfserving_tpu_torch.observability.registry import (
@@ -126,7 +125,9 @@ def generator_prefix_lookups_total():
         "Chain-hash prefix-index probes per full prompt block at plan "
         "time, by outcome (hit = the block's k/v were already "
         "device-resident and the plan points at the shared block; "
-        "miss = a fresh block was allocated)")
+        "host_hit = a device miss answered by the host KV tier, the "
+        "block faults back instead of re-prefilling; miss = a fresh "
+        "block was allocated)")
 
 
 # Reuse depth of an index entry: hit counts per entry, shallow to hot.
@@ -153,10 +154,11 @@ def generator_prefill_tokens_saved_total():
 def generator_block_evictions_total():
     return REGISTRY.counter(
         "kfserving_tpu_generator_block_evictions_total",
-        "Pool blocks leaving their role, by cause: capacity_dropped "
+        "Pool blocks leaving their role, by cause: capacity_spilled "
         "= LRU reclaim of a zero-ref cached prefix block under "
-        "allocation pressure (the port has no host KV tier, so its "
-        "state is lost); index_invalidation = provisional prefix "
+        "allocation pressure whose k/v landed in the host KV tier; "
+        "capacity_dropped = the same reclaim with the state lost (no "
+        "tier, no chain, or a failed spill); index_invalidation = provisional prefix "
         "registrations dropped because their planned writes never "
         "dispatched (plan rollback / enqueue failure); "
         "zombie_deferral = slot blocks released after maturing "
@@ -352,3 +354,111 @@ def param_cache_total():
         "kfserving_tpu_param_cache_total",
         "mmap param-cache lookups and stores, by outcome "
         "(hit|miss|store|error)")
+
+
+# -- host KV tier (engine/kv_tier.py): spilled conversation state one
+# level under the device pool ---------------------------------------------
+def generator_kv_tier_blocks():
+    return REGISTRY.gauge(
+        "kfserving_tpu_generator_kv_tier_blocks",
+        "Blocks currently held by the host KV tier (spilled "
+        "conversation prefixes a returning turn can fault back "
+        "instead of re-prefilling)")
+
+
+def generator_kv_tier_occupancy_ratio():
+    return REGISTRY.gauge(
+        "kfserving_tpu_generator_kv_tier_occupancy_ratio",
+        "Host KV tier occupancy over its capacity (1.0 = the tier's "
+        "own LRU ledger is evicting on every admission)")
+
+
+def generator_kv_tier_spills_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_kv_tier_spills_total",
+        "Capacity-evicted blocks offered to the host tier by outcome: "
+        "spilled = payload landed and the index entry published; "
+        "failed = the spill failed (the eviction degraded to a drop, "
+        "counted under block_evictions{cause=\"capacity_dropped\"}); "
+        "duplicate = the chain was already host-resident")
+
+
+def generator_kv_tier_faultbacks_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_kv_tier_faultbacks_total",
+        "Host-tier blocks a returning turn's admission plan claimed, by "
+        "outcome: faulted = one physical read + pool insert; coalesced "
+        "= a concurrent plan rode an in-flight fault (single-flight); "
+        "failed = the fault-back failed and the turn fell through to a "
+        "normal re-prefill")
+
+
+def generator_kv_tier_faultback_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_generator_kv_tier_faultback_ms",
+        "Latency of one fault-back batch (tier read into pinned memory "
+        "+ host-to-device copy and pool insert enqueue): the "
+        "milliseconds a returning turn paid instead of a re-prefill")
+
+
+def generator_kv_tier_evictions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_kv_tier_evictions_total",
+        "Host-tier entries leaving the ledger by reason: capacity = LRU "
+        "eviction admitting a newer spill; skipped_inflight = an "
+        "eviction vetoed because the victim was mid-fault-in; "
+        "faultback_failed = entry dropped because its read failed (the "
+        "payload is suspect: the turn re-prefills)")
+
+
+def generator_kv_tier_tokens_saved_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_generator_kv_tier_tokens_saved_total",
+        "Prompt tokens served from the host KV tier instead of "
+        "re-prefilled (host-hit blocks x block_size), kept apart from "
+        "generator_prefill_tokens_saved_total")
+
+
+# -- KV handoff: conversation state surviving the replica process (drain
+# exports, manifest re-attach, peer transfer) ------------------------------
+def kv_handoff_exported_blocks_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_kv_handoff_exported_blocks_total",
+        "Device KV blocks offered to the durable host tier by the drain "
+        "export (live slots and hot prefix chains), by outcome: "
+        "exported = payload landed in the tier; skipped = already "
+        "host-resident; dropped = the drain budget ran out first "
+        "(hottest first, so drops are the coldest tail); failed = the "
+        "export failed (engine.kv_export or a gather/copy error)")
+
+
+def kv_handoff_reattached_blocks_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_kv_handoff_reattached_blocks_total",
+        "Predecessor-generation tier entries processed on re-attach "
+        "(boot-time adoption or POST /kv/reattach), by outcome: adopted "
+        "= digest-verified and admitted; duplicate = already resident; "
+        "corrupt = payload digest mismatch; truncated = payload file "
+        "short of the recorded slot; torn = unparseable manifest line; "
+        "version_skew = record schema version unknown to this build; "
+        "dropped_capacity = adoption never evicts the successor's own "
+        "entries; failed = admission failed")
+
+
+def kv_handoff_peer_blocks_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_kv_handoff_peer_blocks_total",
+        "KV blocks pulled over the replica-to-replica transfer path "
+        "(GET /kv/chains/<chain> on a peer), by outcome: imported = "
+        "digest-verified on receipt and admitted; digest_mismatch = "
+        "wire payload failed verification (discarded); skipped = "
+        "already resident locally; failed = fetch error or the "
+        "engine.kv_import fault site")
+
+
+def kv_handoff_export_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_kv_handoff_export_ms",
+        "Wall time of one drain export pass (gather + device-to-host "
+        "copy + tier writes for all surviving candidates), bounded by "
+        "KFS_KV_EXPORT_BUDGET_S")

@@ -16,10 +16,14 @@ predict faults it onto the card under one device-memory ledger
 are offloaded to their mmap host params (``KFS_PARAM_CACHE``) to make
 room and fault back in on their next request; ``GET /debug/cache`` shows
 the ledger and the residency states.
+
+Without ``--multi_model``, ``KFS_STANDBY`` arms standby: the server starts
+with no model and loads it on ``POST /standby/activate``.
 """
 
 import argparse
 import logging
+import os
 
 from kfserving_tpu_torch.predictors.jaxserver.repository import (
     TorchModelRepository,
@@ -51,10 +55,16 @@ def main(argv=None) -> None:
                     ).start([])
         return
     model = TorchModel(args.model_name, args.model_dir, device=args.device)
-    model.load()
-    ModelServer(http_port=args.http_port,
-                container_concurrency=args.container_concurrency
-                ).start([model])
+    server = ModelServer(http_port=args.http_port,
+                         container_concurrency=args.container_concurrency)
+    if os.environ.get("KFS_STANDBY"):
+        # Recycle fast swap: imports and server setup are done; the load
+        # waits for POST /standby/activate.
+        server.standby_model(lambda: (model.load(), model)[1])
+        server.start([])
+    else:
+        model.load()
+        server.start([model])
 
 
 if __name__ == "__main__":

@@ -25,6 +25,13 @@ config.json keys are the JAX package's (unknown keys are ignored):
       "block_size": 128,           # paged cache; absent: dense slots
       "cache_blocks": 48,
       "prefill_chunk_tokens": 256, # paged only: cold prompts in chunks
+      "host_tier_blocks": 256,     # paged only: evicted prefix blocks
+                                   #   spill to a host mmap tier of this
+                                   #   many blocks and fault back on the
+                                   #   next turn (KFS_KV_TIER_BLOCKS)
+      "host_tier_dir": "/var/kv",  # a persistent tier a successor
+                                   #   adopts (KFS_KV_TIER_DIR); absent:
+                                   #   a private tempdir
       "adaptive_depth": true,
       "speculative": {"tokens": 4, # K proposals a wave (n-gram head)
                       "draft": {"architecture": "decoder",
@@ -35,8 +42,8 @@ config.json keys are the JAX package's (unknown keys are ignored):
 The draft materializes through the mmap param cache beside the target;
 with no model_dir of its own it shares the target's directory (a
 self-draft on the target's weights).  The port refuses, with
-InvalidInput, what it has not ported yet: ``host_tier_blocks``, a mesh
-of more than one device and ``hf:`` tokenizers.
+InvalidInput, what it has not ported yet: a mesh of more than one device
+and ``hf:`` tokenizers.
 
 Request shapes (V1 predict and the generate routes):
     {"instances": ["a prompt", {"prompt": "...", "max_tokens": 32,
@@ -57,6 +64,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
 
+from kfserving_tpu_torch import startup
 from kfserving_tpu_torch.engine import compile_cache, param_cache
 from kfserving_tpu_torch.engine.generator import GenerationEngine
 from kfserving_tpu_torch.engine.speculative import (
@@ -255,6 +263,7 @@ class GenerativeConfig:
                  cache_blocks: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  host_tier_blocks: Optional[int] = None,
+                 host_tier_dir: Optional[str] = None,
                  adaptive_depth: bool = True,
                  speculative: Optional[Dict[str, Any]] = None,
                  mesh: Optional[Dict[str, int]] = None,
@@ -276,6 +285,7 @@ class GenerativeConfig:
                                      if prefill_chunk_tokens else None)
         self.host_tier_blocks = (int(host_tier_blocks)
                                  if host_tier_blocks else None)
+        self.host_tier_dir = host_tier_dir
         self.adaptive_depth = bool(adaptive_depth)
         self.speculative = dict(speculative) if speculative else None
         self.mesh = mesh or {}
@@ -295,8 +305,6 @@ class GenerativeConfig:
     def check_ported(self) -> None:
         """Refuse what the PyTorch port does not serve yet."""
         missing = []
-        if self.host_tier_blocks:
-            missing.append("host_tier_blocks (host KV tier)")
         if any(int(v) > 1 for v in self.mesh.values()):
             missing.append("mesh (multi-device)")
         if missing:
@@ -335,7 +343,9 @@ class GenerativeModel(Model):
 
     # -- lifecycle ---------------------------------------------------------
     def load(self) -> bool:
+        startup.mark("load_start")
         local = local_model_dir(self.model_dir)
+        startup.mark("download")
         cfg = self.config
         if cfg is None:
             cfg = GenerativeConfig.from_file(
@@ -366,6 +376,8 @@ class GenerativeModel(Model):
             pipeline_depth=cfg.pipeline_depth,
             block_size=cfg.block_size, cache_blocks=cfg.cache_blocks,
             prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            host_tier_blocks=cfg.host_tier_blocks,
+            host_tier_dir=cfg.host_tier_dir,
             adaptive_depth=cfg.adaptive_depth, speculative=speculative,
             logprob_topk=cfg.logprob_topk, name=self.name)
         # The engine compiled its greedy wave; a variant compiled later
@@ -420,6 +432,13 @@ class GenerativeModel(Model):
         speculative.update({"draft_module": module_d,
                             "draft_window": window})
         return speculative, (module_d, window)
+
+    async def close(self) -> None:
+        """Stop the engine, joining its threads (its host tier closes,
+        a persistent one's lock released for a successor)."""
+        if self.engine is not None:
+            await self.engine.close()
+            self.engine = None
 
     def unload(self) -> None:
         if self.engine is not None:

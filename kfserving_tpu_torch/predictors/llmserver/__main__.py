@@ -7,10 +7,14 @@ checkpoint.msgpack) with the PyTorch port — V1 ``:predict``,
 
     python -m kfserving_tpu_torch.predictors.llmserver --model_name gen \
         --model_dir /path/to/model --http_port 8080 [--device cuda]
+
+With ``KFS_STANDBY`` set the server starts with no model and loads it on
+``POST /standby/activate``.
 """
 
 import argparse
 import logging
+import os
 
 from kfserving_tpu_torch.predictors.llm import GenerativeModel
 from kfserving_tpu_torch.server.app import ModelServer, parser as server_parser
@@ -29,10 +33,16 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     model = GenerativeModel(args.model_name, args.model_dir,
                             device=args.device)
-    model.load()
-    ModelServer(http_port=args.http_port,
-                container_concurrency=args.container_concurrency
-                ).start([model])
+    server = ModelServer(http_port=args.http_port,
+                         container_concurrency=args.container_concurrency)
+    if os.environ.get("KFS_STANDBY"):
+        # Recycle fast swap: the load (device init, compile) waits for
+        # POST /standby/activate, once the predecessor released the card.
+        server.standby_model(lambda: (model.load(), model)[1])
+        server.start([])
+    else:
+        model.load()
+        server.start([model])
 
 
 if __name__ == "__main__":

@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from kfserving_tpu_torch import startup
 from kfserving_tpu_torch.batching import DynamicBatcher
 from kfserving_tpu_torch.engine import compile_cache, graphs, param_cache
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
@@ -176,7 +177,9 @@ class TorchModel(Model):
         return True
 
     def load(self) -> bool:
+        startup.mark("load_start")
         local_dir = local_model_dir(self.model_dir)
+        startup.mark("download")
         cfg = self._read_config()
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
         check_kernel_shapes(spec.module, self.device)

@@ -23,3 +23,24 @@ ENGINE_SPEC_DRAFT = "engine.spec_draft"
 # GenerationEngine K+1-position verify seam of a speculative decode wave,
 # keyed by engine name: as above, counted under site="verify".
 ENGINE_SPEC_VERIFY = "engine.spec_verify"
+
+# GenerationEngine host-tier spill of capacity-evicted KV blocks, keyed by
+# engine name: an injected error fails the spill before the tier index
+# publishes, so the eviction degrades to a plain drop (counted
+# cause=capacity_dropped).
+ENGINE_KV_SPILL = "engine.kv_spill"
+
+# GenerationEngine host-tier fault-back of a returning turn's spilled
+# blocks, keyed by engine name: an injected error fails the read before
+# any pool insert, so the plan rolls back and the turn re-prefills.
+ENGINE_KV_FAULTBACK = "engine.kv_faultback"
+
+# GenerationEngine drain export of live-slot and hot prefix-chain KV into
+# the durable host tier, keyed by engine name: an injected error fails the
+# export before any tier write (every candidate counted outcome=failed).
+ENGINE_KV_EXPORT = "engine.kv_export"
+
+# GenerationEngine admission of peer-transferred KV payloads (the
+# /kv/reattach pull path), keyed by engine name: an injected error rejects
+# the batch before any tier publication.
+ENGINE_KV_IMPORT = "engine.kv_import"

@@ -11,6 +11,10 @@ Port of ``kfserving_tpu/reliability/faults.py``: a process-global
                             engine name
     engine.spec_verify      a speculative wave's verify seam, keyed by
                             engine name
+    engine.kv_spill         the host KV tier's spill, keyed by engine
+                            name (and kv_faultback, kv_export,
+                            kv_import: its fault-back, drain export and
+                            peer import)
 
 A site with no configuration costs one dict lookup.  Configuration comes
 from the ``KFS_FAULTS`` env var (JSON object keyed by site) or
@@ -156,6 +160,15 @@ class FaultInjector:
             spec.injected += 1
             return FaultInjected(site, key)
         return None
+
+    def inject_sync(self, site: str, key: str = "") -> None:
+        """Executor-thread edges (the engine's host KV tier)."""
+        spec = self._spec(site, key)
+        if spec is None:
+            return
+        err = self._decide(spec, site, key)
+        if err is not None:
+            raise err
 
     async def inject(self, site: str, key: str = "") -> None:
         """Event-loop edges (async, as the JAX package's, whose other

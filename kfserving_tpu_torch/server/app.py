@@ -28,6 +28,16 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
                                             with exemplars on request)
     GET  /debug/traces                      the span ring (?trace_id=,
                                             ?limit=)
+    GET  /startup_phases                    boot-phase marks (seconds
+                                            since process birth)
+    POST /standby/activate                  load the armed standby model
+    GET  /kv/chains                         host-tier chains per model
+                                            (?model=), with block_bytes
+    GET  /kv/chains/{chain}                 one chain's payload, with its
+                                            x-kfs-kv-digest header
+    POST /kv/reattach                       adopt orphaned tier
+                                            generations; {"peer": url}
+                                            pulls a peer's chains instead
 
 A V2 infer request may use the binary data extension
 (``Inference-Header-Content-Length``); one that asks for
@@ -42,19 +52,34 @@ many requests run at once, a bounded queue waits, the rest get 503), and
 is counted in the request series and the access log.  One asyncio
 process serves; batched device execution runs on the engines' worker
 threads.
+
+A generate request with an ``x-kfs-kv-peer`` header (a router's failover
+hint naming the replica it was retried away from) first pulls that
+peer's host-tier chains, once per peer, within ``KFS_KV_PEER_BUDGET_S``.
+On SIGTERM the server drains in-flight work (``KFS_DRAIN_GRACE_S``),
+exports live KV into persistent host tiers (``KFS_KV_EXPORT_BUDGET_S``),
+then stops.  ``standby_model`` arms standby: the server listens with no
+model until ``POST /standby/activate`` loads it.
 """
 
 import argparse
 import asyncio
 import contextlib
+import http.client
 import json
 import logging
+import os
 import signal
 import time
-from typing import Any, Dict, List, Optional
+import urllib.parse
+from typing import Any, Dict, List, Optional, Tuple
+
+from kfserving_tpu_torch import startup
+from kfserving_tpu_torch.engine.kv_tier import payload_digest
 
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository
+from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.observability.accesslog import log_access
 from kfserving_tpu_torch.observability.profiling import roofline
 from kfserving_tpu_torch.protocol import cloudevents, native
@@ -128,6 +153,32 @@ def _error(e: ServingError) -> Response:
     return _json({"error": e.reason}, status=e.status_code)
 
 
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _http_get(base: str, path: str, timeout: float
+              ) -> Tuple[int, Dict[str, str], bytes]:
+    """One blocking GET of ``path`` on the http:// peer ``base``:
+    (status, lower-cased headers, body)."""
+    url = urllib.parse.urlsplit(base)
+    if url.scheme != "http" or not url.hostname:
+        raise ValueError(f"peer {base!r} is not an http:// URL")
+    conn = http.client.HTTPConnection(url.hostname, url.port or 80,
+                                      timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return (resp.status,
+                {k.lower(): v for k, v in resp.getheaders()},
+                resp.read())
+    finally:
+        conn.close()
+
+
 class _AdmissionGate:
     """FIFO concurrency gate with a bounded wait queue.
 
@@ -198,6 +249,23 @@ class ModelServer:
         self._admission = (
             _AdmissionGate(container_concurrency, self.max_queue_depth)
             if container_concurrency > 0 else None)
+        # Standby: a callable that does the deferred (device-touching)
+        # model load, set by standby_model().
+        self._standby_fn = None
+        self._standby_state = "none"  # none | armed | activating | done
+        # Peer pulls are single-flight: one per peer for the process's
+        # life, however many hinted requests arrive at once.
+        self._kv_peer_lock = asyncio.Lock()
+        self._kv_peers_pulled: set = set()
+
+    def standby_model(self, activate_fn) -> None:
+        """Arm standby: the server starts with no model, and
+        ``activate_fn`` (blocking; returns the loaded Model) runs on the
+        first ``POST /standby/activate``.  What needs no card (imports,
+        download, config parse) is done while the predecessor still
+        holds it."""
+        self._standby_fn = activate_fn
+        self._standby_state = "armed"
 
     def _register_routes(self):
         r = self.router
@@ -223,6 +291,11 @@ class ModelServer:
         r.add("GET", "/metrics", self._metrics)
         r.add("GET", "/debug/traces", self._traces)
         r.add("GET", "/debug/cache", self._cache)
+        r.add("GET", "/startup_phases", self._startup_phases)
+        r.add("POST", "/standby/activate", self._standby_activate)
+        r.add("GET", "/kv/chains", self._kv_chains)
+        r.add("GET", "/kv/chains/{chain}", self._kv_chain_payload)
+        r.add("POST", "/kv/reattach", self._kv_reattach)
 
     # -- handlers ----------------------------------------------------------
     async def _live(self, req: Request) -> Response:
@@ -385,6 +458,7 @@ class ModelServer:
         return _json(response)
 
     async def _generate(self, req: Request) -> Response:
+        await self._maybe_peer_import(req.headers, req.path_params["name"])
         # {"stream": true} hands the request to the token stream.
         if b'"stream"' in req.body:
             try:
@@ -399,6 +473,7 @@ class ModelServer:
     async def _generate_stream(self, req: Request,
                                body: Any = None) -> Response:
         name = req.path_params["name"]
+        await self._maybe_peer_import(req.headers, name)
         rid = ensure_request_id(req.headers)
         # The budget applies to submission and rides into the engine
         # request (captured at submit): a stream whose budget runs out
@@ -471,6 +546,240 @@ class ModelServer:
 
         return StreamingResponse(GuardedStream(sse(), on_close),
                                  headers={REQUEST_ID_HEADER: rid})
+
+    async def _startup_phases(self, req: Request) -> Response:
+        return _json(startup.phases())
+
+    async def _standby_activate(self, req: Request) -> Response:
+        if self._standby_fn is None:
+            return _json({"error": "server is not in standby mode"},
+                         status=409)
+        if self._standby_state == "done":
+            return _json({"activated": True, "already": True})
+        if self._standby_state == "activating":
+            return _json({"error": "activation already in progress"},
+                         status=409)
+        self._standby_state = "activating"
+        t0 = time.perf_counter()
+        try:
+            model = await asyncio.get_running_loop().run_in_executor(
+                None, self._standby_fn)
+            self.register_model(model)
+            self._standby_state = "done"
+        except Exception as e:
+            self._standby_state = "armed"  # retryable
+            logger.exception("standby activation failed")
+            return _json({"error": f"activation failed: {e}"}, status=500)
+        startup.mark("standby_activate")
+        return _json({
+            "activated": True, "model": model.name,
+            "activate_s": round(time.perf_counter() - t0, 3),
+            "param_source": getattr(model, "param_source", None),
+            "phases": startup.phases(),
+        })
+
+    # -- durable KV handoff --------------------------------------------------
+    def _kv_tier_models(self, name: Optional[str] = None):
+        """(model, engine, tier) for every registered model whose engine
+        has a host KV tier (optionally one model by name)."""
+        out = []
+        for model in self.repository.get_models():
+            if name is not None and model.name != name:
+                continue
+            engine = getattr(model, "engine", None)
+            tier = getattr(engine, "kv_tier", None)
+            if tier is not None:
+                out.append((model, engine, tier))
+        return out
+
+    async def _kv_chains(self, req: Request) -> Response:
+        """The peer-transfer index: each model's tier-resident chain
+        digests (MRU last) and the block size a puller must match."""
+        models = {model.name: {"block_bytes": tier.block_bytes,
+                               "chains": tier.chains()}
+                  for model, _engine, tier
+                  in self._kv_tier_models(req.query.get("model"))}
+        return _json({"models": models})
+
+    async def _kv_chain_payload(self, req: Request) -> Response:
+        """One chain's payload; the digest header lets the receiver
+        discard a corrupted transfer."""
+        chain_hex = req.path_params["chain"]
+        try:
+            chain = bytes.fromhex(chain_hex)
+        except ValueError:
+            return _json({"error": "chain must be a hex digest"},
+                         status=400)
+        loop = asyncio.get_running_loop()
+        for model, _engine, tier in self._kv_tier_models(
+                req.query.get("model")):
+            try:
+                # Off the loop: one block's copy out of the mmap.
+                payload = await loop.run_in_executor(None, tier.read, chain)
+            except KeyError:
+                continue
+            return Response(payload, headers={
+                "content-type": "application/octet-stream",
+                "x-kfs-kv-digest": payload_digest(payload),
+                "x-kfs-kv-block-bytes": str(tier.block_bytes),
+                "x-kfs-kv-model": model.name})
+        return _json({"error": f"chain {chain_hex} is not resident"},
+                     status=404)
+
+    async def _kv_reattach(self, req: Request) -> Response:
+        """Re-attach conversation KV after a process boundary: a bare
+        POST re-scans each persistent tier's directory and adopts
+        orphaned predecessor generations; ``{"peer": url}`` pulls that
+        replica's resident chains instead (``model`` and ``budget_s``
+        optional)."""
+        body: Dict[str, Any] = {}
+        if req.body:
+            try:
+                parsed = json.loads(req.body)
+            except ValueError:
+                return _json({"error": "malformed JSON body"}, status=400)
+            if isinstance(parsed, dict):
+                body = parsed
+        name = body.get("model")
+        try:
+            budget_s = float(body.get(
+                "budget_s", _env_float("KFS_KV_PEER_BUDGET_S", 2.0)))
+        except (TypeError, ValueError):
+            budget_s = 2.0
+        peer = body.get("peer")
+        if peer:
+            results = await self._kv_pull_peer(str(peer).rstrip("/"),
+                                               budget_s, name=name)
+            return _json({"peer": peer, "models": results})
+        loop = asyncio.get_running_loop()
+        results: Dict[str, Any] = {}
+        for model, _engine, tier in self._kv_tier_models(name):
+            try:
+                results[model.name] = await loop.run_in_executor(
+                    None, tier.reattach)
+            except Exception as e:
+                logger.exception("kv reattach for %s failed", model.name)
+                results[model.name] = {"error": str(e)}
+        return _json({"models": results})
+
+    async def _kv_pull_peer(self, peer: str, budget_s: float,
+                            name: Optional[str] = None) -> Dict[str, Any]:
+        """Pull a peer's resident chains into the local tiers: the index,
+        then each missing chain's payload, verified against its digest
+        header on receipt, then one ``kv_import`` per model.  Bounded by
+        ``budget_s``: a slow peer costs the returning conversation a
+        re-prefill, never a stalled request.  Blocking HTTP runs in the
+        default executor."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + max(0.1, budget_s)
+
+        async def get(path: str):
+            remaining = max(0.05, deadline - loop.time())
+            return await loop.run_in_executor(None, _http_get, peer, path,
+                                              remaining)
+
+        results: Dict[str, Any] = {}
+        try:
+            status, _, raw = await get("/kv/chains")
+            if status != 200:
+                return {"error": f"peer index {status}"}
+            index = json.loads(raw)
+            for mname, info in (index.get("models") or {}).items():
+                if name is not None and mname != name:
+                    continue
+                triples = self._kv_tier_models(mname)
+                if not triples:
+                    continue
+                _model, engine, tier = triples[0]
+                if info.get("block_bytes") != tier.block_bytes:
+                    results[mname] = {"error": "block geometry mismatch"}
+                    continue
+                pairs = []
+                mismatches = failed = 0
+                for ch_hex in info.get("chains") or []:
+                    if loop.time() >= deadline:
+                        break
+                    try:
+                        chain = bytes.fromhex(ch_hex)
+                    except ValueError:
+                        continue
+                    if tier.contains(chain):
+                        continue
+                    query = urllib.parse.urlencode({"model": mname})
+                    try:
+                        status, headers, payload = await get(
+                            f"/kv/chains/{ch_hex}?{query}")
+                    except (OSError, http.client.HTTPException):
+                        failed += 1
+                        continue
+                    if status != 200:
+                        failed += 1
+                        continue
+                    want = headers.get("x-kfs-kv-digest")
+                    if len(payload) != tier.block_bytes or (
+                            want and payload_digest(payload) != want):
+                        mismatches += 1  # wire corruption: discarded
+                        continue
+                    pairs.append((chain, payload))
+                res = dict(await loop.run_in_executor(
+                    None, engine.kv_import, pairs))
+                if mismatches:
+                    res["digest_mismatch"] = mismatches
+                    obs.kv_handoff_peer_blocks_total().labels(
+                        model=mname, outcome="digest_mismatch").inc(
+                            mismatches)
+                if failed:
+                    res["failed"] = res.get("failed", 0) + failed
+                    obs.kv_handoff_peer_blocks_total().labels(
+                        model=mname, outcome="failed").inc(failed)
+                results[mname] = res
+        except (OSError, ValueError, http.client.HTTPException) as e:
+            results.setdefault("error", f"peer pull failed: {e!r}")
+        return results
+
+    async def _maybe_peer_import(self, headers: Dict[str, str],
+                                 name: str) -> None:
+        """Honor the router's failover hint: ``x-kfs-kv-peer`` names the
+        replica this request was retried away from.  One bounded pull
+        per peer warms the local tier before dispatch; any failure
+        degrades to a plain re-prefill, never a failed request."""
+        peer = (headers.get("x-kfs-kv-peer") or "").strip().rstrip("/")
+        if not peer or peer in self._kv_peers_pulled:
+            return
+        if not self._kv_tier_models(name):
+            return
+        async with self._kv_peer_lock:
+            if peer in self._kv_peers_pulled:
+                return
+            self._kv_peers_pulled.add(peer)
+            budget = _env_float("KFS_KV_PEER_BUDGET_S", 2.0)
+            if budget <= 0:
+                return
+            try:
+                await self._kv_pull_peer(peer, budget, name=name)
+            except Exception:
+                logger.exception("kv peer pull from %s failed", peer)
+
+    async def export_kv(self, budget_s: Optional[float] = None
+                        ) -> Dict[str, Any]:
+        """Drain export: every engine's live-slot and hot-chain KV into
+        its persistent host tier (an ephemeral tier dies with the
+        process), bounded by ``KFS_KV_EXPORT_BUDGET_S`` (0 disables)."""
+        if budget_s is None:
+            budget_s = _env_float("KFS_KV_EXPORT_BUDGET_S", 2.0)
+        results: Dict[str, Any] = {}
+        if budget_s <= 0:
+            return results
+        loop = asyncio.get_running_loop()
+        for model, engine, tier in self._kv_tier_models():
+            if not tier.persistent:
+                continue
+            try:
+                results[model.name] = await loop.run_in_executor(
+                    None, engine.export_kv, budget_s)
+            except Exception:
+                logger.exception("kv export for %s failed", model.name)
+        return results
 
     async def _load(self, req: Request) -> Response:
         name = req.path_params["name"]
@@ -568,10 +877,11 @@ class ModelServer:
         generative model its engine's block (``cache_debug``: prefix
         census, reuse depth, hot chains, pool, speculative), the
         device-memory ledger (``hbm``: the repository's, else the one
-        the models book into) and the demand-paged residency states
-        (``residency``); ``host_tier`` is null until the host KV tier is
-        ported."""
+        the models book into), the demand-paged residency states
+        (``residency``) and per model its host KV tier's block
+        (``host_tier``, null when no model has one)."""
         models: Dict[str, Any] = {}
+        host_tier: Dict[str, Any] = {}
         hbm = getattr(self.repository, "hbm", None)
         residency = getattr(self.repository, "residency", None)
         for model in self.repository.get_models():
@@ -583,13 +893,16 @@ class ModelServer:
                 except Exception:
                     logger.exception("cache debug for %s failed",
                                      model.name)
+            tier = getattr(engine, "kv_tier", None)
+            if tier is not None:
+                host_tier[model.name] = tier.debug()
             if hbm is None:
                 hbm = getattr(model, "hbm", None)
         return {"models": models,
                 "hbm": hbm.debug() if hbm is not None else None,
                 "residency": (residency.debug() if residency is not None
                               else None),
-                "host_tier": None}
+                "host_tier": host_tier or None}
 
     # -- lifecycle ---------------------------------------------------------
     def register_model(self, model: Model) -> None:
@@ -607,6 +920,28 @@ class ModelServer:
             self.register_model(model)
         await self.http_server.start(host, self.http_port)
         self.http_port = self.http_server.port
+        startup.mark("serving")
+
+    async def drain(self, budget_s: float) -> bool:
+        """Wait up to ``budget_s`` for in-flight work (token streams
+        included) to finish; True when it did.  Past the budget the
+        engines' close delivers a terminal error event to every stream
+        still open."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + budget_s
+        while loop.time() < deadline:
+            busy = (self._admission is not None
+                    and self._admission.active > 0)
+            for m in self.repository.get_models():
+                gauges = getattr(getattr(m, "engine", None),
+                                 "load_gauges", None)
+                if gauges is not None:
+                    g = gauges()
+                    busy = busy or g["active_slots"] + g["pending"] > 0
+            if not busy:
+                return True
+            await asyncio.sleep(0.1)
+        return False
 
     async def stop_async(self) -> None:
         await self.http_server.stop()
@@ -615,7 +950,10 @@ class ModelServer:
             residency.close()
 
     def start(self, models: List[Model]) -> None:
-        """Blocking entry point: serve until SIGINT or SIGTERM."""
+        """Blocking entry point: serve until SIGINT or SIGTERM, then
+        drain in-flight work (``KFS_DRAIN_GRACE_S``), export live KV into
+        persistent host tiers, stop, and close the models (their tiers'
+        locks release for a successor)."""
         async def _main():
             await self.start_async(models)
             stop = asyncio.Event()
@@ -623,7 +961,15 @@ class ModelServer:
             for sig in (signal.SIGINT, signal.SIGTERM):
                 loop.add_signal_handler(sig, stop.set)
             await stop.wait()
+            grace = _env_float("KFS_DRAIN_GRACE_S", 8.0)
+            if grace > 0:
+                await self.drain(grace)
+            await self.export_kv()
             await self.stop_async()
+            for model in self.repository.get_models():
+                close = getattr(model, "close", None)
+                if close is not None:
+                    await close()
 
         logging.basicConfig(level=logging.INFO)
         asyncio.run(_main())

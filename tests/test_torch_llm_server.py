@@ -238,7 +238,7 @@ async def test_stream_slot_freed_on_client_disconnect(served):
 
 
 @pytest.mark.parametrize("extra,message", [
-    ({"host_tier_blocks": 8}, "host KV tier"),
+    ({"mesh": {"dp": 2, "tp": 1}}, "multi-device"),
     ({"mesh": {"tp": 2}}, "multi-device"),
     ({"tokenizer": "hf:gpt2"}, "hf: tokenizers are not supported"),
 ])
