@@ -93,6 +93,24 @@ failure:
    executed batch, and the served model must agree with the same weights
    run with the plain attention; each batch bucket's graph against the
    eager forward;
+   then the explain verb: ResNet-50 (the resnet bench configuration)
+   and ViT-B/16 (L = 197) served as saliency explainers, one batch of 8
+   images POSTed twice to each explain route with single-image predicts
+   served beside them; every map has the input's shape, is finite and
+   not all zeros, the served bf16 maps agree with the same gradient
+   computed directly and with the same logit's gradient in fp32 from the
+   same weights (relative L2 and cosine per image, SALIENCY_LIMITS), and
+   ViT's K1 launches in the window equal 12 x (explains + predict
+   batches), its gradient through the K1 Function against the one
+   through the plain attention; forward and backward device ms.  Then
+   ResNet-50 served as the predictor of anchor_images, lime_images (256
+   samples, batch 64) and square_attack, each served on a server of its
+   own and reaching it through predictor_host: every hop on the V2
+   binary wire (the predictor counts only ``infer``), well-formed
+   explanations, wall ms, hop requests, images and req/s.  Then a tar of
+   an MLP artifact served over http:// by a stdlib server loads through
+   Storage.download into the port's server and answers a predict; a
+   second pull into one directory stops at the success marker;
 7. serve the multi-model catalog (8 MLPs) through the eager repository
    routes under a device-memory budget of 4 models: LRU eviction in the
    index, evicted models freed, predictions held against direct forwards;
@@ -293,6 +311,38 @@ VIT_REQUESTS, VIT_CONCURRENCY = 48, 16
 # roundings of the attention moved ViT-B/16's logits by ~1% of their
 # largest.
 VIT_LOGIT_RTOL = 2 ** -4
+# The explain phase: one batch of EXPLAIN_IMAGES images POSTed
+# EXPLAIN_ROUNDS times to each explain route of a saliency explainer
+# (ResNet-50 at the resnet bench configuration, ViT-B/16 at the chain
+# bench's), with EXPLAIN_IMAGES / 2 single-image predicts served beside.
+EXPLAIN_IMAGES, EXPLAIN_ROUNDS = 8, 2
+# Limits of the per-image gradient gaps: relative L2 ||g - ref|| / ||ref||
+# at most the first, cosine at least the second, for the served bf16 map
+# against the same logit's gradient in fp32 from the same weights, and
+# against the same bf16 gradient computed directly.  A bf16 forward rounds
+# every activation to 8 significand bits (2^-9 relative), and a rounding
+# that flips a max-pool or ReLU gate re-routes the gradient, so the fp32
+# gradient itself moves under one such rounding of its input.  The run
+# measures that spread (a seeded 2^-9 jitter of the input) and the limit
+# is twice it, or these where they are looser: ResNet-50's 53 gated
+# convolutions against ViT-B/16's 12 smooth blocks (GELU and softmax).
+SALIENCY_LIMITS = {"resnet": (0.5, 0.9), "vit": (0.1, 0.99)}
+# ViT's gradient through the K1 Function against the same gradient through
+# the plain attention forward, both bf16: the forwards differ by the bf16
+# rounding of P and of the output (see VIT_LOGIT_RTOL), and the backward
+# is the same VJP.
+K1_GRAD_REL_L2, K1_GRAD_COSINE = 0.1, 0.99
+# The black-box explainers' artifact configurations, pointed at ResNet-50
+# (calibrated BatchNorm, so its answers depend on the image) through
+# predictor_host.  Anchors over a 4 x 4 grid of superpixels, anchors of at
+# most two; LIME with 256 samples in batches of 64; the square attack
+# within 16 of 255 per pixel.
+ANCHOR_IMAGES_CONFIG = {"n_segments": 16, "batch_size": 24, "beam_size": 2,
+                        "max_anchor_size": 2, "seed": 0}
+LIME_CONFIG = {"num_samples": 256, "batch_size": 64, "top_labels": 2,
+               "seed": 0}
+ART_CONFIG = {"eps": 16.0, "max_iter": 20, "candidates_per_iter": 8,
+              "clip_min": 0.0, "clip_max": 255.0, "seed": 0}
 # The multi-model catalog (benchmarks/configs.py:896-907).
 MMS_MODELS, MMS_RESIDENT = 8, 4
 MMS_CONFIG = {
@@ -3684,6 +3734,457 @@ def serve_density(card: str) -> dict:
     return summary
 
 
+# -- phase 10: the explain verb -------------------------------------------
+def load_explainer(name: str, config: dict):
+    """A SaliencyExplainer over a temporary artifact of ``config`` (it
+    serves predict too), loaded on the card."""
+    from kfserving_tpu_torch.explainers import SaliencyExplainer
+
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(config, f)
+        model = SaliencyExplainer(name, model_dir, device="cuda")
+        t0 = time.perf_counter()
+        model.load()
+        return model, time.perf_counter() - t0
+
+
+def logit_gradient(module, images: torch.Tensor, scale, classes=None):
+    """d sum_i logits[i, c_i] / d images on the card, with c_i the
+    argmax (a tie split, as the explainer's amax splits it) unless
+    ``classes`` is given; and the logits."""
+    x = images.detach().float().requires_grad_()
+    with torch.enable_grad():
+        logits = module(x * scale if scale is not None else x).float()
+        picked = (logits.amax(dim=-1) if classes is None
+                  else logits.gather(1, classes[:, None])[:, 0])
+        (grad,) = torch.autograd.grad(picked.sum(), x)
+    return grad, logits.detach()
+
+
+def fp32_twin(model):
+    """The explainer's module rebuilt in fp32 on the card from the same
+    weights (cast), outside autograd."""
+    from kfserving_tpu_torch.models import create_model
+    from kfserving_tpu_torch.models import weights
+
+    cfg = model.config
+    spec = create_model(cfg.architecture,
+                        **dict(cfg.arch_kwargs, dtype="float32"))
+    state = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+             for k, v in model.module.state_dict().items()}
+    twin = weights.materialize(spec.module, torch.device("cuda"),
+                               state_dict=state)
+    for p in twin.parameters():
+        p.requires_grad_(False)
+    return twin
+
+
+def gradient_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Per image: relative L2 distance ||got - want|| / ||want|| and the
+    cosine of the two maps; the worst of each."""
+    g, w = got.flatten(1).double(), want.flatten(1).double()
+    rel = ((g - w).norm(dim=1) / w.norm(dim=1)).tolist()
+    cos = torch.nn.functional.cosine_similarity(g, w, dim=1).tolist()
+    return {"rel_l2_max": max(rel), "rel_l2_mean": sum(rel) / len(rel),
+            "cosine_min": min(cos)}
+
+
+def check_gap(gap: dict, rel_l2: float, cosine: float, where: str):
+    check(gap["rel_l2_max"] <= rel_l2 and gap["cosine_min"] >= cosine,
+          f"{where}: gradient gap {gap} outside rel L2 <= {rel_l2}, "
+          f"cosine >= {cosine}")
+
+
+async def drive_saliency(port: int, name: str, images: np.ndarray,
+                         predict_images: np.ndarray):
+    """EXPLAIN_ROUNDS x both explain routes with one batch of images, while
+    single-image predicts run beside them; returns the maps of every
+    response, explain latencies, and the predicts' answers."""
+    body = json.dumps({"instances": images.tolist()}).encode()
+    paths = (f"/v1/models/{name}:explain", f"/v2/models/{name}/explain")
+
+    async def explains():
+        out = []
+        for _ in range(EXPLAIN_ROUNDS):
+            for path in paths:
+                status, resp, ms = await asyncio.to_thread(
+                    http_json, port, "POST", path, body)
+                check(status == 200, f"{name} {path}: HTTP {status} "
+                      f"{str(resp)[:300]}")
+                out.append((path, resp, ms))
+        return out
+
+    predicts = [(f"/v1/models/{name}:predict",
+                 json.dumps({"instances": [img.tolist()]}).encode())
+                for img in predict_images]
+    explained, (answers, _, _) = await asyncio.gather(
+        explains(), drive_images(port, name, predicts, 4))
+    return explained, answers
+
+
+def serve_saliency(card: str, name: str, config: dict,
+                   images: np.ndarray) -> dict:
+    """One model as a saliency explainer on the port's server: both
+    explain routes (predicts interleaved), the maps checked, the bf16
+    gradients held against the fp32 twin's, device ms of the forward and
+    the backward; for a transformer the K1 launches of the window and
+    the K1 Function's gradient against the plain attention's."""
+    from kfserving_tpu_torch.models import apply_fn_for
+    from kfserving_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    model, load_s = load_explainer(name, config)
+    module = model.module
+    apply = apply_fn_for(model._spec)
+    scale = config.get("scale")
+    x = torch.from_numpy(images).to("cuda")
+    layers = getattr(getattr(module, "config", None), "num_layers", 0)
+    predict_images = images[:EXPLAIN_IMAGES // 2]
+
+    async def drive(port):
+        flash_attention.launches = 0
+        executed0 = model.engine.execute_count
+        out = await drive_saliency(port, name, images, predict_images)
+        return (*out, flash_attention.launches,
+                model.engine.execute_count - executed0,
+                request_counts(await asyncio.to_thread(scrape, port), name))
+
+    try:
+        explained, answers, launches, batches, counts = asyncio.run(
+            serve_over_http(model, drive))
+        want = {"explain 200": 2 * EXPLAIN_ROUNDS,
+                "predict 200": len(predict_images)}
+        check(counts == want, f"{name}: request_total {counts} != {want}")
+        requests = len(explained)
+        if layers:
+            check(launches == layers * (requests + batches),
+                  f"{name}: K1 launched {launches} times for {requests} "
+                  f"explains and {batches} predict batches of {layers} "
+                  "layers")
+        maps = []
+        for path, resp, _ in explained:
+            exps = resp["explanations"]
+            check(len(exps) == len(images) and all(
+                e["method"] == "gradient_saliency" for e in exps),
+                f"{name} {path}: {len(exps)} explanations")
+            m = np.asarray([e["saliency"] for e in exps], np.float32)
+            check(m.shape == images.shape and np.isfinite(m).all()
+                  and all(np.abs(g).max() > 0 for g in m),
+                  f"{name} {path}: maps of shape {m.shape}, finite "
+                  f"{bool(np.isfinite(m).all())}")
+            maps.append(m)
+        served = torch.from_numpy(maps[0]).to("cuda")
+        direct, logits = logit_gradient(lambda t: apply(module, t), x,
+                                        scale)
+        classes = logits.argmax(dim=-1)
+        # The predicts' answers against a direct forward of what the
+        # served path computes (the uint8 wire scaled by the bf16-rounded
+        # scale), but for counted near-ties.
+        with torch.inference_mode():
+            wire = x[:len(answers)].float()
+            if scale is not None:
+                wire = wire * float(torch.tensor(scale,
+                                                 dtype=torch.bfloat16))
+            served_logits = apply(module, wire).float()
+        top2 = served_logits.topk(2, dim=-1).values
+        near = ((top2[:, 0] - top2[:, 1])
+                <= RESNET_TIE_RTOL * served_logits.abs().amax(dim=-1))
+        wrong = [i for i, a in enumerate(answers)
+                 if a != int(served_logits[i].argmax()) and not near[i]]
+        check(not wrong, f"{name}: predicts beside the explains answered "
+              f"{answers} at {wrong}, the direct forward "
+              f"{served_logits.argmax(dim=-1).tolist()}")
+        twin = fp32_twin(model)
+        fp32, _ = logit_gradient(twin, x, scale, classes=classes)
+        vs_fp32 = gradient_gap(served, fp32)
+        # The fp32 gradient's own spread under one bf16 rounding of its
+        # input (2^-9 relative noise, seeded): the yardstick of the gap.
+        # The limits are SALIENCY_LIMITS or twice that spread, whichever
+        # is looser.
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(13)
+        jitter = 1 + 2 ** -9 * torch.randn(x.shape, generator=gen,
+                                           device="cuda")
+        fp32_jittered, _ = logit_gradient(twin, x.float() * jitter, scale,
+                                          classes=classes)
+        fp32_spread = gradient_gap(fp32_jittered, fp32)
+        rel_l2, cosine = SALIENCY_LIMITS[name]
+        rel_l2 = max(rel_l2, 2 * fp32_spread["rel_l2_max"])
+        cosine = min(cosine, 1 - 2 * (1 - fp32_spread["cosine_min"]))
+        check_gap(vs_fp32, rel_l2, cosine, f"{name} bf16 vs fp32")
+        vs_direct = gradient_gap(served, direct)
+        check_gap(vs_direct, rel_l2, cosine, f"{name} served vs direct")
+        out = {"card": card, "load_and_warmup_s": load_s,
+               "images": list(images.shape), "explains": requests,
+               "explain_p50_ms": percentile([ms for *_, ms in explained],
+                                            0.5),
+               "explain_ms": [ms for *_, ms in explained],
+               "predicts_beside": len(answers), "predict_batches": batches,
+               "bf16_vs_fp32": vs_fp32, "fp32_input_jitter": fp32_spread,
+               "limits": {"rel_l2": rel_l2, "cosine": cosine},
+               "served_vs_direct": vs_direct,
+               "distinct_classes": len(set(classes.tolist()))}
+        if layers:
+            out["k1_launches"] = launches
+            cfg = module.config
+            cfg.attn_fn = lambda q, k, v, mask: flash_attention_plain(
+                q, k, v)
+            try:
+                plain, _ = logit_gradient(lambda t: apply(module, t), x,
+                                          scale, classes=classes)
+            finally:
+                cfg.attn_fn = None
+            kernel, _ = logit_gradient(lambda t: apply(module, t), x,
+                                       scale, classes=classes)
+            out["k1_function_vs_plain"] = gradient_gap(kernel, plain)
+            check_gap(out["k1_function_vs_plain"], K1_GRAD_REL_L2,
+                      K1_GRAD_COSINE, f"{name} K1 Function vs plain")
+
+        def forward():
+            with torch.enable_grad():
+                apply(module, x.float().requires_grad_() * (scale or 1.0))
+
+        def forward_backward():
+            logit_gradient(lambda t: apply(module, t), x, scale)
+
+        fwd_ms = cuda_time_ms(forward, iters=5, warmup=1)
+        total_ms = cuda_time_ms(forward_backward, iters=5, warmup=1)
+        out.update(forward_ms=fwd_ms, backward_ms=total_ms - fwd_ms,
+                   forward_backward_ms=total_ms)
+        del twin
+    finally:
+        model.unload()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def drive_blackbox(port: int, predictor, image: np.ndarray,
+                         label: int, root: str) -> dict:
+    """Each black-box explainer served on a server of its own, scoring
+    its perturbations against the predictor at ``port`` through
+    predictor_host; per explainer its wall ms, the predictor requests by
+    verb in its window, the images they carried, and its explanation."""
+    from kfserving_tpu_torch.explainers import build_explainer
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    out = {}
+    for kind, cfg_name, cfg, body in (
+            ("anchor_images", "anchor_images.json", ANCHOR_IMAGES_CONFIG,
+             {"instances": [image.tolist()]}),
+            ("lime_images", "lime.json", LIME_CONFIG,
+             {"instances": [image.tolist()]}),
+            ("square_attack", "art.json", ART_CONFIG,
+             {"instances": [image.tolist(), label]})):
+        art = os.path.join(root, kind)
+        os.makedirs(art)
+        with open(os.path.join(art, cfg_name), "w") as f:
+            json.dump(cfg, f)
+        explainer = build_explainer("resnet", kind, art,
+                                    f"127.0.0.1:{port}")
+        explainer.load()
+        server = ModelServer(http_port=0)
+        await server.start_async([explainer], host="127.0.0.1")
+        try:
+            before = request_counts(await asyncio.to_thread(scrape, port),
+                                    "resnet")
+            images0 = predictor.batcher.instances_batched
+            status, resp, ms = await asyncio.to_thread(
+                http_json, server.http_port, "POST",
+                "/v1/models/resnet:explain", body)
+            after = request_counts(await asyncio.to_thread(scrape, port),
+                                   "resnet")
+        finally:
+            await server.stop_async()
+            await explainer.close()
+        check(status == 200, f"{kind}: HTTP {status} {str(resp)[:300]}")
+        window = {k: v - before.get(k, 0) for k, v in after.items()
+                  if v - before.get(k, 0)}
+        hops = window.get("infer 200", 0)
+        check(hops > 0 and set(window) == {"infer 200"},
+              f"{kind}: predictor requests in its window {window}; the "
+              "binary hop counts as infer only")
+        out[kind] = {"wall_ms": ms, "predictor_requests": hops,
+                     "images_served": predictor.batcher.instances_batched
+                     - images0,
+                     "requests_per_s": hops / (ms / 1e3),
+                     "explanation": resp}
+    return out
+
+
+def check_blackbox(out: dict, image: np.ndarray, label: int) -> dict:
+    """Well-formed explanations; returns their small fields."""
+    size = list(image.shape[:2])
+    anchor = out["anchor_images"].pop("explanation")["data"]
+    check(list(np.shape(anchor["mask"])) == size
+          and list(np.shape(anchor["segments"])) == size
+          and 0.0 <= anchor["precision"] <= 1.0
+          and 0.0 < anchor["coverage"] <= 1.0
+          and isinstance(anchor["prediction"], int),
+          "anchor_images: malformed " + str(
+              {k: v for k, v in anchor.items()
+               if k not in ("mask", "segments")}))
+    lime = out["lime_images"].pop("explanation")["explanations"]
+    check(len(lime["masks"]) == len(lime["top_labels"]) == 2
+          and all(list(np.shape(m)) == size for m in lime["masks"])
+          and list(np.shape(lime["temp"])) == list(image.shape),
+          f"lime_images: top_labels {lime['top_labels']}, masks "
+          f"{[np.shape(m) for m in lime['masks']]}")
+    attack = out["square_attack"].pop("explanation")["explanations"]
+    adv = np.asarray(attack["adversarial_example"])
+    check(list(adv.shape) == list(image.shape) and attack["L2 error"] >= 0
+          and attack["prediction"] == label
+          and np.abs(adv - image).max() <= ART_CONFIG["eps"] + 1e-6,
+          f"square_attack: shape {adv.shape}, prediction "
+          f"{attack['prediction']} vs {label}, L2 {attack['L2 error']}")
+    out["anchor_images"]["anchor"] = {k: anchor[k] for k in (
+        "anchor_segments", "precision", "coverage", "prediction",
+        "met_threshold")}
+    out["lime_images"]["top_labels"] = lime["top_labels"]
+    out["lime_images"]["segment_weights"] = lime["segment_weights"]
+    out["square_attack"]["attack"] = {k: attack[k] for k in (
+        "L2 error", "prediction", "adversarial_prediction", "success",
+        "queries")}
+    return out
+
+
+def serve_explain(card: str) -> dict:
+    """ResNet-50 (the resnet bench config, its seeded BatchNorm
+    statistics: calibrated ones make the random network's gradient
+    chaotic) and ViT-B/16 (L = 197) as saliency explainers."""
+    rng = np.random.default_rng(10)
+    resnet_images = bench_images(
+        rng, EXPLAIN_IMAGES, RESNET_CONFIG["arch_kwargs"]["image_size"])
+    out = {"resnet": serve_saliency(card, "resnet", RESNET_CONFIG,
+                                    resnet_images)}
+    print("explain_saliency_resnet " + json.dumps(out["resnet"]),
+          flush=True)
+    vit_images = np.round(bench_images(
+        rng, EXPLAIN_IMAGES, VIT_CONFIG["arch_kwargs"]["image_size"])
+        .astype(np.float32) / 255.0, 3)
+    out["vit"] = serve_saliency(card, "vit", VIT_CONFIG, vit_images)
+    print("explain_saliency_vit " + json.dumps(out["vit"]), flush=True)
+    return out
+
+
+def serve_explain_blackbox(card: str) -> dict:
+    model, load_s = load_model("resnet", RESNET_CONFIG)
+    rng = np.random.default_rng(11)
+    scale = float(torch.tensor(RESNET_CONFIG["scale"], dtype=torch.bfloat16))
+    size = RESNET_CONFIG["arch_kwargs"]["image_size"]
+    batch = bench_images(rng, 64, size)
+    try:
+        x = torch.from_numpy(batch).to("cuda").float() * scale
+        calibrate_batch_norm(model.module, x)
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            top2 = model.module(x).float().topk(2, dim=-1).values
+        # The explainers' image: the seeded batch's nearest to a decision
+        # boundary (the smallest top-2 gap), so that perturbations move
+        # the class and the searches go past their first level.
+        image = batch[int((top2[:, 0] - top2[:, 1]).argmin())]
+
+        async def drive(port):
+            # The attack's target: the served answer for the image.
+            status, resp, _ = await asyncio.to_thread(
+                http_json, port, "POST", "/v1/models/resnet:predict",
+                {"instances": [image.tolist()]})
+            check(status == 200, f"resnet predict: HTTP {status}")
+            label = int(resp["predictions"][0])
+            with tempfile.TemporaryDirectory(
+                    prefix="kfs-chip-smoke-explain-") as root:
+                return label, await drive_blackbox(port, model, image,
+                                                   label, root)
+
+        label, out = asyncio.run(serve_over_http(model, drive))
+        out = check_blackbox(out, image, label)
+    finally:
+        model.unload()
+    summary = {"card": card, "predictor_load_s": load_s, **out}
+    print("explain_blackbox " + json.dumps(summary), flush=True)
+    return summary
+
+
+def serve_storage(card: str) -> dict:
+    """A model artifact tarred and served over http:// by a stdlib
+    server: the port's server loads it through Storage.download and
+    answers a predict from it; a second pull into the same directory
+    stops at the success marker."""
+    import http.server
+    import tarfile
+    import threading
+
+    from kfserving_tpu_torch.predictors.torch_model import TorchModel
+    from kfserving_tpu_torch.storage import Storage
+
+    gets = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_GET(self):
+            gets.append(self.path)
+            super().do_GET()
+
+        def log_message(self, *args):
+            pass
+
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-store-") as root:
+        art = os.path.join(root, "artifact")
+        os.makedirs(art)
+        with open(os.path.join(art, "config.json"), "w") as f:
+            json.dump(MMS_CONFIG, f)
+        served = os.path.join(root, "served")
+        os.makedirs(served)
+        with tarfile.open(os.path.join(served, "model.tar"), "w") as tf:
+            tf.add(os.path.join(art, "config.json"), arcname="config.json")
+        httpd = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), lambda *a: Handler(*a, directory=served))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        uri = f"http://127.0.0.1:{httpd.server_port}/model.tar"
+        try:
+            model = TorchModel("stored", uri, device="cuda")
+            t0 = time.perf_counter()
+            model.load()
+            load_s = time.perf_counter() - t0
+            row = np.random.default_rng(12).normal(
+                0, 1, (1, MMS_CONFIG["arch_kwargs"]["input_dim"])
+            ).astype(np.float32)
+
+            async def drive(port):
+                return await asyncio.to_thread(
+                    http_json, port, "POST", "/v1/models/stored:predict",
+                    {"instances": row.tolist()})
+
+            try:
+                status, resp, _ = asyncio.run(serve_over_http(model, drive))
+                with torch.inference_mode():
+                    direct = model.module(torch.from_numpy(row).to("cuda"))
+            finally:
+                model.unload()
+            dest = os.path.join(root, "pulled")
+            for _ in range(2):
+                Storage.download(uri, dest)
+        finally:
+            httpd.shutdown()
+            thread.join()
+        markers = [f for f in os.listdir(dest) if f.startswith("SUCCESS.")]
+        want = direct.float().cpu().numpy()
+        check(status == 200 and np.abs(
+            np.asarray(resp["predictions"]) - want).max()
+            <= 2 ** -6 * np.abs(want).max(),
+            f"stored model: HTTP {status} {resp} vs the direct forward "
+            f"{want.tolist()}")
+        check(gets == ["/model.tar"] * 2 and len(markers) == 1
+              and os.path.exists(os.path.join(dest, "config.json")),
+              f"storage pulls {gets}, markers {markers}")
+    summary = {"card": card, "uri_scheme": "http", "load_s": load_s,
+               "pulls": len(gets), "second_pull": "success marker"}
+    print("explain_storage " + json.dumps(summary), flush=True)
+    return summary
+
+
 # -- the V1 JSON codec --------------------------------------------------------
 def check_codec(card: str) -> dict:
     """The port's native codec builds here (the host C compiler against
@@ -3760,6 +4261,9 @@ def main() -> int:
         kvhandoff = serve_kvhandoff(card)
         resnet = serve_resnet(card)
         vit = serve_vit(card)
+        explain = serve_explain(card)
+        serve_explain_blackbox(card)
+        serve_storage(card)
         serve_multi_model(card)
         residency = serve_residency(card)
         serve_density(card)
@@ -3773,6 +4277,7 @@ def main() -> int:
                   + [kvtier["launches"], kvhandoff["launches"]])
     kernels[0]["launches"] = (serving["flash_launches"]
                               + vit["flash_launches"]
+                              + explain["vit"]["k1_launches"]
                               + residency["flash_launches"]
                               + sum(g["flash_attention"] for g in generative))
     kernels[1]["launches"] = sum(g["paged_attention"] for g in generative)

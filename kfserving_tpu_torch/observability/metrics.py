@@ -348,6 +348,13 @@ def deadline_exceeded_total():
         "Requests shed because their latency budget ran out, by stage")
 
 
+def retry_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_retry_total",
+        "Retries performed, labeled by edge (policy name) and reason "
+        "(exception class)")
+
+
 # -- mmap param cache (engine/param_cache.py) ----------------------------
 def param_cache_total():
     return REGISTRY.counter(

@@ -14,6 +14,14 @@ Lq != Lk as in the dense-cache decode) and every CPU call take
 TPU's sequence-length thresholds do not apply on the card, and unlike
 the JAX dispatcher, causal + ``kv_lengths`` (the decoder's bucketed
 prefill) goes to the kernel, which applies both masks at once.
+
+A card call that autograd records (grad enabled and an operand requiring
+grad: the saliency explainer's gradient through ViT) goes through
+``FlashAttentionGrad``: its forward launches the kernel as any other
+call does, and its backward is the vector-Jacobian product of
+``_torch_attention``, recomputed from the saved q, k, v and lengths.
+The JAX package differentiates its XLA attention there (no Pallas
+kernel in it has a backward), so the backward is that function's VJP.
 """
 
 from typing import Optional
@@ -33,8 +41,60 @@ def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         scores = torch.where(mask, scores,
                              torch.finfo(scores.dtype).min)
-    weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    # fp32 at least (float64 stays float64, for gradient checks).
+    softmax_dtype = torch.promote_types(scores.dtype, torch.float32)
+    weights = torch.softmax(scores.to(softmax_dtype), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def _plain_mask(Lq: int, Lk: int, causal: bool,
+                kv_lengths: Optional[torch.Tensor],
+                device: torch.device) -> Optional[torch.Tensor]:
+    """The boolean [B|1, 1, Lq, Lk] mask of ``causal`` and suffix key
+    padding ``kv_lengths``, for ``_torch_attention``."""
+    mask = None
+    if kv_lengths is not None:
+        keys = torch.arange(Lk, device=device)
+        mask = (keys[None, :] < kv_lengths.to(device)[:, None]
+                )[:, None, None, :]
+    if causal:
+        causal_mask = torch.ones((Lq, Lk), dtype=torch.bool,
+                                 device=device).tril(Lk - Lq)[None, None]
+        mask = causal_mask if mask is None else (mask & causal_mask)
+    return mask
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward is the kernel call
+    (counted, and raising as it raises), the backward the VJP of
+    ``_torch_attention`` with the same masking, recomputed from the saved
+    operands.  A query row with no valid key is 0 in the kernel's
+    forward, so its incoming gradient is dropped."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool,
+                kv_lengths: Optional[torch.Tensor]):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, kv_lengths)
+        return flash_attention(q, k, v, causal=causal,
+                               kv_lengths=kv_lengths)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, kv_lengths = ctx.saved_tensors
+        mask = _plain_mask(q.shape[1], k.shape[1], ctx.causal, kv_lengths,
+                           q.device)
+        if kv_lengths is not None:
+            live = (kv_lengths.to(q.device) > 0).to(grad_out.dtype)
+            grad_out = grad_out * live[:, None, None, None]
+        with torch.enable_grad():
+            operands = [t.detach().requires_grad_(need) for t, need in
+                        zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = _torch_attention(*operands, mask)
+            wanted = [t for t in operands if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in operands), None, None)
 
 
 def _on_card(q: torch.Tensor) -> bool:
@@ -88,13 +148,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lengths = flat[:, 0, :].sum(dim=-1, dtype=torch.int32)
     if _on_card(q) and flash_handles_mask(causal, Lq, Lk, mask is not None,
                                           lengths is not None):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionGrad.apply(q, k, v, causal, lengths)
         return flash_attention(q, k, v, causal=causal, kv_lengths=lengths)
-    if kv_lengths is not None:
-        keys = torch.arange(Lk, device=q.device)
-        mask = (keys[None, :] < kv_lengths.to(q.device)[:, None]
-                )[:, None, None, :]
-    if causal:
-        causal_mask = torch.ones((Lq, Lk), dtype=torch.bool,
-                                 device=q.device).tril(Lk - Lq)[None, None]
-        mask = causal_mask if mask is None else (mask & causal_mask)
+    plain = _plain_mask(Lq, Lk, causal, kv_lengths, q.device)
+    if plain is not None:
+        mask = plain if mask is None else mask & plain
     return _torch_attention(q, k, v, mask)

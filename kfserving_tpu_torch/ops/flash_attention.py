@@ -84,7 +84,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     """The kernel's function in plain PyTorch: fp32 scores and
     statistics, P rounded to the value dtype before the P V product."""
     B, Lq, H, D, Lk = _check_lengths(q, k, v)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    # fp32 at least (float64 stays float64, for gradient checks).
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) / math.sqrt(D)
     valid = torch.ones((1, 1, Lq, Lk), dtype=torch.bool, device=q.device)
     if causal:
         valid = valid & torch.ones((Lq, Lk), dtype=torch.bool,
@@ -98,7 +100,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # noqa: E741
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(acc), v.to(acc))
     return (out / l.permute(0, 2, 1, 3)).to(q.dtype)
 
 

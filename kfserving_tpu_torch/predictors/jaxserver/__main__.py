@@ -35,7 +35,8 @@ parser = argparse.ArgumentParser(parents=[server_parser])
 parser.add_argument("--model_name", default="model",
                     help="name under which the model is served")
 parser.add_argument("--model_dir", required=True,
-                    help="model artifact directory (local path or file://) "
+                    help="model artifact storage URI (a local path, file://, "
+                         "http(s)://, gs://, s3:// or an Azure blob URL) "
                          "or, with --multi_model, the models root dir")
 parser.add_argument("--multi_model", action="store_true",
                     help="serve a demand-paged repository of models "

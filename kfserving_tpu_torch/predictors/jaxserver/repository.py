@@ -32,8 +32,8 @@ from kfserving_tpu_torch.model.repository import (
 from kfserving_tpu_torch.predictors.torch_model import (
     DEFAULT_CONFIG_NAME,
     TorchModel,
-    local_model_dir,
 )
+from kfserving_tpu_torch.storage import Storage
 
 logger = logging.getLogger("kfserving_tpu_torch.jaxserver")
 
@@ -63,10 +63,12 @@ class TorchModelRepository(ModelRepository):
             model.unload()
 
     def _catalog_dir(self) -> str:
-        """The catalog root as a local directory (``models_dir`` may
-        arrive as a ``file://`` URI); resolved once."""
+        """The catalog root as a local directory, resolved once:
+        ``models_dir`` may arrive as a storage URI (``file://``, or a
+        remote scheme ``Storage.download`` pulls; blocking, and callers
+        already run off the event loop)."""
         if not os.path.isdir(self.models_dir):
-            self.models_dir = local_model_dir(self.models_dir)
+            self.models_dir = Storage.download(self.models_dir)
         return self.models_dir
 
     def _model_for(self, name: str) -> Optional[TorchModel]:

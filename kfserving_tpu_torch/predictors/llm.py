@@ -76,12 +76,10 @@ from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import create_model
 from kfserving_tpu_torch.models import weights
 from kfserving_tpu_torch.observability import metrics as obs
-from kfserving_tpu_torch.predictors.torch_model import (
-    CHECKPOINT_NAME,
-    local_model_dir,
-)
+from kfserving_tpu_torch.predictors.torch_model import CHECKPOINT_NAME
 from kfserving_tpu_torch.protocol import v1
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
+from kfserving_tpu_torch.storage import Storage
 from kfserving_tpu_torch.streams import GuardedStream
 
 logger = logging.getLogger("kfserving_tpu_torch.llm")
@@ -344,7 +342,7 @@ class GenerativeModel(Model):
     # -- lifecycle ---------------------------------------------------------
     def load(self) -> bool:
         startup.mark("load_start")
-        local = local_model_dir(self.model_dir)
+        local = Storage.download(self.model_dir)
         startup.mark("download")
         cfg = self.config
         if cfg is None:
@@ -424,7 +422,7 @@ class GenerativeModel(Model):
         draft_kwargs = dict(draft_cfg.get("arch_kwargs") or {})
         draft_spec = create_model(draft_cfg["architecture"], **draft_kwargs)
         draft_dir = draft_cfg.get("model_dir")
-        draft_local = local_model_dir(draft_dir) if draft_dir else local
+        draft_local = Storage.download(draft_dir) if draft_dir else local
         module_d, _, _ = param_cache.load_or_materialize(
             draft_cfg["architecture"], draft_kwargs, draft_spec,
             draft_local, self.device)

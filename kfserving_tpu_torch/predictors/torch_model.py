@@ -14,7 +14,9 @@ is demand-paged: ``register()`` only reads its config, the predict path
 faults it onto the card, and eviction offloads its params to the mapped
 host copy (``offload``/``fault_in``).
 
-Model directory layout (a local path or a ``file://`` URI):
+Model directory layout (``model_dir`` is a storage URI: a local path,
+``file://``, ``http(s)://``, ``gs://``, ``s3://`` or an Azure blob URL,
+pulled through ``Storage.download`` as the JAX package pulls it):
 
     config.json          — required; see TorchModelConfig
     checkpoint.msgpack   — Flax ``to_bytes`` variables as the JAX package
@@ -68,6 +70,7 @@ from kfserving_tpu_torch.protocol.v2 import (
     make_response,
 )
 from kfserving_tpu_torch.server.dataplane import is_v2_request
+from kfserving_tpu_torch.storage import Storage
 
 DEFAULT_CONFIG_NAME = "config.json"
 CHECKPOINT_NAME = param_cache.CHECKPOINT_NAME
@@ -116,17 +119,6 @@ class TorchModelConfig:
         return cls(**data)
 
 
-def local_model_dir(uri: str) -> str:
-    """The local directory of a model artifact URI (a path or file://)."""
-    if uri.startswith("file://"):
-        return uri[len("file://"):]
-    if "://" in uri:
-        raise InvalidInput(
-            f"unsupported storage URI {uri!r}: the port serves local "
-            "paths and file:// only")
-    return uri
-
-
 class TorchModel(Model):
     """A served PyTorch model with bucketed batched execution."""
 
@@ -148,6 +140,8 @@ class TorchModel(Model):
         self.batcher: Optional[DynamicBatcher] = None
         self.module: Optional[torch.nn.Module] = None
         self._spec = None
+        # The artifact's local directory once Storage.download pulled it.
+        self._local_dir: Optional[str] = None
         # How the weights were materialized: "mmap" (param-cache hit),
         # "checkpoint" or "init".
         self.param_source: Optional[str] = None
@@ -161,15 +155,18 @@ class TorchModel(Model):
     def _read_config(self) -> TorchModelConfig:
         if self.config is None:
             self.config = TorchModelConfig.from_file(
-                os.path.join(local_model_dir(self.model_dir),
-                             DEFAULT_CONFIG_NAME),
+                os.path.join(self._local_dir, DEFAULT_CONFIG_NAME),
                 overrides=self.config_overrides)
         return self.config
 
     def register(self) -> bool:
-        """Declarative registration (residency mode): parse the config,
-        touch no device memory.  The model is ``ready`` (addressable);
-        its first predict cold-faults it in."""
+        """Declarative registration (residency mode): download the
+        artifact and parse the config, touch no device memory.  The model
+        is ``ready`` (addressable); its first predict cold-faults it
+        in."""
+        startup.mark("load_start")
+        self._local_dir = Storage.download(self.model_dir)
+        startup.mark("download")
         self._read_config()
         if self.residency is not None:
             self.residency.register(self.name, self)
@@ -178,7 +175,12 @@ class TorchModel(Model):
 
     def load(self) -> bool:
         startup.mark("load_start")
-        local_dir = local_model_dir(self.model_dir)
+        if self.residency is None or not self._local_dir:
+            # A managed cold fault reuses what register() pulled: the
+            # admission wait retries load(), and a remote URI must not
+            # be pulled into a fresh directory per retry.
+            self._local_dir = Storage.download(self.model_dir)
+        local_dir = self._local_dir
         startup.mark("download")
         cfg = self._read_config()
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)

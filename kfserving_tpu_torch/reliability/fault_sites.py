@@ -6,6 +6,10 @@ sites the port calls are here; the others come with the modules that
 call them.
 """
 
+# Storage.download's remote pull, keyed by URI: an injected failure is a
+# flaky object store, replayed by the KFS_STORAGE retry policy.
+STORAGE_DOWNLOAD = "storage.download"
+
 # DataPlane.infer, keyed by model name: an injected failure lands inside
 # the request's measured path, as a model-side failure would.
 DATAPLANE_INFER = "dataplane.infer"

@@ -4,6 +4,8 @@ Port of ``kfserving_tpu/reliability/faults.py``: a process-global
 ``faults`` injector that an edge calls with a stable site name
 (``fault_sites``) before doing real work.  The port calls these sites:
 
+    storage.download        Storage.download's remote pull, keyed by
+                            URI
     dataplane.infer         DataPlane.infer, keyed by model name
     engine.residency_swap   ResidencyManager fault-in, keyed by
                             "<model> source:cold|warm"

@@ -13,6 +13,11 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
     GET  /v2/models/{name}                  V2 model metadata
     POST /v1/models/{name}:predict          V1 predict
     POST /v2/models/{name}/infer            V2 infer
+    GET  /v2/models/{name}/versions/{version}/ready   the versioned forms:
+    GET  /v2/models/{name}/versions/{version}         any version serves
+    POST /v2/models/{name}/versions/{version}/infer   the registered model
+    POST /v1/models/{name}:explain          explain (the model's own, or
+    POST /v2/models/{name}/explain            proxied to explainer_host)
     POST /v1/models/{name}:generate         generate (``"stream": true``
     POST /v2/models/{name}/generate           hands off to the stream)
     POST /v2/models/{name}/generate_stream  token stream, SSE
@@ -281,6 +286,16 @@ class ModelServer:
         r.add("GET", "/v2/models/{name}", self._model_metadata)
         r.add("POST", "/v1/models/{name}:predict", self._predict_v1)
         r.add("POST", "/v2/models/{name}/infer", self._infer_v2)
+        # Versioned forms: a server with one live version per name serves
+        # the registered model under any version.
+        r.add("GET", "/v2/models/{name}/versions/{version}/ready",
+              self._model_ready)
+        r.add("GET", "/v2/models/{name}/versions/{version}",
+              self._model_metadata)
+        r.add("POST", "/v2/models/{name}/versions/{version}/infer",
+              self._infer_v2)
+        r.add("POST", "/v1/models/{name}:explain", self._explain)
+        r.add("POST", "/v2/models/{name}/explain", self._explain)
         r.add("POST", "/v1/models/{name}:generate", self._generate)
         r.add("POST", "/v2/models/{name}/generate", self._generate)
         r.add("POST", "/v2/models/{name}/generate_stream",
@@ -337,6 +352,9 @@ class ModelServer:
 
     async def _infer_v2(self, req: Request) -> Response:
         return await self._inference(req, "infer", self.dataplane.infer)
+
+    async def _explain(self, req: Request) -> Response:
+        return await self._inference(req, "explain", self.dataplane.explain)
 
     async def _inference(self, req: Request, verb: str, op) -> Response:
         name = req.path_params["name"]

@@ -3,7 +3,8 @@
 Port of ``kfserving_tpu/server/dataplane.py``: liveness, readiness, model
 listing and metadata, inference (JSON bodies, V1 or V2, CloudEvents in
 binary or structured mode, dense V1 bodies through the native codec, and
-the V2 binary data extension), the generate extension (``generate``,
+the V2 binary data extension), explanation (``explain``, with its own
+deadline stages), the generate extension (``generate``,
 ``generate_stream``) and the repository extension (``load``,
 ``unload``, ``repository_index``).  Inference checks the request's
 deadline at each stage boundary, records the ``dataplane.*`` spans and
@@ -142,6 +143,15 @@ class DataPlane:
             response = await maybe_await(model.predict(request))
         with tracer.span("dataplane.postprocess", model=name):
             return await model.postprocess(response)
+
+    async def explain(self, name: str, body: Any) -> Any:
+        model = await self.get_model(name)
+        check_deadline("dataplane.explain")
+        request = await model.preprocess(body)
+        request = self.validate(request)
+        check_deadline("dataplane.explain preprocess")
+        response = await maybe_await(model.explain(request))
+        return await model.postprocess(response)
 
     async def generate(self, name: str, body: Any) -> Any:
         model = await self.get_model(name)

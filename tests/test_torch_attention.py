@@ -243,6 +243,7 @@ class _OnCard:
 
     is_cuda = True
     device = torch.device("cuda", 0)
+    requires_grad = False
 
     def __init__(self, t: torch.Tensor):
         self._t, self.shape, self.dtype = t, t.shape, t.dtype

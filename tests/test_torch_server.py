@@ -17,11 +17,10 @@ from flax import serialization
 from kfserving_tpu.models import create_model as jax_create_model
 from kfserving_tpu.models import init_params
 from kfserving_tpu.predictors.jax_model import JaxModel
-from kfserving_tpu_torch.predictors.torch_model import (
-    TorchModel,
-    local_model_dir,
-)
+from kfserving_tpu.storage import Storage as JaxStorage
+from kfserving_tpu_torch.predictors.torch_model import TorchModel
 from kfserving_tpu_torch.protocol.errors import InvalidInput
+from kfserving_tpu_torch.storage import Storage
 from kfserving_tpu_torch.server.app import ModelServer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,11 +164,25 @@ def test_cuda_without_card_raises(tmp_path):
         TorchModel("bert", str(tmp_path), device="cuda")
 
 
-def test_local_model_dir():
-    assert local_model_dir("file:///m/bert") == "/m/bert"
-    assert local_model_dir("/m/bert") == "/m/bert"
-    with pytest.raises(InvalidInput, match="unsupported storage URI"):
-        local_model_dir("gs://bucket/bert")
+def test_local_model_dir(tmp_path, monkeypatch):
+    """A model_dir resolves through Storage.download as in the JAX
+    package: a path and file:// to the directory itself, and a remote
+    scheme whose SDK is missing fails with the JAX package's message."""
+    import sys
+
+    model_dir = tmp_path / "bert"
+    model_dir.mkdir()
+    for storage in (Storage, JaxStorage):
+        assert storage.download(f"file://{model_dir}") == str(model_dir)
+        assert storage.download(str(model_dir)) == str(model_dir)
+    # The SDK made unimportable, so no client is ever built.
+    monkeypatch.setitem(sys.modules, "minio", None)
+    errors = []
+    for storage in (Storage, JaxStorage):
+        with pytest.raises(RuntimeError, match="not installed") as e:
+            storage.download("s3://bucket/bert", str(tmp_path / "out"))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def _http(port, method, path, body=None):
@@ -248,6 +261,14 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.predictors.llm\n"
         "import kfserving_tpu_torch.predictors.llmserver.__main__\n"
         "import kfserving_tpu_torch.streams\n"
+        "import kfserving_tpu_torch.storage.__main__\n"
+        "import kfserving_tpu_torch.storage.credentials\n"
+        "import kfserving_tpu_torch.reliability.retry\n"
+        "import kfserving_tpu_torch.model.model\n"
+        "import kfserving_tpu_torch.server.client\n"
+        "import kfserving_tpu_torch.explainers.__main__\n"
+        "import kfserving_tpu_torch.explainers.saliency\n"
+        "import kfserving_tpu_torch.explainers.anchor_text\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'aiohttp', 'msgpack', 'ml_dtypes',\n"
