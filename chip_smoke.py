@@ -49,6 +49,25 @@ failure:
    (tokens and written-back feed equal); time one decode wave eagerly
    and from its graph (between events and busy; no host sync on the
    graph's enqueue path) and one prefill on the card;
+   then line "observe": the same configuration with the observability
+   layer on (KFS_SANITIZE=1, a 0.5 s history tick, one declared SLO
+   objective, incidents spooled to a temporary directory): a 2 s
+   ``POST /debug/profile/capture`` across 16 traced streams whose Chrome
+   trace must name K1's kernel (K2's kernels or only graph launches are
+   counted); ``GET /debug/profile``'s device ``decode.wave`` and
+   ``prefill.bucket`` events equal the engine's waves and prefills, and
+   every slot event carries a stream's trace id; ``/debug/cache?top_cost``
+   holds one cost record per stream, whose prefill + decode device ms sum
+   to the engine's device time within 1%, and
+   ``kfserving_tpu_request_device_ms`` counts 16 per phase; the ready
+   probe's sanitizer block shows the guard armed and no violation, then
+   ``.item()`` on a CUDA tensor under ``loop_guard`` raises, counts one
+   ``forbidden_transfer``, pins it and opens one incident, read back by
+   id and spooled; ``/debug/history`` lists the request and generator
+   families with at least two points of the request counter;
+   ``/v2/health/slo`` reports the objective; then tokens/s with the
+   layer on against off (history, incidents and the sanitizer off), two
+   interleaved reps of each, printed beside the card;
    Before it, bert_tiny (head dim 32), vit_tiny (16) and decoder_tiny
    (32) load and serve on the card through K1, each against the plain
    attention.  After it, the generator's other modes at their published
@@ -1706,6 +1725,343 @@ def serve_generate(card: str) -> dict:
         "reference": reference, "device": device, "graphs": wave_graphs,
     }
     print("generate " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- phase 4a: the observability layer over generate_4k ----------------------
+# The on arm's settings: the sanitizer armed (its stall threshold above
+# the profiler capture's stop, which parses the window's CUDA events on
+# the loop's thread), a 0.5 s history tick, one declared objective far
+# above a stream's latency (no breach: the only incident is the probe's),
+# incidents spooled to a temporary directory.  The off arm turns history,
+# incidents and the sanitizer off.
+OBSERVE_ON = {"KFS_SANITIZE": "1", "KFS_SANITIZE_STALL_MS": "2000",
+              "KFS_HISTORY": "1", "KFS_HISTORY_TICK_S": "0.5",
+              "KFS_INCIDENTS": "1", "KFS_INCIDENT_TICK_S": "0.2",
+              "KFS_SLO_OBJECTIVES": json.dumps(
+                  {"gen4k": {"latency_ms": 60000, "target": 0.99}})}
+OBSERVE_OFF = {"KFS_HISTORY": "0", "KFS_INCIDENTS": "0"}
+OBSERVE_CAPTURE_S = 2.0
+# The capture starts this long before the streams, so their prefills
+# (K1, eager) land inside its window.
+OBSERVE_LEAD_S = 0.5
+# Attributed device ms summed over the requests against the engine's
+# prefill + decode device seconds over the same window.
+ATTRIBUTION_RTOL = 0.01
+
+
+def set_env(values: dict, unset=()) -> None:
+    for key in unset:
+        os.environ.pop(key, None)
+    os.environ.update(values)
+
+
+async def observe_streams(port: int, prefix: str) -> dict:
+    """16 SSE streams at concurrency 8, request i traced as
+    ``<prefix>-i``: (tokens per stream, wall seconds)."""
+    path = "/v2/models/gen4k/generate_stream"
+    sem = asyncio.Semaphore(GEN_CONCURRENCY)
+
+    async def one(i):
+        async with sem:
+            return await asyncio.to_thread(
+                sse_stream, port, path,
+                {"text_input": gen_prompt(i), "max_tokens": GEN_MAX_TOKENS},
+                {"x-request-id": f"{prefix}-{i}"})
+
+    t0 = time.perf_counter()
+    streams = await asyncio.gather(*(one(i) for i in range(GEN_REQUESTS)))
+    wall_s = time.perf_counter() - t0
+    tokens = []
+    for i, (status, events, _, _) in enumerate(streams):
+        check(status == 200, f"observe {prefix}-{i}: HTTP {status} {events}")
+        tokens.append(stream_tokens(events, f"observe {prefix}-{i}"))
+    return {"tokens": tokens, "wall_s": wall_s,
+            "tokens_per_s": sum(len(t) for t in tokens) / wall_s}
+
+
+async def wait_idle(engine) -> None:
+    """Until no slot is live and the scheduler loop has returned (it
+    returns 1 s after its last work): a wave still in flight is fetched
+    and counted, and the next submit starts a fresh loop, which reads the
+    sanitizer setting anew."""
+    for _ in range(200):
+        task = engine._loop_task
+        if all(s is None for s in engine._slots) and (
+                task is None or task.done()):
+            return
+        await asyncio.sleep(0.05)
+    check(False, "the generator did not go idle")
+
+
+def kernel_events(trace_path: str) -> dict:
+    """The capture's Chrome trace: device kernel events of K1, of K2 and
+    of any kernel, and the host's graph launches."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    out = {"flash_attention": 0, "paged_attention": 0, "kernels": 0,
+           "graph_launches": 0}
+    for event in trace.get("traceEvents", []):
+        name, cat = str(event.get("name", "")), event.get("cat")
+        if cat == "kernel":
+            out["kernels"] += 1
+            if "flash_fwd" in name:
+                out["flash_attention"] += 1
+            elif "paged_partition_kernel" in name or \
+                    "paged_combine_kernel" in name:
+                out["paged_attention"] += 1
+        elif "cudaGraphLaunch" in name:
+            out["graph_launches"] += 1
+    return out
+
+
+async def observe_window(model, trace_dir: str) -> dict:
+    """The on arm: a profiler capture across 16 traced streams, then the
+    timeline, attribution, sanitizer, history, SLO and flight-recorder
+    checks on the same server."""
+    from kfserving_tpu_torch.observability.profiling import TIMELINE
+    from kfserving_tpu_torch.reliability import sanitizer
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    engine, cfg = model.engine, model.module.config
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    port = server.http_port
+    try:
+        warm = await asyncio.to_thread(
+            sse_stream, port, "/v2/models/gen4k/generate_stream",
+            {"text_input": gen_prompt(9999), "max_tokens": GEN_MAX_TOKENS},
+            {"x-request-id": "observe-warm"})
+        check(warm[0] == 200, f"observe warm-up: HTTP {warm[0]}")
+        await wait_idle(engine)
+        TIMELINE.clear()
+        reset_launches()
+        window_t0 = time.time()
+        before = engine.stats()
+        scraped = {"before": await asyncio.to_thread(scrape, port)}
+        capture = asyncio.ensure_future(asyncio.to_thread(
+            http_json, port, "POST", "/debug/profile/capture",
+            {"duration_s": OBSERVE_CAPTURE_S, "log_dir": trace_dir}))
+        await asyncio.sleep(OBSERVE_LEAD_S)
+        run = await observe_streams(port, "observe")
+        status, captured, capture_ms = await capture
+        check(status == 200 and captured["captured"],
+              f"profile capture: HTTP {status} {captured}")
+        await wait_idle(engine)
+        after = engine.stats()
+        launches = read_launches()
+        scraped["after"] = await asyncio.to_thread(scrape, port)
+        status, trace, _ = await asyncio.to_thread(
+            http_json, port, "GET", "/debug/profile")
+        check(status == 200 and "traceEvents" in trace,
+              f"/debug/profile: HTTP {status}")
+        # The attribution ring is the process's: earlier phases' records
+        # are older than the window.
+        status, cache, _ = await asyncio.to_thread(
+            http_json, port, "GET",
+            f"/debug/cache?top_cost={2 * GEN_REQUESTS}&cost_window_s="
+            f"{time.time() - window_t0 + 1.0:.3f}")
+        check(status == 200, f"/debug/cache?top_cost: HTTP {status}")
+        status, ready, _ = await asyncio.to_thread(
+            http_json, port, "GET", "/v2/health/ready")
+        check(status == 200 and "sanitizer" in ready,
+              f"ready probe: HTTP {status} {ready}")
+        # The probe: an implicit device-to-host read under the guard, on
+        # the server's loop thread.
+        probe = torch.ones(4, device="cuda")
+        raised = False
+        try:
+            with sanitizer.loop_guard("chip_smoke", "cuda"):
+                probe.sum().item()
+        except sanitizer.ForbiddenTransfer:
+            raised = True
+        check(raised, ".item() on a CUDA tensor under loop_guard did not "
+              "raise")
+        incidents = None
+        for _ in range(100):
+            status, incidents, _ = await asyncio.to_thread(
+                http_json, port, "GET", "/debug/incidents")
+            if any(i["trigger_counts"].get("sanitizer")
+                   for i in incidents["incidents"]):
+                break
+            await asyncio.sleep(0.1)
+        opened = [i for i in incidents["incidents"]
+                  if i["trigger_counts"].get("sanitizer")]
+        check(len(opened) == 1, f"the sanitizer pin opened "
+              f"{len(opened)} incidents: {incidents}")
+        status, record, _ = await asyncio.to_thread(
+            http_json, port, "GET", f"/debug/incidents?id={opened[0]['id']}")
+        check(status == 200 and record["trigger_counts"] == {"sanitizer": 1}
+              and record["root_cause"] == "recompile_host_sync",
+              f"incident record: HTTP {status} {record}")
+        after_probe = sanitizer.status()
+        status, index, _ = await asyncio.to_thread(
+            http_json, port, "GET", "/debug/history?index=1")
+        status2, series, _ = await asyncio.to_thread(
+            http_json, port, "GET",
+            "/debug/history?series=kfserving_tpu_request_total&window_s=120")
+        status3, slo, _ = await asyncio.to_thread(
+            http_json, port, "GET", "/v2/health/slo?refresh=1")
+        status4, pinned, _ = await asyncio.to_thread(
+            http_json, port, "GET", "/debug/flightrecorder?pinned=1")
+        check((status, status2, status3, status4) == (200,) * 4,
+              f"history/slo/flightrecorder: {status} {status2} {status3} "
+              f"{status4}")
+        scraped["end"] = await asyncio.to_thread(scrape, port)
+    finally:
+        await server.stop_async()
+    waves = after["decode_steps"] - before["decode_steps"]
+    prefills = after["prefills"] - before["prefills"]
+    check(launches["paged_attention"]
+          == cfg.num_layers * waves * after["steps_per_call"]
+          and launches["flash_attention"] == cfg.num_layers * prefills,
+          f"observe launches {launches} for {waves} waves and {prefills} "
+          "prefills")
+
+    # 1. The capture names K1 (the eager prefill); K2 runs in graphs.
+    kernels = kernel_events(captured["trace"])
+    check(kernels["flash_attention"] > 0, f"the profiler capture names no "
+          f"flash attention kernel: {kernels}")
+    # 2. The timeline over the window.
+    ids = {f"observe-{i}" for i in range(GEN_REQUESTS)}
+    device = [e for e in trace["traceEvents"]
+              if e.get("cat") == "device"]
+    decode_events = sum(1 for e in device if e["name"] == "decode.wave")
+    prefill_events = sum(1 for e in device if e["name"] == "prefill.bucket")
+    check(decode_events == waves and prefill_events == prefills,
+          f"timeline: {decode_events} decode.wave and {prefill_events} "
+          f"prefill.bucket events for {waves} waves and {prefills} "
+          "prefills")
+    slot_ids = {e["args"].get("trace_id") for e in trace["traceEvents"]
+                if e.get("cat") == "slot"}
+    check(slot_ids and slot_ids <= ids, f"slot events of other requests: "
+          f"{sorted(str(i) for i in slot_ids - ids)}")
+    # 3. Attribution: one record per request, summing to device time.
+    records = {r["trace_id"]: r for r in cache["top_cost"]["by_device_ms"]
+               if r["trace_id"] in ids}
+    check(len(records) == GEN_REQUESTS, f"{len(records)} cost records for "
+          f"{GEN_REQUESTS} requests")
+    attributed_ms = sum(r["device_ms"]["prefill"] + r["device_ms"]["decode"]
+                        for r in records.values())
+    engine_ms = 1e3 * sum(after[k] - before[k] for k in (
+        "prefill_device_s", "decode_device_s"))
+    check(abs(attributed_ms - engine_ms) <= ATTRIBUTION_RTOL * engine_ms,
+          f"attributed {attributed_ms:.3f} ms against the engine's "
+          f"{engine_ms:.3f} ms")
+    for phase in ("prefill", "decode"):
+        key = f'kfserving_tpu_request_device_ms_count{{model="gen4k",' \
+              f'phase="{phase}"}}'
+        moved = scraped["after"].get(key, 0) - scraped["before"].get(key, 0)
+        check(moved == GEN_REQUESTS, f"request_device_ms {phase}: {moved} "
+              f"observations for {GEN_REQUESTS} requests")
+    # 4. The sanitizer: clean run, then the probe's one violation.
+    block = ready["sanitizer"]
+    check(block["enabled"] and block["watchdog"]
+          and block["guard"]["arms"] >= 1 and block["violations"] == {},
+          f"sanitizer after the clean run: {block}")
+    check(after_probe["violations"] == {"forbidden_transfer": 1},
+          f"sanitizer after the probe: {after_probe}")
+    reasons = [e["pinned"] for e in pinned["pinned"]]
+    check("sanitizer_forbidden_transfer" in reasons,
+          f"pinned entries {reasons}")
+    # 5. History and the SLO report.
+    names = {s["name"] for s in index["series"]}
+    for family in ("kfserving_tpu_request_total",
+                   "kfserving_tpu_request_latency_ms_p99",
+                   "kfserving_tpu_llm_ttft_ms_p99",
+                   "kfserving_tpu_generator_prefix_lookups_total"):
+        check(family in names, f"/debug/history index lacks {family}")
+    points = max((len(s["frames"]) for s in series["series"]), default=0)
+    check(points >= 2, f"request_total history: {points} points")
+    check("gen4k" in slo["models"] and slo["models"]["gen4k"]["objective"][
+        "latency_ms"] == 60000, f"SLO report: {slo}")
+    return {"tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
+            "tokens": run["tokens"], "waves": waves, "prefills": prefills,
+            "launches": launches, "capture": kernels,
+            "capture_request_ms": capture_ms,
+            "capture_bytes": os.path.getsize(captured["trace"]),
+            "timeline_events": len(trace["traceEvents"]),
+            "timeline_events_per_s": len(trace["traceEvents"])
+            / (run["wall_s"] + OBSERVE_LEAD_S),
+            "attributed_ms": attributed_ms, "engine_device_ms": engine_ms,
+            "sanitizer": after_probe, "incident": opened[0]["id"],
+            "history_series": len(index["series"]),
+            "request_total_points": points,
+            "recorded_pins": reasons}
+
+
+async def observe_rep(model, arm: str) -> dict:
+    """One timed rep on a fresh server under ``arm``'s settings."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    try:
+        await wait_idle(model.engine)
+        reset_launches()
+        run = await observe_streams(server.http_port, f"{arm}-rep")
+        await wait_idle(model.engine)
+        return {"tokens_per_s": run["tokens_per_s"],
+                "launches": read_launches(),
+                "history": server.history is not None,
+                "incidents": server.incidents is not None}
+    finally:
+        await server.stop_async()
+
+
+def serve_observe(card: str) -> dict:
+    """The generate_4k configuration with the observability layer on:
+    the capture, timeline, attribution, sanitizer, history, SLO and
+    flight-recorder checks, then the layer's cost as tokens/s on against
+    off, two interleaved reps of each."""
+    from kfserving_tpu_torch.reliability import sanitizer
+
+    keys = set(OBSERVE_ON) | set(OBSERVE_OFF) | {"KFS_INCIDENT_SPOOL_DIR"}
+    saved = {k: os.environ.get(k) for k in keys}
+    trace_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-profile-")
+    spool = tempfile.mkdtemp(prefix="kfs-chip-smoke-incidents-")
+    try:
+        set_env(dict(OBSERVE_ON, KFS_INCIDENT_SPOOL_DIR=spool))
+        sanitizer.reset()
+        model, load_s = load_generative("gen4k", GEN_CONFIG)
+        try:
+            window = asyncio.run(observe_window(model, trace_dir))
+            spooled = sorted(os.listdir(spool))
+            check(f"{window['incident']}.json" in spooled,
+                  f"incident spool holds {spooled}")
+            reps = []
+            for arm in ("off", "on", "on", "off"):
+                if arm == "on":
+                    set_env(dict(OBSERVE_ON, KFS_INCIDENT_SPOOL_DIR=spool))
+                else:
+                    set_env(OBSERVE_OFF, unset=("KFS_SANITIZE",))
+                rep = asyncio.run(observe_rep(model, arm))
+                check(rep["history"] == rep["incidents"] == (arm == "on"),
+                      f"observe {arm} rep: {rep}")
+                reps.append((arm, rep))
+        finally:
+            model.unload()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        sanitizer.reset()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        shutil.rmtree(spool, ignore_errors=True)
+    launches = dict(window["launches"])
+    for _arm, rep in reps:
+        for k, v in rep["launches"].items():
+            launches[k] += v
+    summary = {
+        "card": card, "load_s": load_s,
+        "tokens_per_s": {arm: [r["tokens_per_s"] for a, r in reps
+                               if a == arm] for arm in ("on", "off")},
+        "window": {k: v for k, v in window.items() if k != "tokens"},
+        "launches": launches,
+    }
+    print("observe " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -4254,6 +4610,7 @@ def main() -> int:
         tiny = load_tiny_models(card)
         serving = serve_bert(card)
         generating = serve_generate(card)
+        observing = serve_observe(card)
         dense = serve_generate_dense(card)
         cold = serve_cold4k(card)
         spec = serve_specdec(card)
@@ -4271,7 +4628,8 @@ def main() -> int:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read
     # from 0 just before it ran.
-    generative = ([generating["launches"], dense["launches"]]
+    generative = ([generating["launches"], observing["launches"],
+                   dense["launches"]]
                   + [arm["launches"] for arm in cold["arms"].values()]
                   + [arm["launches"] for arm in spec["arms"].values()]
                   + [kvtier["launches"], kvhandoff["launches"]])

@@ -21,8 +21,8 @@ Port of ``kfserving_tpu/batching/batcher.py``.  Semantics kept:
   waiters are reaped before a flush commits batch slots to them;
 - each flush records every waiter's queue wait
   (``kfserving_tpu_batch_queue_wait_ms``), the batch's fill against its
-  bucket (``kfserving_tpu_batch_fill_ratio``) and one ``batcher.queue``
-  span per traced request.
+  bucket (``kfserving_tpu_batch_fill_ratio``), one ``batcher.queue``
+  span per traced request and a ``batch.flush`` timeline event.
 """
 
 import asyncio
@@ -33,6 +33,7 @@ from typing import Any, Awaitable, Callable, Dict, Hashable, List, Optional
 
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
 from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.observability.profiling import TIMELINE
 from kfserving_tpu_torch.reliability.deadline import (
     Deadline,
     DeadlineExceeded,
@@ -322,6 +323,10 @@ class DynamicBatcher:
                     {"bucket": str(key), "batch": n,
                      "fill": round(fill, 4)}))
         obs.batch_fill_ratio().labels(bucket=str(key)).observe(fill)
+        # One host-track marker per flushed batch on the engine timeline.
+        TIMELINE.record("host", "batch.flush",
+                        attrs={"bucket": str(key), "batch": n,
+                               "fill": round(fill, 4)})
 
     def _on_batch_done(self):
         self._inflight -= 1

@@ -98,9 +98,24 @@ chunked prefill and its speculative decoding.
   span; ``stats()`` carries the roofline accounting (decode and prefill
   FLOP/s and MFU, decode memory bandwidth) that ``/metrics`` publishes,
   and ``cache_debug()`` the ``/debug/cache`` block.
+- **cost attribution and the timeline**: each fetched dispatch's busy
+  interval (enqueue to its results' completion, overlap-corrected, the
+  interval ``prefill_device_s`` and ``decode_device_s`` sum) is split
+  evenly across the live requests it served, so the per-request cost
+  records (``observability/attribution.py``, one per request on every
+  terminal path: eos, length, timeout, cancel) sum to the engine's
+  device time.  The same interval is a device-track event on the engine
+  timeline (``decode.wave``, ``spec.verify``, ``prefill.bucket``,
+  ``prefill.chunk``) beside per-slot events carrying each request's
+  trace id; preemptions, HOLD windows, suppressed waves, cache hits,
+  evictions, fault-backs and KV export/import are host-track events, and
+  each fetch samples the pool as a counter.
+- **sanitizer**: under ``KFS_SANITIZE=1`` the scheduler loop runs inside
+  ``sanitizer.loop_guard`` (an implicit transfer of a tensor on the
+  engine's device type on the loop thread raises), and each fetch is a
+  sanctioned one.
 
-Left for later: the timeline, meshes, and graphs for the prefill
-buckets.
+Left for later: meshes and graphs for the prefill buckets.
 """
 
 import asyncio
@@ -128,7 +143,9 @@ from kfserving_tpu_torch.engine.speculative import (
     rolling_windows,
 )
 from kfserving_tpu_torch.engine.torch_engine import device_peak_flops
+from kfserving_tpu_torch.observability import attribution
 from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.observability.profiling import TIMELINE
 from kfserving_tpu_torch.observability.profiling.roofline import (
     device_peak_hbm_bw,
 )
@@ -139,7 +156,7 @@ from kfserving_tpu_torch.ops.paged_attention import (
     paged_insert,
 )
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
-from kfserving_tpu_torch.reliability import fault_sites
+from kfserving_tpu_torch.reliability import fault_sites, sanitizer
 from kfserving_tpu_torch.reliability.deadline import current_deadline
 from kfserving_tpu_torch.reliability.faults import FaultInjected, faults
 from kfserving_tpu_torch.tracing import Span, current_request_id, tracer
@@ -234,10 +251,24 @@ class _Request:
     trace_id: Optional[str] = None
     submit_t: float = 0.0
     last_emit_t: Optional[float] = None
+    # -- the cost record, accumulated over the request's whole life
+    # (preemptions included) and finalized once at its terminal event.
+    # Device ms are the request's even share of each dispatch's busy
+    # interval, so the records sum to the engine's device time.
+    prefill_device_ms: float = 0.0
+    decode_device_ms: float = 0.0
+    tokens_out: int = 0
+    blocks_held: int = 0          # peak slot-table blocks (paged)
+    cache_hit_blocks: int = 0     # prompt blocks served by the index
+    cache_saved_tokens: int = 0   # hit blocks x block_size
     # Prompt blocks faulted back from the host KV tier instead of
-    # re-prefilled (kept apart from device prefix hits).
+    # re-prefilled (kept apart from device prefix hits; the two add).
     host_tier_hit_blocks: int = 0
     host_tier_saved_tokens: int = 0
+    # Speculative decoding's draft/verify split of decode_device_ms (a
+    # breakdown of the same intervals, not additive terms).
+    spec_draft_ms: float = 0.0
+    spec_verify_ms: float = 0.0
 
 
 @dataclass
@@ -576,6 +607,9 @@ class GenerationEngine:
         # still maturing through the deferral window; the scheduler
         # HOLDS (no admissions, no waves) instead of preempting.
         self._growth_starved = False
+        # Start of the current growth-HOLD window (a host-track timeline
+        # span once it releases).
+        self._hold_since: Optional[float] = None
         self._wakeup: Optional[asyncio.Event] = None
         self._loop_task: Optional[asyncio.Task] = None
         self._closed = False
@@ -755,6 +789,7 @@ class GenerationEngine:
         try:
             self._pending.remove(req)
             req.out.put_nowait((None, "cancelled"))
+            self._finalize_cost(req, "cancelled")
             self.requests_finished += 1
             return
         except ValueError:
@@ -764,6 +799,7 @@ class GenerationEngine:
                 self._free_slot_state(i)
                 self.requests_finished += 1
                 req.out.put_nowait((None, "cancelled"))
+                self._finalize_cost(req, "cancelled")
                 return
         # Neither pending nor active: finished already, or mid-enqueue
         # (the install step checks `cancelled`).
@@ -1026,21 +1062,31 @@ class GenerationEngine:
             # (counted spilled or dropped when the tier write resolves),
             # else it drops.
             if self.kv_tier is None or chain is None:
-                self._count_evictions_locked("capacity_dropped", 1)
+                self._count_evictions_locked("capacity_dropped", 1, blk)
             elif self.kv_tier.contains(chain):
                 # Spilled before and faulted back since: already safe.
-                self._count_evictions_locked("capacity_spilled", 1)
+                self._count_evictions_locked("capacity_spilled", 1, blk)
             else:
                 self._spill_pending.append((chain, blk))
             return blk
         return None
 
-    def _count_evictions_locked(self, cause: str, n: int) -> None:
+    def _count_evictions_locked(self, cause: str, n: int,
+                                blk: int = -1) -> None:
+        """Count ``n`` evictions of ``cause``; a capacity eviction (of
+        block ``blk``) and an index invalidation are ``cache.evict``
+        events on the timeline, the zombie deferral's releases are not."""
         if n <= 0:
             return
         self.block_evictions[cause] += n
         obs.generator_block_evictions_total().labels(
             model=self.name, cause=cause).inc(n)
+        if cause == "index_invalidation":
+            TIMELINE.record("host", "cache.evict",
+                            attrs={"cause": cause, "entries": n})
+        elif cause != "zombie_deferral":
+            TIMELINE.record("host", "cache.evict",
+                            attrs={"cause": cause, "block": blk})
 
     def _ref_block_locked(self, blk: int) -> None:
         self._block_ref[blk] += 1
@@ -1260,6 +1306,14 @@ class GenerationEngine:
             self.prefill_tokens_saved += plan_hits * bs
         self._count_lookups(plan_hits, plan_misses, plan_hits * bs,
                             depth_obs, plan_host_hits)
+        # The plan's cache economics fold into the request's cost record.
+        req.blocks_held = max(req.blocks_held, len(dest))
+        if plan_hits:
+            req.cache_hit_blocks += plan_hits
+            req.cache_saved_tokens += plan_hits * bs
+            TIMELINE.record("host", "cache.hit", trace_id=req.trace_id,
+                            attrs={"blocks": plan_hits,
+                                   "tokens_saved": plan_hits * bs})
         return dest
 
     def _count_lookups(self, hits: int, misses: int, saved: int,
@@ -1304,6 +1358,7 @@ class GenerationEngine:
                 need = min((s.length + horizon + bs - 1) // bs,
                            self.blocks_per_slot)
                 cur = int(np.sum(self._tables[i] >= 0))
+                grown = cur
                 for c in range(cur, need):
                     blk = self._alloc_block_locked()
                     if blk is None:
@@ -1311,6 +1366,9 @@ class GenerationEngine:
                         break
                     self._ref_block_locked(blk)
                     self._tables[i, c] = blk
+                    grown = c + 1
+                # The table's block count now: the cost record's peak.
+                s.req.blocks_held = max(s.req.blocks_held, grown)
         return failed
 
     # -- host KV tier: spill and fault-back --------------------------------
@@ -1362,11 +1420,13 @@ class GenerationEngine:
     def _payload_rows(self, handle: _Fetch) -> np.ndarray:
         """Wait for a gather's copy; its rows as [N, block_bytes] uint8
         (bfloat16 as its bit patterns)."""
-        if handle.event is not None:
-            handle.event.synchronize()
-        handle.source = None
-        host = handle.host[0]
-        return host.view(torch.uint8).numpy().reshape(host.shape[0], -1)
+        with sanitizer.sanctioned_fetch():
+            if handle.event is not None:
+                handle.event.synchronize()
+            handle.source = None
+            host = handle.host[0]
+            return host.view(torch.uint8).numpy().reshape(
+                host.shape[0], -1)
 
     def _spill_write(self, grp: List[Tuple[bytes, int]],
                      handle: Optional[_Fetch]) -> None:
@@ -1398,8 +1458,8 @@ class GenerationEngine:
                 outcomes.extend((blk, "capacity_dropped")
                                 for _, blk in grp[len(outcomes):])
             with self._block_lock:
-                for _blk, cause in outcomes:
-                    self._count_evictions_locked(cause, 1)
+                for blk, cause in outcomes:
+                    self._count_evictions_locked(cause, 1, blk)
 
     def _drain_faultbacks(self) -> bool:
         """Enqueue thread, after planning and before the plans'
@@ -1474,6 +1534,10 @@ class GenerationEngine:
         self.kv_tier.note_faultback(len(primaries), elapsed_ms)
         if riders:
             self.kv_tier.note_coalesced(riders)
+        TIMELINE.record("host", "cache.faultback",
+                        attrs={"blocks": len(primaries),
+                               "coalesced": riders,
+                               "ms": round(elapsed_ms, 3)})
         return True
 
     def _insert_payloads(self, buf: torch.Tensor, blocks: List[int]) -> None:
@@ -1589,6 +1653,8 @@ class GenerationEngine:
                     model=self.name, outcome=outcome).inc(count)
         obs.kv_handoff_export_ms().labels(model=self.name).observe(
             elapsed_ms)
+        TIMELINE.record("host", "kv.export",
+                        attrs={**out, "ms": round(elapsed_ms, 3)})
         if any(out.values()):
             logger.info("kv export (%s): exported=%d skipped=%d "
                         "dropped=%d failed=%d in %.1fms", self.name,
@@ -1625,6 +1691,7 @@ class GenerationEngine:
             if count:
                 obs.kv_handoff_peer_blocks_total().labels(
                     model=self.name, outcome=outcome).inc(count)
+        TIMELINE.record("host", "kv.import", attrs=dict(out))
         return out
 
     # -- device programs (enqueue thread) ----------------------------------
@@ -1677,9 +1744,12 @@ class GenerationEngine:
         """Fetch executor: wait for the copies, return (tokens,
         logprob arrays or None, wait seconds)."""
         t0 = time.perf_counter()
-        if handle.event is not None:
-            handle.event.synchronize()
-        arrays = [h.numpy() for h in handle.host]
+        # The sanctioned generation fetch: device results become host
+        # arrays here, on the fetch executor.
+        with sanitizer.sanctioned_fetch():
+            if handle.event is not None:
+                handle.event.synchronize()
+            arrays = [h.numpy() for h in handle.host]
         lp = tuple(arrays[1:]) if len(arrays) > 1 else None
         return arrays[0], lp, time.perf_counter() - t0
 
@@ -2094,12 +2164,13 @@ class GenerationEngine:
         verify."""
         t0 = time.perf_counter()
         draft_ready_s = 0.0
-        if handle.draft_event is not None:
-            handle.draft_event.synchronize()
-            draft_ready_s = time.perf_counter() - t0
-        if handle.event is not None:
-            handle.event.synchronize()
-        arrays = [h.numpy() for h in handle.host]
+        with sanitizer.sanctioned_fetch():
+            if handle.draft_event is not None:
+                handle.draft_event.synchronize()
+                draft_ready_s = time.perf_counter() - t0
+            if handle.event is not None:
+                handle.event.synchronize()
+            arrays = [h.numpy() for h in handle.host]
         lp = tuple(arrays[2:]) if len(arrays) > 2 else None
         return ((arrays[0], arrays[1], draft_ready_s), lp,
                 time.perf_counter() - t0)
@@ -2154,6 +2225,7 @@ class GenerationEngine:
                     and s.req.deadline.expired:
                 s.req.out.put_nowait((None, "timeout"))
                 self._record_finish_span(s.req, s.generated, "timeout")
+                self._finalize_cost(s.req, "timeout")
                 self._free_slot_state(i)
                 self.requests_finished += 1
         if any(r.deadline is not None and r.deadline.expired
@@ -2164,6 +2236,7 @@ class GenerationEngine:
                 if r.deadline is not None and r.deadline.expired:
                     r.out.put_nowait((None, "timeout"))
                     self._record_finish_span(r, 0, "timeout")
+                    self._finalize_cost(r, "timeout")
                     self.requests_finished += 1
                 else:
                     keep.append(r)
@@ -2181,6 +2254,31 @@ class GenerationEngine:
             req.trace_id, "generator.generate",
             time.time() - duration_s, duration_s * 1000.0,
             {"tokens": tokens, "finish_reason": finished}))
+
+    def _finalize_cost(self, req: _Request, finished: str) -> None:
+        """Fold the request's accumulated accounting into its one cost
+        record (device ms by phase, prefill and decode tokens, peak
+        blocks held, cache-saved tokens).  Every terminal path calls
+        this: eos and length, timeout and cancel."""
+        device_ms = {"prefill": round(req.prefill_device_ms, 3),
+                     "decode": round(req.decode_device_ms, 3)}
+        if self.spec_tokens:
+            # Draft and verify refine the decode figure; prefill +
+            # decode still sums to the engine's device time.
+            device_ms["spec_draft"] = round(req.spec_draft_ms, 3)
+            device_ms["spec_verify"] = round(req.spec_verify_ms, 3)
+        attribution.observe(self.name, req.trace_id, {
+            "trace_id": req.trace_id,
+            "finish_reason": finished,
+            "device_ms": device_ms,
+            "prefill_tokens": int(req.prompt_ids.size),
+            "decode_tokens": req.tokens_out,
+            "blocks_held": req.blocks_held,
+            "cache_hit_blocks": req.cache_hit_blocks,
+            "cache_saved_tokens": req.cache_saved_tokens,
+            "host_tier_hit_blocks": req.host_tier_hit_blocks,
+            "host_tier_saved_tokens": req.host_tier_saved_tokens,
+        })
 
     def _fail_all(self, reason: str):
         for i, s in enumerate(self._slots):
@@ -2228,7 +2326,11 @@ class GenerationEngine:
         # t0).
         inflight: deque = deque()
         try:
-            await self._run_pipeline(loop, inflight)
+            # KFS_SANITIZE=1: the transfer guard covers this (the loop's)
+            # thread while the pipeline runs; the fetches run on executor
+            # threads it never covers.  Off, one env read.
+            with sanitizer.loop_guard(self.name, self.device.type):
+                await self._run_pipeline(loop, inflight)
         finally:
             for item in inflight:
                 item[1].add_done_callback(
@@ -2279,6 +2381,7 @@ class GenerationEngine:
                     # slot (the enqueued prefill still writes the
                     # blocks, so their release is deferred).
                     req.out.put_nowait((None, "cancelled"))
+                    self._finalize_cost(req, "cancelled")
                     self.requests_finished += 1
                     self._schedule_block_release(slot)
                     entries.append((slot, None))
@@ -2438,6 +2541,8 @@ class GenerationEngine:
                 self._pending.appendleft(s.req)
                 self.preemptions += 1
                 yielded = True
+                TIMELINE.record("host", "preempt", trace_id=s.req.trace_id,
+                                slot=i, attrs={"phase": "prefill"})
         if yielded or self._deferred_frees:
             return True
         for i in failed:
@@ -2463,7 +2568,23 @@ class GenerationEngine:
             self._free_slot_state(i)
             self._pending.appendleft(s.req)
             self.preemptions += 1
+            TIMELINE.record("host", "preempt", trace_id=s.req.trace_id,
+                            slot=i, attrs={"phase": "decode"})
         return False
+
+    def _set_hold(self, held: bool) -> None:
+        """Track growth-starvation HOLD transitions: the window from the
+        first held iteration to the release is one host-track timeline
+        span."""
+        self._growth_starved = held
+        if held:
+            if self._hold_since is None:
+                self._hold_since = time.time()
+        elif self._hold_since is not None:
+            now = time.time()
+            TIMELINE.record("host", "hold", dur_s=now - self._hold_since,
+                            t_end=now)
+            self._hold_since = None
 
     async def _run_pipeline(self, loop, inflight: deque):
         while not self._closed:
@@ -2474,7 +2595,7 @@ class GenerationEngine:
                 # Nothing in flight can write a block: release every
                 # deferred free now.
                 self._process_deferred_frees(force=True)
-                self._growth_starved = False
+                self._set_hold(False)
                 if not self._pending:
                     self._wakeup.clear()
                     if admitted:
@@ -2492,7 +2613,7 @@ class GenerationEngine:
             # before this iteration's waves.
             await self._dispatch_chunks(loop, inflight)
             held = self._preempt_or_hold()
-            self._growth_starved = held
+            self._set_hold(held)
             decodable = [] if held else [
                 s for s in self._slots if s is not None and not s.prefilling]
             waves = sum(1 for it in inflight if it[0] in ("decode", "spec"))
@@ -2512,6 +2633,7 @@ class GenerationEngine:
                     # another wave could only decode garbage.
                     self.suppressed_waves += 1
                     obs.generator_suppressed_waves_total().inc()
+                    TIMELINE.record("host", "wave.suppressed")
                     break
                 handle, snap, t0 = await loop.run_in_executor(
                     self._enqueue_executor, self._enqueue_wave)
@@ -2554,25 +2676,73 @@ class GenerationEngine:
             now = time.perf_counter()
             busy = now - max(t0, self._last_fetch_done)
             self._last_fetch_done = now
+            # The union of busy intervals: a device-track timeline event
+            # per fetched dispatch (the interval the device_s stats sum
+            # and the cost records split), per-slot events with each
+            # stream's trace id, and a pool sample.
+            wall = time.time()
+            dev_s = max(0.0, busy)
             if kind == "decode":
                 self._decode_device_s += busy
                 self._decode_wait_s += wait_s
-                self._distribute(fetched, lp, meta)
+                TIMELINE.record(
+                    "device", "decode.wave", dur_s=dev_s, t_end=wall,
+                    attrs={"steps": self.steps_per_call,
+                           "wait_ms": round(wait_s * 1e3, 3)})
+                for slot_i, s in enumerate(meta):
+                    if s is not None and self._slots[slot_i] is s:
+                        TIMELINE.record("slot", "decode", dur_s=dev_s,
+                                        t_end=wall,
+                                        trace_id=s.req.trace_id,
+                                        slot=slot_i)
+                self._record_pool_sample()
+                self._distribute(fetched, lp, meta, dev_s * 1e3)
             elif kind == "spec":
                 self._decode_device_s += busy
                 self._decode_wait_s += wait_s
-                self._finish_spec(fetched, lp, meta, busy)
+                self._finish_spec(fetched, lp, meta, dev_s, wall, wait_s)
             elif kind == "chunk":
                 self._prefill_device_s += busy
                 self._prefill_wait_s += wait_s
                 # The stall this chunk put between decode fetches.
                 obs.generator_prefill_chunk_stall_ms().observe(busy * 1e3)
+                slot, act, idx, final = meta
+                TIMELINE.record("device", "prefill.chunk", dur_s=dev_s,
+                                t_end=wall, trace_id=act.req.trace_id,
+                                slot=slot,
+                                attrs={"chunk": idx, "final": final})
+                TIMELINE.record("slot", "prefill.chunk", dur_s=dev_s,
+                                t_end=wall, trace_id=act.req.trace_id,
+                                slot=slot, attrs={"chunk": idx})
+                # A chunk serves one request: its whole busy interval
+                # is that request's prefill cost.
+                act.req.prefill_device_ms += dev_s * 1e3
                 self._finish_chunk(fetched, lp, meta)
             else:
                 self._prefill_device_s += busy
                 self._prefill_wait_s += wait_s
-                self._finish_prefill(fetched, lp, meta)
+                TIMELINE.record("device", "prefill.bucket", dur_s=dev_s,
+                                t_end=wall, attrs={"batch": len(meta)})
+                for slot_i, act in meta:
+                    if act is not None and self._slots[slot_i] is act:
+                        TIMELINE.record("slot", "prefill", dur_s=dev_s,
+                                        t_end=wall,
+                                        trace_id=act.req.trace_id,
+                                        slot=slot_i)
+                self._finish_prefill(fetched, lp, meta, dev_s * 1e3)
             self._process_deferred_frees()
+
+    def _record_pool_sample(self) -> None:
+        """Occupancy counter sample for the timeline (a Chrome counter
+        track); the ``engine`` string tells two engines' pools apart."""
+        values = {"active_slots": sum(1 for s in self._slots
+                                      if s is not None),
+                  "pending": len(self._pending),
+                  "engine": self.name}
+        if self.block_size is not None:
+            values["free_blocks"] = len(self._free_blocks)
+            values["reclaimable_blocks"] = len(self._reclaimable)
+        TIMELINE.counter("pool", values)
 
     def _finish_chunk(self, first: np.ndarray, lp, meta) -> None:
         """A fetched chunk; the final one carries the stream's first
@@ -2584,10 +2754,18 @@ class GenerationEngine:
             self.prefill_requests += 1
             self._emit(slot, int(first[0]), _lp_record(lp, act.req, 0))
 
-    def _finish_prefill(self, firsts: np.ndarray, lp, entries):
+    def _finish_prefill(self, firsts: np.ndarray, lp, entries,
+                        device_ms: float = 0.0):
         """Deliver a prefill batch's first tokens; a slot whose _Active
-        changed since enqueue (cancel) discards its row."""
+        changed since enqueue (cancel) discards its row.  The dispatch's
+        device ms split evenly over the rows whose cost records are
+        still open (a cancelled row's was finalized at cancel, so its
+        share goes to the survivors: device time stays conserved)."""
         self.prefills += 1
+        live = [act for slot, act in entries
+                if act is not None and self._slots[slot] is act]
+        for act in live:
+            act.req.prefill_device_ms += device_ms / len(live)
         for i, (slot, act) in enumerate(entries):
             if act is None or self._slots[slot] is not act:
                 continue
@@ -2601,6 +2779,7 @@ class GenerationEngine:
         feeds it, so this never touches `length`."""
         s = self._slots[slot]
         s.generated += 1
+        s.req.tokens_out += 1
         self.tokens_generated += 1
         obs.llm_tokens_total().labels(direction="out").inc()
         # The first emission is the TTFT, later ones inter-token gaps;
@@ -2633,19 +2812,25 @@ class GenerationEngine:
                 obs.llm_tokens_per_second().observe(
                     s.generated / duration_s, trace_id=s.req.trace_id)
             self._record_finish_span(s.req, s.generated, finished)
+            self._finalize_cost(s.req, finished)
             self._free_slot_state(slot)
             self.requests_finished += 1
         else:
             s.last_token = token
 
-    def _distribute(self, tokens: np.ndarray, lp, snapshot):
+    def _distribute(self, tokens: np.ndarray, lp, snapshot,
+                    device_ms: float = 0.0):
         """tokens [S, K]: deliver each slot's steps in order.  A slot
         consumes its row only if the _Active it held at enqueue is still
         there; freed slots' rows are garbage (counted as waste), and a
-        slot finishing mid-wave discards the rest of its row."""
+        slot finishing mid-wave discards the rest of its row.  The wave's
+        device ms split evenly over the live streams it decoded."""
         k = tokens.shape[1]
         self._token_steps += k
         resident_tokens = 0
+        live = sum(1 for i, s in enumerate(snapshot)
+                   if s is not None and self._slots[i] is s)
+        share_ms = device_ms / live if live else 0.0
         for i, s in enumerate(snapshot):
             if s is None:
                 continue
@@ -2653,6 +2838,10 @@ class GenerationEngine:
                 self._wasted_token_steps += k
                 continue
             self._occupied_slot_steps += k
+            s.req.decode_device_ms += share_ms
+            if self.block_size is not None:
+                s.req.blocks_held = max(s.req.blocks_held,
+                                        -(-int(s.length) // self.block_size))
             # Roofline accounting over live rows, at the slot's length
             # at wave start.
             self._decode_flops += k * (self._flops_matmul_per_token
@@ -2744,14 +2933,15 @@ class GenerationEngine:
             draft[i] = self._ngram.propose(self._spec_history(s))
         return draft, (time.perf_counter() - t0) * 1000.0
 
-    def _finish_spec(self, fetched, lp, meta, busy: float) -> None:
-        """Split a fetched spec wave's busy interval into draft and
-        verify (the draft model's program completes before the verify
-        on the stream; the n-gram head's cost is host time), then
-        commit its rows."""
+    def _finish_spec(self, fetched, lp, meta, dev_s: float, wall: float,
+                     wait_s: float) -> None:
+        """Split a fetched spec wave's busy interval ``dev_s`` into draft
+        and verify (the draft model's program completes before the
+        verify on the stream; the n-gram head's cost is host time),
+        record them on the timeline, then commit its rows."""
         samples, draft, draft_ready_s = fetched
         entries, host_draft_ms = meta
-        dev_ms = max(0.0, busy) * 1e3
+        dev_ms = dev_s * 1e3
         if self._draft_module is not None:
             draft_ms = min(max(draft_ready_s * 1e3, 0.0), dev_ms)
             verify_ms = max(0.0, dev_ms - draft_ms)
@@ -2759,10 +2949,25 @@ class GenerationEngine:
             draft_ms, verify_ms = host_draft_ms, dev_ms
         self._spec_draft_s += draft_ms / 1e3
         self._spec_verify_s += verify_ms / 1e3
-        self._distribute_spec(samples, draft, lp, entries, draft_ms)
+        TIMELINE.record("device" if self._draft_module is not None
+                        else "host", "spec.draft", dur_s=draft_ms / 1e3,
+                        t_end=wall, attrs={"k": self.spec_tokens})
+        TIMELINE.record("device", "spec.verify", dur_s=verify_ms / 1e3,
+                        t_end=wall,
+                        attrs={"k": self.spec_tokens, "rows": len(entries),
+                               "wait_ms": round(wait_s * 1e3, 3)})
+        for slot_i, s in entries:
+            if self._slots[slot_i] is s:
+                TIMELINE.record("slot", "spec.decode", dur_s=dev_s,
+                                t_end=wall, trace_id=s.req.trace_id,
+                                slot=slot_i)
+        self._record_pool_sample()
+        self._distribute_spec(samples, draft, lp, entries, dev_ms,
+                              draft_ms, verify_ms)
 
     def _distribute_spec(self, samples: np.ndarray, draft: np.ndarray, lp,
-                         entries, draft_ms: float) -> None:
+                         entries, device_ms: float, draft_ms: float,
+                         verify_ms: float) -> None:
         """samples [S, K + 1], draft [S, K]: commit each live row's
         longest agreeing prefix.  Row acceptance a (1..K + 1): draw j
         extends a prefix that is right only if every earlier proposal
@@ -2775,6 +2980,10 @@ class GenerationEngine:
         live = [(i, s) for i, s in entries if self._slots[i] is s]
         # Rows freed after enqueue: K + 1 garbage positions each.
         self._wasted_token_steps += (len(entries) - len(live)) * kp1
+        # Each live row's even share of the wave, and of its split.
+        n_live = max(1, len(live))
+        shares = (device_ms / n_live, draft_ms / n_live,
+                  verify_ms / n_live)
         accepted_wave = 0
         resident_tokens = 0
         length_fam = obs.specdec_accepted_length_tokens()
@@ -2787,6 +2996,13 @@ class GenerationEngine:
             accepted_wave += a - 1
             self._spec_lengths.append(a)
             length_fam.labels(model=self.name).observe(float(a))
+            s.req.decode_device_ms += shares[0]
+            s.req.spec_draft_ms += shares[1]
+            s.req.spec_verify_ms += shares[2]
+            if self.block_size is not None:
+                s.req.blocks_held = max(
+                    s.req.blocks_held,
+                    -(-int(s.length + a) // self.block_size))
             # Roofline over accepted tokens only: rejected positions are
             # the acceptance trade (goodput_ratio shows them).
             self._decode_flops += a * (self._flops_matmul_per_token

@@ -41,8 +41,8 @@ Robustness contract:
 - **Observable**: occupancy, spill and fault families plus the
   ``kv_handoff_reattached_blocks_total`` adoption outcomes, and a
   ``debug()`` block under ``/debug/cache``.  A fault-back storm
-  (``KFS_KV_TIER_STORM_*``) is counted; it pins a flight-recorder entry
-  once a recorder is attached (the port has none yet).
+  (``KFS_KV_TIER_STORM_*``) is counted and pins a flight-recorder entry
+  into the recorder the server attaches.
 
 Storage: page-aligned slot stride, one preallocated file; publication is
 the in-memory index, and in persistent mode the manifest record lands
@@ -270,8 +270,8 @@ class HostKVTier:
 
     # -- wiring ------------------------------------------------------------
     def attach_flight_recorder(self, recorder) -> None:
-        """Point storm pins at a flight recorder (the port's server has
-        none yet, so storms are counted but not pinned)."""
+        """Point storm pins at a flight recorder (the serving
+        ModelServer attaches its monitoring recorder at start)."""
         self._flight_recorder = recorder
 
     # -- probes (scheduler-loop safe: dict lookups only) -------------------

@@ -28,10 +28,12 @@ States: registered -> faulting -> resident <-> evicting -> host.
 
 Published: ``kfserving_tpu_residency_state{model}`` (pruned when a model
 deregisters), ``kfserving_tpu_residency_fault_in_ms{source}`` and
-``kfserving_tpu_residency_fault_ins_total{model,outcome}``.  Left for
-later (ROADMAP Queue 1 item 9): the timeline events and the
-flight-recorder pin of an eviction storm; the storm count is kept in
-``debug()``.
+``kfserving_tpu_residency_fault_ins_total{model,outcome}``.  Each
+fault-in and eviction is a ``residency.fault_in`` / ``residency.evict``
+event on the engine timeline.  More than ``KFS_RESIDENCY_STORM_THRESHOLD``
+evictions inside ``KFS_RESIDENCY_STORM_WINDOW_S`` is an eviction storm:
+counted in ``debug()`` and pinned (``eviction_storm``, with the ledger
+and the residency block) into the flight recorder the server attaches.
 """
 
 import asyncio
@@ -46,6 +48,7 @@ from typing import Any, Dict, Optional
 
 from kfserving_tpu_torch.engine.hbm import HBMManager, InsufficientHBM
 from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.observability.profiling import TIMELINE
 from kfserving_tpu_torch.reliability import fault_sites
 from kfserving_tpu_torch.reliability.faults import FaultInjected, faults
 
@@ -56,10 +59,9 @@ logger = logging.getLogger("kfserving_tpu_torch.residency")
 # transient condition, not an error).
 DEFAULT_ADMIT_WAIT_S = 5.0
 # More than threshold evictions inside the window count as one storm
-# (the working set exceeds the budget).  The JAX package's env knobs for
-# these tuned its flight-recorder pin, which the port does not have yet.
-STORM_WINDOW_S = 10.0
-STORM_THRESHOLD = 8
+# (the working set exceeds the budget).
+DEFAULT_STORM_WINDOW_S = 10.0
+DEFAULT_STORM_THRESHOLD = 8
 # kfserving_tpu_residency_state values; an evicting model is still on the
 # card.
 STATE_CODES = {"registered": 0, "host": 1, "faulting": 2,
@@ -102,8 +104,11 @@ class ResidencyManager:
         self.admit_wait_s = admit_wait_s if admit_wait_s is not None \
             else float(os.environ.get("KFS_RESIDENCY_ADMIT_WAIT_S",
                                       DEFAULT_ADMIT_WAIT_S))
-        self.storm_window_s = STORM_WINDOW_S
-        self.storm_threshold = STORM_THRESHOLD
+        self.storm_window_s = float(os.environ.get(
+            "KFS_RESIDENCY_STORM_WINDOW_S", DEFAULT_STORM_WINDOW_S))
+        self.storm_threshold = int(float(os.environ.get(
+            "KFS_RESIDENCY_STORM_THRESHOLD", DEFAULT_STORM_THRESHOLD)))
+        self._flight_recorder = None
         self._models: Dict[str, _Record] = {}
         # Dedicated fault-in workers: a fault must not queue behind the
         # resident models' batches on a shared executor; that wait would
@@ -269,6 +274,8 @@ class ResidencyManager:
         obs.residency_fault_in_ms().labels(source=source).observe(ms)
         obs.residency_fault_ins_total().labels(
             model=rec.name, outcome=source).inc()
+        TIMELINE.record("host", "residency.fault_in", dur_s=ms / 1e3,
+                        attrs={"model": rec.name, "source": source})
         self._publish_state(rec)
         logger.info("faulted %s onto the card (%s, %.1f ms)", rec.name,
                     source, ms)
@@ -328,10 +335,18 @@ class ResidencyManager:
             with self._lock:
                 rec.state = "host" if offloaded else "registered"
             self._publish_state(rec)
+        TIMELINE.record("host", "residency.evict",
+                        attrs={"model": name, "bytes": rec.nbytes,
+                               "warm": offloaded})
         logger.info("evicted %s from the card (%s)", name,
                     "host params retained" if offloaded
                     else "demoted to registered")
         self._note_eviction()
+
+    def attach_flight_recorder(self, recorder) -> None:
+        """Eviction-storm pins land in ``recorder`` (the serving
+        ModelServer attaches its monitoring recorder at start)."""
+        self._flight_recorder = recorder
 
     def _note_eviction(self) -> None:
         now = time.monotonic()
@@ -344,6 +359,15 @@ class ResidencyManager:
             return
         self._storm_at = now
         self.storms += 1
+        recorder = self._flight_recorder
+        if recorder is not None:
+            recorder.record({
+                "kind": "residency_eviction_storm",
+                "evictions_in_window": recent,
+                "window_s": self.storm_window_s,
+                "hbm": self.hbm.debug(),
+                "residency": self.debug(),
+            }, pin="eviction_storm")
         logger.warning(
             "eviction storm: %d evictions in %.0f s (the working set "
             "exceeds the budget)", recent, self.storm_window_s)

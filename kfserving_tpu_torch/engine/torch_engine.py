@@ -53,7 +53,9 @@ forward, or the replay, is queued) and fetch (wait for the card, copy
 the rows back).  Dispatch is asynchronous, so compute ends when the
 launches return and fetch holds the wait for the device; ``stats()``
 says so with ``blocking_stats`` false, as the JAX engine does in its
-non-blocking mode.
+non-blocking mode.  The dispatch-to-result span is also an
+``engine.execute`` event on the engine timeline's device track, and the
+fetch is a sanctioned one for the sanitizer's transfer guard.
 """
 
 import asyncio
@@ -71,6 +73,8 @@ import torch
 from kfserving_tpu_torch.engine import compile_cache, graphs
 from kfserving_tpu_torch.engine.buckets import BucketPolicy
 from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.observability.profiling import TIMELINE
+from kfserving_tpu_torch.reliability import sanitizer
 from kfserving_tpu_torch.reliability.deadline import check_deadline
 from kfserving_tpu_torch.tracing import current_request_id, tracer
 
@@ -371,6 +375,14 @@ class TorchEngine:
                           ("compute", (t2 - t_transfer) * 1e3),
                           ("fetch", (t3 - t2) * 1e3)):
             stage_hist.labels(stage=stage).observe(ms, trace_id=trace_id)
+        # The dispatch -> host-visible-result span on the device track,
+        # and a host marker at a shape's first dispatch (its capture).
+        TIMELINE.record("device", "engine.execute", dur_s=t3 - t1,
+                        trace_id=trace_id,
+                        attrs={"bucket": int(bucket), "batch": n})
+        if miss:
+            TIMELINE.record("host", "compile.miss", trace_id=trace_id,
+                            attrs={"shape": str(key)})
         # Models without a sequence axis (ResNet, MLP, ViT) take None.
         flops = self._flops_fn(*key) if self._flops_fn else 0.0
         first = False
@@ -404,7 +416,8 @@ class TorchEngine:
             t_transfer = time.perf_counter()
             out = self._apply(self.params, batch)
             t2 = time.perf_counter()
-            result = _map(lambda t: t[:n].cpu().numpy(), out)
+            with sanitizer.sanctioned_fetch():
+                result = _map(lambda t: t[:n].cpu().numpy(), out)
         t3 = time.perf_counter()
         with self._stats_lock:
             miss = key not in self._dispatched
@@ -433,8 +446,9 @@ class TorchEngine:
             done = torch.cuda.Event()
             done.record(self._stream)
         # The one device -> host join of a batch.
-        done.synchronize()
-        result = _map(lambda h: h.numpy().copy(), host)
+        with sanitizer.sanctioned_fetch():
+            done.synchronize()
+            result = _map(lambda h: h.numpy().copy(), host)
         return result, False, t_transfer, t2, time.perf_counter()
 
     def _compile(self, key, padded: Any, n: int):
@@ -448,7 +462,8 @@ class TorchEngine:
             t_transfer = time.perf_counter()
             out = self._apply(self.params, batch)
             t2 = time.perf_counter()
-            result = _map(lambda t: t[:n].cpu().numpy(), out)
+            with sanitizer.sanctioned_fetch():
+                result = _map(lambda t: t[:n].cpu().numpy(), out)
             t3 = time.perf_counter()
             del out
             if self._pool is None:

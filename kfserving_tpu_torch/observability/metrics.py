@@ -13,7 +13,8 @@ a caller holding a stale instrument::
     obs.llm_ttft_ms().observe(ttft, trace_id=req.trace_id)
 
 Histograms are milliseconds unless the name says otherwise.  Families of
-layers the port has not ported yet (SLO, history, router, monitors) are listed in ROADMAP under the item that ports each.
+layers the port has not ported yet (the router, the control plane) are
+listed in ROADMAP under the item that ports each.
 """
 
 from kfserving_tpu_torch.observability.registry import (
@@ -26,6 +27,13 @@ from kfserving_tpu_torch.observability.registry import (
 # The per-request accounting series (the server's Metrics feeds them).
 REQUEST_TOTAL_SERIES = "kfserving_tpu_request_total"
 REQUEST_LATENCY_SERIES = "kfserving_tpu_request_latency_ms"
+# The trend-slope gauge the history detector exports.
+TREND_SLOPE_SERIES = "kfserving_tpu_trend_slope_per_second"
+
+# Count-valued buckets of the cost-attribution distributions: token
+# counts span prompt sizes (1..4k), block counts span pool tables.
+TOKEN_BUCKETS = [1, 4, 16, 64, 256, 1024, 4096]
+BLOCK_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128]
 
 
 # -- batcher -------------------------------------------------------------
@@ -469,3 +477,242 @@ def kv_handoff_export_ms():
         "Wall time of one drain export pass (gather + device-to-host "
         "copy + tier writes for all surviving candidates), bounded by "
         "KFS_KV_EXPORT_BUDGET_S")
+
+
+# -- per-request cost attribution (observability/attribution.py) --------
+def request_device_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_request_device_ms",
+        "Per-request attributed device time by phase (prefill|"
+        "decode): each dispatch's busy interval is split evenly "
+        "across the live streams it served, so the series sums to "
+        "total device time (the InferLine-style per-stage cost the "
+        "provisioning math consumes)")
+
+
+def request_phase_tokens():
+    return REGISTRY.histogram(
+        "kfserving_tpu_request_phase_tokens",
+        "Per-request token counts by phase (prefill = prompt tokens "
+        "ingested, decode = tokens generated)",
+        buckets=TOKEN_BUCKETS)
+
+
+def request_held_blocks():
+    return REGISTRY.histogram(
+        "kfserving_tpu_request_held_blocks",
+        "Peak pool blocks a request's slot table held (paged mode; "
+        "prompt + growth horizon) — the residency cost of admitting "
+        "this request",
+        buckets=BLOCK_BUCKETS)
+
+
+def request_cache_saved_tokens():
+    return REGISTRY.histogram(
+        "kfserving_tpu_request_cache_saved_tokens",
+        "Prompt tokens a request did not re-store thanks to prefix-"
+        "cache hits (hit blocks x block_size; 0 = fully cold)",
+        buckets=TOKEN_BUCKETS)
+
+
+def request_host_tier_saved_tokens():
+    return REGISTRY.histogram(
+        "kfserving_tpu_request_host_tier_saved_tokens",
+        "Prompt tokens a request served from the host KV tier "
+        "(fault-back) instead of re-prefilling — distinct from "
+        "request_cache_saved_tokens (device prefix hits) so the "
+        "per-request cost record shows WHICH tier earned the "
+        "savings; the two are additive",
+        buckets=TOKEN_BUCKETS)
+
+
+
+# -- monitoring loop (observability/monitoring/) ------------------------
+def monitor_events_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_monitor_events_total",
+        "Monitor-bus publish outcomes (outcome=published|sampled_out|"
+        "dropped; dropped = bounded queue full, serving never blocks)")
+
+
+def monitor_consumer_errors_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_monitor_consumer_errors_total",
+        "Monitor consumer callbacks that raised (by consumer name); "
+        "a broken monitor never breaks the bus or serving")
+
+
+def monitor_alert_state():
+    return REGISTRY.gauge(
+        "kfserving_tpu_monitor_alert_state",
+        "Per-model online monitor alert state (monitor=drift|outlier; "
+        "1 = alerting)")
+
+
+def drift_score():
+    return REGISTRY.gauge(
+        "kfserving_tpu_drift_score",
+        "Max per-feature two-sample KS statistic of the live window "
+        "vs the reference sample (0 = identical distributions)")
+
+
+def outlier_rate():
+    return REGISTRY.gauge(
+        "kfserving_tpu_outlier_rate",
+        "Fraction of the sliding window flagged as Mahalanobis "
+        "outliers against the reference distribution")
+
+
+def slo_burn_rate():
+    return REGISTRY.gauge(
+        "kfserving_tpu_slo_burn_rate",
+        "Error-budget burn rate per model/objective/window (1.0 = "
+        "spending exactly the budget; alert past the threshold)")
+
+
+def slo_alert_state():
+    return REGISTRY.gauge(
+        "kfserving_tpu_slo_alert_state",
+        "Per-model SLO alert state (1 = burn rate over threshold on "
+        "every configured window)")
+
+
+def slo_breaches_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_slo_breaches_total",
+        "SLO alert activations (0 -> 1 transitions) per model")
+
+
+def flightrecorder_pinned_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_flightrecorder_pinned_total",
+        "Flight-recorder entries pinned, by trigger reason")
+
+
+
+# -- telemetry history and trend detection (observability/history/) ----
+def history_tick_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_history_tick_ms",
+        "Wall time of one history sampler tick (walk every registry "
+        "family, append rings, run the trend detector) — the "
+        "sampler's own overhead, bounded by construction")
+
+
+def history_tick_failures_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_history_tick_failures_total",
+        "History sampler ticks that raised (swallowed; history goes "
+        "stale-but-served) — a climbing rate means the time axis is "
+        "silently frozen")
+
+
+def history_samples_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_history_samples_total",
+        "Points appended to the in-process history rings across all "
+        "series and ticks")
+
+
+def history_series():
+    return REGISTRY.gauge(
+        "kfserving_tpu_history_series",
+        "Live series in the history ring store (bounded by "
+        "KFS_HISTORY_MAX_SERIES; overflow is dropped, never grown)")
+
+
+def trend_slope_per_second():
+    return REGISTRY.gauge(
+        TREND_SLOPE_SERIES,
+        "EWMA'd first derivative of each watched history series "
+        "(units of the series per second), labeled {series=family, "
+        "...underlying labels} — the leading input slope-aware "
+        "predictive scaling consumes")
+
+
+def trend_zscore():
+    return REGISTRY.gauge(
+        "kfserving_tpu_trend_zscore",
+        "Latest z-score of each watched history series against its "
+        "EWMA baseline (|z| past the threshold for consecutive ticks "
+        "declares a change-point)")
+
+
+def trend_changepoints_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_trend_changepoints_total",
+        "Change-points the history trend detector declared, by "
+        "watched series — each one also pins a trend_<series> "
+        "flight-recorder entry embedding the pre/post window frames")
+
+
+
+# -- device-discipline sanitizer (KFS_SANITIZE=1) -----------------------
+def sanitizer_violations_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_sanitizer_violations_total",
+        "Runtime device-discipline violations by kind "
+        "(forbidden_transfer: implicit host<->device transfer under "
+        "the armed guard; recompile: a compilation after a source's "
+        "declared warmup; loop_stall: the event loop failed to run a "
+        "watchdog tick within the threshold)")
+
+
+def sanitizer_armed():
+    return REGISTRY.gauge(
+        "kfserving_tpu_sanitizer_armed",
+        "1 while KFS_SANITIZE=1 has the runtime sanitizer active in "
+        "this process (transfer guard + recompile assertion + loop "
+        "watchdog)")
+
+
+
+# -- incident engine (observability/incidents/) -------------------------
+def incident_open():
+    return REGISTRY.gauge(
+        "kfserving_tpu_incident_open",
+        "Open (undiagnosed-recovery) incidents per dedup key — the "
+        "model under breach, or `_server` for process-wide storms")
+
+
+def incident_opened_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_incident_opened_total",
+        "Incidents opened, labeled by the causal classifier's "
+        "top-ranked hypothesis at open time (queue_wait|"
+        "device_compute|cache_miss_storm|eviction_thrash|"
+        "recompile_host_sync|brownout_shed|failover|unclassified)")
+
+
+def incident_triggers_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_incident_triggers_total",
+        "Detector firings fed to the incident engine by trigger kind "
+        "(slo_breach|trend|sanitizer|eviction_storm|faultback_storm|"
+        "failover) — each either opens an incident or attaches to the "
+        "open one inside the dedup window")
+
+
+def incident_failures_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_incident_failures_total",
+        "Incident pipeline failures by reason (error = diagnosis "
+        "raised and was swallowed, dropped = the bounded trigger "
+        "queue overflowed while the worker was wedged) — under chaos "
+        "the pipeline degrades to plain detector pins, it never "
+        "blocks serving")
+
+
+# An incident lives seconds (a one-tick blip) to tens of minutes (a
+# sustained regression).
+INCIDENT_DURATION_BUCKETS_MS = [
+    1000, 5000, 15000, 60000, 300000, 900000, 3600000]
+
+
+def incident_duration_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_incident_duration_ms",
+        "Open-to-close wall time of resolved incidents (close = "
+        "recovery observed, then the cooldown window passed with no "
+        "further triggers)",
+        buckets=INCIDENT_DURATION_BUCKETS_MS)

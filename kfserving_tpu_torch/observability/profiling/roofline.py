@@ -15,8 +15,8 @@ dicts; ``publish_gauges`` promotes them into process-registry gauges at
 
 ``publish_gauges`` returns the stat keys it consumed, so the server's
 generic engine-stats exporter never declares the same family twice.
-``publish_cache_gauges`` (``observability/attribution.py`` in the JAX
-package) adds the paged pool's occupancy and fragmentation ratios.
+The paged pool's occupancy and fragmentation ratios are published by
+``observability/attribution.py::publish_cache_gauges``.
 
 The peak memory bandwidth is that of the card the port runs on, read
 from its name, as ``engine/torch_engine.py::device_peak_flops`` reads
@@ -112,21 +112,3 @@ def publish_gauges(model: str, stats: Dict[str, Any]) -> Set[str]:
     except Exception:  # telemetry must never fail a scrape
         logger.exception("roofline gauge publish failed for %s", model)
     return consumed
-
-
-def publish_cache_gauges(model: str, stats: Dict[str, Any]) -> None:
-    """Promote the paged pool's ratios into gauges.  Consumes no key: the
-    ``paged`` dict keeps its per-key export, as in the JAX package."""
-    try:
-        paged = stats.get("paged")
-        if isinstance(paged, dict):
-            occ = paged.get("pool_occupancy_ratio")
-            if isinstance(occ, (int, float)):
-                obs.generator_pool_occupancy_ratio().labels(
-                    model=model).set(_clamp01(occ))
-            frag = paged.get("fragmentation_ratio")
-            if isinstance(frag, (int, float)):
-                obs.generator_pool_fragmentation_ratio().labels(
-                    model=model).set(_clamp01(frag))
-    except Exception:
-        logger.exception("cache gauge publish failed for %s", model)

@@ -24,9 +24,8 @@ threads and the generator's executors).
 
 `REGISTRY` is the process-wide default (the series every layer feeds and
 every /metrics endpoint appends).  `Registry.reset()` drops all families
-(test isolation).  The JAX module's read-only introspection (`family`,
-`families`, `sample_names`) serves its SLO engine and linter, which the
-port does not have.
+(test isolation).  `family` and `families` are the read-only lookups
+the SLO engine and the history sampler walk.
 """
 
 import bisect
@@ -212,6 +211,26 @@ class Registry:
                   buckets: Optional[List[float]] = None) -> _Family:
         return self._family("histogram", name, help_text,
                             buckets or LATENCY_BUCKETS_MS)
+
+    # -- introspection ---------------------------------------------------
+    def family(self, name: str) -> Optional[_Family]:
+        """Read-only lookup of an existing family (None when absent): a
+        reader must never create an empty family a later writer would
+        then re-kind against."""
+        with self._lock:
+            return self._families.get(name)
+
+    def families(self) -> Dict[str, str]:
+        """{family name: kind} snapshot."""
+        with self._lock:
+            return {name: fam.kind
+                    for name, fam in self._families.items()}
+
+    def sample_names(self) -> List[str]:
+        """Names of families that hold at least one child sample."""
+        with self._lock:
+            return [name for name, fam in self._families.items()
+                    if fam._children]
 
     # -- test isolation ---------------------------------------------------
     def reset(self) -> None:

@@ -48,3 +48,16 @@ ENGINE_KV_EXPORT = "engine.kv_export"
 # /kv/reattach pull path), keyed by engine name: an injected error rejects
 # the batch before any tier publication.
 ENGINE_KV_IMPORT = "engine.kv_import"
+
+# HistorySampler background tick, probed through the async hook the
+# server injects: an injected hang parks only the sampler task and an
+# injected error is swallowed and counted, so history degrades to
+# stale-but-served and the serving path never blocks on its telemetry.
+OBSERVABILITY_HISTORY_TICK = "observability.history_tick"
+
+# IncidentManager diagnosis worker, probed before each queued trigger:
+# an injected error is swallowed and counted
+# (kfserving_tpu_incident_failures_total), an injected hang parks only
+# the worker, so a wedged incident pipeline degrades to plain detector
+# pins and predicts never wait on diagnosis.
+OBSERVABILITY_INCIDENT_OPEN = "observability.incident_open"

@@ -33,6 +33,22 @@ Port of the inference surface of ``kfserving_tpu/server/app.py``:
                                             with exemplars on request)
     GET  /debug/traces                      the span ring (?trace_id=,
                                             ?limit=)
+    GET  /v2/health/slo                     SLO burn rates (?refresh=1)
+    GET  /debug/flightrecorder              recent and pinned request
+                                            timelines (?limit=, ?pinned=1,
+                                            ?pin_type=, ?since_ts=)
+    POST /debug/profiler/start|stop         a torch.profiler capture
+                                            ({"log_dir": ...})
+    GET  /debug/profile                     the engine event timeline as
+                                            Chrome-trace JSON (?window_s=,
+                                            ?format=events)
+    POST /debug/profile/capture             a bounded torch.profiler
+                                            window ({"duration_s": s})
+    GET  /debug/history                     the telemetry history rings
+                                            (?series=, ?labels=,
+                                            ?window_s=, ?step_s=, ?index=1)
+    GET  /debug/incidents                   diagnosed incidents (?id=,
+                                            ?state=, ?limit=)
     GET  /startup_phases                    boot-phase marks (seconds
                                             since process birth)
     POST /standby/activate                  load the armed standby model
@@ -54,9 +70,16 @@ Each inference request joins a trace (``traceparent`` or
 (``x-request-timeout-ms``: 504 once it is spent, at whichever stage),
 passes the admission gate (``--container_concurrency``: at most that
 many requests run at once, a bounded queue waits, the rest get 503), and
-is counted in the request series and the access log.  One asyncio
-process serves; batched device execution runs on the engines' worker
-threads.
+is counted in the request series and the access log (with its cost
+record when the engine kept one), recorded in the flight recorder, and
+handed to the request hooks (the monitor bus).  One asyncio process
+serves; batched device execution runs on the engines' worker threads.
+
+The server owns its observability services: the monitoring loop (flight
+recorder, monitor bus, SLO burn rates), the telemetry history sampler
+with its trend detector (``KFS_HISTORY=0`` disables it) and the incident
+engine (``KFS_INCIDENTS=0``); under ``KFS_SANITIZE=1`` it also owns the
+sanitizer's loop-stall watchdog and pins violations.
 
 A generate request with an ``x-kfs-kv-peer`` header (a router's failover
 hint naming the replica it was retried away from) first pulls that
@@ -75,6 +98,7 @@ import json
 import logging
 import os
 import signal
+import tempfile
 import time
 import urllib.parse
 from typing import Any, Dict, List, Optional, Tuple
@@ -84,9 +108,24 @@ from kfserving_tpu_torch.engine.kv_tier import payload_digest
 
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.model.repository import ModelRepository
+from kfserving_tpu_torch.observability import REGISTRY, attribution
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.observability.accesslog import log_access
-from kfserving_tpu_torch.observability.profiling import roofline
+from kfserving_tpu_torch.observability.history import (
+    HistorySampler,
+    TrendDetector,
+    history_enabled,
+)
+from kfserving_tpu_torch.observability.incidents import (
+    IncidentManager,
+    incidents_enabled,
+)
+from kfserving_tpu_torch.observability.monitoring import Monitoring
+from kfserving_tpu_torch.observability.profiling import (
+    TIMELINE,
+    roofline,
+    to_chrome_trace,
+)
 from kfserving_tpu_torch.protocol import cloudevents, native
 from kfserving_tpu_torch.protocol.errors import ServingError
 from kfserving_tpu_torch.protocol.v2 import (
@@ -94,11 +133,13 @@ from kfserving_tpu_torch.protocol.v2 import (
     InferRequest,
     encode_binary_response,
 )
+from kfserving_tpu_torch.reliability import fault_sites, sanitizer
 from kfserving_tpu_torch.reliability.deadline import (
     Deadline,
     DeadlineExceeded,
     deadline_scope,
 )
+from kfserving_tpu_torch.reliability.faults import faults
 from kfserving_tpu_torch.server.dataplane import DataPlane
 from kfserving_tpu_torch.server.http import (
     HTTPServer,
@@ -112,12 +153,15 @@ from kfserving_tpu_torch.streams import GuardedStream, aclose_quietly
 from kfserving_tpu_torch.tracing import (
     REQUEST_ID_HEADER,
     ensure_request_id,
+    profiler,
     tracer,
 )
 
 logger = logging.getLogger("kfserving_tpu_torch.server")
 
 DEFAULT_HTTP_PORT = 8080
+# Where a profiler capture writes when the request names no log_dir.
+DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "kfs-profile")
 
 parser = argparse.ArgumentParser(add_help=False)
 parser.add_argument("--http_port", default=DEFAULT_HTTP_PORT, type=int,
@@ -243,6 +287,48 @@ class ModelServer:
         self.router = Router()
         self._register_routes()
         self.http_server = HTTPServer(self.router)
+        # Called as hook(name, verb, request, response, latency_ms) after
+        # every inference request (the monitor bus tees in here).
+        self.request_hooks = []
+        # Background services with async start()/stop(), run for the
+        # server's lifetime.
+        self.services = []
+        # The monitoring loop: the monitor bus off the request hooks, the
+        # SLO burn-rate engine over this server's request series, the
+        # flight recorder of recent timelines.
+        self.monitoring = Monitoring(self)
+        self.services.append(self.monitoring)
+        # Telemetry history: the ring-TSDB sampler ticks this server's
+        # request registry and the process registry into bounded rings
+        # (running the scrape-time publishers first, so history and a
+        # live scrape agree) and feeds the trend detector, whose
+        # change-points pin into the flight recorder.
+        self.history: Optional[HistorySampler] = None
+        if history_enabled():
+            self.history = HistorySampler(
+                registries=[self.metrics.registry, REGISTRY],
+                fault_hook=self._history_tick_fault,
+                publishers=[self.publish_engine_gauges])
+            self.history.detector = TrendDetector(
+                self.history.store,
+                recorder=self.monitoring.flight_recorder)
+            self.services.append(self.history)
+        # The incident engine: detector pins and SLO breach edges become
+        # diagnosed incident records (GET /debug/incidents).
+        self.incidents: Optional[IncidentManager] = None
+        if incidents_enabled():
+            self.incidents = IncidentManager(
+                history=(self.history.store
+                         if self.history is not None else None),
+                recorder=self.monitoring.flight_recorder,
+                providers={"cache": self._incident_cache_snapshot},
+                fault_hook=self._incident_open_fault)
+            self.monitoring.flight_recorder.add_pin_listener(
+                self.incidents.on_pin)
+            self.monitoring.slo.transition_listeners.append(
+                self.incidents.on_slo_transition)
+            self.services.append(self.incidents)
+        self._owns_sanitizer_watchdog = False
         # Per-replica admission control (Knative containerConcurrency):
         # at most `container_concurrency` inference calls run at once; up
         # to `max_queue_depth` more wait, the rest get 503 so the load
@@ -304,13 +390,21 @@ class ModelServer:
         r.add("POST", "/v2/repository/models/{name}/unload", self._unload)
         r.add("GET", "/v2/repository/index", self._repository_index)
         r.add("GET", "/metrics", self._metrics)
-        r.add("GET", "/debug/traces", self._traces)
-        r.add("GET", "/debug/cache", self._cache)
         r.add("GET", "/startup_phases", self._startup_phases)
         r.add("POST", "/standby/activate", self._standby_activate)
         r.add("GET", "/kv/chains", self._kv_chains)
         r.add("GET", "/kv/chains/{chain}", self._kv_chain_payload)
         r.add("POST", "/kv/reattach", self._kv_reattach)
+        r.add("GET", "/v2/health/slo", self._slo_health)
+        r.add("GET", "/debug/flightrecorder", self._flightrecorder)
+        r.add("GET", "/debug/traces", self._traces)
+        r.add("POST", "/debug/profiler/start", self._profiler_start)
+        r.add("POST", "/debug/profiler/stop", self._profiler_stop)
+        r.add("GET", "/debug/profile", self._profile)
+        r.add("POST", "/debug/profile/capture", self._profile_capture)
+        r.add("GET", "/debug/cache", self._cache)
+        r.add("GET", "/debug/history", self._history)
+        r.add("GET", "/debug/incidents", self._incidents)
 
     # -- handlers ----------------------------------------------------------
     async def _live(self, req: Request) -> Response:
@@ -318,7 +412,12 @@ class ModelServer:
 
     async def _server_ready(self, req: Request) -> Response:
         ready = self.dataplane.server_ready()
-        return _json({"ready": ready}, status=200 if ready else 503)
+        body = {"ready": ready}
+        if sanitizer.enabled():
+            # Sanitized runs show their discipline state where the probe
+            # already looks (all-zero violations is the clean bill).
+            body["sanitizer"] = sanitizer.status()
+        return _json(body, status=200 if ready else 503)
 
     async def _server_metadata(self, req: Request) -> Response:
         return _json(self.dataplane.server_metadata())
@@ -369,10 +468,15 @@ class ModelServer:
             admitted = await self._enter_admission(deadline)
             if admitted is not True:
                 status, error = self._shed_reason(admitted)
+                latency_ms = (time.perf_counter() - start) * 1000.0
                 resp = _json({"error": error}, status=status)
-                self.metrics.observe_request(
-                    name, verb, status,
-                    (time.perf_counter() - start) * 1000.0, trace_id=rid)
+                self.metrics.observe_request(name, verb, status,
+                                             latency_ms, trace_id=rid)
+                # A shed is what the flight recorder keeps evidence of
+                # (a 504 pins as deadline_shed), and the hooks see it.
+                self.monitoring.record_request(name, verb, status,
+                                               latency_ms, trace_id=rid)
+                self._run_hooks(name, verb, req, resp, latency_ms)
                 resp.headers[REQUEST_ID_HEADER] = rid
                 return resp
             try:
@@ -448,10 +552,25 @@ class ModelServer:
         latency_ms = (time.perf_counter() - start) * 1000.0
         self.metrics.observe_request(name, verb, status, latency_ms,
                                      trace_id=trace_id)
+        # After the stage spans completed (the tracer ring holds this
+        # trace's batcher and engine spans) and before the hooks.
+        self.monitoring.record_request(name, verb, status, latency_ms,
+                                       trace_id=trace_id,
+                                       stages=stages or None)
         log_access("server", trace_id=trace_id, model=name, verb=verb,
                    status=status, latency_ms=round(latency_ms, 3),
-                   stages=stages or None, tokens_out=tokens_out)
+                   stages=stages or None, tokens_out=tokens_out,
+                   cost=attribution.lookup(trace_id))
+        self._run_hooks(name, verb, req, resp, latency_ms)
         return resp
+
+    def _run_hooks(self, name: str, verb: str, req: Request,
+                   resp: Response, latency_ms: float) -> None:
+        for hook in self.request_hooks:
+            try:
+                hook(name, verb, req, resp, latency_ms)
+            except Exception:
+                logger.exception("request hook failed")
 
     @staticmethod
     def _encode_response(req: Request, body: Any, response: Any
@@ -558,9 +677,20 @@ class ModelServer:
             self.metrics.observe_request(name, "generate_stream",
                                          state["status"], latency_ms,
                                          trace_id=rid)
+            # Recorded at close: the generator span and the cost record
+            # exist once the stream ended (a cancel finalizes too).
+            self.monitoring.record_request(name, "generate_stream",
+                                           state["status"], latency_ms,
+                                           trace_id=rid)
             log_access("server", trace_id=rid, model=name,
                        verb="generate_stream", status=state["status"],
-                       latency_ms=round(latency_ms, 3))
+                       latency_ms=round(latency_ms, 3),
+                       cost=attribution.lookup(rid))
+            # The hooks get the stream's real outcome with an empty body
+            # (the token stream was never buffered).
+            self._run_hooks(name, "generate_stream", req,
+                            Response(b"", status=state["status"]),
+                            latency_ms)
 
         return StreamingResponse(GuardedStream(sse(), on_close),
                                  headers={REQUEST_ID_HEADER: rid})
@@ -678,6 +808,10 @@ class ModelServer:
             except Exception as e:
                 logger.exception("kv reattach for %s failed", model.name)
                 results[model.name] = {"error": str(e)}
+        if results:
+            self.monitoring.flight_recorder.record(
+                {"kind": "kv_handoff_reattach", "models": results},
+                pin="kv_handoff_reattach")
         return _json({"models": results})
 
     async def _kv_pull_peer(self, peer: str, budget_s: float,
@@ -753,6 +887,12 @@ class ModelServer:
                 results[mname] = res
         except (OSError, ValueError, http.client.HTTPException) as e:
             results.setdefault("error", f"peer pull failed: {e!r}")
+        if results:
+            self.monitoring.flight_recorder.record(
+                {"kind": "kv_handoff_peer_pull", "peer": peer,
+                 "models": {k: v for k, v in results.items()
+                            if isinstance(v, dict)}},
+                pin="kv_handoff_peer_pull")
         return results
 
     async def _maybe_peer_import(self, headers: Dict[str, str],
@@ -797,6 +937,11 @@ class ModelServer:
                     None, engine.export_kv, budget_s)
             except Exception:
                 logger.exception("kv export for %s failed", model.name)
+        if results:
+            self.monitoring.flight_recorder.record(
+                {"kind": "kv_handoff_export", "budget_s": budget_s,
+                 "models": results},
+                pin="kv_handoff_export")
         return results
 
     async def _load(self, req: Request) -> Response:
@@ -830,7 +975,7 @@ class ModelServer:
             try:
                 stats = engine_stats()
                 consumed = roofline.publish_gauges(model.name, stats)
-                roofline.publish_cache_gauges(model.name, stats)
+                attribution.publish_cache_gauges(model.name, stats)
                 for key, value in stats.items():
                     if key in consumed:
                         continue
@@ -875,10 +1020,201 @@ class ModelServer:
             return _json({"error": "limit must be an integer"}, status=400)
         return _json({"spans": tracer.spans(trace_id, limit)})
 
+    async def _slo_health(self, req: Request) -> Response:
+        """The SLO engine's last evaluation; ``?refresh=1`` forces a
+        fresh tick.  Always 200: a breach is a reported state, not an
+        endpoint failure."""
+        if req.query.get("refresh") == "1":
+            return _json(self.monitoring.slo.tick())
+        return _json(self.monitoring.slo.report())
+
+    async def _flightrecorder(self, req: Request) -> Response:
+        """``?limit=``, ``?pinned=1`` (pinned entries only),
+        ``?pin_type=`` (pin-reason prefix: ``trend``, ``slo_``,
+        ``sanitizer_`` ...) and ``?since_ts=`` (wall-clock seconds)."""
+        try:
+            limit = int(req.query.get("limit", "100"))
+        except ValueError:
+            return _json({"error": "limit must be an integer"},
+                         status=400)
+        pinned_only = req.query.get("pinned", "0") == "1"
+        pin_type = req.query.get("pin_type") or None
+        since_raw = req.query.get("since_ts")
+        try:
+            since_ts = float(since_raw) if since_raw else None
+        except ValueError:
+            return _json({"error": "since_ts must be a number"},
+                         status=400)
+        return _json(self.monitoring.dump_flightrecorder(
+            limit=limit, pinned_only=pinned_only, pin_type=pin_type,
+            since_ts=since_ts))
+
+    async def _profile(self, req: Request) -> Response:
+        """The engine event timeline as Chrome-trace JSON (Perfetto
+        loads it); ``?window_s=`` trims to the trailing window,
+        ``?format=events`` returns the raw event dicts."""
+        window = req.query.get("window_s")
+        try:
+            window_s = float(window) if window else None
+        except ValueError:
+            return _json({"error": "window_s must be a number"},
+                         status=400)
+        fmt = req.query.get("format", "trace_json")
+        if fmt not in ("trace_json", "events"):
+            return _json({"error": "format must be trace_json or events"},
+                         status=400)
+        events = TIMELINE.snapshot(window_s)
+        if fmt == "events":
+            return _json({"events": [TIMELINE.event_dict(e)
+                                     for e in events],
+                          "recorded": TIMELINE.recorded})
+        return _json(to_chrome_trace(events))
+
+    @staticmethod
+    def _profile_body(req: Request) -> Dict[str, Any]:
+        try:
+            body = json.loads(req.body) if req.body else {}
+        except ValueError:
+            body = {}
+        return body if isinstance(body, dict) else {}
+
+    async def _profile_capture(self, req: Request) -> Response:
+        """A bounded torch.profiler window: start, hold ``duration_s``
+        (clamped to [0.1, 60]), stop, and answer the log dir and the
+        Chrome trace written there.  409 while another capture is
+        active; a profiler that fails to start is a 500.  Start and stop
+        run on the loop's thread: the profiler's CUPTI client must be
+        driven from the thread that registered it."""
+        body = self._profile_body(req)
+        try:
+            duration_s = float(body.get("duration_s", 2.0))
+        except (TypeError, ValueError):
+            return _json({"error": "duration_s must be a number"},
+                         status=400)
+        duration_s = max(0.1, min(duration_s, 60.0))
+        log_dir = body.get("log_dir", DEFAULT_PROFILE_DIR)
+        try:
+            started = profiler.start(log_dir)
+        except Exception as e:
+            return _json({"error": f"profiler start failed: {e}"},
+                         status=500)
+        if not started:
+            return _json({"error": "profiler already active",
+                          "log_dir": profiler.active_dir}, status=409)
+        try:
+            await asyncio.sleep(duration_s)
+        finally:
+            profiler.stop()
+        return _json({"captured": True, "log_dir": log_dir,
+                      "trace": profiler.last_trace,
+                      "duration_s": duration_s})
+
+    async def _profiler_start(self, req: Request) -> Response:
+        log_dir = self._profile_body(req).get("log_dir",
+                                              DEFAULT_PROFILE_DIR)
+        try:
+            started = profiler.start(log_dir)
+        except Exception as e:
+            return _json({"error": f"profiler start failed: {e}"},
+                         status=500)
+        if not started:
+            return _json({"error": "profiler already active",
+                          "log_dir": profiler.active_dir}, status=409)
+        return _json({"profiling": True, "log_dir": log_dir})
+
+    async def _profiler_stop(self, req: Request) -> Response:
+        log_dir = profiler.stop()
+        if log_dir is None:
+            return _json({"error": "profiler not active"}, status=409)
+        return _json({"profiling": False, "log_dir": log_dir,
+                      "trace": profiler.last_trace})
+
+    async def _history(self, req: Request) -> Response:
+        """Aligned (ts, value) frames from the history rings:
+        ``?series=`` one family (omitted: every live series),
+        ``?labels=k=v,k2=v2`` a label subset, ``?window_s=`` the
+        lookback (default 600), ``?step_s=`` an absolute epoch grid;
+        ``?index=1`` the series catalog instead.  History off answers
+        ``{"enabled": false}``."""
+        if self.history is None:
+            return _json({"enabled": False, "series": []})
+        if req.query.get("index") == "1":
+            return _json({"enabled": True,
+                          "tick_s": self.history.tick_s,
+                          "tiers": self.history.store.tiers,
+                          "series": self.history.store.index()})
+        series = req.query.get("series") or None
+        labels: Dict[str, str] = {}
+        for pair in (req.query.get("labels") or "").split(","):
+            if not pair:
+                continue
+            if "=" not in pair:
+                return _json({"error": "labels must be k=v[,k2=v2...]"},
+                             status=400)
+            k, v = pair.split("=", 1)
+            labels[k] = v
+        try:
+            window_s = float(req.query.get("window_s", "600"))
+            step_raw = req.query.get("step_s")
+            step_s = float(step_raw) if step_raw else None
+        except ValueError:
+            return _json({"error": "window_s and step_s must be numbers"},
+                         status=400)
+        if window_s <= 0 or (step_s is not None and step_s <= 0):
+            return _json({"error": "window_s and step_s must be positive"},
+                         status=400)
+        return _json({
+            "enabled": True,
+            "tick_s": self.history.tick_s,
+            "ticks": self.history.ticks,
+            "series": self.history.store.query(
+                series=series, labels=labels or None,
+                window_s=window_s, step_s=step_s),
+        })
+
+    async def _incidents(self, req: Request) -> Response:
+        """``?id=`` one full record (evidence bundle and ranked
+        hypotheses); else newest-first summaries (``?state=open``,
+        ``?limit=``).  Incidents off answers ``{"enabled": false}``."""
+        if self.incidents is None:
+            return _json({"enabled": False, "open": 0, "incidents": []})
+        incident_id = req.query.get("id")
+        if incident_id:
+            record = self.incidents.get(incident_id)
+            if record is None:
+                return _json({"error": f"unknown incident {incident_id}"},
+                             status=404)
+            return _json(record)
+        try:
+            limit = int(req.query.get("limit", "50"))
+        except ValueError:
+            return _json({"error": "limit must be an integer"},
+                         status=400)
+        return _json(self.incidents.report(
+            state=req.query.get("state") or None, limit=limit))
+
+    def _incident_cache_snapshot(self) -> Dict[str, Any]:
+        """Evidence provider: the /debug/cache state at incident open
+        (a bounded hot-chain census)."""
+        return self.cache_snapshot(top_k=5)
+
+    async def _incident_open_fault(self) -> None:
+        """The incident worker's fault site, probed before each queued
+        trigger (injected here, so observability/ never imports the
+        reliability layer)."""
+        await faults.inject(fault_sites.OBSERVABILITY_INCIDENT_OPEN)
+
+    async def _history_tick_fault(self) -> None:
+        """The history sampler's fault site, probed before every
+        tick."""
+        await faults.inject(fault_sites.OBSERVABILITY_HISTORY_TICK)
+
     async def _cache(self, req: Request) -> Response:
         """``?top_k=`` bounds each generative model's hot-chain list
-        (default 10); ``?top_cost=K`` asks for the attribution ring's
-        top-K cost records, which the port does not keep yet (null)."""
+        (default 10); ``?top_cost=K`` appends the attribution ring's
+        top-K cost records by device ms and by held blocks
+        (``?cost_window_s=`` keeps records finished inside the trailing
+        window)."""
         try:
             top_k = int(req.query.get("top_k", "10"))
             top_cost = int(req.query.get("top_cost", "0"))
@@ -887,7 +1223,18 @@ class ModelServer:
                                    "integers"}, status=400)
         body = self.cache_snapshot(top_k=top_k)
         if top_cost > 0:
-            body["top_cost"] = None
+            window_raw = req.query.get("cost_window_s")
+            try:
+                window_s = float(window_raw) if window_raw else None
+            except ValueError:
+                return _json({"error": "cost_window_s must be a number"},
+                             status=400)
+            body["top_cost"] = {
+                "by_device_ms": attribution.top(
+                    top_cost, window_s=window_s, by="device_ms"),
+                "by_held_blocks": attribution.top(
+                    top_cost, window_s=window_s, by="held_blocks"),
+            }
         return _json(body)
 
     def cache_snapshot(self, top_k: int = 10) -> Dict[str, Any]:
@@ -936,6 +1283,26 @@ class ModelServer:
         which `self.http_port` then holds."""
         for model in models:
             self.register_model(model)
+        for service in self.services:
+            await service.start()
+        # Eviction storms of the demand-paged repository and fault-back
+        # storms of the host KV tiers pin into this server's recorder.
+        recorder = self.monitoring.flight_recorder
+        residency = getattr(self.repository, "residency", None)
+        if residency is not None:
+            residency.attach_flight_recorder(recorder)
+        for _model, _engine, tier in self._kv_tier_models():
+            tier.attach_flight_recorder(recorder)
+        # KFS_SANITIZE=1: violations pin into this recorder and the stall
+        # watchdog heartbeats the loop.  The watchdog is process-global:
+        # only the server that started it wires the recorder and stops
+        # it, so a second in-process server leaves the first's alone.
+        if sanitizer.enabled():
+            self._owns_sanitizer_watchdog = sanitizer.start_watchdog(
+                asyncio.get_running_loop()) is not None
+            if self._owns_sanitizer_watchdog:
+                sanitizer.attach_flight_recorder(recorder)
+                obs.sanitizer_armed().set(1)
         await self.http_server.start(host, self.http_port)
         self.http_port = self.http_server.port
         startup.mark("serving")
@@ -962,10 +1329,19 @@ class ModelServer:
         return False
 
     async def stop_async(self) -> None:
+        if self._owns_sanitizer_watchdog:
+            sanitizer.stop_watchdog()
+            # A stopped server's recorder has no debug surface left, and
+            # the global reference would keep its object graph alive.
+            sanitizer.attach_flight_recorder(None)
+            self._owns_sanitizer_watchdog = False
+            obs.sanitizer_armed().set(0)
         await self.http_server.stop()
         residency = getattr(self.repository, "residency", None)
         if residency is not None:
             residency.close()
+        for service in reversed(self.services):
+            await service.stop()
 
     def start(self, models: List[Model]) -> None:
         """Blocking entry point: serve until SIGINT or SIGTERM, then

@@ -1,8 +1,9 @@
 """Request tracing: span ids through the server, batcher and engine.
 
-Port of ``kfserving_tpu/tracing.py`` without its ``jax.profiler`` toggle
-(``ProfilerControl``; the port's ``/debug/profiler`` routes on
-``torch.profiler`` come later).
+Port of ``kfserving_tpu/tracing.py``; its ``ProfilerControl`` runs
+``torch.profiler`` (CPU and, on the card, CUDA activities) where the JAX
+package's ran ``jax.profiler``, behind ``/debug/profiler/start|stop`` and
+``/debug/profile/capture``.
 
 Design: a process-wide ring buffer of completed spans plus a contextvar
 carrying the current request id.  The request id enters via the W3C
@@ -16,6 +17,7 @@ are queryable at ``GET /debug/traces`` and logged at DEBUG.
 import contextlib
 import contextvars
 import logging
+import os
 import re
 import threading
 import time
@@ -133,3 +135,57 @@ def ensure_request_id(headers: Dict[str, str]) -> str:
         rid = headers.get(REQUEST_ID_HEADER) or uuid.uuid4().hex[:16]
     current_request_id.set(rid)
     return rid
+
+
+class ProfilerControl:
+    """On-demand ``torch.profiler`` capture.  One capture at a time:
+    ``start`` answers False while one is active (the routes' 409), and
+    ``stop`` writes the capture as a Chrome trace (``trace-<pid>-<ms>
+    .json``, kernels by name on the CUDA track) into the log dir it was
+    started with and returns that dir (``last_trace`` holds the file).
+    A profiler that fails to start raises.  Start and stop must run on
+    one thread, the one that first used torch (the profiler's CUPTI
+    client is registered there): the server calls both on its loop."""
+
+    def __init__(self):
+        self._active_dir: Optional[str] = None
+        self._profile = None
+        self._lock = threading.Lock()
+        self.last_trace: Optional[str] = None
+
+    @property
+    def active_dir(self) -> Optional[str]:
+        return self._active_dir
+
+    def start(self, log_dir: str) -> bool:
+        import torch
+
+        with self._lock:
+            if self._active_dir is not None:
+                return False
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profile = torch.profiler.profile(activities=activities)
+            profile.start()
+            self._profile, self._active_dir = profile, log_dir
+            logger.info("torch.profiler capture -> %s", log_dir)
+            return True
+
+    def stop(self) -> Optional[str]:
+        with self._lock:
+            if self._active_dir is None:
+                return None
+            profile, self._profile = self._profile, None
+            out, self._active_dir = self._active_dir, None
+            profile.stop()
+            os.makedirs(out, exist_ok=True)
+            path = os.path.join(
+                out, f"trace-{os.getpid()}-{int(time.time() * 1000)}.json")
+            profile.export_chrome_trace(path)
+            self.last_trace = path
+        logger.info("torch.profiler capture stopped (%s)", path)
+        return out
+
+
+profiler = ProfilerControl()

@@ -2,8 +2,9 @@
 CPU: ``kfserving_tpu_compile_cache_total{outcome}`` counted per dispatch
 by ``TorchEngine`` as ``JaxEngine`` counts it, the ``KFS_MINIMAL_WARMUP``
 grid of the predictors, and the compile-cache funnel's warmup
-declaration.  (On the card a miss is a CUDA graph capture; chip_smoke.py
-holds the graphs there.)
+declaration, which reaches the sanitizer (``KFS_SANITIZE=1``).  (On the
+card a miss is a CUDA graph capture; chip_smoke.py holds the graphs
+there.)
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ from kfserving_tpu.predictors.jax_model import JaxModel
 from kfserving_tpu_torch.engine import compile_cache
 from kfserving_tpu_torch.observability import REGISTRY
 from kfserving_tpu_torch.predictors.torch_model import TorchModel
+from kfserving_tpu_torch.reliability import sanitizer
 
 FAMILY = "kfserving_tpu_compile_cache_total"
 
@@ -74,6 +76,8 @@ def test_minimal_warmup_trims_the_grid_as_jax(tmp_path, monkeypatch):
     bucket; the compile count and the warmed shapes equal the JAX
     predictor's, and neither declares its warmup complete."""
     monkeypatch.setenv("KFS_MINIMAL_WARMUP", "1")
+    monkeypatch.setenv("KFS_SANITIZE", "1")
+    sanitizer.reset()
     model_dir = write_artifact(str(tmp_path), "bert",
                                dict(BERT_CONFIG, warmup=True))
     jax_model, port = JaxModel("m", model_dir), \
@@ -86,32 +90,41 @@ def test_minimal_warmup_trims_the_grid_as_jax(tmp_path, monkeypatch):
         assert port.engine.compile_count == \
             jax_model.engine.compile_count == len(jax_grid)
         assert jax_grid == [(4, 16), (4, 32)]
-        assert port.engine.compile_source not in compile_cache._warmed
+        assert port.engine.compile_source not in \
+            sanitizer.status()["warmed_sources"]
     finally:
         jax_model.unload()
         port.unload()
+        sanitizer.reset()
 
 
-def test_warmup_declaration_counts_later_notes(tmp_path):
+def test_warmup_declaration_counts_later_notes(tmp_path, monkeypatch):
     """A note before the source's declared warmup is expected; one after
-    it is counted.  A full warmup declares, a minimal one does not."""
+    it is a sanitizer ``recompile`` violation.  A full warmup declares, a
+    minimal one does not."""
+    monkeypatch.setenv("KFS_SANITIZE", "1")
+    sanitizer.reset()
     source = "test-source"
-    compile_cache.note_compilation(source, ("b", 1))
-    assert compile_cache.late_notes.get(source, 0) == 0
-    compile_cache.declare_warmup_complete(source)
-    compile_cache.note_compilation(source, ("b", 2))
-    compile_cache.note_compilation(source, ("b", 4))
-    assert compile_cache.late_notes[source] == 2
-
-    model_dir = write_artifact(str(tmp_path), "mlp",
-                               dict(MLP_CONFIG, warmup=True))
-    port = TorchModel("m", model_dir, device="cpu")
-    port.load()
     try:
-        engine = port.engine
-        assert engine.compile_source in compile_cache._warmed
-        # Every bucket was warmed: serving compiles nothing new.
-        port.engine.predict_sync(np.zeros((3, 64), np.float32))
-        assert compile_cache.late_notes.get(engine.compile_source, 0) == 0
+        compile_cache.note_compilation(source, ("b", 1))
+        assert sanitizer.violations() == {}
+        compile_cache.declare_warmup_complete(source)
+        compile_cache.note_compilation(source, ("b", 2))
+        compile_cache.note_compilation(source, ("b", 4))
+        assert sanitizer.violations() == {"recompile": 2}
+
+        model_dir = write_artifact(str(tmp_path), "mlp",
+                                   dict(MLP_CONFIG, warmup=True))
+        port = TorchModel("m", model_dir, device="cpu")
+        port.load()
+        try:
+            engine = port.engine
+            assert engine.compile_source in \
+                sanitizer.status()["warmed_sources"]
+            # Every bucket was warmed: serving compiles nothing new.
+            port.engine.predict_sync(np.zeros((3, 64), np.float32))
+            assert sanitizer.violations() == {"recompile": 2}
+        finally:
+            port.unload()
     finally:
-        port.unload()
+        sanitizer.reset()

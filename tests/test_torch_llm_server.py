@@ -309,7 +309,11 @@ def _get(port, path):
 async def test_debug_cache_carries_the_generative_block(served):
     """GET /debug/cache: per generative model the engine's prefix census
     (reuse depth, hot chains by hits) and pool, under the JAX server's
-    keys; ?top_k= bounds the hot chains; a bad query is a 400."""
+    keys; ?top_k= bounds the hot chains, ?top_cost= adds the cost
+    records; a bad query is a 400."""
+    from kfserving_tpu_torch.observability import attribution
+
+    attribution.clear()   # the ring is the process's
     model, _ = served
     server = await _serve(model)
     port = server.http_port
@@ -326,7 +330,14 @@ async def test_debug_cache_carries_the_generative_block(served):
         assert status == 200
         assert set(body) == {"models", "hbm", "residency", "host_tier",
                              "top_cost"}
-        assert body["host_tier"] is None and body["top_cost"] is None
+        assert body["host_tier"] is None
+        # ?top_cost=2: the attribution ring's two costliest records each
+        # way, of the three requests above.
+        top = body["top_cost"]
+        assert set(top) == {"by_device_ms", "by_held_blocks"}
+        assert [len(top[k]) for k in sorted(top)] == [2, 2]
+        assert all(r["model"] == "gen" and r["decode_tokens"] == 2
+                   for k in top for r in top[k])
         gen = body["models"]["gen"]
         assert set(gen) == {"paged", "index_entries", "reuse_depth",
                             "hot_chains", "pool"}

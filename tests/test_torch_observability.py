@@ -24,15 +24,10 @@ from kfserving_tpu_torch import tracing
 from kfserving_tpu_torch.observability import REGISTRY
 
 # Families the JAX server publishes for these requests that the port does
-# not yet, each with the ROADMAP item that ports it.  The history
-# sampler's families appear once its background tick has run.
-NOT_PORTED = {
-    "kfserving_tpu_flightrecorder_pinned_total": "Queue 1 item 9",
-    "kfserving_tpu_history_tick_ms": "Queue 1 item 9",
-    "kfserving_tpu_history_samples_total": "Queue 1 item 9",
-    "kfserving_tpu_history_series": "Queue 1 item 9",
-    "kfserving_tpu_history_tick_failures_total": "Queue 1 item 9",
-}
+# not yet, each with the ROADMAP item that ports it: none left.  The
+# history sampler's families appear once its background tick has run,
+# so both servers tick fast here (KFS_HISTORY_TICK_S in `scrapes`).
+NOT_PORTED: dict = {}
 TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 # The request path's spans, from the server to the engine.
@@ -116,6 +111,7 @@ def scrapes(artifacts, tmp_path_factory):
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("KFS_PARAM_CACHE", str(tmp_path_factory.mktemp("params")))
+        mp.setenv("KFS_HISTORY_TICK_S", "0.02")
         for kind in ("jax", "torch"):
             JAX_REGISTRY.reset()
             REGISTRY.reset()
@@ -133,6 +129,33 @@ def test_same_statuses(scrapes):
         [200] * 5 + [504]
     assert scrapes["torch"]["echoed"] == scrapes["jax"]["echoed"] == \
         TRACE_ID
+
+
+def test_route_tables_are_equal():
+    """Every (method, path) the JAX server routes, the port routes, and
+    no other."""
+    from kfserving_tpu.server import http as jax_http
+    from kfserving_tpu.server.app import ModelServer as JaxModelServer
+    from kfserving_tpu_torch.server import http as port_http
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    tables = {}
+    for key, module, cls in (("jax", jax_http, JaxModelServer),
+                             ("torch", port_http, ModelServer)):
+        table = tables[key] = set()
+        add = module.Router.add
+
+        def recording(self, method, pattern, handler, _add=add,
+                      _table=table):
+            _table.add((method, pattern))
+            return _add(self, method, pattern, handler)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(module.Router, "add", recording)
+            cls(http_port=0)
+    assert tables["torch"] == tables["jax"]
+    assert ("POST", "/debug/profile/capture") in tables["torch"]
+    assert len(tables["torch"]) == 39
 
 
 def test_port_scrape_passes_the_linter(scrapes):

@@ -269,6 +269,12 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.explainers.__main__\n"
         "import kfserving_tpu_torch.explainers.saliency\n"
         "import kfserving_tpu_torch.explainers.anchor_text\n"
+        "import kfserving_tpu_torch.observability.attribution\n"
+        "import kfserving_tpu_torch.observability.monitoring\n"
+        "import kfserving_tpu_torch.observability.history\n"
+        "import kfserving_tpu_torch.observability.incidents\n"
+        "import kfserving_tpu_torch.observability.profiling\n"
+        "import kfserving_tpu_torch.reliability.sanitizer\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'aiohttp', 'msgpack', 'ml_dtypes',\n"
