@@ -149,12 +149,38 @@ failure:
 9. serve 20 catalog MLPs demand-paged under 40% of their bytes, four
    workers each taking 6 shuffled passes; every answer held against its
    model's direct forward;
+   then the serving control plane: line ``chain`` (ViT-B/16 at the chain
+   bench's configuration behind the port's image transformer, both
+   in-process replicas of an InferenceService applied through the
+   Controller and served through the IngressRouter, the transformer
+   reaching the predictor through the router's /direct/predictor lane:
+   128 requests of one seeded uint8 image at concurrency 16, then 20
+   req/s for 5 s; every answer equals the argmax of the direct forward
+   on the transformer's preprocessed image, but for a counted near-tie,
+   and carries ``x-kfs-revision``; K1 = 12 x the predictor's batches),
+   line ``activate`` (the predictor re-applied with min_replicas 0, the
+   autoscaler scales it to zero and ``memory_allocated`` falls by at
+   least its parameter bytes; one request activates it again with the
+   same answer) and line ``recycle`` (the generate_4k decoder as an
+   llmserver subprocess replica on the card with a standby pool of one,
+   a persistent KV tier and a RecyclePolicy that recycles it after the
+   first of two turns of 8 conversations over SSE; the successor adopts
+   the drained incumbent's KV, a profiler capture on it names K1 and K2;
+   then the successor is SIGKILLed during a stream, which ends with the
+   router's retriable failover event, a request sent right after is
+   retried by the router and the promoted standby answers, pulling from
+   the x-kfs-kv-peer it is named; every stream's ids held against a
+   teacher-forced plain forward in this process; swap and promotion ms,
+   return-visit TTFT, device memory in use with one and two replica
+   processes).  A replica that fails to come up is run once more in the
+   foreground, its output printed;
 10. print a ``graphs`` line (per engine: the buckets held equal, capture
    ms, pool bytes; compile-cache hits and misses per phase; the decode
    wave's variants, graph and eager wave ms; the residency catalog's
    warm fault and first-request ms), the ResNet arms' req/s and each
    predict model's mean engine stage ms (prepare, transfer, compute,
-   fetch) on a ``stages`` line, one ``{"kernels": [...]}`` line, the
+   fetch) on a ``stages`` line, the seconds of every phase on a
+   ``phase_seconds`` line, one ``{"kernels": [...]}`` line, the
    card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -4541,6 +4567,633 @@ def serve_storage(card: str) -> dict:
     return summary
 
 
+# -- the serving control plane: chain, activate, recycle ----------------------
+# The chain configuration (benchmarks/configs.py:1389-1426): the ViT-B/16
+# predictor at the chain bench's configuration (VIT_CONFIG) behind the
+# port's image transformer, wired through the IngressRouter by an
+# InProcessOrchestrator; the transformer reaches the predictor through the
+# router's /direct/predictor lane.  128 requests of one seeded uint8 image
+# at concurrency 16 (closed loop), then 20 req/s for 5 s (open loop).
+CHAIN_REQUESTS, CHAIN_CONCURRENCY = 128, 16
+CHAIN_RATE, CHAIN_RATE_S = 20, 5.0
+# activate: the chain's predictor re-applied with min_replicas 0 and the
+# autoscaler ticking every ACTIVATE_TICK_S (its 30 idle ticks are the
+# idle window), then one request through the router brings it back.
+ACTIVATE_TICK_S = 0.05
+# recycle: the generate_4k decoder (GEN_CONFIG) as one llmserver replica
+# of a SubprocessOrchestrator on the card, with a standby pool of one, a
+# persistent KV tier of RECYCLE_TIER_BLOCKS blocks in a temporary
+# directory and a RecyclePolicy whose max_requests lands the recycle after
+# the first turn.  8 conversations of a RECYCLE_CTX-character context, two
+# turns of RECYCLE_TOKENS tokens over SSE through the router; then the
+# serving replica is SIGKILLed during a RECYCLE_KILL_TOKENS-token stream.
+RECYCLE_CONVS, RECYCLE_CTX, RECYCLE_TOKENS = 8, 1000, 16
+RECYCLE_KILL_TOKENS, RECYCLE_TIER_BLOCKS = 1024, 256
+RECYCLE_CAPTURE_S, RECYCLE_WAIT_S = 2.0, 180.0
+
+
+def device_used_bytes() -> int:
+    """Bytes in use on the card, by every process (mem_get_info)."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+async def wait_until(predicate, what: str, timeout_s: float = RECYCLE_WAIT_S):
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        result = predicate()
+        if result:
+            return result
+        await asyncio.sleep(0.05)
+    check(False, f"{what}: not within {timeout_s} s")
+
+
+async def chain_requests(port: int, body: bytes, n: int, concurrency: int,
+                         rate: float = 0.0):
+    """POST ``body`` n times through the port's asyncio client: closed
+    loop at ``concurrency``, or open loop at ``rate`` per second.  Returns
+    ([(status, headers, answer)], client latencies in ms, wall s)."""
+    from kfserving_tpu_torch.server.client import HTTPClient
+
+    client = HTTPClient(timeout=300)
+    sem = asyncio.Semaphore(concurrency)
+    url = f"http://127.0.0.1:{port}/v1/models/vitchain:predict"
+    loop = asyncio.get_running_loop()
+
+    async def one(i):
+        if rate:
+            await asyncio.sleep(max(0.0, t0 + i / rate - loop.time()))
+        async with sem:
+            t = time.perf_counter()
+            status, headers, data = await client.request(
+                "POST", url, body, {"content-type": "application/json"})
+            ms = (time.perf_counter() - t) * 1e3
+        answer = (int(json.loads(data)["predictions"][0])
+                  if status == 200 else data[:300])
+        return (status, headers, answer), ms
+
+    t0 = loop.time()
+    try:
+        results = await asyncio.gather(*(one(i) for i in range(n)))
+    finally:
+        await client.close()
+    wall_s = loop.time() - t0
+    return [r for r, _ in results], [ms for _, ms in results], wall_s
+
+
+def serve_chain(card: str) -> tuple:
+    """Lines "chain" and "activate": the transformer -> predictor chain
+    through the IngressRouter with in-process replicas on the card, then
+    the predictor scaled to zero by the autoscaler and activated again by
+    one request."""
+    import gc
+
+    from kfserving_tpu_torch.control.autoscaler import Autoscaler
+    from kfserving_tpu_torch.control.controller import Controller
+    from kfserving_tpu_torch.control.orchestrator import (
+        InProcessOrchestrator,
+        default_model_factory,
+    )
+    from kfserving_tpu_torch.control.router import (
+        REVISION_HEADER,
+        IngressRouter,
+    )
+    from kfserving_tpu_torch.control.spec import (
+        InferenceService,
+        PredictorSpec,
+        TransformerSpec,
+    )
+    from kfserving_tpu_torch.examples.image_transformer import (
+        ImageTransformer,
+    )
+    from kfserving_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    model_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-chain-")
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(VIT_CONFIG, f)
+    image = bench_images(np.random.default_rng(12), 1, 224)[0]
+    body = json.dumps({"instances": [image.tolist()]}).encode()
+    pcid, tcid = "default/vitchain/predictor", "default/vitchain/transformer"
+
+    def factory(component_id, spec):
+        if isinstance(spec, TransformerSpec):
+            return ImageTransformer(component_id.split("/")[1],
+                                    predictor_host=None)
+        return default_model_factory(component_id, spec, device="cuda")
+
+    def served_model(orch, cid):
+        return orch.replicas(cid)[0].handle.repository.get_model(
+            "vitchain")
+
+    async def run():
+        orch = InProcessOrchestrator(model_factory=factory, device="cuda")
+        controller = Controller(orch)
+        router = IngressRouter(controller)
+        await router.start_async()
+        port = router.http_port
+        try:
+            isvc = InferenceService(
+                name="vitchain",
+                predictor=PredictorSpec(framework="jax",
+                                        storage_uri=f"file://{model_dir}"),
+                transformer=TransformerSpec())
+            t0 = time.perf_counter()
+            status = await controller.apply(isvc)
+            apply_s = time.perf_counter() - t0
+            check(status.ready, f"chain: apply not ready {status}")
+            revision = status.components["transformer"].latest_revision
+            transformer = served_model(orch, tcid)
+            check(transformer.predictor_host
+                  == f"127.0.0.1:{port}/direct/predictor",
+                  f"chain: transformer's predictor_host "
+                  f"{transformer.predictor_host}")
+            predictor = served_model(orch, pcid)
+            module, engine = predictor.module, predictor.engine
+            cfg = module.config
+            check((cfg.num_layers, cfg.hidden_size, cfg.seq_len)
+                  == (12, 768, 197), "chain: not ViT-B/16 at 224 px")
+            # The main path's run: the count starts at 0 here.
+            flash_attention.launches = 0
+            executed0 = engine.execute_count
+            closed = await chain_requests(port, body, CHAIN_REQUESTS,
+                                          CHAIN_CONCURRENCY)
+            opened = await chain_requests(
+                port, body, int(CHAIN_RATE * CHAIN_RATE_S),
+                int(CHAIN_RATE * CHAIN_RATE_S), rate=CHAIN_RATE)
+            launches = flash_attention.launches
+            batches = engine.execute_count - executed0
+            pre = await transformer.preprocess({"instances": [image]})
+            batch = torch.from_numpy(np.stack(pre["instances"])).to("cuda")
+            with torch.inference_mode():
+                logits = module(batch).float()
+                cfg.attn_fn = lambda q, k, v, mask: \
+                    flash_attention_plain(q, k, v)
+                try:
+                    plain = module(batch).float()
+                finally:
+                    cfg.attn_fn = None
+            param_bytes = sum(t.numel() * t.element_size() for t in
+                              list(module.parameters())
+                              + list(module.buffers()))
+            layers = cfg.num_layers
+            del predictor, module, engine, transformer, cfg
+            chain = {"apply_s": apply_s, "revision": revision,
+                     "layers": layers,
+                     "closed": closed, "open": opened,
+                     "launches": launches, "batches": batches,
+                     "logits": logits, "plain": plain,
+                     "param_bytes": param_bytes}
+
+            # activate: scale the predictor to zero, then one request.
+            isvc.predictor.min_replicas = 0
+            await controller.apply(isvc)
+            check(len(orch.replicas(pcid)) == 1,
+                  "activate: re-applying min_replicas 0 dropped the "
+                  "replica")
+            gc.collect()
+            allocated0 = torch.cuda.memory_allocated()
+            scaler = Autoscaler(controller, router,
+                                tick_seconds=ACTIVATE_TICK_S)
+            t0 = time.perf_counter()
+            await scaler.start()
+            try:
+                await wait_until(lambda: not orch.replicas(pcid),
+                                 "activate: scale to zero", 60.0)
+            finally:
+                await scaler.stop()
+            zero_s = time.perf_counter() - t0
+            check(len(orch.replicas(tcid)) == 1,
+                  "activate: the transformer scaled too")
+            gc.collect()
+            allocated1 = torch.cuda.memory_allocated()
+            flash_attention.launches = 0
+            (answer,), (activate_ms,), _ = await chain_requests(
+                port, body, 1, 1)
+            activate_launches = flash_attention.launches
+            check(len(orch.replicas(pcid)) == 1,
+                  "activate: no predictor replica after the request")
+            activate = {"zero_s": zero_s, "allocated_before": allocated0,
+                        "allocated_at_zero": allocated1,
+                        "answer": answer, "activate_ms": activate_ms,
+                        "launches": activate_launches}
+            return chain, activate
+        finally:
+            await router.stop_async()
+            await orch.shutdown()
+
+    try:
+        chain, activate = asyncio.run(run())
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    logits, plain = chain["logits"], chain["plain"]
+    diff = float((logits - plain).abs().max())
+    limit = VIT_LOGIT_RTOL * float(plain.abs().max())
+    check(math.isfinite(diff) and diff <= limit,
+          f"chain: kernel vs plain logits differ by {diff} > {limit}")
+    direct = int(logits.argmax(dim=-1)[0])
+    top2 = logits.topk(2, dim=-1).values[0]
+    near_tie = float(top2[0] - top2[1]) <= limit
+    results = chain["closed"][0] + chain["open"][0]
+    ties = 0
+    for i, (status, headers, answer) in enumerate(results):
+        check(status == 200, f"chain request {i}: HTTP {status} {answer}")
+        check(headers.get(REVISION_HEADER) == chain["revision"],
+              f"chain request {i}: {REVISION_HEADER} "
+              f"{headers.get(REVISION_HEADER)} != {chain['revision']}")
+        if answer != direct:
+            check(near_tie, f"chain request {i}: answer {answer} != the "
+                  f"direct forward's {direct}")
+            ties += 1
+    layers = chain["layers"]
+    check(chain["batches"] > 0
+          and chain["launches"] == layers * chain["batches"],
+          f"chain: flash kernel launched {chain['launches']} times for "
+          f"{chain['batches']} predictor batches of {layers} layers")
+
+    def loop_summary(run):
+        res, lat, wall_s = run
+        return {"requests": len(res), "wall_s": wall_s,
+                "req_per_s": len(res) / wall_s,
+                "p50_ms": percentile(lat, 0.5),
+                "p99_ms": percentile(lat, 0.99)}
+
+    chain_summary = {
+        "card": card, "apply_s": chain["apply_s"],
+        "closed_loop": dict(loop_summary(chain["closed"]),
+                            concurrency=CHAIN_CONCURRENCY),
+        "open_loop": dict(loop_summary(chain["open"]),
+                          offered_req_per_s=CHAIN_RATE),
+        "predictor_batches": chain["batches"],
+        "flash_launches": chain["launches"], "answer": direct,
+        "near_tie_answers": ties, "revision": chain["revision"],
+        "logits_max_abs_diff_vs_plain": diff, "logit_limit": limit,
+    }
+    print("chain " + json.dumps(chain_summary), flush=True)
+    status, headers, answer = activate["answer"]
+    check(status == 200, f"activate: HTTP {status} {answer}")
+    check(answer == direct or near_tie,
+          f"activate: answer {answer} != the chain's {direct}")
+    freed = activate["allocated_before"] - activate["allocated_at_zero"]
+    check(freed >= chain["param_bytes"],
+          f"activate: memory_allocated fell by {freed} bytes at zero "
+          f"replicas, less than the ViT's {chain['param_bytes']}")
+    activate_summary = {
+        "card": card, "scale_to_zero_s": activate["zero_s"],
+        "allocated_before": activate["allocated_before"],
+        "allocated_at_zero": activate["allocated_at_zero"],
+        "freed_bytes": freed, "param_bytes": chain["param_bytes"],
+        "activation_ms": activate["activate_ms"], "answer": answer,
+        "flash_launches": activate["launches"],
+    }
+    print("activate " + json.dumps(activate_summary), flush=True)
+    return chain_summary, activate_summary
+
+
+def replica_children() -> list:
+    """Live child processes of this process that run a replica."""
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except OSError:
+            continue
+        if int(fields[1]) == os.getpid() and fields[0] != "Z" and \
+                b"kfserving_tpu_torch" in cmdline:
+            out.append(int(pid))
+    return out
+
+
+def rerun_replica(orch, component_id: str, spec) -> None:
+    """A replica that did not come up: run its argv once in the
+    foreground (its stderr is discarded under the orchestrator) and print
+    why, or that it came up this time."""
+    from kfserving_tpu_torch.control.subprocess_orchestrator import (
+        _free_port,
+    )
+
+    port = _free_port()
+    argv = orch._command(component_id, spec, port)
+    env = dict(os.environ, **orch.env_overrides)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    came_up = False
+    try:
+        deadline = time.perf_counter() + 150
+        while proc.poll() is None and time.perf_counter() < deadline:
+            try:
+                if http_raw(port, "GET", "/")[0] == 200:
+                    came_up = True
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+    finally:
+        proc.kill()
+        out, _ = proc.communicate()
+    print(f"replica rerun in the foreground ({'up' if came_up else 'down'},"
+          f" rc {proc.returncode}): {' '.join(argv)}\n{out[-6000:]}",
+          file=sys.stderr, flush=True)
+
+
+def recycle_turn(port: int, turn: int, convs, headers=None) -> tuple:
+    """One turn of each conversation in order over SSE through the
+    router: ({conv: ids}, [TTFT ms])."""
+    ids, ttfts = {}, []
+    for conv in convs:
+        status, events, first, _ = sse_stream(
+            port, "/v2/models/gen/generate_stream",
+            {"text_input": kv_prompt(conv, turn, RECYCLE_CTX),
+             "max_tokens": RECYCLE_TOKENS}, headers)
+        check(status == 200, f"recycle conversation {conv} turn {turn}: "
+              f"HTTP {status} {events}")
+        ids[conv] = stream_tokens(events, f"recycle conversation {conv}",
+                                  RECYCLE_TOKENS)
+        ttfts.append(first * 1e3)
+    return ids, ttfts
+
+
+def serve_recycle(card: str) -> dict:
+    """Line "recycle": the generate_4k decoder as a subprocess replica on
+    the card behind the IngressRouter.  Turn 0 of 8 conversations; the
+    watchdog's recycle activates the armed standby, drains the incumbent
+    (its drain exports the conversations into the persistent tier) and
+    re-attaches the successor to it; turn 1 (a profiler capture on the
+    successor must name K1 and K2); then the successor is SIGKILLed
+    during a stream: a request sent after the kill meets the dead
+    replica, the router evicts it (the supervisor promotes the re-armed
+    standby on that crash report) and retries once with x-kfs-kv-peer
+    naming it, which the promoted replica pulls from; the killed stream
+    ends with the router's retriable failover event, and the client's
+    retry of it is answered on the promoted replica.  Every stream's ids are held against
+    a teacher-forced forward of the same seeded weights in this process
+    with the plain attention."""
+    import signal
+
+    from kfserving_tpu_torch.control.controller import Controller
+    from kfserving_tpu_torch.control.router import IngressRouter
+    from kfserving_tpu_torch.control.spec import (
+        InferenceService,
+        PredictorSpec,
+    )
+    from kfserving_tpu_torch.control.subprocess_orchestrator import (
+        RecyclePolicy,
+        SubprocessOrchestrator,
+    )
+    from kfserving_tpu_torch.observability import metrics as obs
+
+    model_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-recycle-")
+    kv_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-recycle-kv-")
+    trace_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-recycle-trace-")
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(GEN_CONFIG, f)
+    policy = RecyclePolicy(max_requests=RECYCLE_CONVS, check_interval_s=0.5,
+                           min_age_s=0.0)
+    orch = SubprocessOrchestrator(
+        env_overrides={"KFS_KV_TIER_DIR": kv_dir,
+                       "KFS_KV_TIER_BLOCKS": str(RECYCLE_TIER_BLOCKS),
+                       "KFS_DRAIN_GRACE_S": "5"},
+        recycle=policy, device="cuda")
+    cid = "default/gen/predictor"
+    convs = range(RECYCLE_CONVS)
+    memory = {"before": device_used_bytes()}
+    earlier = set(replica_children())
+    streams = []    # (prompt, ids) of every stream held against plain
+
+    async def run():
+        controller = Controller(orch)
+        router = IngressRouter(controller, buffer_deadline_s=RECYCLE_WAIT_S)
+        await router.start_async()
+        port = router.http_port
+        spec = PredictorSpec(framework="generative",
+                             storage_uri=f"file://{model_dir}")
+        out = {}
+        try:
+            t0 = time.perf_counter()
+            try:
+                await controller.apply(InferenceService(name="gen",
+                                                        predictor=spec))
+            except Exception:
+                rerun_replica(orch, cid, spec)
+                raise
+            out["apply_s"] = time.perf_counter() - t0
+            incumbent = orch.replicas(cid)[0]
+            memory["incumbent"] = device_used_bytes()
+            await wait_until(
+                lambda: orch._standbys.get((cid, incumbent.revision)),
+                "recycle: the standby pool")
+            memory["incumbent_and_armed_standby"] = device_used_bytes()
+            deleting = orch.delete_replica
+
+            async def measured_delete(replica):
+                # Both processes hold the card here: the successor is
+                # active, the incumbent not yet drained.
+                memory.setdefault("overlap", device_used_bytes())
+                await deleting(replica)
+
+            orch.delete_replica = measured_delete
+            ids0, ttft0 = await asyncio.to_thread(recycle_turn, port, 0,
+                                                  convs)
+            streams.extend((kv_prompt(c, 0, RECYCLE_CTX), ids0[c])
+                           for c in convs)
+            await wait_until(lambda: orch.recycle_count >= 1,
+                             "recycle: the watchdog's recycle")
+            orch.delete_replica = deleting
+            policy.max_requests = None      # one recycle
+            successor = orch.replicas(cid)[0]
+            check(successor.host != incumbent.host,
+                  "recycle: the incumbent still serves")
+            memory["successor"] = device_used_bytes()
+            status, _, cache = await asyncio.to_thread(
+                http_raw, int(successor.host.rsplit(":", 1)[1]), "GET",
+                "/debug/cache")
+            tier = (json.loads(cache).get("host_tier") or {}).get("gen", {})
+            adopted = (tier.get("handoff") or {}).get("adopted", 0)
+            check(status == 200 and adopted > 0,
+                  f"recycle: the successor adopted {adopted} blocks")
+            # Turn 1 under a capture on the successor, with one cold
+            # prompt beside it so a bucketed prefill runs in the window.
+            sport = int(successor.host.rsplit(":", 1)[1])
+            capture = asyncio.ensure_future(asyncio.to_thread(
+                http_json, sport, "POST", "/debug/profile/capture",
+                {"duration_s": RECYCLE_CAPTURE_S, "log_dir": trace_dir}))
+            await asyncio.sleep(0.3)
+            cold = asyncio.ensure_future(asyncio.to_thread(
+                sse_stream, port, "/v2/models/gen/generate_stream",
+                {"text_input": gen_prompt(7777),
+                 "max_tokens": RECYCLE_TOKENS}))
+            ids1, ttft1 = await asyncio.to_thread(recycle_turn, port, 1,
+                                                  convs)
+            streams.extend((kv_prompt(c, 1, RECYCLE_CTX), ids1[c])
+                           for c in convs)
+            status, events, _, _ = await cold
+            check(status == 200, f"recycle cold prompt: HTTP {status}")
+            streams.append((gen_prompt(7777),
+                            stream_tokens(events, "recycle cold prompt",
+                                          RECYCLE_TOKENS)))
+            status, captured, _ = await capture
+            check(status == 200 and captured.get("captured"),
+                  f"recycle: profile capture HTTP {status} {captured}")
+            out["capture"] = kernel_events(captured["trace"])
+            check(out["capture"]["flash_attention"] > 0
+                  and out["capture"]["paged_attention"] > 0,
+                  f"recycle: the successor's capture names "
+                  f"{out['capture']}")
+            # The kill: a long stream, the serving replica SIGKILLed once
+            # its first token is out, a second stream (the racer) sent
+            # once the process is gone.  The watchdog's tick is slowed
+            # first, so the dead replica leaves rotation through the
+            # router alone, and the killed stream's liveness probe waits
+            # for the promotion: the racer meets the corpse, and the
+            # router's own retry of it, naming the corpse in
+            # x-kfs-kv-peer, is what evicts it and reaches the promoted
+            # standby.
+            await wait_until(
+                lambda: orch._standbys.get((cid, successor.revision)),
+                "recycle: the re-armed standby")
+            policy.check_interval_s = 60.0
+            await asyncio.sleep(1.0)    # the 0.5 s tick in flight ends
+            gate = asyncio.Event()
+            probe = router._replica_alive
+
+            async def gated_probe(host):
+                await gate.wait()
+                return await probe(host)
+
+            router._replica_alive = gated_probe
+            retried = obs.revision_requests_total().labels(
+                model="gen", revision=successor.revision, status="503")
+            retried0 = retried.value
+            times = []
+            kill_prompt = kv_prompt(0, 2, RECYCLE_CTX)
+            killed = asyncio.ensure_future(asyncio.to_thread(
+                sse_stream, port, "/v2/models/gen/generate_stream",
+                {"text_input": kill_prompt,
+                 "max_tokens": RECYCLE_KILL_TOKENS}, None, times))
+            await wait_until(lambda: times, "recycle: the first token")
+            os.kill(successor.handle.process.pid, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            await successor.handle.process.wait()
+            racer_prompt = kv_prompt(1, 2, RECYCLE_CTX)
+            racer = asyncio.ensure_future(asyncio.to_thread(
+                sse_stream, port, "/v2/models/gen/generate_stream",
+                {"text_input": racer_prompt,
+                 "max_tokens": RECYCLE_TOKENS}))
+            await wait_until(lambda: orch.promotions >= 1,
+                             "recycle: the promotion")
+            gate.set()
+            status, events, _, _ = await killed
+            check(status == 200 and events
+                  and events[-1].get("finish_reason") == "failover"
+                  and events[-1].get("retriable") is True,
+                  f"recycle: the killed stream ended with "
+                  f"{events[-1] if events else events}")
+            predecessor = events[-1]["predecessor"]
+            check(predecessor == successor.host,
+                  f"recycle: failover names {predecessor}")
+            promoted = (await wait_until(lambda: orch.replicas(cid),
+                                         "recycle: a promoted replica"))[0]
+            out["promoted_s"] = time.perf_counter() - t_kill
+            check(promoted.host not in (successor.host, incumbent.host),
+                  f"recycle: promoted {promoted.host}")
+            status, events, _, _ = await racer
+            check(status == 200, f"recycle racer: HTTP {status} {events}")
+            streams.append((racer_prompt, stream_tokens(
+                events, "recycle racer", RECYCLE_TOKENS)))
+            # The router retried the racer away from the corpse once, and
+            # the retry named it: the promoted replica pulled from it.
+            # Read before the client's own retry below, which forwards the
+            # same hint (a replica pulls once per peer).
+            out["router_retries"] = retried.value - retried0
+            check(out["router_retries"] == 1,
+                  f"recycle: the router retried the racer "
+                  f"{out['router_retries']} times, not once")
+            pport = int(promoted.host.rsplit(":", 1)[1])
+            status, pins, _ = await asyncio.to_thread(
+                http_json, pport, "GET", "/debug/flightrecorder?pinned=1")
+            pulls = [e for e in pins.get("pinned", [])
+                     if e.get("kind") == "kv_handoff_peer_pull"]
+            check(any(e.get("peer") == f"http://{predecessor}"
+                      for e in pulls),
+                  f"recycle: the router's retry carried no x-kfs-kv-peer "
+                  f"hint for {predecessor}: {pulls}")
+            status, events, _, _ = await asyncio.to_thread(
+                sse_stream, port, "/v2/models/gen/generate_stream",
+                {"text_input": kill_prompt, "max_tokens": RECYCLE_TOKENS},
+                {"x-kfs-kv-peer": f"http://{predecessor}"})
+            check(status == 200, f"recycle retry: HTTP {status} {events}")
+            streams.append((kill_prompt, stream_tokens(
+                events, "recycle retry", RECYCLE_TOKENS)))
+            memory["promoted"] = device_used_bytes()
+            failover = [e for e in orch.flight_recorder.dump(
+                limit=20, pinned_only=True)["pinned"]
+                if e.get("kind") == "replica_failover"]
+            check(bool(failover) and failover[-1]["outcome"] == "promoted"
+                  and failover[-1]["trigger"] == "crash_report",
+                  f"recycle: failover pins {failover}")
+            out.update(ttft0=ttft0, ttft1=ttft1, failover=failover[-1],
+                       breakdown=orch.swap_breakdown[0],
+                       adopted=adopted, peer_pulls=pulls,
+                       trigger=failover[-1]["trigger"])
+            return out
+        finally:
+            await router.stop_async()
+            await orch.shutdown()
+
+    try:
+        out = asyncio.run(run())
+        left = set(replica_children()) - earlier
+        check(not left, f"recycle: replica processes {left} outlived the "
+              f"orchestrator's shutdown")
+        memory["after_shutdown"] = device_used_bytes()
+        reference, load_s = load_generative("gen", GEN_CONFIG)
+        try:
+            plain = [check_generation_against_plain(reference, prompt, ids)
+                     for prompt, ids in streams]
+        finally:
+            reference.unload()
+    finally:
+        for d in (model_dir, kv_dir, trace_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    gb = 1e-9
+    summary = {
+        "card": card, "apply_s": out["apply_s"],
+        "ttft_turn0": ttft_summary(out["ttft0"]),
+        "return_ttft_after_recycle": ttft_summary(out["ttft1"]),
+        "swap_ms": {k[:-2] + "_ms": v * 1e3
+                    for k, v in out["breakdown"].items()
+                    if k.endswith("_s")},
+        "swap_mode": out["breakdown"]["mode"],
+        "successor_phases_s": out["breakdown"].get("successor_phases"),
+        "adopted_blocks": out["adopted"],
+        "promotion_ms": out["failover"]["phases"].get("total_s", 0) * 1e3,
+        "promotion_phases_s": out["failover"]["phases"],
+        "promotion_trigger": out["trigger"],
+        "kill_to_promoted_ms": out["promoted_s"] * 1e3,
+        "router_retries": out["router_retries"],
+        "capture": out["capture"],
+        "device_used_gb": {k: v * gb for k, v in memory.items()
+                           if isinstance(v, int)},
+        "per_replica_gb": {
+            "incumbent": (memory["incumbent"] - memory["before"]) * gb,
+            "overlap_both": (memory.get("overlap", 0) - memory["before"])
+            * gb},
+        "streams_held": len(plain),
+        "min_top1_agreement": min(p["top1_agreement"] for p in plain),
+        "max_served_logit_gap": max(p["max_served_logit_gap"]
+                                    for p in plain),
+        "reference_load_s": load_s,
+    }
+    print("recycle " + json.dumps(summary), flush=True)
+    return summary
+
+
 # -- the V1 JSON codec --------------------------------------------------------
 def check_codec(card: str) -> dict:
     """The port's native codec builds here (the host C compiler against
@@ -4600,30 +5253,42 @@ def main() -> int:
                                        "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    check_codec(card)
-    kernels = [check_flash_attention(), check_paged_attention()]
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 1)
+
+    phase("codec", check_codec, card)
+    kernels = [phase("flash_attention", check_flash_attention),
+               phase("paged_attention", check_paged_attention)]
     torch.cuda.empty_cache()
     # Every model loads through the mmap param cache: a private one.
     cache = tempfile.mkdtemp(prefix="kfs-chip-smoke-params-")
     os.environ["KFS_PARAM_CACHE"] = cache
     try:
-        tiny = load_tiny_models(card)
-        serving = serve_bert(card)
-        generating = serve_generate(card)
-        observing = serve_observe(card)
-        dense = serve_generate_dense(card)
-        cold = serve_cold4k(card)
-        spec = serve_specdec(card)
-        kvtier = serve_kvtier(card)
-        kvhandoff = serve_kvhandoff(card)
-        resnet = serve_resnet(card)
-        vit = serve_vit(card)
-        explain = serve_explain(card)
-        serve_explain_blackbox(card)
-        serve_storage(card)
-        serve_multi_model(card)
-        residency = serve_residency(card)
-        serve_density(card)
+        tiny = phase("tiny_models", load_tiny_models, card)
+        serving = phase("bert", serve_bert, card)
+        generating = phase("generate", serve_generate, card)
+        observing = phase("observe", serve_observe, card)
+        dense = phase("generate_dense", serve_generate_dense, card)
+        cold = phase("generate_cold4k", serve_cold4k, card)
+        spec = phase("specdec", serve_specdec, card)
+        kvtier = phase("kvtier", serve_kvtier, card)
+        kvhandoff = phase("kvhandoff", serve_kvhandoff, card)
+        resnet = phase("resnet", serve_resnet, card)
+        vit = phase("vit", serve_vit, card)
+        explain = phase("explain", serve_explain, card)
+        phase("explain_blackbox", serve_explain_blackbox, card)
+        phase("explain_storage", serve_storage, card)
+        phase("multi_model", serve_multi_model, card)
+        residency = phase("residency", serve_residency, card)
+        phase("density", serve_density, card)
+        chain, activate = phase("chain_activate", serve_chain, card)
+        phase("recycle", serve_recycle, card)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read
@@ -4637,6 +5302,8 @@ def main() -> int:
                               + vit["flash_launches"]
                               + explain["vit"]["k1_launches"]
                               + residency["flash_launches"]
+                              + chain["flash_launches"]
+                              + activate["flash_launches"]
                               + sum(g["flash_attention"] for g in generative))
     kernels[1]["launches"] = sum(g["paged_attention"] for g in generative)
     print("graphs " + json.dumps({
@@ -4674,6 +5341,8 @@ def main() -> int:
             "bert": serving["engine_stage_means"],
             "resnet": resnet["engine_stage_means"],
             "vit": vit["engine_stage_means"]}}), flush=True)
+    print("phase_seconds " + json.dumps(
+        dict(seconds, total=round(sum(seconds.values()), 1))), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)   # as nvidia-smi prints it: name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ a caller holding a stale instrument::
     obs.llm_ttft_ms().observe(ttft, trace_id=req.trace_id)
 
 Histograms are milliseconds unless the name says otherwise.  Families of
-layers the port has not ported yet (the router, the control plane) are
-listed in ROADMAP under the item that ports each.
+layers the port has not ported yet (the rollout manager, the predictive
+loop, the payload logger) are listed in ROADMAP under the item that
+ports each.
 """
 
 from kfserving_tpu_torch.observability.registry import (
@@ -716,3 +717,173 @@ def incident_duration_ms():
         "recovery observed, then the cooldown window passed with no "
         "further triggers)",
         buckets=INCIDENT_DURATION_BUCKETS_MS)
+
+
+# -- control plane: breakers, router, autoscaler, brownout, lifecycle ---
+def breaker_state():
+    return REGISTRY.gauge(
+        "kfserving_tpu_breaker_state",
+        "Circuit breaker state (0=closed, 1=half_open, 2=open)")
+
+
+def breaker_transitions():
+    return REGISTRY.counter(
+        "kfserving_tpu_breaker_transitions_total",
+        "Circuit breaker state transitions (to=open|closed)")
+
+
+def router_inflight():
+    return REGISTRY.gauge(
+        "kfserving_tpu_router_inflight",
+        "In-flight proxied requests per component")
+
+
+def router_requests_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_router_requests_total",
+        "Requests routed per component")
+
+
+def router_rotation_skips_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_router_rotation_skips_total",
+        "Replica picks skipped because the host's breaker was open")
+
+
+def router_shed_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_router_shed_total",
+        "Requests the router shed instead of proxying, by reason")
+
+
+def router_request_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_router_request_ms",
+        "Router-observed request latency (proxy hop included)",
+        buckets=LATENCY_BUCKETS_MS)
+
+
+def autoscaler_tick_failures_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_autoscaler_tick_failures_total",
+        "Autoscaler ticks that raised (the control loop swallowed the "
+        "exception and kept running) — a climbing rate means the "
+        "scaling loop is silently dead")
+
+
+def brownout_level():
+    return REGISTRY.gauge(
+        "kfserving_tpu_brownout_level",
+        "Per-model brownout level (0 = off; level N sheds priority "
+        "tiers below N with explicit retriable 503s)")
+
+
+def brownout_shed_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_brownout_shed_total",
+        "Requests the brownout admission gate shed, by model and "
+        "reason (priority = tier below the active level, deadline = "
+        "remaining budget cannot cover the observed service time, "
+        "fault = injected admission fault)")
+
+
+def brownout_transitions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_brownout_transitions_total",
+        "Brownout level transitions per model (direction=enter|"
+        "escalate|recover|exit)")
+
+
+def revision_requests_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_revision_requests_total",
+        "Router upstream attempts per served revision (labels: model, "
+        "revision, status; transport failures count as 5xx) — the "
+        "per-revision series the rollout analyzer gates on")
+
+
+def revision_request_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_revision_request_ms",
+        "Router-observed upstream attempt latency per served revision",
+        buckets=LATENCY_BUCKETS_MS)
+
+
+def lifecycle_swaps_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_lifecycle_swaps_total",
+        "Replica recycle swaps by mode (warm_standby|exclusive_"
+        "standby|overlap|cold) and outcome (ok|failed)")
+
+
+def lifecycle_swap_failures_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_lifecycle_swap_failures_total",
+        "Standby swaps that aborted with the incumbent kept serving, "
+        "by reason (spawn_error|activate_error|activate_timeout)")
+
+
+def lifecycle_promotions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_lifecycle_promotions_total",
+        "Crash-detected replicas replaced by standby promotion, by "
+        "trigger (process_exit|health_fail|crash_report) and outcome "
+        "(promoted|cold_respawn)")
+
+
+# Lifecycle phases span three decades (a warm activate is hundreds of
+# ms, a cold standby spawn tens of seconds) — the request-latency
+# ladder tops out too low to separate a 14 s activate from a 40 s one.
+LIFECYCLE_BUCKETS_MS = [50, 100, 250, 500, 1000, 2000, 5000, 10000,
+                        20000, 40000, 80000]
+
+
+def lifecycle_phase_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_lifecycle_phase_ms",
+        "Wall time of each replica lifecycle phase (standby_spawn|"
+        "activate|drain|promote)",
+        buckets=LIFECYCLE_BUCKETS_MS)
+
+
+def lifecycle_standby_pool():
+    return REGISTRY.gauge(
+        "kfserving_tpu_lifecycle_standby_pool",
+        "Warm standby processes currently armed (spawned, imports + "
+        "artifact done, device untouched) per component")
+
+
+def router_swap_held_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_router_swap_held_total",
+        "Requests that hit an announced swap window, by outcome "
+        "(served = a replica appeared inside the hold budget, shed = "
+        "bounded queue full, expired = hold budget ran out)")
+
+
+def router_swap_hold_ms():
+    return REGISTRY.histogram(
+        "kfserving_tpu_router_swap_hold_ms",
+        "Time requests were held at the router across an announced "
+        "drain->activate swap window before being served",
+        buckets=LATENCY_BUCKETS_MS)
+
+
+def router_affinity_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_router_affinity_total",
+        "Affinity replica picks by key mode and outcome (mode=model "
+        "hashes the model name, mode=prefix hashes the normalized "
+        "prompt's first-N-block chain digest onto the same ring; "
+        "ring = served at the key's primary ring position; spill = "
+        "overload/breaker moved it to the next ring position; "
+        "fallback = the ring yielded no host or an injected "
+        "affinity-pick fault dropped the request to plain "
+        "round-robin)")
+
+
+def router_stream_failover_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_router_stream_failover_total",
+        "Mid-stream upstream deaths surfaced to the client as an "
+        "explicit retriable failover event, per model")

@@ -61,3 +61,29 @@ OBSERVABILITY_HISTORY_TICK = "observability.history_tick"
 # the worker, so a wedged incident pipeline degrades to plain detector
 # pins and predicts never wait on diagnosis.
 OBSERVABILITY_INCIDENT_OPEN = "observability.incident_open"
+
+# IngressRouter upstream proxy attempts, keyed by "<url>
+# revision:<hash>" so a match can scope chaos to one side of a canary
+# split: an injected error takes the pre-dispatch failover path a
+# refused connection would, an injected hang the upstream timeout.
+ROUTER_DISPATCH = "router.dispatch"
+
+# IngressRouter brownout admission gate, keyed by "<model>
+# priority:<tier>": an injected error sheds as an explicit retriable
+# 503, a delay stalls admission.
+ROUTER_ADMISSION = "router.admission"
+
+# IngressRouter model-affinity ring pick, keyed by "<model> <component>":
+# an injected error drops the request to plain round-robin (counted as
+# outcome=fallback).
+ROUTER_AFFINITY_PICK = "router.affinity_pick"
+
+# SubprocessOrchestrator standby activation, keyed by "<host> <cid>
+# revision:<hash>": drives the swap-failure path (the incumbent keeps
+# serving, the standby is reaped).
+ORCHESTRATOR_STANDBY_ACTIVATE = "orchestrator.standby_activate"
+
+# Autoscaler per-component scaling evaluation, keyed by
+# "<isvc>/<component>": an injected delay or failure wedges the control
+# loop itself.
+AUTOSCALER_TICK = "autoscaler.tick"

@@ -17,6 +17,15 @@ Port of ``kfserving_tpu/reliability/faults.py``: a process-global
                             name (and kv_faultback, kv_export,
                             kv_import: its fault-back, drain export and
                             peer import)
+    router.dispatch         the ingress router's upstream attempts,
+                            keyed by "<url> revision:<hash>" (and
+                            router.admission, router.affinity_pick:
+                            its brownout gate and ring pick)
+    orchestrator.standby_activate
+                            a standby's activation, keyed by "<host>
+                            <cid> revision:<hash>"
+    autoscaler.tick         one component's scaling evaluation, keyed
+                            by "<isvc>/<component>"
 
 A site with no configuration costs one dict lookup.  Configuration comes
 from the ``KFS_FAULTS`` env var (JSON object keyed by site) or
@@ -24,22 +33,27 @@ programmatically (``faults.configure({...})``, tests):
 
     KFS_FAULTS='{"engine.residency_swap": {"fail_first": 1, "match": "m3"}}'
 
-Per-site knobs (the JAX module's ``error_rate``, ``latency_ms``,
-``hang_s`` and ``seed`` come with the first site of the port that needs
-them):
+Per-site knobs, as the JAX module's:
 
+    error_rate   probability in [0, 1] of raising FaultInjected
     fail_first   deterministically fail the first N matching calls
+    latency_ms   added delay before the call proceeds
+    hang_s       added sleep (a hung dependency; callers' timeouts fire)
     match        whitespace-separated terms that must ALL appear in the
                  call's key
+    seed         RNG seed for error_rate draws (default 0)
 
 ``FaultInjected`` subclasses ConnectionError, so retry policies classify
 an injected fault as transient, as they would a real network flake.
 """
 
+import asyncio
 import json
 import logging
 import os
-from dataclasses import dataclass
+import random
+import time
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 logger = logging.getLogger("kfserving_tpu_torch.reliability.faults")
@@ -58,11 +72,20 @@ class FaultInjected(ConnectionError):
 
 @dataclass
 class FaultSpec:
+    error_rate: float = 0.0
     fail_first: int = 0
+    latency_ms: float = 0.0
+    hang_s: float = 0.0
     match: str = ""
+    seed: int = 0
     # Per-spec mutable state.
     calls: int = 0
     injected: int = 0
+    rng: random.Random = field(default_factory=random.Random,
+                               repr=False)
+
+    def __post_init__(self):
+        self.rng = random.Random(self.seed)
 
 
 class FaultInjector:
@@ -73,11 +96,13 @@ class FaultInjector:
         self._env_loaded = False
 
     # Config-surface knobs (name -> coercion); the dataclass's
-    # bookkeeping fields (calls/injected) are NOT settable —
+    # bookkeeping fields (calls/injected/rng) are NOT settable —
     # accepting them would silently disable fail_first counting.
-    # Values coerce at CONFIG time: a JSON string "x" from KFS_FAULTS
+    # Values coerce at CONFIG time: a JSON string "0.5" from KFS_FAULTS
     # must fail here, not as a TypeError inside the serving path.
-    _KNOBS = {"fail_first": int, "match": str}
+    _KNOBS = {"error_rate": float, "fail_first": int,
+              "latency_ms": float, "hang_s": float,
+              "match": str, "seed": int}
 
     # -- configuration -------------------------------------------------------
     def configure(self, config: Dict[str, Dict]) -> None:
@@ -161,23 +186,34 @@ class FaultInjector:
         if spec.fail_first and spec.calls <= spec.fail_first:
             spec.injected += 1
             return FaultInjected(site, key)
+        if spec.error_rate > 0 and spec.rng.random() < spec.error_rate:
+            spec.injected += 1
+            return FaultInjected(site, key)
         return None
 
     def inject_sync(self, site: str, key: str = "") -> None:
-        """Executor-thread edges (the engine's host KV tier)."""
+        """Executor-thread edges (storage, the host KV tier): blocking
+        sleeps."""
         spec = self._spec(site, key)
         if spec is None:
             return
+        if spec.latency_ms:
+            time.sleep(spec.latency_ms / 1000.0)
+        if spec.hang_s:
+            time.sleep(spec.hang_s)
         err = self._decide(spec, site, key)
         if err is not None:
             raise err
 
     async def inject(self, site: str, key: str = "") -> None:
-        """Event-loop edges (async, as the JAX package's, whose other
-        knobs sleep here)."""
+        """Event-loop edges (client, router): async sleeps."""
         spec = self._spec(site, key)
         if spec is None:
             return
+        if spec.latency_ms:
+            await asyncio.sleep(spec.latency_ms / 1000.0)
+        if spec.hang_s:
+            await asyncio.sleep(spec.hang_s)
         err = self._decide(spec, site, key)
         if err is not None:
             raise err

@@ -163,9 +163,20 @@ DEFAULT_HTTP_PORT = 8080
 # Where a profiler capture writes when the request names no log_dir.
 DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "kfs-profile")
 
+# The JAX package's parent parser surface (reference kfserver.py:34-43),
+# so the orchestrators' argv reads alike for both packages; the batcher
+# flags are accepted and, as there, the artifact's config.json decides
+# the batcher.  --grpc_port comes with the gRPC server.
 parser = argparse.ArgumentParser(add_help=False)
 parser.add_argument("--http_port", default=DEFAULT_HTTP_PORT, type=int,
                     help="The HTTP port listened to by the model server.")
+parser.add_argument("--workers", default=1, type=int,
+                    help="Unused; kept for reference CLI compatibility "
+                         "(single process owns the card).")
+parser.add_argument("--max_latency_ms", default=5.0, type=float,
+                    help="Dynamic batcher flush deadline in milliseconds.")
+parser.add_argument("--max_batch_size", default=32, type=int,
+                    help="Dynamic batcher max batch size.")
 parser.add_argument("--container_concurrency", default=0, type=int,
                     help="Max concurrent inference calls per replica "
                          "(0 = unlimited; Knative containerConcurrency).")

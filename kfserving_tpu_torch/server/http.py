@@ -4,7 +4,9 @@ Port of ``kfserving_tpu/server/http.py``.  One process owns the card, so
 one asyncio event loop serves every connection while the engines' worker
 threads run the device work.  Supports keep-alive, Content-Length bodies,
 chunked transfer decoding, and streaming (chunked) responses with write
-backpressure for token streams.
+backpressure for token streams.  A stop closes idle keep-alive
+connections (a peer's connection pool would otherwise hold it open) and
+waits for responses in flight.
 """
 
 import asyncio
@@ -139,6 +141,7 @@ class _HttpProtocol(asyncio.Protocol):
 
     def connection_made(self, transport):
         self.transport = transport
+        self.server.connections.add(self)
         try:
             transport.get_extra_info("socket").setsockopt(
                 __import__("socket").IPPROTO_TCP,
@@ -356,7 +359,14 @@ class _HttpProtocol(asyncio.Protocol):
             self.transport.write(encode_response(resp, False))
             self.transport.close()
 
+    def idle(self) -> bool:
+        """Between requests on a keep-alive connection: nothing read of
+        a next request and no response owed."""
+        return (self._expect_body < 0 and not self._buf
+                and (self._task is None or self._task.done()))
+
     def connection_lost(self, exc):
+        self.server.connections.discard(self)
         self.transport = None
         # Unblock a streaming writer waiting on backpressure; it sees
         # the transport gone and stops.
@@ -379,6 +389,10 @@ class HTTPServer:
         self.router = router
         self._server: Optional[asyncio.AbstractServer] = None
         self.port: Optional[int] = None
+        # Open connections (their protocols), so a stop can close the
+        # idle keep-alive ones: a peer's pooled connection would
+        # otherwise hold wait_closed() open indefinitely.
+        self.connections: set = set()
 
     async def handle(self, request: Request) -> Response:
         handler, params = self.router.resolve(request.method, request.path)
@@ -395,7 +409,12 @@ class HTTPServer:
         logger.info("Listening on port %s", self.port)
 
     async def stop(self):
+        """Stop listening, close idle keep-alive connections, and wait for
+        the responses still being written."""
         if self._server is not None:
             self._server.close()
+            for conn in list(self.connections):
+                if conn.idle() and conn.transport is not None:
+                    conn.transport.close()
             await self._server.wait_closed()
             self._server = None

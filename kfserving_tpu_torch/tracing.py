@@ -62,6 +62,56 @@ def format_traceparent(trace_id: str, span_id: str) -> str:
     return f"00-{trace_id}-{span_id}-01"
 
 
+def mint_trace_id() -> str:
+    return uuid.uuid4().hex
+
+
+def mint_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+@dataclass
+class TraceContext:
+    """One hop's view of the request's trace: the shared trace id, the
+    upstream hop's span id (None at the trace root), and this hop's
+    own span id (forwarded downstream as the parent)."""
+
+    trace_id: str
+    parent_span_id: Optional[str] = None
+    span_id: str = field(default_factory=mint_span_id)
+
+    def forward_traceparent(self) -> Optional[str]:
+        """The `traceparent` value to send downstream, or None when
+        the trace id is not W3C-shaped (a client-supplied
+        x-request-id keeps carrying context on its own header — never
+        rewrite the id the client correlates by)."""
+        if not _HEX32.match(self.trace_id):
+            return None
+        return format_traceparent(self.trace_id, self.span_id)
+
+
+def ensure_trace_context(headers: Dict[str, str],
+                         mint: str = "short") -> TraceContext:
+    """Join (or start) the request's trace and set the contextvar, as
+    ``ensure_request_id`` does, keeping this hop's span id for the
+    downstream ``traceparent``.  ``mint="w3c"`` mints a full 32-hex id
+    (the ingress router, which must emit a valid traceparent);
+    ``"short"`` keeps the 16-hex x-request-id shape."""
+    tp = headers.get(TRACEPARENT_HEADER)
+    if tp:
+        parsed = parse_traceparent(tp)
+        if parsed is not None:
+            ctx = TraceContext(parsed[0], parent_span_id=parsed[1])
+            current_request_id.set(ctx.trace_id)
+            return ctx
+    rid = headers.get(REQUEST_ID_HEADER)
+    if not rid:
+        rid = mint_trace_id() if mint == "w3c" else uuid.uuid4().hex[:16]
+    ctx = TraceContext(rid)
+    current_request_id.set(ctx.trace_id)
+    return ctx
+
+
 @dataclass
 class Span:
     trace_id: str
