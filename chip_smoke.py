@@ -4590,6 +4590,28 @@ ACTIVATE_TICK_S = 0.05
 RECYCLE_CONVS, RECYCLE_CTX, RECYCLE_TOKENS = 8, 1000, 16
 RECYCLE_KILL_TOKENS, RECYCLE_TIER_BLOCKS = 1024, 256
 RECYCLE_CAPTURE_S, RECYCLE_WAIT_S = 2.0, 180.0
+# rollout: ViT-B/16 (VIT_CONFIG) behind a ServingManager's IngressRouter,
+# in-process replicas on the card, one replica per revision; traffic of
+# ROLLOUT_RATE req/s (V2 binary, one image) on throughout.  Revision 2
+# steps through ROLLOUT_POLICY to promotion, revision 3 fails every infer
+# and rolls back; then every infer slowed by ROLLOUT_BURN_MS, past the
+# ROLLOUT_SLO objective, drives the predictive loop (control windows
+# ROLLOUT_WINDOWS_S, ticks of ROLLOUT_TICK_S).
+ROLLOUT_RATE, ROLLOUT_CONCURRENCY = 20, 4
+ROLLOUT_POLICY = {"steps": [25, 50, 100], "hold_s": 1.5, "settle_s": 0.5,
+                  "min_requests": 6, "warmup_probes": 2,
+                  "max_error_ratio": 0.05, "max_latency_regression": 4.0,
+                  "warmup_timeout_s": 120.0}
+ROLLOUT_SLO = {"latency_ms": 250.0, "target": 0.9}
+ROLLOUT_BURN_MS = 300.0
+ROLLOUT_TICK_S, ROLLOUT_WINDOWS_S, ROLLOUT_EXIT_TICKS = 0.25, [1.0, 4.0], 2
+ROLLOUT_WAIT_S = 120.0
+# agent: AGENT_MODELS BERT-base fill-mask TrainedModels (RES_CONFIG, each
+# its own init seed) booked at AGENT_MODEL_BYTES on one shard; the
+# replica's watcher polls the shard's models.json every AGENT_POLL_S;
+# AGENT_PREDICTS b1 requests of AGENT_LENGTH ids per model.
+AGENT_MODELS, AGENT_MODEL_BYTES, AGENT_POLL_S = 3, 2 ** 30, 0.1
+AGENT_PREDICTS, AGENT_LENGTH = 2, 40
 
 
 def device_used_bytes() -> int:
@@ -4919,6 +4941,18 @@ def recycle_turn(port: int, turn: int, convs, headers=None) -> tuple:
     return ids, ttfts
 
 
+def param_source_of(phases: dict) -> str:
+    """A replica's param_source read off its startup marks: a hit of the
+    mmap param cache marks params_mmap, a converted checkpoint
+    checkpoint_restore, a seeded init init_params."""
+    for mark, source in (("params_mmap", "mmap"),
+                         ("checkpoint_restore", "checkpoint"),
+                         ("init_params", "init")):
+        if mark in phases:
+            return source
+    return "unknown"
+
+
 def serve_recycle(card: str) -> dict:
     """Line "recycle": the generate_4k decoder as a subprocess replica on
     the card behind the IngressRouter.  Turn 0 of 8 conversations; the
@@ -5171,6 +5205,11 @@ def serve_recycle(card: str) -> dict:
                     if k.endswith("_s")},
         "swap_mode": out["breakdown"]["mode"],
         "successor_phases_s": out["breakdown"].get("successor_phases"),
+        # The warm swap's successor: where its parameters came from (its
+        # startup marks) and its standby activation.
+        "successor_param_source": param_source_of(
+            out["breakdown"].get("successor_phases") or {}),
+        "standby_activate_s": out["breakdown"].get("activate_s"),
         "adopted_blocks": out["adopted"],
         "promotion_ms": out["failover"]["phases"].get("total_s", 0) * 1e3,
         "promotion_phases_s": out["failover"]["phases"],
@@ -5191,6 +5230,587 @@ def serve_recycle(card: str) -> dict:
         "reference_load_s": load_s,
     }
     print("recycle " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- the control API, rollout, predictive loop and agent ---------------------
+def direct_logits(model, image: np.ndarray) -> torch.Tensor:
+    """A served ViT's logits on one image, by its module directly."""
+    batch = torch.from_numpy(image[None]).to(model.device)
+    with torch.inference_mode():
+        return model.module(batch).float()[0]
+
+
+def answer_kind(logits: torch.Tensor, answer: int, rtol: float) -> str:
+    """"exact" when `answer` is the argmax of `logits`, "tie" when it is
+    another class within the tie limit of the top score, else ""."""
+    if answer == int(logits.argmax()):
+        return "exact"
+    limit = rtol * float(logits.abs().max())
+    if 0 <= answer < logits.numel() and \
+            float(logits.max() - logits[answer]) <= limit:
+        return "tie"
+    return ""
+
+
+def serve_rollout(card: str, config: dict = VIT_CONFIG,
+                  device: str = "cuda") -> dict:
+    """Line "rollout": a ServingManager on the card driven only through
+    the port's KFServingClient (and once through its CLI in a
+    subprocess): ViT-B/16 revisions promoted and rolled back by the
+    RolloutManager under open-loop traffic, then a fast burn through the
+    PredictiveScaler, its standby pool and the brownout gate."""
+    from kfserving_tpu_torch.client import ClientError, KFServingClient
+    from kfserving_tpu_torch.control.clusterconfig import ClusterConfig
+    from kfserving_tpu_torch.control.manager import ServingManager
+    from kfserving_tpu_torch.control.orchestrator import (
+        default_model_factory,
+    )
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+    from kfserving_tpu_torch.reliability import faults
+
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-rollout-")
+    dirs = []
+    for rev in range(3):
+        d = os.path.join(root, f"rev{rev + 1}")
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        dirs.append(d)
+    # Each revision serves its own seeded weights.
+    seeds = {f"file://{d}": 100 + i for i, d in enumerate(dirs)}
+    engines, builds, adopts = [], [], []
+    cid = "default/vitroll/predictor"
+
+    def factory(component_id, spec):
+        model = default_model_factory(component_id, spec, device=device)
+        model.init_seed = seeds[spec.storage_uri]
+        return model
+
+    cfg = ClusterConfig()
+    cfg.autoscaler.tick_seconds = ROLLOUT_TICK_S
+    cfg.autoscaler.predictive_windows_s = list(ROLLOUT_WINDOWS_S)
+    cfg.autoscaler.exit_ticks = ROLLOUT_EXIT_TICKS
+    saved = os.environ.get("KFS_SLO_OBJECTIVES")
+    set_env({"KFS_SLO_OBJECTIVES": json.dumps({"vitroll": ROLLOUT_SLO})})
+
+    async def run():
+        manager = ServingManager(cluster_config=cfg, orchestrator="inprocess",
+                                 control_port=0, ingress_port=0,
+                                 host="127.0.0.1", device=device)
+        orch = manager.orchestrator
+        orch.model_factory = factory
+        manager.rollouts.tick_seconds = ROLLOUT_TICK_S
+        build, adopt = orch._build_replica, orch.adopt_standby
+
+        async def timed_build(*args, **kwargs):
+            t0 = time.perf_counter()
+            replica = await build(*args, **kwargs)
+            builds.append(round((time.perf_counter() - t0) * 1e3, 1))
+            # Every replica's engine, kept past its teardown: its warmup
+            # and served batches all count.
+            engines.append(replica.handle.repository.get_model(
+                "vitroll").engine)
+            return replica
+
+        async def timed_adopt(*args, **kwargs):
+            t0 = time.perf_counter()
+            replica = await adopt(*args, **kwargs)
+            if replica is not None:
+                adopts.append(round((time.perf_counter() - t0) * 1e3, 3))
+            return replica
+
+        orch._build_replica, orch.adopt_standby = timed_build, timed_adopt
+        await manager.start_async()
+        control = f"http://127.0.0.1:{manager.api.http_port}"
+        client = KFServingClient(
+            control, f"http://127.0.0.1:{manager.router.http_port}")
+        out = {"requests": [], "direct": {}}
+        label = {"phase": "rev1"}
+        stop = asyncio.Event()
+
+        def spec(d):
+            return {"name": "vitroll", "predictor": {
+                "framework": "jax", "storage_uri": f"file://{d}",
+                "min_replicas": 1, "max_replicas": 1,
+                "container_concurrency": ROLLOUT_CONCURRENCY,
+                "rollout": ROLLOUT_POLICY}}
+
+        async def one(image):
+            phase = label["phase"]
+            try:
+                resp = await client.predict_binary(
+                    "vitroll", {"input_0": image[None]})
+                status, answer = 200, int(resp["outputs"][0]["data"][0])
+            except ClientError as e:
+                status, answer = e.status, e.message[:200]
+            out["requests"].append((phase, status, answer))
+
+        async def traffic(image):
+            loop = asyncio.get_running_loop()
+            t0, i, pending = loop.time(), 0, set()
+            while not stop.is_set():
+                await asyncio.sleep(max(0.0, t0 + i / ROLLOUT_RATE
+                                        - loop.time()))
+                task = asyncio.ensure_future(one(image))
+                pending.add(task)
+                task.add_done_callback(pending.discard)
+                i += 1
+            await asyncio.gather(*pending)
+
+        def live(revision):
+            return [r for r in orch.replicas(cid) if r.revision == revision]
+
+        async def finished(revision, phase):
+            def done():
+                return any(h["revision"] == revision and h["phase"] == phase
+                           for h in manager.rollouts.report()["history"])
+            await wait_until(done, f"rollout: {revision} {phase}",
+                             ROLLOUT_WAIT_S)
+            body = await client.rollouts()
+            return next(h for h in body["history"]
+                        if h["revision"] == revision and h["phase"] == phase)
+
+        traffic_task = None
+        try:
+            t0 = time.perf_counter()
+            created = await client.create(spec(dirs[0]))
+            await client.wait_isvc_ready("vitroll", timeout_seconds=300)
+            out["first_apply_s"] = time.perf_counter() - t0
+            rev1 = created["status"]["components"]["predictor"][
+                "latest_revision"]
+            model1 = live(rev1)[0].handle.repository.get_model("vitroll")
+            mcfg = model1.module.config
+            out["layers"] = mcfg.num_layers
+            out["shape"] = (mcfg.num_layers, mcfg.hidden_size, mcfg.seq_len)
+            image = np.round(bench_images(
+                np.random.default_rng(31), 1, mcfg.image_size)[0]
+                .astype(np.float32) / 255.0, 3)
+            out["direct"][rev1] = direct_logits(model1, image)
+            # The main path's run: the count starts at 0 here, and every
+            # ViT built from now on counts its batches from its start.
+            flash_attention.launches = 0
+            executed0 = sum(e.execute_count for e in engines)
+            traffic_task = asyncio.ensure_future(traffic(image))
+            await asyncio.sleep(1.0)
+
+            # Revision 2: warms, steps and promotes with no operator call.
+            label["phase"] = "rev2"
+            t0 = time.perf_counter()
+            created = await client.create(spec(dirs[1]))
+            rev2 = created["status"]["components"]["predictor"][
+                "latest_revision"]
+            check(rev2 != rev1, "rollout: revision 2 minted no revision")
+            model2 = live(rev2)[0].handle.repository.get_model("vitroll")
+            out["direct"][rev2] = direct_logits(model2, image)
+            promoted = await finished(rev2, "promoted")
+            out["promote_s"] = time.perf_counter() - t0
+            out["rev2_events"] = promoted["events"]
+
+            # Revision 3 fails every infer (a dataplane.infer fault
+            # matched to its revision): rolled back, quarantined, its
+            # pinned errors kept as evidence.
+            label["phase"] = "rev3"
+            created = await client.create(spec(dirs[2]))
+            rev3 = created["status"]["components"]["predictor"][
+                "latest_revision"]
+            faults.configure({"dataplane.infer": {
+                "error_rate": 1.0, "match": f"revision:{rev3}"}})
+            out["rev3_record"] = await finished(rev3, "rolled_back")
+            faults.reset()
+            got = await client.get("vitroll")
+            pstatus = got["status"]["components"]["predictor"]
+            out["after_rollback"] = {
+                "traffic": [[t["revision"], t["percent"]]
+                            for t in pstatus["traffic"]],
+                "replicas": sorted(r.revision for r in orch.replicas(cid))}
+            out["quarantine"] = (await client.rollouts())["quarantine"]
+            # The identical spec again: the quarantine holds it.
+            label["phase"] = "reapply"
+            again = (await client.create(spec(dirs[2])))["status"][
+                "components"]["predictor"]
+            await asyncio.sleep(4 * ROLLOUT_TICK_S)
+            out["reapply"] = {
+                "quarantined_revision": again["quarantined_revision"],
+                "traffic": [[t["revision"], t["percent"]]
+                            for t in again["traffic"]],
+                "active": manager.rollouts.report()["active"],
+                "replicas": sorted(r.revision for r in orch.replicas(cid))}
+            label["phase"] = "steady"
+            res = await asyncio.to_thread(subprocess.run, [
+                sys.executable, "-m", "kfserving_tpu_torch.client",
+                "--control-url", control, "get", "vitroll"],
+                capture_output=True, text=True, timeout=120)
+            check(res.returncode == 0, f"rollout: the CLI's get exited "
+                  f"{res.returncode}: {res.stderr[-2000:]}")
+            cli = json.loads(res.stdout)
+            out["cli"] = {"ready": cli["status"]["ready"],
+                          "latest_revision": cli["status"]["components"][
+                              "predictor"]["latest_revision"]}
+
+            # The burn: every infer slowed past the objective while the
+            # service is capped at one replica, so the loop can only
+            # pre-arm and shed; then the cap is lifted through the client
+            # and the autoscaler's scale-up adopts the armed standby.
+            label["phase"] = "burn"
+            builds0 = len(builds)
+            faults.configure({"dataplane.infer": {
+                "latency_ms": ROLLOUT_BURN_MS, "match": "vitroll"}})
+            t0 = time.perf_counter()
+            await wait_until(
+                lambda: (orch.standby_count(cid) >= 1
+                         and manager.brownout.level("vitroll") >= 1),
+                "predictive: an armed standby and brownout", ROLLOUT_WAIT_S)
+            out["arm_and_brownout_s"] = time.perf_counter() - t0
+            out["standby_target"] = orch.standby_target(cid)
+            out["standbys_armed"] = orch.standby_count(cid)
+            await client.patch("vitroll", {"predictor": {"max_replicas": 2}})
+            await wait_until(lambda: len(orch.replicas(cid)) >= 2,
+                             "predictive: the scale-up", ROLLOUT_WAIT_S)
+            out["adoptions"] = orch.standby_adoptions
+            # A cold spawn on the scale-up would be one build more than
+            # the pool's arming builds.
+            out["burn_builds"] = len(builds) - builds0
+            label["phase"] = "recover"
+            faults.reset()
+            t0 = time.perf_counter()
+            await wait_until(lambda: manager.brownout.level("vitroll") == 0,
+                             "predictive: brownout exit", ROLLOUT_WAIT_S)
+            out["exit_s"] = time.perf_counter() - t0
+            pred = manager.predictive
+            out["decisions"] = [(d["kind"], d.get("action"))
+                                for d in pred.decisions]
+            out["pre_arm"] = next(d for d in pred.decisions
+                                  if d.get("action") == "pre_arm")
+            stop.set()
+            await traffic_task
+            traffic_task = None
+            out["batches"] = sum(e.execute_count
+                                 for e in engines) - executed0
+            # Less revision 2's direct forward (one K1 launch a layer),
+            # the comparison's, not the main path's.
+            out["launches"] = flash_attention.launches - (
+                out["layers"] if device == "cuda" else 0)
+            return out
+        finally:
+            stop.set()
+            if traffic_task is not None:
+                await asyncio.gather(traffic_task, return_exceptions=True)
+            faults.reset()
+            await client.close()
+            await manager.stop_async()
+
+    try:
+        out = asyncio.run(run())
+    finally:
+        if saved is None:
+            os.environ.pop("KFS_SLO_OBJECTIVES", None)
+        else:
+            os.environ["KFS_SLO_OBJECTIVES"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Every answer is one revision's direct forward (a counted near-tie
+    # aside); only the failing canary answers 500, only brownout 503.
+    allowed = {"rev3": (500,), "burn": (503,), "recover": (503,)}
+    ties, statuses = 0, {}
+    for phase, status, answer in out["requests"]:
+        counts = statuses.setdefault(phase, {})
+        counts[status] = counts.get(status, 0) + 1
+        if status != 200:
+            check(status in allowed.get(phase, ()),
+                  f"rollout {phase}: HTTP {status} {answer}")
+            continue
+        kinds = [answer_kind(logits, answer, VIT_LOGIT_RTOL)
+                 for logits in out["direct"].values()]
+        check(any(kinds), f"rollout {phase}: answer {answer} is no "
+              f"revision's direct forward")
+        ties += "exact" not in kinds
+    rev1, rev2 = list(out["direct"])
+    events = out["rev2_events"]
+    steps = [e for e in events if e["event"] == "step"]
+    check([e["percent"] for e in steps] == ROLLOUT_POLICY["steps"],
+          f"rollout: revision 2 stepped {[e['percent'] for e in steps]}")
+    ends = steps[1:] + [e for e in events if e["event"] == "promoted"]
+    holds = [round(b["ts"] - a["ts"], 3) for a, b in zip(steps, ends)]
+    record = out["rev3_record"]
+    rev3 = record["revision"]
+    first_step = next(e for e in record["events"] if e["event"] == "step")
+    reverted = next(e for e in record["events"]
+                    if e["event"] == "rolled_back")
+    check(record["reason"] in ("error_ratio", "slo_breach"),
+          f"rollout: revision 3 rolled back for {record['reason']}")
+    check(any(e.get("pinned") == "error" for e in record["evidence"]),
+          f"rollout: no pinned error evidence in {record['evidence'][:3]}")
+    check(out["after_rollback"] == {"traffic": [[rev2, 100]],
+                                    "replicas": [rev2]},
+          f"rollout: after the rollback {out['after_rollback']}")
+    check(rev3 in out["quarantine"].get(cid, {}),
+          f"rollout: quarantine {out['quarantine']}")
+    check(out["reapply"] == {"quarantined_revision": rev3,
+                             "traffic": [[rev2, 100]], "active": [],
+                             "replicas": [rev2]},
+          f"rollout: the identical re-apply re-rolled {out['reapply']}")
+    check(out["cli"] == {"ready": True, "latest_revision": rev2},
+          f"rollout: the CLI's get {out['cli']}")
+    actions = {a for _, a in out["decisions"]}
+    check({"pre_arm", "brownout_enter", "brownout_exit"} <= actions,
+          f"rollout: predictive decisions {out['decisions']}")
+    check(out["adoptions"] >= 1 and adopts,
+          f"rollout: the scale-up adopted {out['adoptions']} standbys")
+    check(out["burn_builds"] <= out["standby_target"],
+          f"rollout: {out['burn_builds']} builds for a standby target of "
+          f"{out['standby_target']}: the scale-up spawned cold")
+    layers = out["layers"]
+    if device == "cuda":
+        check(out["shape"] == (12, 768, 197), "rollout: not ViT-B/16")
+        check(out["batches"] > 0
+              and out["launches"] == layers * out["batches"],
+              f"rollout: flash kernel launched {out['launches']} times for "
+              f"{out['batches']} predictor batches of {layers} layers")
+    summary = {
+        "card": card, "first_apply_s": out["first_apply_s"],
+        "requests": len(out["requests"]), "statuses": statuses,
+        "near_tie_answers": ties, "revisions": [rev1, rev2, rev3],
+        "apply_to_promoted_s": out["promote_s"],
+        "step_percents": [e["percent"] for e in steps],
+        "step_holds_s": holds,
+        "rev3_reason": record["reason"],
+        "fault_to_revert_ms": round(
+            (reverted["ts"] - first_step["ts"]) * 1e3, 1),
+        "evidence": len(record["evidence"]),
+        "arm_and_brownout_s": out["arm_and_brownout_s"],
+        "standby_target": out["standby_target"],
+        "pre_arm": {k: out["pre_arm"].get(k) for k in (
+            "arrival_per_s", "service_ms", "required", "predicted_gap")},
+        "adopt_ms": adopts, "build_ms": builds,
+        "adoptions": out["adoptions"], "brownout_exit_s": out["exit_s"],
+        "decisions": sorted(a for a in actions if a),
+        "predictor_batches": out["batches"],
+        "flash_launches": out["launches"],
+    }
+    print("rollout " + json.dumps(summary), flush=True)
+    return summary
+
+
+class CloudEventSink:
+    """A stdlib HTTP CloudEvents sink in a thread: every POST's headers
+    and body are kept."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        received = self.received = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                received.append(({k.lower(): v for k, v in
+                                  self.headers.items()}, body))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"ok")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def serve_agent(card: str, config: dict = RES_CONFIG,
+                device: str = "cuda") -> dict:
+    """Line "agent": BERT-base TrainedModels applied through the client
+    land in a multi-model replica built with --config_dir and --log_url,
+    through its watcher, puller and downloader; one is deleted and
+    unloads; a stdlib sink gets every payload as CloudEvents."""
+    from kfserving_tpu_torch.agent.logger import (
+        CE_TYPE_REQUEST,
+        CE_TYPE_RESPONSE,
+    )
+    from kfserving_tpu_torch.client import KFServingClient, isvc_spec
+    from kfserving_tpu_torch.control.clusterconfig import ClusterConfig
+    from kfserving_tpu_torch.control.manager import ServingManager
+    from kfserving_tpu_torch.models import create_model
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
+    from kfserving_tpu_torch.predictors.jaxserver import __main__ as jaxserver
+
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-agent-")
+    names = [f"tm{i}" for i in range(AGENT_MODELS)]
+    sources = {}
+    for name in names:
+        d = os.path.join(root, "src", name)
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        sources[name] = d
+    models_dir = os.path.join(root, "models")
+    os.makedirs(models_dir)
+    cfg = ClusterConfig()
+    cfg.modelconfig_dir = os.path.join(root, "modelconfig")
+    sink = CloudEventSink()
+
+    async def run():
+        manager = ServingManager(cluster_config=cfg, orchestrator="inprocess",
+                                 control_port=0, ingress_port=0,
+                                 host="127.0.0.1", device=device)
+        await manager.start_async()
+        client = KFServingClient(f"http://127.0.0.1:{manager.api.http_port}")
+        server = None
+        out = {"apply_ms": {}, "first_predict_ms": {}, "sent": [],
+               "direct": {}, "batches": {}, "direct_forwards": 0}
+        try:
+            await client.create(isvc_spec(
+                "bertmm", "jax", f"file://{models_dir}", multi_model=True,
+                hbm_budget_bytes=AGENT_MODELS * AGENT_MODEL_BYTES))
+            args = jaxserver.parser.parse_args([
+                "--model_dir", models_dir, "--config_dir",
+                os.path.join(cfg.modelconfig_dir,
+                             "default-bertmm-shard-0.json"),
+                "--log_url", sink.url, "--http_port", "0",
+                "--device", device])
+            server = jaxserver.build_server(args)
+            watcher, puller, request_logger = server.services[-3:]
+            watcher.poll_interval = AGENT_POLL_S
+            await server.start_async([], host="127.0.0.1")
+            repo, port = server.repository, server.http_port
+            rng = np.random.default_rng(41)
+            # The main path's run: the count starts at 0 here; every
+            # batch of the phase (cold-fault warmups included) runs K1 in
+            # each layer.
+            flash_attention.launches = 0
+            for i, name in enumerate(names):
+                t0 = time.perf_counter()
+                applied = await client.create_trained_model({
+                    "name": name, "inference_service": "bertmm",
+                    "storage_uri": f"file://{sources[name]}",
+                    "memory_bytes": AGENT_MODEL_BYTES})
+                check(applied["shard"] == 0, f"agent: {name} on shard "
+                      f"{applied['shard']}")
+                await wait_until(lambda: repo.is_model_ready(name),
+                                 f"agent: {name} loaded", ROLLOUT_WAIT_S)
+                out["apply_ms"][name] = round(
+                    (time.perf_counter() - t0) * 1e3, 1)
+                # Registered, not built: its first predict inits these.
+                repo.get_model(name).init_seed = 200 + i
+            spec = create_model(config["architecture"],
+                                **(config.get("arch_kwargs") or {}))
+            vocab = spec.module.config.vocab_size
+            layers = spec.module.config.num_layers
+            for name in names:
+                for r in range(AGENT_PREDICTS):
+                    ids = rng.integers(1, vocab, size=AGENT_LENGTH).tolist()
+                    body = json.dumps({"instances": [ids]}).encode()
+                    t0 = time.perf_counter()
+                    status, _, data = await asyncio.to_thread(
+                        http_raw, port, "POST", f"/v1/models/{name}:predict",
+                        body, {"content-type": "application/json"})
+                    ms = (time.perf_counter() - t0) * 1e3
+                    check(status == 200, f"agent {name}: HTTP {status} "
+                          f"{data[:300]}")
+                    if r == 0:
+                        out["first_predict_ms"][name] = round(ms, 1)
+                    out["sent"].append((name, body, data))
+                    model = repo.get_model(name)
+                    seq = model.engine.seq_buckets.fit(AGENT_LENGTH)
+                    pred = json.loads(data)["predictions"][0]
+                    check_topk(pred["values"], pred["indices"], seq, vocab,
+                               f"agent {name}")
+                    want = direct_topk(model, ids, f"b1s{seq}")
+                    out["direct_forwards"] += 1
+                    diff = float(np.abs(np.subtract(
+                        pred["values"], want["values"])).max())
+                    check(pred["indices"] == want["indices"]
+                          and diff <= MAX_LOGIT_DIFF,
+                          f"agent {name}: served top-5 differs from the "
+                          f"direct forward (scores by {diff})")
+                    out["direct"][name] = max(out["direct"].get(name, 0.0),
+                                              diff)
+            out["param_sources"] = {n: repo.get_model(n).param_source
+                                    for n in names}
+            for name in names:
+                out["batches"][name] = repo.get_model(
+                    name).engine.execute_count
+            # Deleting a TrainedModel unloads it from the replica.
+            gone = names[1]
+            t0 = time.perf_counter()
+            await client.delete_trained_model(gone)
+            await wait_until(lambda: repo.get_model(gone) is None,
+                             f"agent: {gone} unloaded", ROLLOUT_WAIT_S)
+            out["unload_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+            body = json.dumps({"instances": [[1, 2, 3]]}).encode()
+            status, _, data = await asyncio.to_thread(
+                http_raw, port, "POST", f"/v1/models/{gone}:predict", body,
+                {"content-type": "application/json"})
+            check(status == 404, f"agent: {gone} still answers {status}")
+            out["sent"].append((gone, body, data))
+            # Less the direct forwards' launches (one a layer each), the
+            # comparison's, not the main path's.
+            out["launches"] = flash_attention.launches - (
+                layers * out["direct_forwards"] if device == "cuda" else 0)
+            out["layers"] = layers
+            await asyncio.wait_for(request_logger.queue.join(), 60)
+            out["logger"] = request_logger.stats()
+            out["puller"] = puller.stats()
+            return out
+        finally:
+            if server is not None:
+                await server.stop_async()
+                for model in list(server.repository.get_models()):
+                    model.unload()
+            await client.close()
+            await manager.stop_async()
+
+    try:
+        out = asyncio.run(run())
+        events = list(sink.received)
+    finally:
+        sink.close()
+        shutil.rmtree(root, ignore_errors=True)
+    sent = out["sent"]
+    check(len(events) == 2 * len(sent) and out["logger"]["dropped"] == 0
+          and out["logger"]["failed"] == 0,
+          f"agent: {len(events)} events for {len(sent)} predicts, logger "
+          f"{out['logger']}")
+    pairs = {}
+    for headers, body in events:
+        pairs.setdefault(headers["ce-id"], {})[headers["ce-type"]] = (
+            headers, body)
+    check(len(pairs) == len(sent) and all(
+        set(p) == {CE_TYPE_REQUEST, CE_TYPE_RESPONSE}
+        for p in pairs.values()),
+        f"agent: {len(pairs)} paired event ids for {len(sent)} predicts")
+    got = sorted((p[CE_TYPE_REQUEST][0]["ce-model"], p[CE_TYPE_REQUEST][1],
+                  p[CE_TYPE_RESPONSE][1]) for p in pairs.values())
+    check(got == sorted(sent), "agent: the sink's request/response bodies "
+          "differ from what went over the wire")
+    batches = sum(out["batches"].values())
+    if device == "cuda":
+        check(batches > 0 and out["launches"] == out["layers"] * batches,
+              f"agent: flash kernel launched {out['launches']} times for "
+              f"{batches} batches of {out['layers']} layers")
+    summary = {
+        "card": card, "models": len(names),
+        "apply_to_ready_ms": out["apply_ms"],
+        "first_predict_ms": out["first_predict_ms"],
+        "param_sources": out["param_sources"],
+        "max_score_diff_vs_direct": out["direct"],
+        "unload_ms": out["unload_ms"], "predicts": len(sent),
+        "events": len(events), "logger": out["logger"],
+        "puller": out["puller"], "batches": batches,
+        "flash_launches": out["launches"],
+    }
+    print("agent " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -5289,6 +5909,8 @@ def main() -> int:
         phase("density", serve_density, card)
         chain, activate = phase("chain_activate", serve_chain, card)
         phase("recycle", serve_recycle, card)
+        rolling = phase("rollout", serve_rollout, card)
+        agent = phase("agent", serve_agent, card)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read
@@ -5304,6 +5926,8 @@ def main() -> int:
                               + residency["flash_launches"]
                               + chain["flash_launches"]
                               + activate["flash_launches"]
+                              + rolling["flash_launches"]
+                              + agent["flash_launches"]
                               + sum(g["flash_attention"] for g in generative))
     kernels[1]["launches"] = sum(g["paged_attention"] for g in generative)
     print("graphs " + json.dumps({

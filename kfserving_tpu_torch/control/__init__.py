@@ -33,9 +33,14 @@ package keeps the same layering with explicit, swappable backends:
                   activator, affinity, failover.
 - autoscaler.py:  concurrency-based replica autoscaling with
                   scale-to-zero (Knative KPA equivalent).
-
-The rollout manager, the predictive loop (beyond its flight-recorder
-helper), the manager and the control API come with the next slice.
+- predictive.py:  feed-forward sizing from burn rates, standby
+                  pre-arming and brownout entry/exit.
+- rollout.py:     SLO-gated progressive delivery: canary stepping with
+                  warmup gating, per-revision health gates, auto-rollback
+                  with quarantine.
+- api.py, manager.py, __main__.py: the control API (the apiserver
+                  surface), the ServingManager that wires it all into one
+                  process, and ``python -m kfserving_tpu_torch.control``.
 """
 
 from kfserving_tpu_torch.control.spec import (  # noqa: F401

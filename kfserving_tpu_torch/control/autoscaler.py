@@ -13,16 +13,18 @@ min_replicas == 0 (cold start is then the router's _activate path, which
 on TPU includes compile time — the persistent compile cache is what makes
 it tolerable, SURVEY.md §5.3).
 
-The JAX package's `PredictiveScaler` hook (control/predictive.py:
-feed-forward sizing, standby pre-arming, brownout entry/exit) comes
-with the next slice of the port; this loop is the reactive one.
+With a `PredictiveScaler` attached (control/predictive.py) each tick
+additionally runs the feed-forward plan: burn-driven sizing from the
+router's latency/arrival series, standby pre-arming, and brownout
+entry/exit — the reactive signal then acts as the floor, the
+prediction as the leading edge.
 """
 
 import asyncio
 import logging
 import math
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.reliability import fault_sites, faults
@@ -44,11 +46,15 @@ STALL_TICKS = 3
 class Autoscaler:
     def __init__(self, controller, router,
                  target_concurrency: float = DEFAULT_TARGET_CONCURRENCY,
-                 tick_seconds: float = 2.0):
+                 tick_seconds: float = 2.0,
+                 predictive: Optional[object] = None):
         self.controller = controller
         self.router = router
         self.target_concurrency = target_concurrency
         self.tick_seconds = tick_seconds
+        # PredictiveScaler (control/predictive.py) or None (purely
+        # reactive).
+        self.predictive = predictive
         self._windows: Dict[str, deque] = {}
         self._idle: Dict[str, int] = {}
         self._consecutive_failures = 0
@@ -107,8 +113,18 @@ class Autoscaler:
                      "tick failures", self._consecutive_failures)
 
     async def tick(self):
-        """One scaling evaluation (callable directly in tests)."""
+        """One scaling evaluation (callable directly in tests).  The
+        predictive signal snapshot and the brownout evaluation run
+        BEFORE the per-component actuation (and before its fault
+        site): a wedged scale() must not keep the brownout gate from
+        engaging."""
+        if self.predictive is not None:
+            self.predictive.observe()
         for name, isvc in list(self.controller.specs.items()):
+            if self.predictive is not None:
+                # isvc.name, not the namespaced specs key: objectives
+                # and the router's series are keyed by model name.
+                self.predictive.evaluate_brownout(isvc.name, isvc)
             for cname, comp in isvc.components().items():
                 if faults.configured(fault_sites.AUTOSCALER_TICK):
                     await faults.inject(fault_sites.AUTOSCALER_TICK,
@@ -163,6 +179,14 @@ class Autoscaler:
                   or self.target_concurrency)
         desired = math.ceil(avg / target) if avg > 0 else 0
         desired = max(desired, occupancy_load)
+        # Feed-forward: the predictive plan (burn rate x latency
+        # model, chain-joint) leads; the reactive average is the
+        # floor.  Pre-arming/evidence happen inside the plan call.
+        if self.predictive is not None:
+            current = len(
+                self.controller.reconciler.orchestrator.replicas(cid))
+            desired = max(desired, self.predictive.desired_replicas(
+                isvc.name, isvc, cname, comp, cid, current))
         key = f"{name}/{cname}"
         if desired == 0:
             self._idle[key] = self._idle.get(key, 0) + 1

@@ -93,6 +93,17 @@ class InProcessOrchestrator:
         # interleave across service accounts (shared os.environ).
         self._cred_lock = asyncio.Lock()
         self.state: Dict[str, _ComponentState] = {}
+        # Warm-standby pool: fully built replicas kept OUT of the
+        # serving state, adopted by scale-ups so a predicted traffic
+        # step actuates in one tick instead of a model build and load.
+        # (cid, revision) -> [Replica, ...]; pool depth per component is
+        # _standby_targets (default 0: unlike the subprocess backend
+        # there is no crash to fail over, so the pool exists only while
+        # the predictive loop pre-arms it).
+        self._standbys: Dict[tuple, List[Replica]] = {}
+        self._standby_targets: Dict[str, int] = {}
+        self._standby_arming: Dict[tuple, int] = {}
+        self.standby_adoptions = 0
         # Cluster-local gateway address ("host:port"), published by the
         # ingress router at start.  Explainer/transformer replicas get
         # their predictor_host derived from it — the reference injects
@@ -103,6 +114,107 @@ class InProcessOrchestrator:
     def replicas(self, component_id: str) -> List[Replica]:
         return list(self.state.get(component_id,
                                    _ComponentState()).replicas)
+
+    # -- warm-standby pool (predictive pre-arming) --------------------------
+    def set_standby_target(self, component_id: str, target: int) -> None:
+        """Pre-arm `target` standbys for a component's latest serving
+        revision (the predictive autoscaler's actuator).  Arming runs
+        as background tasks — the control loop's tick never blocks on
+        a model load.  A SHRINKING target reaps the excess at once:
+        this backend has no maintenance tick to trim the pool later,
+        and an idle armed replica holds a whole model on the card."""
+        target = max(0, min(int(target), 8))
+        self._standby_targets[component_id] = target
+        for key, pool in list(self._standbys.items()):
+            if key[0] != component_id:
+                continue
+            while len(pool) > target:
+                standby = pool.pop()
+                asyncio.ensure_future(self._stop_server(standby.handle))
+            if not pool:
+                self._standbys.pop(key, None)
+        comp = self.state.get(component_id)
+        if target == 0 or comp is None or not comp.replicas:
+            return
+        latest = comp.replicas[-1]
+        key = (component_id, latest.revision)
+        have = len(self._standbys.get(key, ())) + \
+            self._standby_arming.get(key, 0)
+        for _ in range(max(0, target - have)):
+            self._standby_arming[key] = \
+                self._standby_arming.get(key, 0) + 1
+            asyncio.ensure_future(self._arm_standby(
+                key, latest.spec, latest.placement))
+
+    def standby_target(self, component_id: str) -> int:
+        return self._standby_targets.get(component_id, 0)
+
+    def standby_count(self, component_id: str) -> int:
+        return sum(len(pool)
+                   for (cid, _rev), pool in self._standbys.items()
+                   if cid == component_id)
+
+    async def _arm_standby(self, key: tuple, spec, placement) -> None:
+        cid, rev = key
+        try:
+            standby = await self._build_replica(cid, rev, spec,
+                                                placement)
+        except Exception:
+            logger.exception("arming in-process standby for %s failed",
+                             cid)
+            return
+        finally:
+            n = self._standby_arming.get(key, 1) - 1
+            if n <= 0:
+                self._standby_arming.pop(key, None)
+            else:
+                self._standby_arming[key] = n
+        comp = self.state.get(cid)
+        if comp is None or not any(r.revision == rev
+                                   for r in comp.replicas):
+            await self._stop_server(standby.handle)  # retired meanwhile
+            return
+        if len(self._standbys.get(key, ())) >= \
+                self._standby_targets.get(cid, 0):
+            # Target shrank while this one armed: don't overfill.
+            await self._stop_server(standby.handle)
+            return
+        self._standbys.setdefault(key, []).append(standby)
+        logger.info("in-process standby armed for %s rev=%s at %s",
+                    cid, rev[:8], standby.host)
+
+    async def adopt_standby(self, component_id: str,
+                            revision: str) -> Optional[Replica]:
+        """Scale-up fast path: enter an armed standby into serving.
+        None when the pool is dry (caller cold-builds)."""
+        pool = self._standbys.get((component_id, revision))
+        if not pool:
+            return None
+        standby = pool.pop(0)
+        if not pool:
+            self._standbys.pop((component_id, revision), None)
+        self.state.setdefault(component_id,
+                              _ComponentState()).replicas.append(standby)
+        self.standby_adoptions += 1
+        from kfserving_tpu_torch.observability import metrics as obs
+
+        obs.lifecycle_promotions_total().labels(
+            trigger="scale_up", outcome="promoted").inc()
+        logger.info("scale-up adopted in-process standby %s for %s",
+                    standby.host, component_id)
+        return standby
+
+    async def reap_standbys(self, component_id: str,
+                            revision: Optional[str] = None) -> None:
+        for key, pool in list(self._standbys.items()):
+            cid, rev = key
+            if cid != component_id:
+                continue
+            if revision is not None and rev != revision:
+                continue
+            self._standbys.pop(key, None)
+            for standby in pool:
+                await self._stop_server(standby.handle)
 
     async def create_replica(self, component_id: str, revision: str,
                              spec, placement=None) -> Replica:
@@ -181,6 +293,9 @@ class InProcessOrchestrator:
             registered_models=repository,
             container_concurrency=getattr(
                 spec, "container_concurrency", 0) or 0)
+        # One injector serves every in-process replica: dataplane.infer
+        # faults scope to a revision through its key.
+        server.dataplane.revision = revision
         await server.start_async([model] if model is not None else [],
                                  host="127.0.0.1")
         return Replica(component_id, revision,
@@ -230,6 +345,11 @@ class InProcessOrchestrator:
                 logger.exception("releasing model %s failed", model.name)
 
     async def shutdown(self):
+        # Armed standbys live outside self.state: stop them first.
+        for key, pool in list(self._standbys.items()):
+            self._standbys.pop(key, None)
+            for standby in pool:
+                await self._stop_server(standby.handle)
         for comp in list(self.state.values()):
             for replica in list(comp.replicas):
                 await self.delete_replica(replica)

@@ -144,10 +144,6 @@ class _Proc:
 class SubprocessOrchestrator:
     """Actuation backend that execs one server process per replica."""
 
-    # Armed standbys kept per component: one warm successor for a
-    # recycle or a crash.
-    STANDBY_DEPTH = 1
-
     def __init__(self, cluster_config: Optional[ClusterConfig] = None,
                  env_overrides: Optional[Dict[str, str]] = None,
                  host: str = "127.0.0.1",
@@ -183,9 +179,13 @@ class SubprocessOrchestrator:
         # untouched), promoted on recycle or crash, and adopted
         # directly by scale-ups (reconciler._scale_revisions prefers
         # an armed standby over a cold spawn).  Pool depth per
-        # component is STANDBY_DEPTH.
+        # component is self._standby_targets (default 1: one warm
+        # successor for a recycle or a crash); the predictive
+        # autoscaler pre-arms it deeper ahead of a predicted capacity
+        # gap, so a traffic step actuates as activations.
         self._standbys: Dict[tuple, List[Replica]] = {}
         self._standby_spawning: Dict[tuple, int] = {}
+        self._standby_targets: Dict[str, int] = {}
         self._health_fails: Dict[int, int] = {}
         # Supervisor flight recorder: failover and swap-failure
         # timelines pinned in the control-plane process (the router
@@ -665,6 +665,31 @@ class SubprocessOrchestrator:
             self._standbys.pop(key, None)
         self._set_pool_gauge(key[0])
         return popped
+
+    # -- predictive pre-arming (control/predictive.py) ----------------------
+    def set_standby_target(self, component_id: str, target: int) -> None:
+        """Size the armed-standby pool for a component: the feed-
+        forward autoscaler pre-arms `target` standbys ahead of a
+        predicted capacity gap so scale-up actuates as one-tick
+        activations.  1 is the lifecycle default (crash failover
+        always wants a warm successor); the cap keeps a runaway
+        prediction from forking the host to death."""
+        target = max(1, min(int(target), 8))
+        if self._standby_targets.get(component_id, 1) != target:
+            logger.info("standby pool target for %s -> %d",
+                        component_id, target)
+        self._standby_targets[component_id] = target
+
+    def standby_target(self, component_id: str) -> int:
+        return self._standby_targets.get(component_id, 1)
+
+    def standby_count(self, component_id: str) -> int:
+        """Live armed standbys for a component (the capacity the
+        predictive loop can actuate without a spawn)."""
+        return sum(
+            1 for (cid, _rev), pool in self._standbys.items()
+            if cid == component_id
+            for r in pool if r.handle.process.returncode is None)
 
     async def adopt_standby(self, component_id: str,
                             revision: str) -> Optional[Replica]:
@@ -1152,10 +1177,12 @@ class SubprocessOrchestrator:
 
     def _maintain_standby_pool(self) -> None:
         """Arm standbys per component (for the latest revision a
-        serving replica carries) up to STANDBY_DEPTH: recycles then
-        skip the spawn phase, crash promotion always has a warm
-        successor, and a scale-up actuates as an activation instead
-        of a cold spawn.  Spawning runs as background tasks — arming must
+        serving replica carries) up to the component's pool target
+        (default 1; the predictive autoscaler pre-arms deeper ahead
+        of a forecast capacity gap): recycles then skip the spawn
+        phase, crash promotion always has a warm successor, and a
+        predicted traffic step actuates as activations instead of
+        cold spawns.  Spawning runs as background tasks — arming must
         never block the supervisor tick."""
         for cid, comp in list(self.state.items()):
             if not comp.replicas:
@@ -1165,7 +1192,7 @@ class SubprocessOrchestrator:
             if handle is None or not self._standby_capable(handle.spec):
                 continue
             key = (cid, replica.revision)
-            want = self.STANDBY_DEPTH
+            want = self._standby_targets.get(cid, 1)
             have = len(self._standbys.get(key, ())) + \
                 self._standby_spawning.get(key, 0)
             for _ in range(max(0, want - have)):
@@ -1199,13 +1226,15 @@ class SubprocessOrchestrator:
         self._set_pool_gauge(cid)
         logger.info("standby armed for %s rev=%s at %s (pool %d/%d)",
                     cid, rev[:8], standby.host,
-                    len(self._standbys[key]), self.STANDBY_DEPTH)
+                    len(self._standbys[key]),
+                    self._standby_targets.get(cid, 1))
 
     def _reap_orphan_standbys(self) -> None:
         """Standbys whose component/revision no longer serves (scale
         to zero, canary retired, rollback) are torn down, dead pool
         processes are dropped (the next tick re-arms), and pools
-        deeper than STANDBY_DEPTH shrink back.  A revision
+        deeper than their target (a pre-arm whose predicted step never
+        came, or already actuated) shrink back.  A revision
         with a create in flight still serves: a crash promotion holds
         one from the moment the corpse leaves the state until its
         standby is active, and reaping that standby in between would
@@ -1216,7 +1245,7 @@ class SubprocessOrchestrator:
             wanted = self._creating.get(key, 0) > 0 or (
                 comp is not None and any(
                     r.revision == rev for r in comp.replicas))
-            want = self.STANDBY_DEPTH if wanted else 0
+            want = self._standby_targets.get(cid, 1) if wanted else 0
             keep: List[Replica] = []
             for standby in pool:
                 alive = standby.handle.process.returncode is None

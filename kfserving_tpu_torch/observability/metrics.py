@@ -12,10 +12,7 @@ a caller holding a stale instrument::
     obs.batch_queue_wait_ms().labels(bucket=str(key)).observe(age_ms)
     obs.llm_ttft_ms().observe(ttft, trace_id=req.trace_id)
 
-Histograms are milliseconds unless the name says otherwise.  Families of
-layers the port has not ported yet (the rollout manager, the predictive
-loop, the payload logger) are listed in ROADMAP under the item that
-ports each.
+Histograms are milliseconds unless the name says otherwise.
 """
 
 from kfserving_tpu_torch.observability.registry import (
@@ -28,6 +25,10 @@ from kfserving_tpu_torch.observability.registry import (
 # The per-request accounting series (the server's Metrics feeds them).
 REQUEST_TOTAL_SERIES = "kfserving_tpu_request_total"
 REQUEST_LATENCY_SERIES = "kfserving_tpu_request_latency_ms"
+# The per-revision series the router feeds, which the rollout analyzer
+# gates on and the predictive loop's burn rates read.
+REVISION_REQUESTS_SERIES = "kfserving_tpu_revision_requests_total"
+REVISION_LATENCY_SERIES = "kfserving_tpu_revision_request_ms"
 # The trend-slope gauge the history detector exports.
 TREND_SLOPE_SERIES = "kfserving_tpu_trend_slope_per_second"
 
@@ -807,6 +808,64 @@ def revision_request_ms():
         "kfserving_tpu_revision_request_ms",
         "Router-observed upstream attempt latency per served revision",
         buckets=LATENCY_BUCKETS_MS)
+
+
+def rollout_state():
+    return REGISTRY.gauge(
+        "kfserving_tpu_rollout_state",
+        "Rollout state machine phase per component/revision "
+        "(0=warming, 1=progressing, 2=promoted, 3=rolled_back)")
+
+
+def rollout_step_percent():
+    return REGISTRY.gauge(
+        "kfserving_tpu_rollout_step_percent",
+        "Current canary traffic percent the rollout manager has "
+        "granted the component's latest revision")
+
+
+def rollout_transitions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_rollout_transitions_total",
+        "Rollout state-machine transitions by event (step|promoted|"
+        "rolled_back)")
+
+
+def rollout_quarantined():
+    return REGISTRY.gauge(
+        "kfserving_tpu_rollout_quarantined",
+        "Quarantined (rolled-back) revision hashes currently "
+        "remembered per component")
+
+
+def autoscaler_decisions_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_autoscaler_decisions_total",
+        "Predictive control-loop decisions by component and action "
+        "(scale_up|pre_arm|brownout_enter|brownout_exit) — every one "
+        "also lands as a pinned supervisor flight-recorder record")
+
+
+def autoscaler_predicted_replicas():
+    return REGISTRY.gauge(
+        "kfserving_tpu_autoscaler_predicted_replicas",
+        "Replica count the feed-forward latency model sized for a "
+        "component at the last tick (arrival rate x observed service "
+        "time vs SLO headroom); 0 = the predictive path is not "
+        "engaged")
+
+
+def payload_log_total():
+    return REGISTRY.counter(
+        "kfserving_tpu_payload_log_total",
+        "CloudEvents payload-logger events by outcome "
+        "(outcome=sent|failed|dropped)")
+
+
+def payload_log_queued():
+    return REGISTRY.gauge(
+        "kfserving_tpu_payload_log_queued",
+        "CloudEvents payload-logger queue depth")
 
 
 def lifecycle_swaps_total():

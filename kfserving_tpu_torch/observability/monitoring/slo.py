@@ -130,8 +130,21 @@ class SLOEngine:
     def __init__(self, registries: Sequence,
                  objectives: Optional[Dict[str, SLOObjective]] = None,
                  windows_s: Sequence[float] = DEFAULT_WINDOWS_S,
-                 burn_alert: float = DEFAULT_BURN_ALERT):
+                 burn_alert: float = DEFAULT_BURN_ALERT,
+                 total_series: str = REQUEST_TOTAL_SERIES,
+                 latency_series: str = REQUEST_LATENCY_SERIES,
+                 export_gauges: bool = True):
         self.registries = list(registries)
+        # Which cumulative series the burn rates are computed over:
+        # replicas evaluate their own request series (the default), the
+        # control plane's predictive loop the router's per-revision
+        # series.  Any counter with model/status labels and any
+        # histogram with a model label fit the snapshot shape.
+        self.total_series = total_series
+        self.latency_series = latency_series
+        # Secondary engines (the control plane's) evaluate silently: the
+        # replicas' engines own the kfserving_tpu_slo_* gauge children.
+        self.export_gauges = export_gauges
         self.objectives = dict(objectives or {})
         self.windows_s = tuple(sorted(float(w) for w in windows_s))
         self.burn_alert = float(burn_alert)
@@ -193,7 +206,7 @@ class SLOEngine:
                 "lat_total": 0.0})
 
         for registry in self.registries:
-            fam = registry.family(REQUEST_TOTAL_SERIES)
+            fam = registry.family(self.total_series)
             if fam is not None and fam.kind == "counter":
                 for labels, child in fam.samples():
                     model = labels.get("model")
@@ -206,7 +219,7 @@ class SLOEngine:
                             e["errors"] += child.value
                     except ValueError:
                         pass
-            fam = registry.family(REQUEST_LATENCY_SERIES)
+            fam = registry.family(self.latency_series)
             if fam is not None and fam.kind == "histogram":
                 for labels, hist in fam.samples():
                     model = labels.get("model")
@@ -273,17 +286,21 @@ class SLOEngine:
                         alerts and rate > self.burn_alert
                     # Rounded: 0.1/0.01 renders as 10, not
                     # 9.99999999999999, in the exposition.
-                    obs.slo_burn_rate().labels(
-                        model=model, objective=component,
-                        window=_window_label(window)).set(round(rate, 6))
+                    if self.export_gauges:
+                        obs.slo_burn_rate().labels(
+                            model=model, objective=component,
+                            window=_window_label(window)).set(
+                                round(rate, 6))
             is_alerting = any(component_alerts.values()) \
                 if component_alerts else False
             was = self._alerting.get(model, False)
             self._alerting[model] = is_alerting
-            obs.slo_alert_state().labels(model=model).set(
-                1.0 if is_alerting else 0.0)
+            if self.export_gauges:
+                obs.slo_alert_state().labels(model=model).set(
+                    1.0 if is_alerting else 0.0)
             if is_alerting and not was:
-                obs.slo_breaches_total().labels(model=model).inc()
+                if self.export_gauges:
+                    obs.slo_breaches_total().labels(model=model).inc()
                 logger.warning("SLO alert for model %s: burn rates %s "
                                "(threshold %s)", model, burn_rates,
                                self.burn_alert)

@@ -17,6 +17,14 @@ are offloaded to their mmap host params (``KFS_PARAM_CACHE``) to make
 room and fault back in on their next request; ``GET /debug/cache`` shows
 the ledger and the residency states.
 
+With ``--config_dir`` (a models.json file, or a directory holding one)
+the replica is also multi-model and runs the agent in-process: the
+watcher reads the TrainedModel config the controller writes, the puller
+downloads each model into ``--model_dir`` and loads it into the
+repository, and a removed model is unloaded.  ``--log_url`` tees every
+request and response to a CloudEvents sink (``--log_mode``
+all|request|response, ``--source_uri`` the events' source).
+
 Without ``--multi_model``, ``KFS_STANDBY`` arms standby: the server starts
 with no model and loads it on ``POST /standby/activate``.
 """
@@ -41,23 +49,66 @@ parser.add_argument("--model_dir", required=True,
 parser.add_argument("--multi_model", action="store_true",
                     help="serve a demand-paged repository of models "
                          "registered via /v2/repository/models/{name}/load")
+parser.add_argument("--config_dir", default=None,
+                    help="model-config file/dir to watch for multi-model "
+                         "serving (agent --config-dir equivalent)")
+parser.add_argument("--log_url", default=None,
+                    help="CloudEvents sink for payload logging "
+                         "(agent --log-url equivalent)")
+parser.add_argument("--log_mode", default="all",
+                    choices=["all", "request", "response"])
+parser.add_argument("--source_uri", default="",
+                    help="CloudEvents source attribute")
 parser.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, cuda:N or cpu)")
+
+
+def build_server(args) -> ModelServer:
+    """The server the flags describe, with its agent services (watcher and
+    puller, payload logger) attached; no model registered yet."""
+    cc = args.container_concurrency
+    if args.multi_model or args.config_dir:
+        repo = TorchModelRepository(models_dir=args.model_dir,
+                                    device=args.device)
+        server = ModelServer(http_port=args.http_port,
+                             registered_models=repo,
+                             container_concurrency=cc)
+    else:
+        server = ModelServer(http_port=args.http_port,
+                             container_concurrency=cc)
+    if args.config_dir:
+        import asyncio
+
+        from kfserving_tpu_torch.agent import (
+            Downloader,
+            ModelConfigWatcher,
+            Puller,
+        )
+
+        events: asyncio.Queue = asyncio.Queue()
+        watcher = ModelConfigWatcher(args.config_dir, events=events)
+        puller = Puller(server.repository, Downloader(args.model_dir),
+                        events=events)
+        server.services += [watcher, puller]
+    if args.log_url:
+        from kfserving_tpu_torch.agent import RequestLogger
+
+        request_logger = RequestLogger(
+            args.log_url, source_uri=args.source_uri,
+            log_mode=args.log_mode)
+        request_logger.attach(server)
+        server.services.append(request_logger)
+    return server
 
 
 def main(argv=None) -> None:
     args, _ = parser.parse_known_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.multi_model:
-        repo = TorchModelRepository(models_dir=args.model_dir,
-                                    device=args.device)
-        ModelServer(http_port=args.http_port, registered_models=repo,
-                    container_concurrency=args.container_concurrency
-                    ).start([])
+    server = build_server(args)
+    if args.multi_model or args.config_dir:
+        server.start([])
         return
     model = TorchModel(args.model_name, args.model_dir, device=args.device)
-    server = ModelServer(http_port=args.http_port,
-                         container_concurrency=args.container_concurrency)
     if os.environ.get("KFS_STANDBY"):
         # Recycle fast swap: imports and server setup are done; the load
         # waits for POST /standby/activate.

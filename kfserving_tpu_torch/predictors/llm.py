@@ -74,9 +74,7 @@ from kfserving_tpu_torch.engine.speculative import (
 from kfserving_tpu_torch.engine.torch_engine import resolve_device
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import create_model
-from kfserving_tpu_torch.models import weights
 from kfserving_tpu_torch.observability import metrics as obs
-from kfserving_tpu_torch.predictors.torch_model import CHECKPOINT_NAME
 from kfserving_tpu_torch.protocol import v1
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
 from kfserving_tpu_torch.storage import Storage
@@ -353,18 +351,11 @@ class GenerativeModel(Model):
         cfg.check_ported()
         self.tokenizer = build_tokenizer(cfg.tokenizer)
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
-        ckpt = os.path.join(local, CHECKPOINT_NAME)
-        state_dict = None
-        if os.path.exists(ckpt):
-            convert = weights.FLAX_CONVERTERS.get(cfg.architecture)
-            if convert is None:
-                raise InvalidInput(
-                    f"no Flax checkpoint converter for architecture "
-                    f"{cfg.architecture!r}")
-            state_dict = convert(weights.read_flax_msgpack(ckpt))
-        self.param_source = "checkpoint" if state_dict else "init"
-        module = weights.materialize(spec.module, self.device,
-                                     state_dict=state_dict)
+        # mmap-first, as the draft model below and TorchModel: a standby
+        # successor maps its predecessor's stored parameters instead of
+        # re-initializing or re-converting them.
+        module, _, self.param_source = param_cache.load_or_materialize(
+            cfg.architecture, cfg.arch_kwargs, spec, local, self.device)
         speculative, draft = self._speculative(cfg, local)
         engine = GenerationEngine(
             module, max_slots=cfg.max_slots, max_seq=cfg.max_seq,

@@ -9,7 +9,9 @@ checkpoint.msgpack) with the PyTorch port — V1 ``:predict``,
         --model_dir /path/to/model --http_port 8080 [--device cuda]
 
 With ``KFS_STANDBY`` set the server starts with no model and loads it on
-``POST /standby/activate``.
+``POST /standby/activate``.  ``--log_url`` tees every request and
+response to a CloudEvents sink (``--log_mode``, ``--source_uri``), as
+the jaxserver entry does.
 """
 
 import argparse
@@ -24,8 +26,28 @@ parser.add_argument("--model_name", default="model",
                     help="name under which the model is served")
 parser.add_argument("--model_dir", required=True,
                     help="model artifact directory (local path or file://)")
+parser.add_argument("--log_url", default=None,
+                    help="CloudEvents sink for payload logging")
+parser.add_argument("--log_mode", default="all",
+                    choices=["all", "request", "response"])
+parser.add_argument("--source_uri", default="",
+                    help="CloudEvents source attribute")
 parser.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, cuda:N or cpu)")
+
+
+def build_server(args) -> ModelServer:
+    server = ModelServer(http_port=args.http_port,
+                         container_concurrency=args.container_concurrency)
+    if args.log_url:
+        from kfserving_tpu_torch.agent import RequestLogger
+
+        request_logger = RequestLogger(
+            args.log_url, source_uri=args.source_uri,
+            log_mode=args.log_mode)
+        request_logger.attach(server)
+        server.services.append(request_logger)
+    return server
 
 
 def main(argv=None) -> None:
@@ -33,8 +55,7 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     model = GenerativeModel(args.model_name, args.model_dir,
                             device=args.device)
-    server = ModelServer(http_port=args.http_port,
-                         container_concurrency=args.container_concurrency)
+    server = build_server(args)
     if os.environ.get("KFS_STANDBY"):
         # Recycle fast swap: the load (device init, compile) waits for
         # POST /standby/activate, once the predecessor released the card.

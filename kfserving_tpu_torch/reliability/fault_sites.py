@@ -10,8 +10,20 @@ call them.
 # flaky object store, replayed by the KFS_STORAGE retry policy.
 STORAGE_DOWNLOAD = "storage.download"
 
-# DataPlane.infer, keyed by model name: an injected failure lands inside
-# the request's measured path, as a model-side failure would.
+# The agent Downloader's pull of one model, keyed by model name: injected
+# before any filesystem change, so the puller's KFS_PULLER retry policy
+# replays it like a storage flake.
+AGENT_PULL = "agent.pull"
+
+# KFServingClient's HTTP calls, keyed by URL: an injected error is a
+# refused connect, which the KFS_CLIENT retry policy replays (nothing was
+# sent).
+CLIENT_REQUEST = "client.request"
+
+# DataPlane.infer, keyed by model name (with " revision:<hash>" on a
+# replica of the in-process orchestrator, whose replicas share one
+# injector): an injected failure lands inside the request's measured path,
+# as a model-side failure would.
 DATAPLANE_INFER = "dataplane.infer"
 
 # ResidencyManager fault-in, keyed by "<model> source:cold|warm": an

@@ -6,7 +6,12 @@ Port of ``kfserving_tpu/reliability/faults.py``: a process-global
 
     storage.download        Storage.download's remote pull, keyed by
                             URI
-    dataplane.infer         DataPlane.infer, keyed by model name
+    agent.pull              the agent Downloader's model pull, keyed by
+                            model name
+    client.request          KFServingClient's HTTP calls, keyed by URL
+    dataplane.infer         DataPlane.infer, keyed by model name (and
+                            " revision:<hash>" on an in-process
+                            orchestrator's replica)
     engine.residency_swap   ResidencyManager fault-in, keyed by
                             "<model> source:cold|warm"
     engine.spec_draft       a speculative wave's draft seam, keyed by
@@ -178,6 +183,10 @@ class FaultInjector:
                               for term in spec.match.split()):
             return None
         return spec
+
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        return {site: {"calls": s.calls, "injected": s.injected}
+                for site, s in self._sites.items()}
 
     # -- injection -----------------------------------------------------------
     def _decide(self, spec: FaultSpec, site: str, key: str

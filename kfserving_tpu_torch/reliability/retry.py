@@ -1,9 +1,9 @@
 """Exponential-backoff retry with jitter and error classification.
 
-Port of ``kfserving_tpu/reliability/retry.py``, with its synchronous
-``call()`` for the storage download's edge, which runs in executor
-threads (the JAX package's ``acall()`` comes with the port's first
-asyncio edge that retries).  Retries respect the ambient request
+Port of ``kfserving_tpu/reliability/retry.py``: the synchronous
+``call()`` for edges that run in executor threads (the storage
+download) and the asynchronous ``acall()`` for event-loop edges (the
+agent's model pull, the client's connects).  Retries respect the ambient request
 ``Deadline``: once the budget is gone, the policy re-raises instead of
 sleeping toward a response nobody can use.
 
@@ -164,3 +164,27 @@ class RetryPolicy:
                 obs.retry_total().labels(
                     edge=self.name, reason=type(e).__name__).inc()
                 time.sleep(delay)
+
+    async def acall(self, fn: Callable[..., Any], *args, **kwargs
+                    ) -> Any:
+        """Async retry loop (`fn` returns an awaitable; sleeps yield
+        the event loop)."""
+        delays = self.delays_s()
+        for attempt in range(1, self.max_attempts + 1):
+            try:
+                return await fn(*args, **kwargs)
+            except BaseException as e:
+                delay = None
+                if attempt < self.max_attempts and \
+                        not self._give_up(e, attempt):
+                    delay = self._next_delay(delays)
+                if delay is None:
+                    raise
+                logger.warning(
+                    "%s: attempt %d/%d failed (%s: %s); retrying in "
+                    "%.0fms", self.name, attempt, self.max_attempts,
+                    type(e).__name__, e, delay * 1000)
+                self.retries += 1
+                obs.retry_total().labels(
+                    edge=self.name, reason=type(e).__name__).inc()
+                await asyncio.sleep(delay)

@@ -46,6 +46,12 @@ def is_v2_request(request: Any) -> bool:
 class DataPlane:
     def __init__(self, repository: ModelRepository):
         self.repository = repository
+        # The revision this replica serves, set by the in-process
+        # orchestrator: its replicas share one fault injector, so the
+        # dataplane.infer key carries " revision:<hash>" and a match can
+        # scope a fault to one revision (a replica process reads its own
+        # KFS_FAULTS instead).
+        self.revision: Optional[str] = None
 
     # -- health / metadata -------------------------------------------------
     def server_ready(self) -> bool:
@@ -133,7 +139,9 @@ class DataPlane:
         # the batcher spends a slot on it.
         model = await self.get_model(name)
         if faults.configured(fault_sites.DATAPLANE_INFER):
-            await faults.inject(fault_sites.DATAPLANE_INFER, key=name)
+            key = (name if self.revision is None
+                   else f"{name} revision:{self.revision}")
+            await faults.inject(fault_sites.DATAPLANE_INFER, key=key)
         check_deadline("dataplane.infer")
         with tracer.span("dataplane.preprocess", model=name):
             request = await model.preprocess(body)

@@ -53,8 +53,12 @@ def served(tmp_path_factory):
     variables = init_params(spec, seed=2)
     model_dir = _write_dir(str(tmp_path_factory.mktemp("gen") / "gen"),
                            CONFIG, serialization.to_bytes(variables))
-    model = GenerativeModel("gen", model_dir, device="cpu")
-    model.load()
+    # A module fixture is set up before the per-test private param cache
+    # of tests/conftest.py: this load gets a private cache of its own.
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KFS_PARAM_CACHE", str(tmp_path_factory.mktemp("params")))
+        model = GenerativeModel("gen", model_dir, device="cpu")
+        model.load()
     apply = jax.jit(spec.module.apply)
 
     def greedy_text(prompt, steps):

@@ -313,3 +313,74 @@ def test_disabled_cache_loads_without_a_host_source(tmp_path, monkeypatch):
         assert model.host_bytes() == model.engine.param_bytes() > 0
     finally:
         model.unload()
+
+
+# The generative target's load (predictors/llm.py), as the JAX one: through
+# load_or_materialize, so a second load maps the first's parameters.
+GEN_ARCH = {"num_layers": 2, "hidden_size": 64, "num_heads": 2,
+            "intermediate_size": 128, "max_seq": 64, "vocab_size": 384}
+GEN_CONFIG = {"architecture": "decoder_tiny", "arch_kwargs": GEN_ARCH,
+              "max_slots": 2, "max_seq": 64, "prefill_buckets": [16, 64],
+              "max_new_tokens": 6, "tokenizer": "byte"}
+
+
+def _cache_outcomes(registry_family):
+    return sorted((labels["outcome"], child.value)
+                  for labels, child in registry_family.samples())
+
+
+@pytest.mark.parametrize("with_checkpoint", [False, True])
+def test_generative_second_load_maps_the_target_as_jax(tmp_path, monkeypatch,
+                                                       with_checkpoint):
+    """Two GenerativeModel.load calls in one KFS_PARAM_CACHE report the
+    param_source and cache outcomes that two direct calls of the JAX
+    param_cache.load_or_materialize give for the same arch (init or
+    checkpoint, then mmap; one store, one hit), and both models generate
+    the same greedy tokens."""
+    from kfserving_tpu.observability import REGISTRY as JAX_REGISTRY
+    from kfserving_tpu.observability import metrics as jax_obs
+    from kfserving_tpu_torch.observability import REGISTRY
+    from kfserving_tpu_torch.predictors.llm import GenerativeModel
+
+    model_dir = tmp_path / "gen"
+    model_dir.mkdir()
+    (model_dir / "config.json").write_text(json.dumps(GEN_CONFIG))
+    if with_checkpoint:
+        spec = jax_create_model("decoder_tiny", **GEN_ARCH)
+        shapes = jax.eval_shape(lambda: spec.module.init(
+            jax.random.PRNGKey(0), spec.example))
+        (model_dir / "checkpoint.msgpack").write_bytes(
+            serialization.to_bytes(randomized(shapes, 3)))
+
+    monkeypatch.setenv("KFS_PARAM_CACHE", str(tmp_path / "jax-cache"))
+    JAX_REGISTRY.reset()
+    jax_spec = jax_create_model("decoder_tiny", **GEN_ARCH)
+    want = [jax_cache.load_or_materialize(
+        "decoder_tiny", GEN_ARCH, jax_spec, str(model_dir))[1]
+        for _ in range(2)]
+    want_outcomes = _cache_outcomes(jax_obs.param_cache_total())
+
+    monkeypatch.setenv("KFS_PARAM_CACHE", str(tmp_path / "port-cache"))
+    REGISTRY.reset()
+    models = [GenerativeModel("gen", str(model_dir), device="cpu")
+              for _ in range(2)]
+    try:
+        for model in models:
+            model.load()
+        got = [model.param_source for model in models]
+        got_outcomes = _cache_outcomes(obs.param_cache_total())
+
+        async def generate(model):
+            return await model.generate({
+                "text_input": "hello port",
+                "parameters": {"max_tokens": 6, "temperature": 0.0}})
+
+        answers = [asyncio.run(generate(model)) for model in models]
+    finally:
+        for model in models:
+            model.unload()
+    assert got == want == [
+        "checkpoint" if with_checkpoint else "init", "mmap"]
+    assert got_outcomes == want_outcomes
+    assert answers[0]["text_output"] == answers[1]["text_output"]
+    assert answers[0]["details"]["token_count"] == 6

@@ -4,8 +4,9 @@ upstream client against the JAX package's, on the CPU.
 One scenario runs through both control planes on the same MLP artifact
 (a two-replica service, then a 30% canary): the same answers, the same
 seeded canary split and ``x-kfs-revision`` sequence, and the same
-``/metrics`` families but for the modules that come with the next slice
-(``NOT_PORTED``).  The ring, affinity and prefix-affinity picks, the
+``/metrics`` families (``NOT_PORTED`` is empty), and the same live
+rollout at ``/v2/rollouts`` once a third revision under a ``RolloutPolicy``
+steps to 50%.  The ring, affinity and prefix-affinity picks, the
 breaker's transitions, ``merge_scrapes`` and the autoscaler's sizing are
 held against the JAX classes on one input.  Failover, timeout-no-evict,
 mid-response-no-retry, fail-fast activation and swap holds are the JAX
@@ -31,6 +32,7 @@ from examples.image_transformer import ImageTransformer as JaxTransformer
 from kfserving_tpu.control import autoscaler as jax_autoscaler
 from kfserving_tpu.control import controller as jax_controller
 from kfserving_tpu.control import orchestrator as jax_orchestrator
+from kfserving_tpu.control import rollout as jax_rollout
 from kfserving_tpu.control import router as jax_router
 from kfserving_tpu.control import spec as jax_spec
 from kfserving_tpu.models import create_model as jax_create_model
@@ -39,7 +41,7 @@ from kfserving_tpu.observability import federation as jax_federation
 from kfserving_tpu.reliability import breaker as jax_breaker
 from kfserving_tpu.reliability import brownout as jax_brownout
 from kfserving_tpu_torch.control import autoscaler, controller, orchestrator
-from kfserving_tpu_torch.control import router, spec
+from kfserving_tpu_torch.control import rollout, router, spec
 from kfserving_tpu_torch.examples.image_transformer import ImageTransformer
 from kfserving_tpu_torch.observability import REGISTRY, federation
 from kfserving_tpu_torch.reliability import breaker, brownout, faults
@@ -54,22 +56,16 @@ PACKAGES = {
                 orchestrator=jax_orchestrator, router=jax_router,
                 autoscaler=jax_autoscaler, breaker=jax_breaker,
                 brownout=jax_brownout, federation=jax_federation,
-                registry=JAX_REGISTRY),
+                registry=JAX_REGISTRY, rollout=jax_rollout),
     "torch": dict(spec=spec, controller=controller,
                   orchestrator=orchestrator, router=router,
                   autoscaler=autoscaler, breaker=breaker,
                   brownout=brownout, federation=federation,
-                  registry=REGISTRY),
+                  registry=REGISTRY, rollout=rollout),
 }
-# Families the JAX router exports that come with modules of the next
-# slice: the rollout manager's and the predictive loop's.
-NOT_PORTED = {
-    "kfserving_tpu_rollout_state", "kfserving_tpu_rollout_step_percent",
-    "kfserving_tpu_rollout_transitions_total",
-    "kfserving_tpu_rollout_quarantined",
-    "kfserving_tpu_autoscaler_decisions_total",
-    "kfserving_tpu_autoscaler_predicted_replicas",
-}
+# Families the JAX router exports that the port does not: none since the
+# rollout manager and the predictive loop were ported.
+NOT_PORTED = set()
 MLP_KWARGS = {"input_dim": 4, "features": [16], "num_classes": 5}
 # The router's federated views, and their refusals of bad parameters.
 FLEET_VIEWS = [
@@ -159,8 +155,6 @@ async def _scenario(pkg, dirs):
             status, _, body = await arequest(r.http_port, method, path,
                                              {"instances": [[0] * 4]})
             out["statuses"].append(status)
-        status, _, body = await arequest(r.http_port, "GET", "/v2/rollouts")
-        out["rollouts"] = json.loads(body)
         _, _, body = await arequest(r.http_port, "GET", "/metrics")
         out["metrics"] = body.decode()
         _, _, body = await arequest(r.http_port, "GET",
@@ -176,16 +170,60 @@ async def _scenario(pkg, dirs):
             (await arequest(r.http_port, "GET",
                             "/debug/cache"))[2])["replicas"])
         out["replica_count"] = len(r._replica_hosts())
+        out["rollouts"] = await _live_rollout(pkg, c, r, dirs[2])
     finally:
         await r.stop_async()
         await orch.shutdown()
     return out
 
 
+def _masked(value):
+    """A rollout report with its time stamps and replica hosts masked."""
+    if isinstance(value, dict):
+        return {k: "*" if k in ("ts", "started_ts", "updated_ts",
+                                "replicas") else _masked(v)
+                for k, v in value.items()}
+    if isinstance(value, list):
+        return [_masked(v) for v in value]
+    return value
+
+
+async def _live_rollout(pkg, c, r, model_dir):
+    """A third revision under a RolloutPolicy: the package's manager
+    probes its replicas' readiness over HTTP and steps it to 50%; the
+    router's /v2/rollouts then reports the live rollout."""
+    s = PACKAGES[pkg]["spec"]
+    mgr = PACKAGES[pkg]["rollout"].RolloutManager(c)
+    if pkg == "jax":
+        import aiohttp
+
+        mgr._session = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(total=2.0))
+    else:
+        from kfserving_tpu_torch.server.client import HTTPClient
+
+        mgr._http = HTTPClient(timeout=2.0, keepalive=False)
+    try:
+        await c.apply(s.InferenceService(name="mlp", predictor=s.PredictorSpec(
+            framework="jax", storage_uri=f"file://{model_dir}",
+            min_replicas=2, max_replicas=2, rollout=s.RolloutPolicy(
+                steps=[50, 100], hold_s=60.0, settle_s=0.0,
+                warmup_probes=1))))
+        await mgr.tick()
+        _, _, body = await arequest(r.http_port, "GET", "/v2/rollouts")
+        return _masked(json.loads(body))
+    finally:
+        if pkg == "jax":
+            await mgr._session.close()
+        else:
+            await mgr._http.close()
+
+
 @pytest.fixture(scope="module")
 def scenario(tmp_path_factory):
     root = tmp_path_factory.mktemp("router")
-    dirs = [_mlp_dir(root, "v1", seed=0), _mlp_dir(root, "v2", seed=1)]
+    dirs = [_mlp_dir(root, "v1", seed=0), _mlp_dir(root, "v2", seed=1),
+            _mlp_dir(root, "v3", seed=2)]
     out = {}
     # Every replica's history sampler ticks within the scenario, so its
     # families show in both scrapes.
@@ -224,7 +262,13 @@ def test_same_metric_families_as_the_jax_router(scenario):
                    "kfserving_tpu_revision_requests_total",
                    "kfserving_tpu_revision_request_ms"):
         assert family in own
-    assert scenario["torch"]["rollouts"] == scenario["jax"]["rollouts"]
+    rollouts = scenario["torch"]["rollouts"]
+    assert rollouts == scenario["jax"]["rollouts"]
+    # A live rollout, stepped once after real readiness probes.
+    [active] = rollouts["active"]
+    assert (active["phase"], active["percent"]) == ("progressing", 50)
+    assert [e["event"] for e in active["events"]] == \
+        ["started", "warmed", "step"]
 
 
 def test_same_fleet_views(scenario):

@@ -281,13 +281,17 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.observability.federation\n"
         "import importlib, pkgutil\n"
         "import kfserving_tpu_torch.control, kfserving_tpu_torch.examples\n"
+        "import kfserving_tpu_torch.agent, kfserving_tpu_torch.client\n"
         "for pkg in (kfserving_tpu_torch.control,\n"
-        "            kfserving_tpu_torch.examples):\n"
+        "            kfserving_tpu_torch.examples,\n"
+        "            kfserving_tpu_torch.agent,\n"
+        "            kfserving_tpu_torch.client):\n"
         "    for info in pkgutil.walk_packages(pkg.__path__,\n"
         "                                      pkg.__name__ + '.'):\n"
         "        importlib.import_module(info.name)\n"
         "assert 'kfserving_tpu_torch.control.subprocess_orchestrator' \\\n"
         "    in sys.modules\n"
+        "assert 'kfserving_tpu_torch.client.__main__' in sys.modules\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'aiohttp', 'msgpack', 'ml_dtypes',\n"
