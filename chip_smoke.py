@@ -174,7 +174,24 @@ failure:
    return-visit TTFT, device memory in use with one and two replica
    processes).  A replica that fails to come up is run once more in the
    foreground, its output printed;
-10. print a ``graphs`` line (per engine: the buckets held equal, capture
+10. the predictors that place no model of the zoo, after ``agent``:
+   line ``tabular`` (the xgb, lgb and pmml servers on their native
+   evaluators, over seeded artifacts at the frameworks' default sizes:
+   100 trees of depth 6 and 100 trees of 31 leaves over HIGGS's 28
+   features, a PMML TreeModel of depth 6; 64 requests of 1 and of 64
+   rows at concurrency 8 on V1 JSON and V2 binary, every answer equal
+   to the evaluator's direct predict; the sklearn server is tested on
+   the CPU only), line ``torchserver`` (KFServing's CIFAR-10 sample Net,
+   class file and seeded state dict, served with ``--device cuda``: 64
+   requests each of 1 and 16 images at concurrency 8, every answer equal
+   to the direct forward on the card and within a stated fp32 tolerance
+   of its CPU copy; one b16 forward's ms) and line ``detectors`` (the
+   RequestLogger tees the xgb server's 256 one-row requests, the last 64
+   shifted by 3 sigma in 4 features, to an outlier and a KS drift
+   detector: events sent and dropped, outlier rates, where the drift
+   verdict flips; scores and verdicts against the detectors fed
+   directly).  None of the three launches K1 or K2;
+11. print a ``graphs`` line (per engine: the buckets held equal, capture
    ms, pool bytes; compile-cache hits and misses per phase; the decode
    wave's variants, graph and eager wave ms; the residency catalog's
    warm fault and first-request ms), the ResNet arms' req/s and each
@@ -3181,30 +3198,46 @@ def percentile(values, q: float) -> float:
     return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
 
 
+async def drive_requests(port: int, requests, concurrency: int):
+    """POST (path, body, headers) requests at a fixed concurrency, each
+    on its own connection in a thread; returns ([(status, raw body)] in
+    request order, client latencies in ms, wall s)."""
+    sem = asyncio.Semaphore(concurrency)
+
+    def timed(path, body, headers):
+        t0 = time.perf_counter()
+        status, _, data = http_raw(port, "POST", path, body, headers)
+        return status, data, (time.perf_counter() - t0) * 1e3
+
+    async def one(request):
+        async with sem:
+            return await asyncio.to_thread(timed, *request)
+
+    t0 = time.perf_counter()
+    results = await asyncio.gather(*(one(r) for r in requests))
+    wall_s = time.perf_counter() - t0
+    return ([(s, d) for s, d, _ in results], [lat for _, _, lat in results],
+            wall_s)
+
+
 async def drive_images(port: int, name: str, bodies, concurrency: int):
     """POST pre-encoded bodies (V1 or V2) at a fixed concurrency; returns
     (the answers in request order, client latencies in ms, wall seconds)."""
-    sem = asyncio.Semaphore(concurrency)
-
-    async def one(path, body):
-        async with sem:
-            return await asyncio.to_thread(http_json, port, "POST", path,
-                                           body)
-
-    t0 = time.perf_counter()
-    results = await asyncio.gather(*(one(path, body)
-                                     for path, body in bodies))
-    wall_s = time.perf_counter() - t0
+    headers = {"content-type": "application/json"}
+    results, latencies, wall_s = await drive_requests(
+        port, [(path, body, headers) for path, body in bodies], concurrency)
     answers = []
-    for i, (status, resp, _) in enumerate(results):
-        check(status == 200, f"{name} request {i}: HTTP {status} {resp}")
+    for i, (status, data) in enumerate(results):
+        check(status == 200, f"{name} request {i}: HTTP {status} "
+              f"{data[:200]!r}")
+        resp = json.loads(data)
         if "predictions" in resp:                          # V1
             answers.append(int(resp["predictions"][0]))
         else:                                              # V2
             out = resp["outputs"][0]
             check(out["shape"] == [1], f"{name} V2 shape {out['shape']}")
             answers.append(int(out["data"][0]))
-    return answers, [lat for _, _, lat in results], wall_s
+    return answers, latencies, wall_s
 
 
 def image_bodies(name: str, images: np.ndarray):
@@ -3251,26 +3284,23 @@ async def drive_binary_images(port: int, name: str, images: np.ndarray,
     returns (the answers in request order, latencies in ms, wall s)."""
     from kfserving_tpu_torch.protocol.v2 import make_binary_request
 
-    bodies = [make_binary_request({"images": img[None]}) for img in images]
-    sem = asyncio.Semaphore(concurrency)
     path = f"/v2/models/{name}/infer"
-
-    async def one(body, hlen):
-        async with sem:
-            return await asyncio.to_thread(http_binary, port, path, body,
-                                           hlen)
-
-    t0 = time.perf_counter()
-    results = await asyncio.gather(*(one(b, h) for b, h in bodies))
-    wall_s = time.perf_counter() - t0
+    requests = []
+    for img in images:
+        body, hlen = make_binary_request({"images": img[None]})
+        requests.append((path, body, {
+            "content-type": "application/octet-stream",
+            "inference-header-content-length": str(hlen)}))
+    results, latencies, wall_s = await drive_requests(port, requests,
+                                                      concurrency)
     answers = []
-    for i, (status, _, data, _) in enumerate(results):
+    for i, (status, data) in enumerate(results):
         check(status == 200, f"{name} binary request {i}: HTTP {status} "
               f"{data[:200]!r}")
         out = json.loads(data)["outputs"][0]
         check(out["shape"] == [1], f"{name} binary shape {out['shape']}")
         answers.append(int(out["data"][0]))
-    return answers, [r[3] for r in results], wall_s
+    return answers, latencies, wall_s
 
 
 def check_binary_output(port: int, name: str, image: np.ndarray) -> dict:
@@ -5814,6 +5844,543 @@ def serve_agent(card: str, config: dict = RES_CONFIG,
     return summary
 
 
+# -- tabular predictors, the torchserver, payload detectors -------------------
+# Tree ensembles at the frameworks' default sizes: XGBoost's n_estimators
+# 100 and max_depth 6, LightGBM's num_leaves 31, over the 28 features of
+# HIGGS (the dataset of LightGBM's published experiments).
+TABULAR_SEED = 61
+TABULAR_TREES, TABULAR_DEPTH, TABULAR_FEATURES = 100, 6, 28
+TABULAR_LGB_LEAVES = 31
+TABULAR_PMML_DEPTH = 6
+TABULAR_REQUESTS, TABULAR_CONCURRENCY = 64, 8
+TABULAR_ROWS = (1, 64)
+# KFServing's PyTorch sample and e2e test model (docs/samples/v1alpha2/
+# pytorch/cifar10.py): the CIFAR-10 Net, 3 x 32 x 32 inputs, 10 classes.
+CIFAR10_NET = '''import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Net(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 6, 5)
+        self.pool = nn.MaxPool2d(2, 2)
+        self.conv2 = nn.Conv2d(6, 16, 5)
+        self.fc1 = nn.Linear(16 * 5 * 5, 120)
+        self.fc2 = nn.Linear(120, 84)
+        self.fc3 = nn.Linear(84, 10)
+
+    def forward(self, x):
+        x = self.pool(F.relu(self.conv1(x)))
+        x = self.pool(F.relu(self.conv2(x)))
+        x = x.view(-1, 16 * 5 * 5)
+        x = F.relu(self.fc1(x))
+        x = F.relu(self.fc2(x))
+        return self.fc3(x)
+'''
+TORCHSERVER_SEED = 67
+TORCHSERVER_BATCHES = (1, 16)
+TORCHSERVER_REQUESTS, TORCHSERVER_CONCURRENCY = 64, 8
+# The served fp32 Net on the card against its CPU copy (TF32 off).
+TORCHSERVER_RTOL, TORCHSERVER_ATOL = 1e-4, 1e-5
+# Detectors: a 2000 x 28 reference; 256 one-row requests, the last 64
+# shifted by 3 sigma in 4 features.
+DETECTOR_SEED = 71
+DETECTOR_REFERENCE = 2000
+DETECTOR_REQUESTS, DETECTOR_SHIFTED = 256, 64
+DETECTOR_SHIFT, DETECTOR_SHIFTED_FEATURES = 3.0, 4
+DETECTOR_WAIT_S = 30.0
+
+
+def xgb_ensemble(rng, trees: int = TABULAR_TREES, depth: int = TABULAR_DEPTH,
+                 features: int = TABULAR_FEATURES,
+                 objective: str = "binary:logistic") -> dict:
+    """An xgboost JSON model (``save_model``'s schema) of ``trees`` full
+    binary trees with ``depth`` levels of splits, seeded."""
+    internal, nodes = 2 ** depth - 1, 2 ** (depth + 1) - 1
+    out = []
+    for _ in range(trees):
+        feature = rng.integers(0, features, nodes)
+        feature[internal:] = 0
+        condition = rng.normal(size=nodes)
+        condition[internal:] = rng.normal(scale=0.1, size=nodes - internal)
+        out.append({
+            "split_indices": feature.tolist(),
+            "split_conditions": condition.tolist(),
+            "left_children": [2 * i + 1 if i < internal else -1
+                              for i in range(nodes)],
+            "right_children": [2 * i + 2 if i < internal else -1
+                               for i in range(nodes)],
+            "default_left": rng.integers(0, 2, nodes).tolist(),
+            "base_weights": [0.0] * nodes})
+    return {"learner": {
+        "gradient_booster": {"name": "gbtree", "model": {
+            "trees": out, "tree_info": [0] * trees}},
+        "learner_model_param": {"base_score": "0.5", "num_class": "0",
+                                "num_feature": str(features)},
+        "objective": {"name": objective}}, "version": [2, 0, 0]}
+
+
+def lgb_ensemble_text(rng, trees: int = TABULAR_TREES,
+                      leaves: int = TABULAR_LGB_LEAVES,
+                      features: int = TABULAR_FEATURES,
+                      objective: str = "binary sigmoid:1") -> str:
+    """A LightGBM text model (``save_model``'s format) of ``trees`` trees,
+    each grown to ``leaves`` leaves by splitting a random leaf a step;
+    numerical splits with NaN as the missing value; seeded."""
+    blocks = []
+    for t in range(trees):
+        feat, thresh, dtype, left, right = [], [], [], [], []
+        parent = {0: None}          # leaf -> (internal node, side)
+        for n in range(1, leaves):
+            leaf, k = int(rng.integers(0, n)), len(feat)
+            feat.append(int(rng.integers(0, features)))
+            thresh.append(float(rng.normal()))
+            # missing type NaN (2 << 2); the default-left bit at random
+            dtype.append(8 | 2 * int(rng.integers(0, 2)))
+            left.append(~leaf)
+            right.append(~n)
+            if parent[leaf] is not None:
+                node, side = parent[leaf]
+                (left if side == 0 else right)[node] = k
+            parent[leaf], parent[n] = (k, 0), (k, 1)
+        values = rng.normal(scale=0.1, size=leaves)
+        blocks.append("\n".join([
+            f"Tree={t}", f"num_leaves={leaves}", "num_cat=0",
+            "split_feature=" + " ".join(map(str, feat)),
+            "threshold=" + " ".join(map(repr, thresh)),
+            "decision_type=" + " ".join(map(str, dtype)),
+            "left_child=" + " ".join(map(str, left)),
+            "right_child=" + " ".join(map(str, right)),
+            "leaf_value=" + " ".join(map(repr, values.tolist())),
+            "shrinkage=1", ""]))
+    head = ["tree", "version=v4", "num_class=1",
+            "num_tree_per_iteration=1", "label_index=0",
+            f"max_feature_idx={features - 1}", f"objective={objective}",
+            "feature_names=" + " ".join(f"f{i}" for i in range(features)),
+            ""]
+    return "\n".join(head + blocks + ["end of trees", ""])
+
+
+def pmml_tree_xml(rng, depth: int = TABULAR_PMML_DEPTH,
+                  features: int = TABULAR_FEATURES) -> str:
+    """A PMML 4.4 TreeModel classifier: a full binary tree of ``depth``
+    levels, each split a lessThan / greaterOrEqual pair on one field,
+    each leaf a score with a two-class ScoreDistribution; seeded."""
+    names = [f"x{i}" for i in range(features)]
+
+    def node(level: int, predicate: str) -> str:
+        if level == depth:
+            counts = rng.integers(1, 100, 2)
+            return (f'<Node score="{"ab"[int(np.argmax(counts))]}">'
+                    f'{predicate}<ScoreDistribution value="a" '
+                    f'recordCount="{counts[0]}"/><ScoreDistribution '
+                    f'value="b" recordCount="{counts[1]}"/></Node>')
+        field = names[int(rng.integers(0, features))]
+        value = repr(float(rng.normal()))
+        return (f'<Node score="a">{predicate}'
+                + node(level + 1, f'<SimplePredicate field="{field}" '
+                       f'operator="lessThan" value="{value}"/>')
+                + node(level + 1, f'<SimplePredicate field="{field}" '
+                       f'operator="greaterOrEqual" value="{value}"/>')
+                + "</Node>")
+
+    fields = "".join(f'<DataField name="{n}" optype="continuous" '
+                     f'dataType="double"/>' for n in names)
+    mining = "".join(f'<MiningField name="{n}"/>' for n in names)
+    return ('<?xml version="1.0"?>\n'
+            '<PMML xmlns="http://www.dmg.org/PMML-4_4" version="4.4">'
+            f'<DataDictionary numberOfFields="{features + 1}">{fields}'
+            '<DataField name="class" optype="categorical" '
+            'dataType="string"/></DataDictionary>'
+            '<TreeModel modelName="t" functionName="classification">'
+            f'<MiningSchema>{mining}<MiningField name="class" '
+            'usageType="target"/></MiningSchema>'
+            + node(0, "<True/>") + "</TreeModel></PMML>\n")
+
+
+def write_tabular_artifacts(root: str, seed: int = TABULAR_SEED) -> dict:
+    """{server: model dir} holding the seeded xgboost, LightGBM and PMML
+    artifacts."""
+    rng = np.random.default_rng(seed)
+    files = {"xgb": ("model.json", json.dumps(xgb_ensemble(rng))),
+             "lgb": ("model.txt", lgb_ensemble_text(rng)),
+             "pmml": ("model.pmml", pmml_tree_xml(rng))}
+    dirs = {}
+    for name, (filename, text) in files.items():
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        with open(os.path.join(dirs[name], filename), "w") as f:
+            f.write(text)
+    return dirs
+
+
+def load_tabular_models(dirs: dict) -> dict:
+    """{server: (the port's predictor on its dir, loaded; the evaluator's
+    direct predict(rows) that its answers must equal)}."""
+    from kfserving_tpu_torch.predictors.lgbserver import LightGBMModel
+    from kfserving_tpu_torch.predictors.pmml_eval import (
+        PMMLModel as NativePMML,
+    )
+    from kfserving_tpu_torch.predictors.pmmlserver import PMMLModel
+    from kfserving_tpu_torch.predictors.trees import (
+        LightGBMEnsemble,
+        XGBoostEnsemble,
+    )
+    from kfserving_tpu_torch.predictors.xgbserver import XGBoostModel
+
+    xgb = XGBoostEnsemble.from_file(os.path.join(dirs["xgb"], "model.json"))
+    lgb = LightGBMEnsemble.from_file(os.path.join(dirs["lgb"], "model.txt"))
+    pmml = NativePMML(os.path.join(dirs["pmml"], "model.pmml"))
+    out = {"xgb": (XGBoostModel("xgb", dirs["xgb"]), xgb.predict),
+           "lgb": (LightGBMModel("lgb", dirs["lgb"]), lgb.predict),
+           "pmml": (PMMLModel("pmml", dirs["pmml"]),
+                    lambda rows: [list(r.values())
+                                  for r in pmml.predict(rows)])}
+    for name, (model, _) in out.items():
+        model.load()
+        # This machine has no xgboost, lightgbm or pypmml: each predictor
+        # must have taken its native evaluator.
+        check(model._native is not None,
+              f"tabular {name}: loaded through a framework library, not "
+              f"the native evaluator")
+    return out
+
+
+def latency_summary(latencies, wall_s: float) -> dict:
+    return {"req_per_s": len(latencies) / wall_s,
+            "p50_ms": percentile(latencies, 0.5),
+            "p99_ms": percentile(latencies, 0.99)}
+
+
+def tabular_requests(name: str, batches, wire: str) -> list:
+    """One request per batch of rows: V1 JSON instances, or one V2
+    binary FP32 tensor."""
+    from kfserving_tpu_torch.protocol.v2 import make_binary_request
+
+    out = []
+    for rows in batches:
+        if wire == "v1":
+            out.append((f"/v1/models/{name}:predict",
+                        json.dumps({"instances": rows.tolist()}).encode(),
+                        {"content-type": "application/json"}))
+        else:
+            body, hlen = make_binary_request({"input_0": rows})
+            out.append((f"/v2/models/{name}/infer", body,
+                        {"content-type": "application/octet-stream",
+                         "inference-header-content-length": str(hlen)}))
+    return out
+
+
+def serve_tabular(card: str) -> dict:
+    """Line "tabular": the port's xgb, lgb and pmml servers over HTTP on
+    seeded artifacts; every served answer equals its evaluator's direct
+    predict on the same rows; req/s and p50/p99 at concurrency 8 for
+    1-row and 64-row requests on V1 JSON and V2 binary, after one
+    untimed request per arm."""
+    from kfserving_tpu_torch.protocol.v2 import make_response
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    print("tabular: the sklearn server is tested on the CPU only (this "
+          "machine has no sklearn or joblib to load its artifact)",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-tabular-")
+    rng = np.random.default_rng(TABULAR_SEED + 1)
+    try:
+        models = load_tabular_models(write_tabular_artifacts(root))
+
+        async def run():
+            server = ModelServer(http_port=0)
+            await server.start_async([m for m, _ in models.values()],
+                                     host="127.0.0.1")
+            out = {}
+            try:
+                for name, (_, direct) in models.items():
+                    for rows in TABULAR_ROWS:
+                        # float32 rows: a V1 JSON body parses to float32
+                        # on the server, as the binary wire carries it.
+                        batches = [rng.normal(size=(rows, TABULAR_FEATURES))
+                                   .astype(np.float32)
+                                   for _ in range(TABULAR_REQUESTS + 1)]
+                        wants = [direct(x) for x in batches]
+                        for wire in ("v1", "v2_binary"):
+                            requests = tabular_requests(name, batches, wire)
+                            # The first request of each arm warms its
+                            # path and is not timed.
+                            first, _, _ = await drive_requests(
+                                server.http_port, requests[:1], 1)
+                            results, lat, wall = await drive_requests(
+                                server.http_port, requests[1:],
+                                TABULAR_CONCURRENCY)
+                            for i, ((status, data), want) in enumerate(
+                                    zip(first + results, wants)):
+                                check(status == 200,
+                                      f"tabular {name} {wire} request {i}: "
+                                      f"HTTP {status} {data[:200]!r}")
+                                if wire == "v1":
+                                    got = json.loads(data)["predictions"]
+                                    want = (want.tolist() if isinstance(
+                                        want, np.ndarray) else want)
+                                else:
+                                    got = json.loads(data)["outputs"][0]
+                                    want = make_response(name, {
+                                        "output_0": np.asarray(want)}
+                                    )["outputs"][0]
+                                check(got == want,
+                                      f"tabular {name} {wire} request "
+                                      f"{i}: the served answer differs "
+                                      f"from the evaluator's")
+                            out[f"{name}_{wire}_rows{rows}"] = \
+                                latency_summary(lat, wall)
+            finally:
+                await server.stop_async()
+            return out
+
+        arms = asyncio.run(run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {"card": card, "features": TABULAR_FEATURES,
+               "xgb": {"trees": TABULAR_TREES, "depth": TABULAR_DEPTH},
+               "lgb": {"trees": TABULAR_TREES,
+                       "leaves": TABULAR_LGB_LEAVES},
+               "pmml": {"depth": TABULAR_PMML_DEPTH},
+               "requests_per_arm": TABULAR_REQUESTS,
+               "concurrency": TABULAR_CONCURRENCY,
+               "evaluators": "native", "answers_equal_direct": True,
+               "arms": arms}
+    print("tabular " + json.dumps(summary), flush=True)
+    return summary
+
+
+def serve_torchserver(card: str, device: str = "cuda") -> dict:
+    """Line "torchserver": the CIFAR-10 Net of KFServing's PyTorch sample
+    (class file and seeded ``model.pt`` written here) served by the
+    port's torchserver with ``--device cuda``: its parameters on the
+    card; 64 V1 requests each of 1 and 16 images at concurrency 8 (after
+    one untimed request each), every
+    answer equal to the module called directly on the card and within
+    TORCHSERVER_RTOL / _ATOL of its CPU copy; p50/p99, req/s and one b16
+    forward's CUDA-event ms."""
+    import importlib.util
+
+    from kfserving_tpu_torch.predictors.torchserver import __main__ as ts
+
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-torchserver-")
+    try:
+        with open(os.path.join(root, "cifar10.py"), "w") as f:
+            f.write(CIFAR10_NET)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_cifar10", os.path.join(root, "cifar10.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        torch.manual_seed(TORCHSERVER_SEED)
+        cpu_net = module.Net().eval()
+        torch.save(cpu_net.state_dict(), os.path.join(root, "model.pt"))
+        args, _ = ts.parser.parse_known_args([
+            "--model_name", "cifar10", "--model_dir", root,
+            "--model_class_name", "Net", "--device", device])
+        model = ts.PyTorchModel(args.model_name, args.model_dir,
+                                args.model_class_name, device=args.device)
+        t0 = time.perf_counter()
+        model.load()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        net = model._model
+        devices = {p.device.type for p in net.parameters()}
+        check(devices == {torch.device(device).type},
+              f"torchserver: parameters on {devices}")
+        rng = np.random.default_rng(TORCHSERVER_SEED)
+
+        async def run(port):
+            out = {}
+            for b in TORCHSERVER_BATCHES:
+                images = [rng.normal(size=(b, 3, 32, 32)).astype(np.float32)
+                          for _ in range(TORCHSERVER_REQUESTS + 1)]
+                requests = [("/v1/models/cifar10:predict",
+                             json.dumps({"instances": x.tolist()}).encode(),
+                             {"content-type": "application/json"})
+                            for x in images]
+                # The first request (cuDNN's first call at this shape) is
+                # not timed.
+                first, _, _ = await drive_requests(port, requests[:1], 1)
+                results, lat, wall = await drive_requests(
+                    port, requests[1:], TORCHSERVER_CONCURRENCY)
+                results = first + results
+                worst = 0.0
+                for i, ((status, data), x) in enumerate(zip(results,
+                                                            images)):
+                    check(status == 200, f"torchserver b{b} request {i}: "
+                          f"HTTP {status} {data[:200]!r}")
+                    got = torch.tensor(json.loads(data)["predictions"],
+                                       dtype=torch.float32)
+                    batch = torch.from_numpy(x)
+                    with torch.no_grad():
+                        direct = net(batch.to(device)).cpu()
+                        plain = cpu_net(batch)
+                    check(torch.equal(got, direct),
+                          f"torchserver b{b} request {i}: the served "
+                          f"answer differs from the direct forward on the "
+                          f"card by {float((got - direct).abs().max())}")
+                    check(torch.allclose(direct, plain,
+                                         rtol=TORCHSERVER_RTOL,
+                                         atol=TORCHSERVER_ATOL),
+                          f"torchserver b{b} request {i}: the card's "
+                          f"forward differs from the CPU copy by "
+                          f"{float((direct - plain).abs().max())}")
+                    worst = max(worst, float((direct - plain).abs().max()))
+                out[f"b{b}"] = dict(latency_summary(lat, wall),
+                                    max_abs_err_vs_cpu=worst)
+            return out
+
+        arms = asyncio.run(serve_over_http(model, run))
+        batch = torch.from_numpy(rng.normal(size=(16, 3, 32, 32)).astype(
+            np.float32)).to(device)
+        with torch.no_grad():
+            forward_ms = (cuda_time_ms(lambda: net(batch))
+                          if device == "cuda" else None)
+        parameters = sum(p.numel() for p in net.parameters())
+        model.unload()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {"card": card, "model": "CIFAR-10 Net", "device": device,
+               "parameters": parameters, "load_ms": load_ms,
+               "requests_per_arm": TORCHSERVER_REQUESTS,
+               "concurrency": TORCHSERVER_CONCURRENCY,
+               "tolerance_vs_cpu": {"rtol": TORCHSERVER_RTOL,
+                                    "atol": TORCHSERVER_ATOL},
+               "arms": arms, "b16_forward_ms": forward_ms}
+    print("torchserver " + json.dumps(summary), flush=True)
+    return summary
+
+
+async def delivered(loggers, n: int) -> None:
+    """Wait until every logger has had ``n`` events answered or given up
+    on (a sink's answer means its detector scored the payload)."""
+    deadline = time.perf_counter() + DETECTOR_WAIT_S
+    while any(lg.sent + lg.failed + lg.dropped < n for lg in loggers):
+        check(time.perf_counter() < deadline,
+              f"detectors: event {n} not delivered in {DETECTOR_WAIT_S} s")
+        await asyncio.sleep(0.001)
+
+
+def serve_detectors(card: str) -> dict:
+    """Line "detectors": the port's RequestLogger tees the xgb server's
+    request payloads to an outlier and a drift detector served on a
+    second server; 256 one-row requests, the last 64 shifted by 3 sigma
+    in 4 features.  Events sent and dropped, the outlier rate on the
+    clean and shifted parts, the request after which the drift verdict
+    flips; the served outlier scores equal the detector's direct scorer,
+    and the served drift verdicts equal a detector fed the same rows
+    directly."""
+    from kfserving_tpu_torch.agent import RequestLogger
+    from kfserving_tpu_torch.detectors import KSDriftDetector, OutlierDetector
+    from kfserving_tpu_torch.predictors.xgbserver import XGBoostModel
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-detectors-")
+    rng = np.random.default_rng(DETECTOR_SEED)
+    n, clean = DETECTOR_REQUESTS, DETECTOR_REQUESTS - DETECTOR_SHIFTED
+    try:
+        dirs = write_tabular_artifacts(root)
+        ref_dir = os.path.join(root, "reference")
+        os.makedirs(ref_dir)
+        np.save(os.path.join(ref_dir, "train.npy"), rng.normal(
+            size=(DETECTOR_REFERENCE, TABULAR_FEATURES)))
+        rows = rng.normal(size=(n, TABULAR_FEATURES))
+        rows[clean:, :DETECTOR_SHIFTED_FEATURES] += DETECTOR_SHIFT
+        rows = rows.astype(np.float32)
+        xgb = XGBoostModel("xgb", dirs["xgb"])
+        od = OutlierDetector("od", ref_dir)
+        dd = KSDriftDetector("dd", ref_dir)
+        replay = KSDriftDetector("replay", ref_dir)
+        for m in (xgb, od, dd, replay):
+            m.load()
+
+        async def run():
+            det_server = ModelServer(http_port=0)
+            server = ModelServer(http_port=0)
+            await det_server.start_async([od, dd], host="127.0.0.1")
+            await server.start_async([xgb], host="127.0.0.1")
+            loggers = [RequestLogger(
+                f"http://127.0.0.1:{det_server.http_port}/v1/models/"
+                f"{name}:predict", log_mode="request",
+                inference_service="xgb") for name in ("od", "dd")]
+            verdicts, replayed = [], []
+            try:
+                for lg in loggers:
+                    await lg.start()
+                    lg.attach(server)
+                t0 = time.perf_counter()
+                for i, row in enumerate(rows):
+                    body = json.dumps({"instances": [row.tolist()]})
+                    status, _, data = await asyncio.to_thread(
+                        http_raw, server.http_port, "POST",
+                        "/v1/models/xgb:predict", body.encode(),
+                        {"content-type": "application/json"})
+                    check(status == 200, f"detectors: xgb request {i}: "
+                          f"HTTP {status} {data[:200]!r}")
+                    await delivered(loggers, i + 1)
+                    verdicts.append((dd.last_result or {}).get("drift"))
+                    direct = await replay.predict(json.loads(body))
+                    replayed.append(direct.get("drift"))
+                wall_s = time.perf_counter() - t0
+                stats = [lg.stats() for lg in loggers]
+                seen, flagged = od.seen, od.flagged
+                # The same rows straight to the outlier route.
+                status, _, data = await asyncio.to_thread(
+                    http_raw, det_server.http_port, "POST",
+                    "/v1/models/od:predict",
+                    json.dumps({"instances": rows.tolist()}).encode(),
+                    {"content-type": "application/json"})
+                check(status == 200, f"detectors: od predict HTTP {status}")
+                return (verdicts, replayed, stats, json.loads(data),
+                        seen, flagged, wall_s)
+            finally:
+                for lg in loggers:
+                    await lg.stop()
+                await server.stop_async()
+                await det_server.stop_async()
+
+        (verdicts, replayed, stats, served, seen, flagged,
+         wall_s) = asyncio.run(run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    scores = od.scorer.score(rows)
+    outlier = scores > od.threshold
+    check(served["score"] == np.round(scores, 6).tolist()
+          and served["outlier"] == outlier.astype(int).tolist(),
+          "detectors: served outlier scores differ from the direct scorer")
+    sent = sum(s["sent"] for s in stats)
+    dropped = sum(s["dropped"] for s in stats)
+    check(dropped == 0 and sum(s["failed"] for s in stats) == 0
+          and sent == 2 * n, f"detectors: logger stats {stats}")
+    # The logged payloads were scored as the direct scorer scores them.
+    check(seen == n and flagged == int(outlier.sum()),
+          f"detectors: the outlier detector saw {seen} logged rows and "
+          f"flagged {flagged}; the direct scorer flags "
+          f"{int(outlier.sum())} of {n}")
+    check(verdicts == replayed,
+          "detectors: served drift verdicts differ from a detector fed "
+          "the same rows directly")
+    flips = [i for i in range(clean, n) if verdicts[i]]
+    check(bool(flips), "detectors: no drift verdict in the shifted part")
+    summary = {"card": card, "reference_rows": DETECTOR_REFERENCE,
+               "features": TABULAR_FEATURES, "requests": n,
+               "shifted": DETECTOR_SHIFTED, "shift_sigma": DETECTOR_SHIFT,
+               "shifted_features": DETECTOR_SHIFTED_FEATURES,
+               "events_sent": sent, "events_dropped": dropped,
+               "outlier_threshold": od.threshold,
+               "outlier_rate_clean": float(outlier[:clean].mean()),
+               "outlier_rate_shifted": float(outlier[clean:].mean()),
+               "drift_window": dd.window_size,
+               "drift_verdicts_in_clean": sum(bool(v)
+                                              for v in verdicts[:clean]),
+               "drift_first_shifted_request": flips[0] + 1 - clean,
+               "wall_s": wall_s}
+    print("detectors " + json.dumps(summary), flush=True)
+    return summary
+
+
 # -- the V1 JSON codec --------------------------------------------------------
 def check_codec(card: str) -> dict:
     """The port's native codec builds here (the host C compiler against
@@ -5911,6 +6478,14 @@ def main() -> int:
         phase("recycle", serve_recycle, card)
         rolling = phase("rollout", serve_rollout, card)
         agent = phase("agent", serve_agent, card)
+        # No path of these three runs K1 or K2: counted from 0 around them.
+        reset_launches()
+        phase("tabular", serve_tabular, card)
+        phase("torchserver", serve_torchserver, card)
+        phase("detectors", serve_detectors, card)
+        host_paths = read_launches()
+        check(not any(host_paths.values()), f"tabular, torchserver and "
+              f"detectors launched K1 or K2: {host_paths}")
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read

@@ -35,9 +35,8 @@ DEFAULT_PREDICTOR_RUNTIMES = {
         "multiModel": False,
         "defaultTimeout": 300,
     },
-    # The numpy predictors keep their entries, naming the modules they
-    # will have in the port; validation refuses these frameworks until
-    # they are ported (control/validation.py UNPORTED_FRAMEWORKS).
+    # The tabular predictors (host numpy) and the torchserver (on the
+    # card), each with its own server module.
     "sklearn": {
         "module": "kfserving_tpu_torch.predictors.sklearnserver",
         "multiModel": False,

@@ -75,9 +75,10 @@ class InProcessOrchestrator:
 
     model_factory(component_id, spec) -> Model | None builds the served
     model for a replica; the default factory understands the port's
-    predictor frameworks (jax, generative, the multi-model repository)
-    and the explainers, and builds each on ``device``.  Loading runs in
-    a thread (compile/IO off the loop).
+    predictor frameworks (jax, generative, the multi-model repository,
+    the tabular predictors and pytorch) and the explainers, and builds
+    each device-placing model on ``device``.  Loading runs in a thread
+    (compile/IO off the loop).
     """
 
     def __init__(self, model_factory: Optional[Callable] = None,
@@ -360,8 +361,7 @@ def default_model_factory(component_id: str, spec, device: Any = "cuda"):
 
     component kinds map to the reference's container images (SURVEY.md
     §2.1 per-framework predictor specs); model name is the isvc name so
-    routes match /v1/models/<isvc>:predict.  The numpy frameworks have
-    no port yet (validation refuses them at apply).
+    routes match /v1/models/<isvc>:predict.
     """
     from kfserving_tpu_torch.control.spec import (
         ExplainerSpec,
@@ -416,6 +416,34 @@ def default_model_factory(component_id: str, spec, device: Any = "cuda"):
             return GenerativeModel(isvc_name, spec.storage_uri,
                                    config_overrides=overrides,
                                    device=device)
+        # The tabular predictors compute on the host; the torchserver
+        # places its module on the orchestrator's device.
+        if spec.framework == "sklearn":
+            from kfserving_tpu_torch.predictors.sklearnserver import (
+                SKLearnModel,
+            )
+
+            return SKLearnModel(isvc_name, spec.storage_uri)
+        if spec.framework == "xgboost":
+            from kfserving_tpu_torch.predictors.xgbserver import XGBoostModel
+
+            return XGBoostModel(isvc_name, spec.storage_uri)
+        if spec.framework == "lightgbm":
+            from kfserving_tpu_torch.predictors.lgbserver import (
+                LightGBMModel,
+            )
+
+            return LightGBMModel(isvc_name, spec.storage_uri)
+        if spec.framework == "pmml":
+            from kfserving_tpu_torch.predictors.pmmlserver import PMMLModel
+
+            return PMMLModel(isvc_name, spec.storage_uri)
+        if spec.framework == "pytorch":
+            from kfserving_tpu_torch.predictors.torchserver import (
+                PyTorchModel,
+            )
+
+            return PyTorchModel(isvc_name, spec.storage_uri, device=device)
         raise ValueError(
             f"in-process orchestrator cannot run framework "
             f"{spec.framework!r}")

@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional
 # Frameworks the predictor one-of accepts (reference predictor.go:33-59
 # lists 8 + custom; 'jax' is the TPU-native addition replacing triton/
 # tfserving — those artifacts convert offline; 'pytorch' serves the
-# reference's pytorchserver contract on the host CPU for migration).
+# reference's pytorchserver contract, on the card in the port).
 PREDICTOR_FRAMEWORKS = (
     "jax", "generative", "sklearn", "xgboost", "lightgbm", "pmml",
     "pytorch", "tensorflow", "triton", "onnx", "custom")

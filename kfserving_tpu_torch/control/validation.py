@@ -4,8 +4,7 @@ Reference rules (pkg/apis/serving/v1beta1/
 inference_service_validation.go:46-82 + component.go:109-176): DNS-1035
 name, exactly one predictor implementation, storage URI prefix whitelist,
 replica/concurrency bounds, logger mode enum.  TPU adds mesh-axis and
-bucket sanity; the port also refuses the frameworks and meshes it does
-not serve yet.
+bucket sanity; the port also refuses the meshes it does not serve yet.
 """
 
 from typing import List
@@ -21,11 +20,6 @@ from kfserving_tpu_torch.control.spec import (
 
 class ValidationError(ValueError):
     pass
-
-
-# Frameworks the JAX package serves that the port does not serve yet:
-# the numpy predictors come with ROADMAP Queue 1 item 7.
-UNPORTED_FRAMEWORKS = ("sklearn", "xgboost", "lightgbm", "pmml", "pytorch")
 
 
 def _rollout_errors(policy) -> List[str]:
@@ -70,11 +64,6 @@ def validate(isvc: InferenceService) -> None:
         errors.append(
             f"predictor.framework {pred.framework!r} must be one of "
             f"{PREDICTOR_FRAMEWORKS}")
-    if pred.framework in UNPORTED_FRAMEWORKS:
-        errors.append(
-            f"predictor.framework {pred.framework!r} is not served by the "
-            f"PyTorch port yet (the numpy predictors, ROADMAP Queue 1 "
-            f"item 7)")
     if pred.framework == "custom":
         if not pred.command:
             errors.append("custom predictor requires command")

@@ -8,112 +8,29 @@ in-process MonitorBus consumers and publish their verdicts per model:
     kfserving_tpu_outlier_rate{model=...}
     kfserving_tpu_monitor_alert_state{model=..., monitor=...}
 
-The math is that of ``kfserving_tpu/detectors/drift.py`` (a
-Bonferroni-corrected per-feature two-sample KS test) and
-``kfserving_tpu/detectors/outlier.py`` (Mahalanobis distance to a
-fitted Gaussian, a percentile threshold): the port has no detectors
-package yet, so this module keeps its own copy of the functions the
-monitors call.  Both monitors summarize the reference sample once and
-keep a bounded sliding window of live rows.
+The math is the detectors' (``kfserving_tpu_torch/detectors``): a
+Bonferroni-corrected per-feature two-sample KS test, and a Mahalanobis
+distance to a fitted Gaussian with a percentile threshold.  Both
+monitors summarize the reference sample once and keep a bounded sliding
+window of live rows.
 """
 
 import json
 import logging
-import math
 from collections import deque
 from typing import Any, Dict, Optional
 
 import numpy as np
 
+from kfserving_tpu_torch.detectors import (
+    MahalanobisScorer,
+    fit_threshold,
+    ks_drift_test,
+)
 from kfserving_tpu_torch.observability import metrics as obs
 from kfserving_tpu_torch.protocol.errors import InvalidInput
 
 logger = logging.getLogger("kfserving_tpu_torch.monitoring.monitors")
-
-
-# -- the detectors' math (kfserving_tpu/detectors/drift.py, outlier.py) --
-def ks_statistic(a: np.ndarray, b: np.ndarray,
-                 a_sorted: bool = False) -> float:
-    """Two-sample Kolmogorov-Smirnov statistic (max ECDF distance).
-    a_sorted=True skips re-sorting a static reference sample."""
-    a = np.asarray(a, np.float64)
-    if not a_sorted:
-        a = np.sort(a)
-    b = np.sort(np.asarray(b, np.float64))
-    grid = np.concatenate([a, b])
-    cdf_a = np.searchsorted(a, grid, side="right") / len(a)
-    cdf_b = np.searchsorted(b, grid, side="right") / len(b)
-    return float(np.abs(cdf_a - cdf_b).max())
-
-
-def ks_p_value(d: float, n: int, m: int) -> float:
-    """Asymptotic two-sample KS p-value (Kolmogorov distribution with
-    the Stephens small-sample correction, as scipy's asymp mode)."""
-    if d <= 0:
-        return 1.0
-    en = math.sqrt(n * m / (n + m))
-    lam = (en + 0.12 + 0.11 / en) * d
-    total = 0.0
-    for k in range(1, 101):
-        term = (-1) ** (k - 1) * math.exp(-2.0 * (k * lam) ** 2)
-        total += term
-        if abs(term) < 1e-10:
-            break
-    return max(0.0, min(1.0, 2.0 * total))
-
-
-def ks_drift_test(ref_sorted: np.ndarray, window: np.ndarray,
-                  reference_len: int,
-                  p_value: float) -> Dict[str, Any]:
-    """Bonferroni-corrected per-feature KS drift verdict: the drift
-    flag, per-feature p-values, the max KS statistic (the exported
-    drift score) and the corrected threshold."""
-    d = ref_sorted.shape[1]
-    stats, p_values = [], []
-    for j in range(d):
-        stat = ks_statistic(ref_sorted[:, j], window[:, j],
-                            a_sorted=True)
-        stats.append(stat)
-        p_values.append(ks_p_value(stat, reference_len, len(window)))
-    threshold = p_value / d  # Bonferroni
-    return {
-        "drift": bool(min(p_values) < threshold),
-        "score": float(max(stats)),
-        "p_values": p_values,
-        "threshold": threshold,
-        "window": len(window),
-    }
-
-
-class MahalanobisScorer:
-    """Closed-form Mahalanobis distance to a fitted Gaussian."""
-
-    def __init__(self, train: np.ndarray, regularization: float = 1e-6):
-        train = np.asarray(train, np.float64)
-        if train.ndim != 2 or len(train) < 2:
-            raise InvalidInput("outlier train data must be [m>=2, d]")
-        self.mean = train.mean(axis=0)
-        cov = np.atleast_2d(np.cov(train, rowvar=False))
-        cov += regularization * np.eye(cov.shape[0])
-        self.precision = np.linalg.inv(cov)
-
-    def score(self, batch: np.ndarray) -> np.ndarray:
-        """[n] Mahalanobis distances; rows flattened to the fitted d."""
-        x = np.asarray(batch, np.float64).reshape(len(batch), -1)
-        if x.shape[1] != self.mean.shape[0]:
-            raise InvalidInput(
-                f"instance dim {x.shape[1]} != fitted dim "
-                f"{self.mean.shape[0]}")
-        delta = x - self.mean
-        return np.sqrt(np.einsum("ni,ij,nj->n", delta, self.precision,
-                                 delta))
-
-
-def fit_threshold(scorer: MahalanobisScorer, train: np.ndarray,
-                  percentile: float = 99.5) -> float:
-    """Threshold = a percentile of the train sample's own scores."""
-    return float(np.percentile(scorer.score(
-        np.asarray(train, np.float64)), percentile))
 
 
 def event_instances(event: Dict[str, Any]) -> Optional[np.ndarray]:
@@ -181,6 +98,16 @@ class DriftMonitor(_ModelFilter):
         self.alerting = False
         self.last_result: Optional[Dict[str, Any]] = None
 
+    @classmethod
+    def from_detector(cls, detector, window: Optional[int] = None
+                      ) -> "DriftMonitor":
+        """Wrap a loaded `KSDriftDetector` (its reference and config) as
+        a streaming monitor."""
+        return cls(detector.name, detector.reference,
+                   window=window or detector.window_size,
+                   p_value=detector.p_value,
+                   test_stride=detector.test_stride)
+
     async def __call__(self, event: Dict[str, Any]) -> None:
         instances = self._instances(event)
         if instances is None or instances.shape[1] != self.dim:
@@ -245,6 +172,15 @@ class OutlierMonitor(_ModelFilter):
         self.seen = 0
         self.flagged = 0
         self.alerting = False
+
+    @classmethod
+    def from_detector(cls, detector, window: int = 128,
+                      alert_rate: float = 0.1) -> "OutlierMonitor":
+        """Wrap a loaded `OutlierDetector` (its fitted scorer and
+        threshold) as a streaming monitor."""
+        return cls(detector.name, scorer=detector.scorer,
+                   threshold=detector.threshold, window=window,
+                   alert_rate=alert_rate)
 
     async def __call__(self, event: Dict[str, Any]) -> None:
         instances = self._instances(event)

@@ -1,0 +1,32 @@
+"""``python -m kfserving_tpu_torch.predictors.sklearnserver``: serve one
+sklearn artifact directory on the host.
+
+    python -m kfserving_tpu_torch.predictors.sklearnserver \
+        --model_name iris --model_dir /path/with/model.joblib --http_port 8080
+
+Unknown arguments (the orchestrator's ``--device``) are ignored.
+"""
+
+import argparse
+import logging
+
+from kfserving_tpu_torch.predictors.sklearnserver.model import SKLearnModel
+from kfserving_tpu_torch.server.app import ModelServer, parser as server_parser
+
+parser = argparse.ArgumentParser(parents=[server_parser])
+parser.add_argument("--model_name", default="model")
+parser.add_argument("--model_dir", required=True)
+
+
+def main(argv=None) -> None:
+    args, _ = parser.parse_known_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    model = SKLearnModel(args.model_name, args.model_dir)
+    model.load()
+    ModelServer(http_port=args.http_port,
+                container_concurrency=args.container_concurrency
+                ).start([model])
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,7 @@ response in the request's framing, without the ``cloudevents`` SDK:
 import json
 import time
 import uuid
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 REQUIRED_ATTRS = ("id", "source", "specversion", "type")
 STRUCTURED_CONTENT_TYPE = "application/cloudevents+json"
@@ -117,3 +117,13 @@ def to_structured(event: CloudEvent) -> Tuple[Dict[str, str], bytes]:
         envelope["data"] = data
     return ({"content-type": STRUCTURED_CONTENT_TYPE},
             json.dumps(envelope, default=_np_default).encode("utf-8"))
+
+
+def new_event(event_type: str, source: str, data: Any,
+              extensions: Optional[Dict[str, str]] = None) -> CloudEvent:
+    """A fresh event (a new id) of ``event_type`` from ``source``."""
+    attrs = {"type": event_type, "source": source, "specversion": "1.0",
+             "id": str(uuid.uuid4())}
+    if extensions:
+        attrs.update(extensions)
+    return CloudEvent(attrs, data)

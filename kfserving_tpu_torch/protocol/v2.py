@@ -10,8 +10,14 @@ Port of ``kfserving_tpu/protocol/v2.py``:
     }
     $request_input = {"name", "shape", "datatype", "parameters"#opt, "data"}
 
-The datatypes of the V2 spec but BF16 (BOOL, UINT8-64, INT8-64, FP16-64,
-BYTES; UINT8 carries the image models' uint8 wire).
+Every datatype of the V2 spec (BOOL, UINT8-64, INT8-64, FP16-64, BF16,
+BYTES; UINT8 carries the image models' uint8 wire).  numpy has no
+bfloat16, so a BF16 tensor decodes to a ``torch.bfloat16`` tensor: its
+uint16 bit pattern viewed as bfloat16, as the param cache reads bf16
+leaves.  It encodes from such a tensor to the same JSON numbers and
+wire bytes as the JAX package's codec: the values as float32 numbers in
+JSON, the two-byte patterns on the binary wire.  ``named_numpy`` hands
+the predictors numpy arrays, a BF16 input widened exactly to float32.
 
 The HTTP **binary data extension** (the HTTP twin of the proto's
 ``raw_input_contents``): body = JSON header + the raw tensor bytes,
@@ -52,6 +58,34 @@ NUMPY_TO_DTYPES = {np.dtype(v): k for k, v in DTYPES_TO_NUMPY.items()}
 INFERENCE_HEADER_CONTENT_LENGTH = "inference-header-content-length"
 
 
+def is_bf16(arr: Any) -> bool:
+    """A ``torch.bfloat16`` tensor: how the port carries BF16."""
+    import torch
+
+    return isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16
+
+
+def bf16_bits(data: Any) -> np.ndarray:
+    """The uint16 bit patterns of BF16 data: a bf16 tensor as it is,
+    anything else (numbers) rounded to the nearest bfloat16."""
+    import torch
+
+    if is_bf16(data):
+        return data.detach().cpu().contiguous().view(
+            torch.int16).numpy().view(np.uint16)
+    values = torch.as_tensor(np.asarray(data, np.float64))
+    return values.to(torch.bfloat16).view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def bf16_tensor(bits: np.ndarray):
+    """A ``torch.bfloat16`` tensor of uint16 bit patterns."""
+    import torch
+
+    return torch.from_numpy(np.array(bits, np.uint16).view(
+        np.int16)).view(torch.bfloat16)
+
+
 def _numpy_dtype(datatype: str):
     try:
         return DTYPES_TO_NUMPY[datatype]
@@ -60,6 +94,8 @@ def _numpy_dtype(datatype: str):
 
 
 def datatype_of(arr: np.ndarray) -> str:
+    if is_bf16(arr):
+        return "BF16"
     dt = np.dtype(arr.dtype)
     if dt.kind in ("U", "S", "O"):
         return "BYTES"
@@ -102,6 +138,8 @@ def _raw_of(datatype: str, data: Any) -> bytes:
         return frame_raw_bytes(
             e if isinstance(e, bytes) else str(e).encode()
             for e in np.asarray(data, np.object_).ravel())
+    if datatype == "BF16":
+        return bf16_bits(data).tobytes()
     return np.ascontiguousarray(
         np.asarray(data, dtype=_numpy_dtype(datatype))).tobytes()
 
@@ -138,7 +176,10 @@ class InferInput:
         return int(self.parameters.get("binary_data_size") or 0)
 
     def as_numpy(self) -> np.ndarray:
-        dtype = _numpy_dtype(self.datatype)
+        """The tensor as a numpy array (BF16: a ``torch.bfloat16``
+        tensor)."""
+        bf16 = self.datatype == "BF16"
+        dtype = np.uint16 if bf16 else _numpy_dtype(self.datatype)
         if self.raw is not None:
             if self.datatype == "BYTES":
                 arr = np.array(decode_raw_bytes(bytes(self.raw)),
@@ -160,14 +201,17 @@ class InferInput:
                 f"Inference-Header-Content-Length?)")
         elif self.datatype == "BYTES":
             arr = np.array(self.data, dtype=np.object_)
+        elif bf16:
+            arr = bf16_bits(self.data)
         else:
             arr = np.asarray(self.data, dtype=dtype)
         try:
-            return arr.reshape(self.shape)
+            arr = arr.reshape(self.shape)
         except ValueError:
             raise InvalidInput(
                 f"Input {self.name}: data of size {arr.size} does not match "
                 f"shape {self.shape}")
+        return bf16_tensor(arr) if bf16 else arr
 
     def to_dict(self) -> Dict[str, Any]:
         out = {"name": self.name, "shape": self.shape,
@@ -233,7 +277,15 @@ class InferRequest:
         return req
 
     def named_numpy(self) -> Dict[str, np.ndarray]:
-        return {i.name: i.as_numpy() for i in self.inputs}
+        """Each input as a numpy array.  numpy has no bfloat16, so a BF16
+        input widens to float32 here (exactly; the JAX package's
+        evaluators and models widen their bfloat16 arrays too), where
+        ``InferInput.as_numpy`` keeps the ``torch.bfloat16`` tensor."""
+        out = {}
+        for inp in self.inputs:
+            arr = inp.as_numpy()
+            out[inp.name] = arr.float().numpy() if is_bf16(arr) else arr
+        return out
 
     def to_dict(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {"inputs": [i.to_dict() for i in self.inputs]}
@@ -254,7 +306,8 @@ def make_binary_request(tensors: Dict[str, np.ndarray],
     ``binary_output`` asks for the outputs as raw bytes too."""
     inputs, raws = [], []
     for name, arr in tensors.items():
-        arr = np.ascontiguousarray(arr)
+        if not is_bf16(arr):
+            arr = np.ascontiguousarray(arr)
         datatype = datatype_of(arr)
         raw = _raw_of(datatype, arr)
         raws.append(raw)
@@ -311,6 +364,9 @@ def decode_binary_response(body: bytes,
         offset += size
         if out["datatype"] == "BYTES":
             out["data"] = decode_raw_bytes(raw)
+        elif out["datatype"] == "BF16":
+            out["data"] = bf16_tensor(
+                np.frombuffer(raw, np.uint16).reshape(out["shape"]))
         else:
             out["data"] = np.frombuffer(
                 raw, dtype=_numpy_dtype(out["datatype"])
@@ -319,7 +375,12 @@ def decode_binary_response(body: bytes,
 
 
 def tensor_to_output(name: str, arr: np.ndarray) -> Dict[str, Any]:
-    """Encode a numpy array as a V2 response output tensor."""
+    """Encode a numpy array (or a bfloat16 tensor) as a V2 response
+    output tensor."""
+    if is_bf16(arr):
+        return {"name": name, "shape": list(arr.shape), "datatype": "BF16",
+                "data": bf16_tensor(bf16_bits(arr)).float().reshape(
+                    -1).tolist()}
     arr = np.asarray(arr)
     datatype = datatype_of(arr)
     if datatype == "BYTES":

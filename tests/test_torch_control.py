@@ -5,8 +5,8 @@ The same specs, mutations and TrainedModels go through both packages:
 spec round trips, defaults, validation messages, topology placements,
 shard packing, reconcile plans on ``FakeOrchestrator`` (replicas,
 revisions, traffic, status) and the TrainedModel flow must come out
-equal.  The port also refuses what it does not serve yet: the numpy
-frameworks and a mesh of more than one device.
+equal.  The port also refuses what it does not serve yet: a mesh of
+more than one device.
 """
 
 import asyncio
@@ -175,15 +175,23 @@ def test_validation_matches_jax(mutate):
 @pytest.mark.parametrize("framework", ["sklearn", "xgboost", "lightgbm",
                                        "pmml", "pytorch"])
 def test_validation_refuses_unported_frameworks(framework):
-    """The JAX package serves the numpy frameworks; the port refuses them
-    at apply, naming the roadmap item, instead of spawning a replica that
-    cannot start."""
-    jax_validation.validate(_isvc("jax", framework=framework))
-    with pytest.raises(validation.ValidationError,
-                       match="Queue 1 item 7") as err:
-        validation.validate(_isvc("torch", framework=framework))
-    assert repr(framework) in str(err.value)
-    assert framework in validation.UNPORTED_FRAMEWORKS
+    """The numpy frameworks and pytorch are ported: the port admits each
+    spec exactly where the JAX package does, and refuses a broken one
+    with the same errors.  No framework is refused as unported."""
+    assert not hasattr(validation, "UNPORTED_FRAMEWORKS")
+
+    def verdicts(pkg):
+        v = PACKAGES[pkg]["validation"]
+        return [_outcome(lambda kw=kw: v.validate(_isvc(
+                    pkg, framework=framework, **kw)))
+                for kw in ({}, {"storage_uri": None},
+                           {"storage_uri": "ftp://x"},
+                           {"min_replicas": -1})]
+
+    out = _both(verdicts)
+    assert out["torch"] == out["jax"]
+    assert out["torch"][0] is None     # the plain spec is admitted
+    assert all(v[0] == "raised" for v in out["torch"][1:])
 
 
 def test_validation_refuses_a_multi_device_mesh():
@@ -439,16 +447,25 @@ async def test_reconcile_attaches_the_single_device_placement():
 
 
 async def test_apply_refuses_an_unported_framework_before_any_replica():
+    """The numpy frameworks and pytorch now apply to a replica; what the
+    port does not serve (a mesh of more than one device) is still
+    refused before any replica exists."""
     orch = orchestrator.FakeOrchestrator()
     c = controller.Controller(orch)
-    with pytest.raises(validation.ValidationError, match="item 7"):
-        await c.apply(_isvc("torch", framework="sklearn"))
+    await c.apply(_isvc("torch", framework="sklearn"))
+    assert len(orch.replicas("default/svc/predictor")) == 1
+    orch = orchestrator.FakeOrchestrator()
+    c = controller.Controller(orch)
+    with pytest.raises(validation.ValidationError, match="item 9"):
+        await c.apply(_isvc("torch",
+                            parallelism=spec.ParallelismSpec(dp=2, tp=2)))
     assert orch.state == {}
 
 
 def test_default_factory_builds_port_models_on_the_given_device(tmp_path):
     """The factory's predictor models are the port's, on the device the
-    orchestrator was given; it builds none of the unported frameworks."""
+    orchestrator was given, the tabular predictors and pytorch
+    included."""
     from kfserving_tpu_torch.predictors.jaxserver.repository import (
         TorchModelRepository,
     )
@@ -471,9 +488,24 @@ def test_default_factory_builds_port_models_on_the_given_device(tmp_path):
         spec.PredictorSpec(framework="jax", multi_model=True,
                            storage_uri=str(tmp_path)))
     assert isinstance(repo, TorchModelRepository) and repo.device == "cpu"
-    with pytest.raises(ValueError, match="cannot run framework 'sklearn'"):
-        orch.model_factory("default/s/predictor",
-                           spec.PredictorSpec(framework="sklearn",
-                                              storage_uri="/x"))
+    from kfserving_tpu_torch.predictors.lgbserver import LightGBMModel
+    from kfserving_tpu_torch.predictors.pmmlserver import PMMLModel
+    from kfserving_tpu_torch.predictors.sklearnserver import SKLearnModel
+    from kfserving_tpu_torch.predictors.torchserver import PyTorchModel
+    from kfserving_tpu_torch.predictors.xgbserver import XGBoostModel
+
+    for framework, cls in (("sklearn", SKLearnModel),
+                           ("xgboost", XGBoostModel),
+                           ("lightgbm", LightGBMModel),
+                           ("pmml", PMMLModel), ("pytorch", PyTorchModel)):
+        model = orch.model_factory(
+            "default/s/predictor",
+            spec.PredictorSpec(framework=framework, storage_uri="/x"))
+        assert isinstance(model, cls) and model.name == "s"
+    assert model.device == "cpu"         # the torchserver's device
+    with pytest.raises(ValueError, match="cannot run framework 'onnx'"):
+        orch.model_factory("default/o/predictor",
+                           spec.PredictorSpec(framework="onnx",
+                                              storage_uri="/x.onnx"))
     # The default device is the card.
     assert orchestrator.InProcessOrchestrator().device == "cuda"

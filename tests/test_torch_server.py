@@ -282,16 +282,31 @@ def test_port_imports_nothing_of_jax():
         "import importlib, pkgutil\n"
         "import kfserving_tpu_torch.control, kfserving_tpu_torch.examples\n"
         "import kfserving_tpu_torch.agent, kfserving_tpu_torch.client\n"
+        "import kfserving_tpu_torch.detectors\n"
+        "import kfserving_tpu_torch.predictors\n"
+        "import kfserving_tpu_torch.protocol\n"
         "for pkg in (kfserving_tpu_torch.control,\n"
         "            kfserving_tpu_torch.examples,\n"
         "            kfserving_tpu_torch.agent,\n"
-        "            kfserving_tpu_torch.client):\n"
+        "            kfserving_tpu_torch.client,\n"
+        "            kfserving_tpu_torch.detectors,\n"
+        "            kfserving_tpu_torch.predictors,\n"
+        "            kfserving_tpu_torch.protocol):\n"
         "    for info in pkgutil.walk_packages(pkg.__path__,\n"
         "                                      pkg.__name__ + '.'):\n"
         "        importlib.import_module(info.name)\n"
         "assert 'kfserving_tpu_torch.control.subprocess_orchestrator' \\\n"
         "    in sys.modules\n"
         "assert 'kfserving_tpu_torch.client.__main__' in sys.modules\n"
+        "for name in ('detectors.__main__', 'protocol.avro',\n"
+        "             'predictors.tabular', 'predictors.trees',\n"
+        "             'predictors.pmml_eval',\n"
+        "             'predictors.sklearnserver.__main__',\n"
+        "             'predictors.xgbserver.__main__',\n"
+        "             'predictors.lgbserver.__main__',\n"
+        "             'predictors.pmmlserver.__main__',\n"
+        "             'predictors.torchserver.__main__'):\n"
+        "    assert 'kfserving_tpu_torch.' + name in sys.modules, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'aiohttp', 'msgpack', 'ml_dtypes',\n"
