@@ -191,7 +191,20 @@ failure:
    detector: events sent and dropped, outlier rates, where the drift
    verdict flips; scores and verdicts against the detectors fed
    directly).  None of the three launches K1 or K2;
-11. print a ``graphs`` line (per engine: the buckets held equal, capture
+11. line ``mesh`` (``kfserving_tpu_torch/parallel/``): NCCL's answer to
+   two ranks on one card, and a one-rank NCCL mesh's all-reduce and
+   ring exchange inside a captured CUDA graph; then, the ranks sharing
+   the card over gloo (eager: a gloo collective cannot sit in a graph),
+   BERT-base (the ``bert`` phase's config) served over HTTP under
+   {"tp": 2}, {"sp": 2} and {"dp": 2, "tp": 2}, every answer held
+   against the unsharded model's under ``agreement``, and the
+   generate_4k decoder under {"tp": 2} (16 streams of 48 tokens at
+   concurrency 8), every token the unsharded model's greedy choice
+   teacher-forced but for counted near-ties; K1 and K2 launches counted
+   on every rank (the followers report theirs), each rank's parameter
+   and KV-pool bytes beside the unsharded engine's, req/s, tokens/s and
+   TTFT as information; no follower left after each unload;
+12. print a ``graphs`` line (per engine: the buckets held equal, capture
    ms, pool bytes; compile-cache hits and misses per phase; the decode
    wave's variants, graph and eager wave ms; the residency catalog's
    warm fault and first-request ms), the ResNet arms' req/s and each
@@ -257,6 +270,10 @@ VIT_CASE = "b16 L197 bf16 (ViT-B/16)"
 # (partitions, fp32 exp).
 PAGED_FP32_TOLERANCE = 2e-5
 PAGED_MAIN_CASE = "b8 decode ~3045 bf16"
+# One rank's heads (H = 6 of 12) under the mesh phase's {"tp": 2}.
+MESH_BERT_CASE = "tp2 rank: b16 L512 bf16 H6 kv_lengths"
+MESH_PREFILL_CASE = "tp2 rank: b8 L4096 bf16 H6 causal kv_lengths"
+MESH_DECODE_CASE = "tp2 rank: b8 decode ~3045 bf16 H6"
 
 # The generate_4k configuration (benchmarks/configs.py:1891-1949): the
 # decoder at GPT-2-small width, paged 8 slots x 4096, 16 streams of 48
@@ -707,6 +724,11 @@ def check_flash_attention() -> dict:
          32, bf16, True, "ragged"),
         ("vit_tiny b16 L17 bf16 D16", 16, 4, 17, 17, 16, bf16, False, None),
         ("vit_tiny b16 L17 fp32 D16", 16, 4, 17, 17, 16, fp32, False, None),
+        # One rank's heads under {"tp": 2} (the mesh phase): BERT-base's
+        # largest bucket and the generate_4k prefill at H = 6.
+        (MESH_BERT_CASE, 16, 6, 512, 512, 64, bf16, False, "ragged"),
+        (MESH_PREFILL_CASE, 8, 6, 4096, 4096, 64, bf16, True,
+         prefill_lengths),
     ]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -767,9 +789,12 @@ def check_flash_attention() -> dict:
         results.append(row)
         del q, k, v, qt, kt, vt, out, mask
     main_row = next(r for r in results if r["case"] == PREFILL_CASE)
-    small = [{k: r[k] for k in ("case", "ms", "bound_ms", "bound_by",
-                                "plain_ms", "library_ms", "max_abs_err")}
+    keys = ("case", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "max_abs_err")
+    small = [{k: r[k] for k in keys}
              for r in results if " D32" in r["case"] or " D16" in r["case"]]
+    mesh = [{k: r[k] for k in keys} for r in results
+            if r["case"] in (MESH_BERT_CASE, MESH_PREFILL_CASE)]
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -784,6 +809,8 @@ def check_flash_attention() -> dict:
         "library_ms": main_row["library_ms"],
         # The head dims 16 and 32 (the tiny models' shapes).
         "small_head_dim_cases": small,
+        # One tp rank's heads (the mesh phase's shapes).
+        "mesh_cases": mesh,
     }
 
 
@@ -840,6 +867,9 @@ def check_paged_attention() -> dict:
         paged_case(gen, "edge rows bf16 D128", B, H, 128, BS, MB, bf16,
                    edge, edit),
         paged_case(gen, PAGED_MAIN_CASE, B, H, D, BS, MB, bf16, decode),
+        # One rank's heads of the decode wave under {"tp": 2}.
+        paged_case(gen, MESH_DECODE_CASE, B, H // 2, D, BS, MB, bf16,
+                   decode),
     ]
     results = []
     for name, args in cases:
@@ -855,7 +885,7 @@ def check_paged_attention() -> dict:
                   f"{name}: the zero-length row is not exactly 0")
         # Yardstick: SDPA over K/V gathered beforehand (the gather is not
         # timed), with a length mask.
-        d = q.shape[-1]
+        H, d = q.shape[2], q.shape[-1]
         idx = table.long().clamp_min(0)
         k_all = pool_k[idx].reshape(B, MB * BS, H, d).transpose(1, 2)
         v_all = pool_v[idx].reshape(B, MB * BS, H, d).transpose(1, 2)
@@ -878,6 +908,9 @@ def check_paged_attention() -> dict:
         results.append(row)
         del out, ref, k_all, v_all
     main_row = next(r for r in results if r["case"] == PAGED_MAIN_CASE)
+    mesh = [{k: r[k] for k in ("case", "ms", "bound_ms", "bound_by",
+                               "plain_ms", "library_ms", "max_abs_err")}
+            for r in results if r["case"] == MESH_DECODE_CASE]
     return {
         "name": "paged_attention",
         "route": "cuda",
@@ -890,6 +923,8 @@ def check_paged_attention() -> dict:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        # One tp rank's heads (the mesh phase's shape).
+        "mesh_cases": mesh,
     }
 
 
@@ -1253,23 +1288,25 @@ def check_graphs(model, buckets: int, vocab: int = 1000) -> dict:
             "pool_bytes": stats["pool_bytes"]}
 
 
-def load_model(name: str, config: dict):
+def load_model(name: str, config: dict, device: str = "cuda"):
     from kfserving_tpu_torch.predictors.torch_model import TorchModel
 
     with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
         with open(os.path.join(model_dir, "config.json"), "w") as f:
             json.dump(config, f)
-        model = TorchModel(name, model_dir, device="cuda")
+        model = TorchModel(name, model_dir, device=device)
         t0 = time.perf_counter()
         model.load()
         return model, time.perf_counter() - t0
 
 
+BERT_CONFIG = {"architecture": "bert", "seq_buckets": SEQ_BUCKETS,
+               "batch_buckets": BATCH_BUCKETS, "max_batch_size": 16,
+               "output": "topk", "topk": TOPK}
+
+
 def serve_bert(card: str) -> dict:
-    model, load_s = load_model("bert", {
-        "architecture": "bert", "seq_buckets": SEQ_BUCKETS,
-        "batch_buckets": BATCH_BUCKETS, "max_batch_size": 16,
-        "output": "topk", "topk": TOPK})
+    model, load_s = load_model("bert", BERT_CONFIG)
     cfg = model.module.config
     check((cfg.num_layers, cfg.hidden_size, cfg.num_heads)
           == (12, 768, 12), "not BERT-base")
@@ -2109,7 +2146,8 @@ def serve_observe(card: str) -> dict:
 
 
 # -- phase 4b-4e: the generator's other modes and the tiny models -------------
-def load_generative(name: str, config: dict, **extra):
+def load_generative(name: str, config: dict, device: str = "cuda",
+                    **extra):
     """A GenerativeModel of ``config`` (plus ``extra`` keys) on the card,
     loaded from a temporary directory: (model, load seconds)."""
     from kfserving_tpu_torch.predictors.llm import GenerativeModel
@@ -2117,7 +2155,7 @@ def load_generative(name: str, config: dict, **extra):
     with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
         with open(os.path.join(model_dir, "config.json"), "w") as f:
             json.dump(dict(config, **extra), f)
-        model = GenerativeModel(name, model_dir, device="cuda")
+        model = GenerativeModel(name, model_dir, device=device)
         t0 = time.perf_counter()
         model.load()
         return model, time.perf_counter() - t0
@@ -6382,6 +6420,437 @@ def serve_detectors(card: str) -> dict:
 
 
 # -- the V1 JSON codec --------------------------------------------------------
+# -- phase 11: multi-rank serving (kfserving_tpu_torch/parallel/) -----------
+# BERT-base at the bert phase's config under these meshes, and the
+# generate_4k decoder under MESH_GEN.  The card's machine has one card:
+# the ranks share it over gloo, named explicitly in each mesh block.
+MESH_BERT = ({"tp": 2}, {"sp": 2}, {"dp": 2, "tp": 2})
+MESH_GEN = {"tp": 2}
+# The BERT burst: each REQUEST_LENGTHS body this many times, at
+# MESH_CONCURRENCY requests in flight.
+MESH_BURST, MESH_CONCURRENCY = 4, 8
+# Two NCCL ranks on cuda:0, each in a process of its own: NCCL is
+# expected to refuse the pair (a duplicate GPU).
+NCCL_SAME_CARD = """
+import datetime, sys, torch, torch.distributed as dist
+rank, path = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", store=dist.FileStore(path, 2), rank=rank,
+                        world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.ones(4, device="cuda:0")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("reduced", t.tolist())
+"""
+NCCL_SAME_CARD_TIMEOUT_S = 120
+
+
+def mesh_block(sizes: dict, device: str = "cuda") -> dict:
+    """A config's mesh block: ``sizes`` with every rank on one device
+    (cuda:0 on the card), over gloo."""
+    n = math.prod(sizes.values())
+    return dict(sizes, devices=[f"{device}:0" if device == "cuda"
+                                else device] * n, backend="gloo")
+
+
+def check_nccl_same_card() -> dict:
+    """Start two NCCL ranks on cuda:0: (the outcome, exit codes, the
+    error line NCCL gave)."""
+    with tempfile.TemporaryDirectory(prefix="kfs-nccl-") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", NCCL_SAME_CARD, str(rank), store],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        outputs, codes = [], []
+        for proc in procs:
+            try:
+                out, _ = proc.communicate(timeout=NCCL_SAME_CARD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            outputs.append(out)
+            codes.append(proc.returncode)
+    lines = [ln.strip() for out in outputs for ln in out.splitlines()
+             if re.search(r"(?i)duplicate gpu|ncclInvalidUsage|nccl error",
+                          ln)]
+    refused = any(code != 0 for code in codes)
+    return {"outcome": "refused" if refused else "accepted",
+            "exit_codes": codes, "error": lines[0][:300] if lines else None}
+
+
+# A one-rank NCCL mesh on cuda:0 in a process of its own (it exits
+# without destroy_process_group, which waits on the captured graph's
+# NCCL work): the tp all-reduce and the ring exchange
+# (parallel/mesh.py) eagerly, then captured into one CUDA graph and
+# replayed, each result checked.  Prints one JSON line.
+NCCL_GRAPH = """
+import json, os, sys, time, torch, torch.distributed as dist
+from kfserving_tpu_torch.parallel.mesh import build_mesh, exchange
+mesh = build_mesh(tp=1, devices=["cuda:0"], backend="nccl")
+group = mesh.get_group("tp")
+x = torch.randn(4096, device="cuda")
+y = torch.empty_like(x)
+
+def program():
+    y.copy_(x)
+    dist.all_reduce(y, group=group)
+    (z,) = exchange([y], 0, 0, group)()
+    return z
+
+eager = program()
+torch.cuda.synchronize()
+out = {"backend": dist.get_backend(group),
+       "eager_equal": bool(torch.equal(eager, x))}
+stream = torch.cuda.Stream()
+stream.wait_stream(torch.cuda.current_stream())
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph, stream=stream):
+    z = program()
+x.copy_(torch.randn(4096, device="cuda"))
+graph.replay()
+torch.cuda.synchronize()
+out["replay_equal"] = bool(torch.equal(z, x))
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+start.record()
+for _ in range(20):
+    graph.replay()
+end.record()
+torch.cuda.synchronize()
+out["replay_ms"] = start.elapsed_time(end) / 20
+print(json.dumps(out), flush=True)
+os._exit(0)
+"""
+NCCL_GRAPH_TIMEOUT_S = 180
+
+
+def check_nccl_graph() -> dict:
+    proc = subprocess.run([sys.executable, "-c", NCCL_GRAPH],
+                          capture_output=True, text=True,
+                          timeout=NCCL_GRAPH_TIMEOUT_S, cwd=os.getcwd())
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"nccl one-rank graph: exit {proc.returncode} "
+          f"{proc.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    check(out["eager_equal"] and out["replay_equal"],
+          f"nccl one-rank all-reduce + exchange changed the data: {out}")
+    return dict(out, captured=True)
+
+
+def follower_counts(leader) -> list:
+    """Every rank's K1/K2 launch counts and bytes, rank 0 first."""
+    return [read_launches()] + [r["launches"]
+                                for r in leader.ask(("report",))]
+
+
+def reset_mesh_launches(leader) -> None:
+    reset_launches()
+    leader.ask(("reset_counts",))
+
+
+def processes_gone(pids) -> list:
+    """The pids that still exist (each should be gone)."""
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        alive.append(pid)
+    return alive
+
+
+async def mesh_bert_answers(model, bodies, burst: int) -> dict:
+    """Each body once, one at a time, then ``burst`` copies of each at
+    MESH_CONCURRENCY: (index, top-k answer) pairs, the burst's wall
+    seconds."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    port = server.http_port
+    sem = asyncio.Semaphore(MESH_CONCURRENCY)
+
+    async def predict(i):
+        async with sem:
+            status, resp, _ = await asyncio.to_thread(
+                http_json, port, "POST", f"/v1/models/{model.name}:predict",
+                {"instances": [bodies[i]]})
+        check(status == 200, f"mesh bert body {i}: HTTP {status} {resp}")
+        return i, resp["predictions"][0]
+
+    try:
+        singles = [await predict(i) for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        done = await asyncio.gather(*(predict(i) for i in range(len(bodies))
+                                      for _ in range(burst)))
+        wall_s = time.perf_counter() - t0
+    finally:
+        await server.stop_async()
+    return {"answers": singles + list(done), "wall_s": wall_s,
+            "burst_requests": len(bodies) * burst}
+
+
+def hold_bert_answers(answers, reference, bodies, vocab: int,
+                      where: str) -> dict:
+    """Every served answer against the unsharded model's answer for the
+    same body: the top-k scores under ``agreement`` over each real
+    position, the top-1 tokens' agreement share."""
+    worst_err = worst_share = 0.0
+    agree = total = 0
+    for i, pred in answers:
+        n = len(bodies[i])
+        got_v = np.asarray(pred["values"])[:n]
+        check_topk(pred["values"], pred["indices"], len(pred["values"]),
+                   vocab, f"{where} body {i}")
+        want_v = np.asarray(reference[i]["values"])[:n]
+        err, _, share = agreement(
+            torch.tensor(got_v).to(torch.bfloat16),
+            torch.tensor(want_v).to(torch.bfloat16), 0.0,
+            f"{where} body {i}")
+        worst_err, worst_share = max(worst_err, err), max(worst_share,
+                                                          share)
+        got_i = np.asarray(pred["indices"])[:n, 0]
+        want_i = np.asarray(reference[i]["indices"])[:n, 0]
+        agree += int((got_i == want_i).sum())
+        total += n
+    share_top1 = agree / total
+    check(share_top1 >= MIN_TOP1_AGREEMENT,
+          f"{where}: top-1 agreement {share_top1} < {MIN_TOP1_AGREEMENT}")
+    return {"answers": len(answers), "max_abs_err": worst_err,
+            "share_of_limit": worst_share, "top1_agreement": share_top1}
+
+
+def mesh_bert(card: str, config: dict, device: str) -> dict:
+    rng = np.random.default_rng(13)
+    ref, _ = load_model("bert", config, device)
+    cfg = ref.module.config
+    try:
+        bodies = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                  for n in REQUEST_LENGTHS]
+        run = asyncio.run(mesh_bert_answers(ref, bodies, burst=0))
+        reference = dict(run["answers"])
+        ref_bytes = ref.engine.param_bytes()
+    finally:
+        ref.unload()
+    rows = {}
+    for sizes in MESH_BERT:
+        name = json.dumps(sizes, sort_keys=True)
+        model, load_s = load_model(
+            "bert", dict(config, mesh=mesh_block(sizes, device)), device)
+        leader = model.engine._leader
+        try:
+            n_ranks = math.prod(sizes.values())
+            check(leader is not None and len(leader.pids) == n_ranks - 1,
+                  f"mesh {name}: {n_ranks - 1} followers expected")
+            # The main path's run: every rank's counts start at 0 here.
+            reset_mesh_launches(leader)
+            executed0 = model.engine.execute_count
+            run = asyncio.run(mesh_bert_answers(model, bodies, MESH_BURST))
+            batches = model.engine.execute_count - executed0
+            counts = follower_counts(leader)
+            reports = leader.ask(("report",))
+            rank_bytes = [model.engine.param_bytes()] + [
+                r["param_bytes"] for r in reports]
+            pids = leader.pids
+            held = hold_bert_answers(run["answers"], reference, bodies,
+                                     cfg.vocab_size, f"mesh {name}")
+        finally:
+            model.unload()
+        alive = processes_gone(pids)
+        check(not alive, f"mesh {name}: followers {alive} outlived the "
+              "model")
+        # Under sp the ring fold (plain torch) replaces K1.
+        want_k1 = 0 if sizes.get("sp", 1) > 1 else cfg.num_layers * batches
+        if device == "cuda":
+            check(all(c["flash_attention"] == want_k1
+                      and c["paged_attention"] == 0 for c in counts),
+                  f"mesh {name}: launches per rank {counts}, want K1 "
+                  f"{want_k1} ({batches} batches)")
+        rows[name] = {
+            "ranks": n_ranks, "devices": mesh_block(sizes, device)["devices"],
+            "backend": "gloo", "graphs": False, "load_s": load_s,
+            "batches": batches, "launches_per_rank": counts,
+            "param_bytes_per_rank": rank_bytes,
+            "unsharded_param_bytes": ref_bytes,
+            "req_per_s": run["burst_requests"] / run["wall_s"],
+            "burst_requests": run["burst_requests"], "held": held,
+            "followers_left": len(alive)}
+    return rows
+
+
+async def mesh_generate_streams(model) -> dict:
+    """The generate phase's traffic: a warm-up stream, then
+    GEN_REQUESTS streams at GEN_CONCURRENCY (the launch window is read
+    around them)."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    port = server.http_port
+    path = f"/v2/models/{model.name}/generate_stream"
+    engine = model.engine
+    leader = engine._leader
+    try:
+        status, events, _, _ = await asyncio.to_thread(
+            sse_stream, port, path,
+            {"text_input": gen_prompt(9999), "max_tokens": GEN_MAX_TOKENS})
+        check(status == 200, f"mesh warm-up stream: HTTP {status}")
+        stream_tokens(events, "mesh warm-up stream")
+        if leader is not None:
+            await asyncio.to_thread(reset_mesh_launches, leader)
+        before = engine.stats()
+        sem = asyncio.Semaphore(GEN_CONCURRENCY)
+
+        async def one(i):
+            async with sem:
+                return await asyncio.to_thread(
+                    sse_stream, port, path,
+                    {"text_input": gen_prompt(i),
+                     "max_tokens": GEN_MAX_TOKENS})
+
+        t0 = time.perf_counter()
+        streams = await asyncio.gather(*(one(i)
+                                         for i in range(GEN_REQUESTS)))
+        wall_s = time.perf_counter() - t0
+        # Every slot free: no wave is dispatched while the counts are
+        # read.
+        for _ in range(200):
+            if all(slot is None for slot in engine._slots):
+                break
+            await asyncio.sleep(0.05)
+        after = engine.stats()
+        counts = (await asyncio.to_thread(follower_counts, leader)
+                  if leader is not None else None)
+        check(engine.stats()["decode_steps"] == after["decode_steps"],
+              "mesh: a decode wave ran while the counts were read")
+    finally:
+        await server.stop_async()
+    tokens = []
+    for i, (status, events, _, _) in enumerate(streams):
+        check(status == 200, f"mesh stream {i}: HTTP {status} {events}")
+        tokens.append(stream_tokens(events, f"mesh stream {i}"))
+    ttfts = sorted(first for _, _, first, _ in streams)
+    generated = sum(len(t) for t in tokens)
+    return {"tokens": tokens, "before": before, "after": after,
+            "counts": counts, "wall_s": wall_s,
+            "tokens_per_s": generated / wall_s, "generated": generated,
+            "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+            "ttft_max_ms": ttfts[-1] * 1e3}
+
+
+def hold_greedy_tokens(module, tokenizer, streams, device: str) -> dict:
+    """Each stream's tokens against the unsharded model teacher-forced
+    over the stream's own context: every token its greedy choice but
+    for near-ties (top-2 within RESNET_TIE_RTOL of the largest |logit|),
+    counted."""
+    ties = positions = 0
+    for i, served in enumerate(streams):
+        prompt = tokenizer.encode(gen_prompt(i))
+        ids = torch.tensor([prompt + served[:-1]], device=device)
+        with torch.inference_mode():
+            logits = module(ids)[0, len(prompt) - 1:].float()
+        served_t = torch.tensor(served, device=device)
+        top = logits.max(dim=-1).values
+        gap = top - logits.gather(-1, served_t[:, None])[:, 0]
+        limit = RESNET_TIE_RTOL * logits.abs().amax(dim=-1)
+        differ = logits.argmax(dim=-1) != served_t
+        far = (differ & (gap > limit)).nonzero().flatten().tolist()
+        check(not far, f"mesh stream {i}: tokens at {far[:5]} are not the "
+              f"unsharded model's greedy choice (gaps "
+              f"{[float(gap[j]) for j in far[:5]]})")
+        ties += int(differ.sum())
+        positions += len(served)
+    return {"streams": len(streams), "positions": positions,
+            "near_ties": ties, "tie_rtol": RESNET_TIE_RTOL}
+
+
+def mesh_generate(card: str, config: dict, device: str) -> dict:
+    ref, _ = load_generative("gen4k", config, device)
+    name = json.dumps(MESH_GEN, sort_keys=True)
+    try:
+        ref_bytes = {"param_bytes": ref.engine.param_bytes(),
+                     "cache_bytes": ref.engine.cache_bytes()}
+        model, load_s = load_generative(
+            "gen4k", config, device, mesh=mesh_block(MESH_GEN, device))
+        leader = model.engine._leader
+        try:
+            check(leader is not None and len(leader.pids) == 1,
+                  f"mesh {name}: one follower expected")
+            cfg = model.module.config
+            run = asyncio.run(mesh_generate_streams(model))
+            reports = leader.ask(("report",))
+            rank_bytes = [{"param_bytes": model.engine.param_bytes(),
+                           "cache_bytes": model.engine.cache_bytes()}] + [
+                {k: r[k] for k in ("param_bytes", "cache_bytes")}
+                for r in reports]
+            pids = leader.pids
+        finally:
+            model.unload()
+        alive = processes_gone(pids)
+        check(not alive, f"mesh {name}: followers {alive} outlived the "
+              "model")
+        held = hold_greedy_tokens(ref.module, ref.tokenizer, run["tokens"],
+                                  device)
+    finally:
+        ref.unload()
+    before, after = run["before"], run["after"]
+    waves = after["decode_steps"] - before["decode_steps"]
+    prefills = after["prefills"] - before["prefills"]
+    want = {"flash_attention": cfg.num_layers * prefills,
+            "paged_attention": (cfg.num_layers * waves
+                                * after["steps_per_call"])}
+    if device == "cuda":
+        check(waves > 0 and prefills > 0
+              and all(c == want for c in run["counts"]),
+              f"mesh {name}: launches per rank {run['counts']}, want {want}"
+              f" ({prefills} prefills, {waves} waves)")
+    heads = cfg.num_heads // MESH_GEN["tp"]
+    check(all(b["cache_bytes"] * MESH_GEN["tp"] == ref_bytes["cache_bytes"]
+              for b in rank_bytes),
+          f"mesh {name}: KV pool bytes per rank {rank_bytes} are not "
+          f"1/{MESH_GEN['tp']} of {ref_bytes['cache_bytes']}")
+    return {name: {
+        "ranks": MESH_GEN["tp"],
+        "devices": mesh_block(MESH_GEN, device)["devices"],
+        "backend": "gloo", "graphs": False, "load_s": load_s,
+        "heads_per_rank": heads, "requests": GEN_REQUESTS,
+        "concurrency": GEN_CONCURRENCY, "prefills": prefills,
+        "decode_waves": waves, "launches_per_rank": run["counts"],
+        "bytes_per_rank": rank_bytes, "unsharded_bytes": ref_bytes,
+        "tokens_per_s": run["tokens_per_s"],
+        "generated_tokens": run["generated"], "wall_s": run["wall_s"],
+        "ttft_p50_ms": run["ttft_p50_ms"], "ttft_max_ms": run["ttft_max_ms"],
+        "held": held, "followers_left": len(alive)}}
+
+
+def serve_mesh(card: str, bert_config: dict = BERT_CONFIG,
+               gen_config: dict = GEN_CONFIG, device: str = "cuda") -> dict:
+    """Line ``mesh``; returns it with every rank's launches summed
+    (``launches``)."""
+    summary = {"card": card}
+    if device == "cuda":
+        summary["nccl_two_ranks_one_card"] = check_nccl_same_card()
+        summary["nccl_one_rank_graph"] = check_nccl_graph()
+    from kfserving_tpu_torch.parallel.follower import stop_forkserver
+
+    try:
+        summary["bert"] = mesh_bert(card, bert_config, device)
+        summary["generate"] = mesh_generate(card, gen_config, device)
+    finally:
+        # The followers' forkserver goes with the phase.
+        stop_forkserver()
+    rows = list(summary["bert"].values()) + list(
+        summary["generate"].values())
+    summary["launches"] = {
+        k: sum(c[k] for row in rows for c in row["launches_per_rank"] or [])
+        for k in ("flash_attention", "paged_attention")}
+    print("mesh " + json.dumps(summary), flush=True)
+    return summary
+
+
 def check_codec(card: str) -> dict:
     """The port's native codec builds here (the host C compiler against
     this interpreter's Python.h) and parses a seeded 224 x 224 x 3 uint8
@@ -6486,6 +6955,7 @@ def main() -> int:
         host_paths = read_launches()
         check(not any(host_paths.values()), f"tabular, torchserver and "
               f"detectors launched K1 or K2: {host_paths}")
+        meshes = phase("mesh", serve_mesh, card)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read
@@ -6503,8 +6973,10 @@ def main() -> int:
                               + activate["flash_launches"]
                               + rolling["flash_launches"]
                               + agent["flash_launches"]
-                              + sum(g["flash_attention"] for g in generative))
-    kernels[1]["launches"] = sum(g["paged_attention"] for g in generative)
+                              + sum(g["flash_attention"] for g in generative)
+                              + meshes["launches"]["flash_attention"])
+    kernels[1]["launches"] = (sum(g["paged_attention"] for g in generative)
+                              + meshes["launches"]["paged_attention"])
     print("graphs " + json.dumps({
         "card": card,
         "predict": {"bert": serving["graphs"], "resnet": resnet["graphs"],

@@ -4,7 +4,7 @@ Reference rules (pkg/apis/serving/v1beta1/
 inference_service_validation.go:46-82 + component.go:109-176): DNS-1035
 name, exactly one predictor implementation, storage URI prefix whitelist,
 replica/concurrency bounds, logger mode enum.  TPU adds mesh-axis and
-bucket sanity; the port also refuses the meshes it does not serve yet.
+bucket sanity.
 """
 
 from typing import List
@@ -154,18 +154,9 @@ def validate(isvc: InferenceService) -> None:
         )
 
         try:
-            placement = select_topology(pred, isvc.annotations)
+            select_topology(pred, isvc.annotations)
         except TopologyError as e:
             errors.append(str(e))
-        else:
-            # The port serves one device per replica (multi-device
-            # serving is ROADMAP Queue 1 item 9): a wider mesh is
-            # refused here, not served unsharded.
-            if placement is not None and placement.mesh_chips > 1:
-                errors.append(
-                    f"parallelism needs {placement.mesh_chips} devices "
-                    f"per replica; the PyTorch port serves one (ROADMAP "
-                    f"Queue 1 item 9)")
     if errors:
         raise ValidationError("; ".join(errors))
 

@@ -115,7 +115,24 @@ chunked prefill and its speculative decoding.
   engine's device type on the loop thread raises), and each fetch is a
   sanctioned one.
 
-Left for later: meshes and graphs for the prefill buckets.
+- **meshes** (``mesh``, a DeviceMesh of more than one rank): the module
+  is this rank's tensor-parallel shard (``parallel/sharding.py``), and
+  the KV pool shards on the heads axis as the q/k/v projections that fill
+  it do (it replicates when ``num_heads % tp`` leaves a remainder, as the
+  projections then do): cache writes, the flash prefill (K1) and the
+  paged decode (K2) run on the rank's local heads, and the all-reduce
+  after each layer's out and MLP-down projections is the only
+  collective.  The LM head stays replicated, so every rank holds the
+  same logits.  Rank 0's engine sends each prefill and decode wave to
+  the other ranks (``attach_leader``) before it runs it; their engines
+  never schedule and run what arrives (``mirror``).  Under a mesh every
+  program runs eagerly (a gloo collective cannot sit inside a CUDA
+  graph).  The paged mode with bucketed prefill, the prefix cache and
+  seeded sampling is served under a mesh; ``predictors/llm.py`` refuses
+  the other modes there.
+
+Left for later: graphs for the prefill buckets, and dense slots, chunked
+prefill, speculative decoding, the host KV tier and handoff under a mesh.
 """
 
 import asyncio
@@ -333,9 +350,16 @@ class GenerationEngine:
                  host_tier_dir: Optional[str] = None,
                  rng_seed: int = 0,
                  logprob_topk: int = 5,
-                 name: str = "decoder"):
+                 name: str = "decoder",
+                 mesh=None):
         self.module = module
         self.device = next(module.parameters()).device
+        # Programs become CUDA graphs on the card, unless the module's
+        # forward holds a mesh's collectives.
+        self._graphs = self.device.type == "cuda" and mesh is None
+        # Rank 0 of a mesh: the followers' command channel
+        # (attach_leader).
+        self._leader = None
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
         if steps_per_call < 1:
@@ -356,6 +380,9 @@ class GenerationEngine:
                 f"engine max_seq {self.max_seq} exceeds the model's "
                 f"position table {cfg.max_seq}")
         self.vocab_size = cfg.vocab_size
+        # Heads this rank holds: all of them, or its tensor-parallel
+        # share (the projections' rows say which).
+        heads = module.layers[0].query.weight.shape[0] // cfg.head_dim
         self.eos_id = eos_id
         self.name = name
         buckets = sorted(set(prefill_buckets or
@@ -389,19 +416,16 @@ class GenerationEngine:
             self.blocks_per_slot = self.max_seq // bs
             self.num_blocks = int(cache_blocks or
                                   self.max_slots * self.blocks_per_slot)
-            self._cache_shape = (self.num_blocks, bs, cfg.num_heads,
-                                 cfg.head_dim)
+            self._cache_shape = (self.num_blocks, bs, heads, cfg.head_dim)
             # NB + 1 blocks: the last is the sink no table names.
             alloc_shape = (self.num_blocks + 1,) + self._cache_shape[1:]
         else:
             check_device_shapes(module, self.device, paged=False)
             self.blocks_per_slot = 0
             self.num_blocks = 0
-            self._cache_shape = (S, self.max_seq, cfg.num_heads,
-                                 cfg.head_dim)
+            self._cache_shape = (S, self.max_seq, heads, cfg.head_dim)
             # max_seq + 1 positions: the last is the sink no query reads.
-            alloc_shape = (S, self.max_seq + 1, cfg.num_heads,
-                           cfg.head_dim)
+            alloc_shape = (S, self.max_seq + 1, heads, cfg.head_dim)
         self._cache_dtype = cfg.dtype
 
         # -- chunked prefill (paged mode only) -----------------------------
@@ -651,11 +675,11 @@ class GenerationEngine:
         # live slot's resident k/v once per token step.
         self._flops_matmul_per_token = 2.0 * sum(
             p.numel() for p in module.parameters())
-        self._attn_flops_coeff = (4.0 * cfg.num_layers * cfg.num_heads
+        self._attn_flops_coeff = (4.0 * cfg.num_layers * heads
                                   * cfg.head_dim)
         self._param_read_bytes = self.param_bytes()
         self._kv_bytes_per_token = (
-            2 * cfg.num_layers * cfg.num_heads * cfg.head_dim
+            2 * cfg.num_layers * heads * cfg.head_dim
             * torch.empty((), dtype=cfg.dtype).element_size())
         self._peak_flops = device_peak_flops(self.device)
         self._peak_hbm_bw = device_peak_hbm_bw(self.device)
@@ -670,7 +694,8 @@ class GenerationEngine:
             # the greedy wave is compiled on the enqueue thread.
             self._stream = torch.cuda.Stream(self.device)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._pool = torch.cuda.graph_pool_handle()
+            if self._graphs:
+                self._pool = torch.cuda.graph_pool_handle()
             self._enqueue_executor.submit(self._warm_greedy_wave).result()
 
     def _static_input(self, n: int) -> torch.Tensor:
@@ -837,18 +862,26 @@ class GenerationEngine:
         self._enqueue_executor.shutdown(wait=True)
         if self.kv_tier is not None:
             self.kv_tier.close()
+        self._close_leader()
 
     def shutdown_nowait(self):
         """Synchronous teardown (unload runs outside async context):
         stop admitting, let the scheduler drain, release the threads
-        without joining."""
+        without joining (under a mesh the enqueue thread is joined: its
+        dispatches' collectives finish before the followers stop)."""
         self._closed = True
         if self._wakeup is not None:
             self._wakeup.set()
         self._executor.shutdown(wait=False)
-        self._enqueue_executor.shutdown(wait=False)
+        self._enqueue_executor.shutdown(wait=self._leader is not None)
         if self.kv_tier is not None:
             self.kv_tier.close()
+        self._close_leader()
+
+    def _close_leader(self) -> None:
+        if self._leader is not None:
+            self._leader.close()
+            self._leader = None
 
     def load_gauges(self) -> Dict[str, int]:
         """Occupied slots and queued requests: a generative replica
@@ -1817,7 +1850,7 @@ class GenerationEngine:
         inputs) from its graph on the card, captured at its first
         dispatch, which runs eagerly; eagerly on the CPU.  Returns the
         program's outputs."""
-        if self.device.type != "cuda":
+        if not self._graphs:
             return fn()
         program = self._programs.get(key)
         if program is None:
@@ -1869,6 +1902,8 @@ class GenerationEngine:
             torch.Tensor]:
         """Enqueue thread: stage the wave's table and sampling arrays
         into the static input and run the wave.  Returns its outputs."""
+        if self._leader is not None:
+            self._leader.send(("wave", table, arrays, flags))
         p = self._stage_wave(table, arrays, flags)
         return self._run_program(self._wave_key(flags), lambda: self._wave(p))
 
@@ -1960,38 +1995,74 @@ class GenerationEngine:
         rec = self._prefill_bucket_tokens.setdefault(bucket, [0.0, 0.0])
         rec[0] += float(lengths[:b].sum())
         rec[1] += b_bucket * bucket
+        dest = None
+        if dest_rows is not None:
+            dest = np.full((b_bucket, bucket // self.block_size), -1,
+                           np.int64)
+            for i, row in enumerate(dest_rows):
+                dest[i, :len(row)] = row
+        arrays, flags = self._sampling_arrays(
+            list(group) + [None] * (b_bucket - b), b_bucket)
         with torch.inference_mode(), self._device_scope():
-            p = self._sampling(list(group) + [None] * (b_bucket - b),
-                               b_bucket)
-            ids_d, lengths_d = self._to_device(ids), self._to_device(lengths)
-            logits, caches = self.module(ids_d, kv_lengths=lengths_d,
-                                         return_cache=True,
-                                         logit_positions=lengths_d - 1)
-            last = logits[:, 0]
-            firsts = self._sample(last, p, lengths_d)
-            slot_d = self._to_device(slot_arr)
-            if dest_rows is not None:
-                dest = np.full((b_bucket, bucket // self.block_size), -1,
-                               np.int64)
-                for i, row in enumerate(dest_rows):
-                    dest[i, :len(row)] = row
-                dest_d = self._to_device(dest)
-                for (pk, pv), (k, v) in zip(self._caches, caches):
-                    paged_insert(pk, pv, k, v, dest_d)
+            return self._start_fetch(self._prefill_program(
+                ids, lengths, slot_arr, dest, arrays, flags, b))
+
+    def _prefill_program(self, ids: np.ndarray, lengths: np.ndarray,
+                         slot_arr: np.ndarray, dest: Optional[np.ndarray],
+                         arrays, flags, b: int) -> List[torch.Tensor]:
+        """The prefill's device work from its host arrays: the forward,
+        the k/v into the pool blocks ``dest`` (paged) or the first ``b``
+        rows' slots (dense), the first tokens and lengths into the feed
+        arrays.  Returns the tokens (and logprob arrays when asked)."""
+        if self._leader is not None:
+            self._leader.send(("prefill", ids, lengths, slot_arr, dest,
+                               arrays, flags, b))
+        bucket = ids.shape[1]
+        p = _Sampling(*(self._to_device(a) for a in arrays), *flags)
+        ids_d, lengths_d = self._to_device(ids), self._to_device(lengths)
+        logits, caches = self.module(ids_d, kv_lengths=lengths_d,
+                                     return_cache=True,
+                                     logit_positions=lengths_d - 1)
+        last = logits[:, 0]
+        firsts = self._sample(last, p, lengths_d)
+        slot_d = self._to_device(slot_arr)
+        if dest is not None:
+            dest_d = self._to_device(dest)
+            for (pk, pv), (k, v) in zip(self._caches, caches):
+                paged_insert(pk, pv, k, v, dest_d)
+        else:
+            # Dense: the real rows into their slots' first `bucket`
+            # positions (the padding rows are not written).
+            rows = slot_d[:b]
+            for (kc, vc), (k, v) in zip(self._caches, caches):
+                kc[rows, :bucket] = k[:b].to(kc.dtype)
+                vc[rows, :bucket] = v[:b].to(vc.dtype)
+        del caches
+        self._feed_tokens[slot_d] = firsts
+        self._feed_positions[slot_d] = lengths_d
+        out = [firsts]
+        if p.want_lp:
+            out += list(self._logprob_of(last, firsts))
+        return out
+
+    # -- meshes -------------------------------------------------------------
+    def attach_leader(self, leader) -> None:
+        """Rank 0 of a mesh: send each prefill and decode wave to the
+        other ranks from now on (after construction, whose greedy wave
+        every rank's engine runs for itself)."""
+        self._leader = leader
+
+    def mirror(self, command: tuple) -> None:
+        """A follower rank: run a program rank 0 dispatched, from the
+        same host inputs ("wave" or "prefill"); its outputs stay here."""
+        kind, args = command[0], command[1:]
+        with torch.inference_mode(), self._device_scope():
+            if kind == "wave":
+                self._run_wave(*args)
+            elif kind == "prefill":
+                self._prefill_program(*args)
             else:
-                # Dense: the real rows into their slots' first `bucket`
-                # positions (the padding rows are not written).
-                rows = slot_d[:b]
-                for (kc, vc), (k, v) in zip(self._caches, caches):
-                    kc[rows, :bucket] = k[:b].to(kc.dtype)
-                    vc[rows, :bucket] = v[:b].to(vc.dtype)
-            del caches
-            self._feed_tokens[slot_d] = firsts
-            self._feed_positions[slot_d] = lengths_d
-            out = [firsts]
-            if p.want_lp:
-                out += list(self._logprob_of(last, firsts))
-            return self._start_fetch(out)
+                raise ValueError(f"unknown generator command {kind!r}")
 
     # -- chunked prefill (device side) --------------------------------------
     def _enqueue_chunk(self, slot: int, act: _Active, idx: int,

@@ -56,6 +56,14 @@ says so with ``blocking_stats`` false, as the JAX engine does in its
 non-blocking mode.  The dispatch-to-result span is also an
 ``engine.execute`` event on the engine timeline's device track, and the
 fetch is a sanctioned one for the sanitizer's transfer guard.
+
+With a ``leader`` (``parallel/follower.py``: the model is sharded over a
+mesh and this process is rank 0), each dispatched batch goes to the
+followers and runs through ``run_sharded`` on every rank, one batch at a
+time (the ranks' collectives pair up in order), eagerly: a gloo
+collective cannot sit inside a CUDA graph.  Such an engine holds its
+rank's shard, has no host restore source (not offloadable, as the JAX
+engine's mesh-sharded params are not) and closes the mesh with itself.
 """
 
 import asyncio
@@ -234,8 +242,12 @@ class TorchEngine:
                  seq_buckets: Optional[BucketPolicy] = None,
                  pipeline_depth: int = 2,
                  device: Any = "cuda",
-                 host_params: Optional[Dict[str, torch.Tensor]] = None):
+                 host_params: Optional[Dict[str, torch.Tensor]] = None,
+                 leader=None):
         self.device = resolve_device(device)
+        self._leader = leader
+        if leader is not None:
+            host_params = None
         self._apply = apply_fn
         self.params = params
         self._host_params = host_params
@@ -359,7 +371,8 @@ class TorchEngine:
             padded, n = self._prepare(inputs)
             key = self._shape_key(padded)
             t1 = time.perf_counter()
-            run = self._run_on_card if self._cuda else self._run_eager
+            run = (self._run_mesh if self._leader is not None
+                   else self._run_on_card if self._cuda else self._run_eager)
             result, miss, t_transfer, t2, t3 = run(key, padded, n)
             bucket = key[0]
             span.update(batch=n, bucket=int(bucket),
@@ -423,6 +436,24 @@ class TorchEngine:
             miss = key not in self._dispatched
             self._dispatched.add(key)
         return result, miss, t_transfer, t2, t3
+
+    def _run_mesh(self, key, padded: Any, n: int):
+        """A sharded model: the followers get the padded batch, then
+        every rank runs its shard; rank 0 receives the output.  The first
+        dispatch of a bucket is its compile-cache miss."""
+        from kfserving_tpu_torch.parallel.follower import run_sharded
+
+        with self._leader.lock:
+            self._leader.send(("predict", padded))
+            t_transfer = time.perf_counter()
+            out = run_sharded(self._apply, self.params, self._leader.mesh,
+                              padded, self.device)
+            t2 = time.perf_counter()
+        result = _map(lambda t: t[:n].numpy(), out)
+        with self._stats_lock:
+            miss = key not in self._dispatched
+            self._dispatched.add(key)
+        return result, miss, t_transfer, t2, time.perf_counter()
 
     def _run_on_card(self, key, padded: Any, n: int):
         """The card: replay the bucket's graph, or compile it (a miss)."""
@@ -534,7 +565,7 @@ class TorchEngine:
                 else:
                     batch = np.stack([np.asarray(inst)] * b)
                 self._execute_sync(batch)
-                if not self._cuda:
+                if not self._cuda or self._leader is not None:
                     self.compile_count += 1
         # Warmup batches are exactly full: leaving them in the traffic
         # counters would report phantom bucket hits.
@@ -633,6 +664,8 @@ class TorchEngine:
         """Quiesce the workers and drop the model's device memory."""
         self._executor.shutdown(wait=wait)
         self._drop_programs()
+        if self._leader is not None:
+            self._leader.close()
         self.on_capture = None
         self.params = None
         self._flops_fn = None     # a bound method of the module

@@ -7,7 +7,13 @@ the tanh-approximate GELU by default, LayerNorm eps 1e-12 with fp32
 statistics, and the tied MLM decoder with fp32 logits plus ``mlm_bias``.
 
 Attention sees [B, L, H, D] tensors, so padded sequence buckets reach the
-CUDA flash kernel with their padding as per-row lengths.  Modules are
+CUDA flash kernel with their padding as per-row lengths.  Under tensor
+parallelism (``parallel/sharding.py::shard_module``) each rank holds its
+own heads and a slice of the MLP, and ``config.tp_group`` is set: the
+attention output and MLP down projections all-reduce over it
+(``row_parallel``).  Under sequence parallelism ``config.seq_shard``
+(the rank's index along ``sp``) offsets the position ids of the rank's
+sequence block.  Modules are
 built on the meta device by the registry factories and materialized by
 ``models/weights.py`` (a Flax checkpoint or a seeded init).
 """
@@ -61,6 +67,11 @@ class BertConfig:
         # Pluggable attention (q, k, v, mask) -> out, mask being the
         # broadcastable [B, 1, 1, L] key-padding mask (or None).
         self.attn_fn = attn_fn
+        # Set by parallel/sharding.py::shard_module under a mesh.
+        self.tp_group = None
+        # Under sp: this rank's block index of the sequence (its inputs
+        # are that block of every row).
+        self.seq_shard = 0
 
     @property
     def head_dim(self) -> int:
@@ -83,6 +94,31 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def row_parallel(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear(x)`` for a projection whose input dim is sharded over
+    ``group``: each rank's partial product, kept in fp32, is all-reduced,
+    the bias is added once, and the sum is rounded to x's dtype once, as
+    the unsharded product's fp32 accumulator is.  Without a group,
+    ``linear(x)``."""
+    if group is None:
+        return linear(x)
+    from kfserving_tpu_torch.parallel.mesh import all_reduce
+
+    w = linear.weight
+    if x.dtype == torch.float32:
+        y = F.linear(x, w)
+    elif x.is_cuda:
+        # bf16 operands, fp32 result (cuBLAS's accumulator, unrounded).
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = F.linear(x.float(), w.float())
+    y = all_reduce(y, group)
+    if linear.bias is not None:
+        y = y + linear.bias.float()
+    return y.to(x.dtype)
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -97,7 +133,7 @@ class BertSelfAttention(nn.Module):
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         B, L, _ = hidden.shape
-        heads = (B, L, cfg.num_heads, cfg.head_dim)
+        heads = (B, L, -1, cfg.head_dim)            # this rank's heads
         q = self.query(hidden).view(heads)          # [B, L, H, D]
         k = self.key(hidden).view(heads)
         v = self.value(hidden).view(heads)
@@ -109,12 +145,13 @@ class BertSelfAttention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, mask=attn_mask,
                                         prefix_padding=cfg.prefix_padding)
-        return self.out(out.reshape(B, L, cfg.hidden_size))
+        return row_parallel(self.out, out.reshape(B, L, -1), cfg.tp_group)
 
 
 class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
+        self.cfg = cfg
         self.gelu = "tanh" if cfg.gelu_approximate else "none"
         self.attention = BertSelfAttention(cfg)
         self.attention_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
@@ -128,7 +165,8 @@ class BertLayer(nn.Module):
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         hidden = self.attention_norm(hidden + self.attention(hidden, mask))
         mlp = F.gelu(self.intermediate(hidden), approximate=self.gelu)
-        return self.output_norm(hidden + self.output(mlp))
+        return self.output_norm(
+            hidden + row_parallel(self.output, mlp, self.cfg.tp_group))
 
 
 class BertForMaskedLM(nn.Module):
@@ -158,7 +196,8 @@ class BertForMaskedLM(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         L = input_ids.shape[1]
-        positions = torch.arange(L, device=input_ids.device)[None, :]
+        positions = torch.arange(L, device=input_ids.device)[None, :] \
+            + self.config.seq_shard * L
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         hidden = self.word_embeddings(input_ids)

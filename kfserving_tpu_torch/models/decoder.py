@@ -42,7 +42,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kfserving_tpu_torch.models.bert import LayerNorm, as_torch_dtype
+from kfserving_tpu_torch.models.bert import (
+    LayerNorm,
+    as_torch_dtype,
+    row_parallel,
+)
 from kfserving_tpu_torch.ops import dot_product_attention
 from kfserving_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -67,6 +71,10 @@ class DecoderConfig:
         # Pluggable full/prefill attention (q, k, v, mask) -> out, mask
         # the boolean [B, 1, L, L] causal (and padding) mask.
         self.attn_fn = attn_fn
+        # Set by parallel/sharding.py::shard_module under a mesh: the
+        # rank holds its heads (and its slice of the MLP), and the out
+        # and mlp_out projections all-reduce over this group.
+        self.tp_group = None
 
     @property
     def head_dim(self):
@@ -100,7 +108,7 @@ class DecoderBlock(nn.Module):
         ``_dense_step``)."""
         cfg = self.cfg
         B, L, _ = hidden.shape
-        heads = (B, L, cfg.num_heads, cfg.head_dim)
+        heads = (B, L, -1, cfg.head_dim)            # this rank's heads
         x = self.attn_norm(hidden)
         q = self.query(x).view(heads)
         k = self.key(x).view(heads)
@@ -141,9 +149,11 @@ class DecoderBlock(nn.Module):
             out = dot_product_attention(q, k, v, causal=True,
                                         kv_lengths=kv_lengths)
             new_cache = (k, v)
-        hidden = hidden + self.out(out.reshape(B, L, cfg.hidden_size))
+        hidden = hidden + row_parallel(self.out, out.reshape(B, L, -1),
+                                       cfg.tp_group)
         x = F.gelu(self.mlp_in(self.mlp_norm(hidden)), approximate="tanh")
-        return hidden + self.mlp_out(x), new_cache
+        return hidden + row_parallel(self.mlp_out, x, cfg.tp_group), \
+            new_cache
 
 
 def _paged_step(pool: torch.Tensor, table: torch.Tensor,

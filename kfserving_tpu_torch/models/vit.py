@@ -19,7 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kfserving_tpu_torch.models.bert import LayerNorm, as_torch_dtype
+from kfserving_tpu_torch.models.bert import (
+    LayerNorm,
+    as_torch_dtype,
+    row_parallel,
+)
 from kfserving_tpu_torch.models.resnet import Conv2d
 from kfserving_tpu_torch.ops import dot_product_attention
 
@@ -42,6 +46,9 @@ class ViTConfig:
         # Pluggable attention (q, k, v, mask) -> out over [B, L, H, D];
         # mask is always None here.
         self.attn_fn = attn_fn
+        # Set by parallel/sharding.py::shard_module under a tp mesh (the
+        # out and mlp_out projections all-reduce over it).
+        self.tp_group = None
 
     @property
     def head_dim(self) -> int:
@@ -70,7 +77,7 @@ class EncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, L, _ = x.shape
-        heads = (B, L, cfg.num_heads, cfg.head_dim)
+        heads = (B, L, -1, cfg.head_dim)            # this rank's heads
         y = self.norm1(x)
         q = self.query(y).view(heads)
         k = self.key(y).view(heads)
@@ -79,9 +86,9 @@ class EncoderBlock(nn.Module):
             attn = cfg.attn_fn(q, k, v, None)
         else:
             attn = dot_product_attention(q, k, v)
-        x = x + self.out(attn.reshape(B, L, cfg.hidden_size))
+        x = x + row_parallel(self.out, attn.reshape(B, L, -1), cfg.tp_group)
         y = F.gelu(self.mlp_in(self.norm2(x)), approximate="tanh")
-        return x + self.mlp_out(y)
+        return x + row_parallel(self.mlp_out, y, cfg.tp_group)
 
 
 class ViT(nn.Module):

@@ -75,6 +75,7 @@ from kfserving_tpu_torch.engine.torch_engine import resolve_device
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import create_model
 from kfserving_tpu_torch.observability import metrics as obs
+from kfserving_tpu_torch.parallel.mesh import MeshConfig
 from kfserving_tpu_torch.protocol import v1
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
 from kfserving_tpu_torch.storage import Storage
@@ -299,13 +300,32 @@ class GenerativeConfig:
         return cls(**data)
 
     def check_ported(self) -> None:
-        """Refuse what the PyTorch port does not serve yet."""
+        """Refuse what the PyTorch port does not serve yet: under a mesh
+        of more than one rank, every mode but the paged one with
+        bucketed prefill (each refused by name)."""
+        if MeshConfig.from_dict(self.mesh).num_devices <= 1:
+            return
         missing = []
-        if any(int(v) > 1 for v in self.mesh.values()):
-            missing.append("mesh (multi-device)")
+        if self.block_size is None:
+            missing.append("dense slots (set block_size)")
+        if self.prefill_chunk_tokens:
+            missing.append("chunked prefill (prefill_chunk_tokens)")
+        spec_env = os.environ.get("KFS_SPECDEC_TOKENS", "0")
+        if int((self.speculative or {}).get("tokens", 0)) > 0 or (
+                spec_env.isdigit() and int(spec_env) > 0):
+            missing.append("speculative decoding (speculative, "
+                           "KFS_SPECDEC_TOKENS)")
+        tier_env = os.environ.get("KFS_KV_TIER_BLOCKS", "0")
+        if self.host_tier_blocks or (tier_env.isdigit()
+                                     and int(tier_env) > 0):
+            missing.append("the host KV tier (host_tier_blocks, "
+                           "KFS_KV_TIER_BLOCKS)")
+        if self.host_tier_dir or os.environ.get("KFS_KV_TIER_DIR"):
+            missing.append("KV handoff (host_tier_dir, KFS_KV_TIER_DIR)")
         if missing:
-            raise InvalidInput("not supported by the PyTorch port yet: "
-                               + ", ".join(missing))
+            raise InvalidInput(
+                "not supported by the PyTorch port under a multi-device "
+                "mesh yet: " + ", ".join(missing))
 
 
 class GenerativeModel(Model):
@@ -350,25 +370,32 @@ class GenerativeModel(Model):
             self.config = cfg
         cfg.check_ported()
         self.tokenizer = build_tokenizer(cfg.tokenizer)
+        mesh_cfg = MeshConfig.from_dict(cfg.mesh)
+        if mesh_cfg.num_devices > 1 and self.engine is not None:
+            # One process group a process: the serving generation's mesh
+            # goes before the new one starts.
+            self.unload()
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
         # mmap-first, as the draft model below and TorchModel: a standby
         # successor maps its predecessor's stored parameters instead of
         # re-initializing or re-converting them.
-        module, _, self.param_source = param_cache.load_or_materialize(
-            cfg.architecture, cfg.arch_kwargs, spec, local, self.device)
-        speculative, draft = self._speculative(cfg, local)
-        engine = GenerationEngine(
-            module, max_slots=cfg.max_slots, max_seq=cfg.max_seq,
-            prefill_buckets=cfg.prefill_buckets,
-            eos_id=getattr(self.tokenizer, "eos_id", None),
-            steps_per_call=cfg.steps_per_call,
-            pipeline_depth=cfg.pipeline_depth,
-            block_size=cfg.block_size, cache_blocks=cfg.cache_blocks,
-            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
-            host_tier_blocks=cfg.host_tier_blocks,
-            host_tier_dir=cfg.host_tier_dir,
-            adaptive_depth=cfg.adaptive_depth, speculative=speculative,
-            logprob_topk=cfg.logprob_topk, name=self.name)
+        leader = (self._start_mesh(mesh_cfg, local)
+                  if mesh_cfg.num_devices > 1 else None)
+        try:
+            module, _, self.param_source = \
+                param_cache.load_or_materialize(
+                    cfg.architecture, cfg.arch_kwargs, spec, local,
+                    self.device)
+        except BaseException:
+            if leader is not None:
+                leader.close()
+            raise
+        if leader is not None:
+            engine = self._mesh_leader_engine(module, leader)
+            draft = None
+        else:
+            speculative, draft = self._speculative(cfg, local)
+            engine = self._engine(module, speculative)
         # The engine compiled its greedy wave; a variant compiled later
         # is a note after warmup.
         compile_cache.declare_warmup_complete(engine.compile_source)
@@ -397,6 +424,68 @@ class GenerativeModel(Model):
         if old is not None:
             old.shutdown_nowait()
         return True
+
+    def _engine(self, module, speculative=None, mesh=None
+                ) -> GenerationEngine:
+        cfg = self.config
+        return GenerationEngine(
+            module, max_slots=cfg.max_slots, max_seq=cfg.max_seq,
+            prefill_buckets=cfg.prefill_buckets,
+            eos_id=getattr(self.tokenizer, "eos_id", None),
+            steps_per_call=cfg.steps_per_call,
+            pipeline_depth=cfg.pipeline_depth,
+            block_size=cfg.block_size, cache_blocks=cfg.cache_blocks,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            host_tier_blocks=cfg.host_tier_blocks,
+            host_tier_dir=cfg.host_tier_dir,
+            adaptive_depth=cfg.adaptive_depth, speculative=speculative,
+            logprob_topk=cfg.logprob_topk, name=self.name, mesh=mesh)
+
+    def _start_mesh(self, mesh_cfg: MeshConfig, local: str):
+        """Start the mesh's other ranks (rank 0 is this process); they
+        load once this rank has joined."""
+        from kfserving_tpu_torch.parallel.follower import (
+            Leader,
+            mesh_devices,
+        )
+
+        cfg = self.config
+        return Leader(
+            mesh_cfg, mesh_devices(cfg.mesh, mesh_cfg.num_devices,
+                                   self.device),
+            cfg.mesh.get("backend"),
+            {"kind": "generate", "name": self.name, "local_dir": local,
+             "config": dict(vars(cfg)), "seed": 0})
+
+    def _mesh_leader_engine(self, module, leader) -> GenerationEngine:
+        """Rank 0 of a mesh (the JAX package's mesh path,
+        ``kfserving_tpu/predictors/llm.py``): keep this rank's shard,
+        build the engine (every rank's engine runs its own greedy wave
+        at construction) and hand it the followers."""
+        from kfserving_tpu_torch.parallel.sharding import shard_module
+
+        try:
+            shard_module(module, leader.join().mesh)
+            engine = self._engine(module, mesh=leader.mesh)
+            leader.wait_ready()
+        except BaseException:
+            leader.close()
+            raise
+        engine.attach_leader(leader)
+        return engine
+
+    def mesh_engine(self, local: str, mesh) -> GenerationEngine:
+        """A follower rank's load: this rank's shard and an engine over
+        it that never schedules (``GenerationEngine.mirror``)."""
+        cfg = self.config
+        self.tokenizer = build_tokenizer(cfg.tokenizer)
+        spec = create_model(cfg.architecture, **cfg.arch_kwargs)
+        module, _, self.param_source = param_cache.load_or_materialize(
+            cfg.architecture, cfg.arch_kwargs, spec, local, self.device)
+        from kfserving_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(module, mesh)
+        return self._engine(module, mesh=mesh)
 
     def _speculative(self, cfg: GenerativeConfig, local: str):
         """The engine's ``speculative`` argument and (draft module,

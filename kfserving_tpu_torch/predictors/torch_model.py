@@ -38,8 +38,20 @@ package's defaults:
       "scale": 0.00392156862,          # on-device input scaling (1/255)
       "output": "logits"|"argmax"|"topk",
       "topk": 5,
-      "mesh": {"dp": 1, "tp": 1}       # refused above one device
+      "mesh": {"dp": 1, "tp": 1, "sp": 1}  # see below
     }
+
+A ``mesh`` of more than one rank serves the model sharded (as the JAX
+package's load path does): ``tp`` shards the transformer weights
+(``parallel/sharding.py``), ``dp`` splits each batch, and ``sp`` (BERT
+only) splits each sequence and serves ring attention.  This process is
+rank 0; it starts the other ranks (``parallel/follower.py``), which load
+the same artifact and follow its batches.  The ranks run on one card
+each over NCCL, or on the CPU over gloo when the model serves on the
+CPU; the block's optional ``"devices"`` (one per rank, e.g. ``["cuda:0",
+"cuda:0"]``) and ``"backend"`` (``"gloo"`` for ranks sharing a card)
+override that.  A sharded engine runs eagerly (no CUDA graphs) and is
+not offloadable.
 """
 
 import json
@@ -62,6 +74,8 @@ from kfserving_tpu_torch.engine.torch_engine import (
 from kfserving_tpu_torch.model.model import Model
 from kfserving_tpu_torch.models import apply_fn_for, create_model
 from kfserving_tpu_torch.ops.flash_attention import check_kernel_shapes
+from kfserving_tpu_torch.parallel.mesh import MeshConfig
+from kfserving_tpu_torch.parallel.sharding import shard_bytes
 from kfserving_tpu_torch.protocol import v1
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
 from kfserving_tpu_torch.protocol.v2 import (
@@ -84,15 +98,13 @@ class TorchModelConfig:
                  input_dtype: str = "float32", scale: Optional[float] = None,
                  output: str = "logits", topk: int = 5,
                  warmup: bool = True, pipeline_depth: int = 2,
-                 mesh: Optional[Dict[str, int]] = None,
+                 mesh: Optional[Dict[str, Any]] = None,
                  **_ignored):
-        # The control plane injects `mesh` as an override; the port
-        # serves one device, so a mesh of more than one device is refused
-        # rather than silently served unsharded.
-        if any(int(v) > 1 for v in (mesh or {}).values()):
-            raise InvalidInput(
-                "not supported by the PyTorch port yet: mesh "
-                f"(multi-device) {mesh}")
+        # The control plane injects `mesh` as an override.
+        self.mesh = dict(mesh or {})
+        if any(int(v) < 1 for k, v in self.mesh.items()
+               if k in ("dp", "tp", "sp")):
+            raise InvalidInput(f"mesh axes must be >= 1, got {mesh}")
         self.architecture = architecture
         self.arch_kwargs = arch_kwargs or {}
         self.max_batch_size = max_batch_size
@@ -185,6 +197,16 @@ class TorchModel(Model):
         cfg = self._read_config()
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
         check_kernel_shapes(spec.module, self.device)
+        mesh_cfg = MeshConfig.from_dict(cfg.mesh)
+        sharded = mesh_cfg.num_devices > 1
+        if sharded and mesh_cfg.sp > 1:
+            self._check_sequence_parallel(spec, cfg)
+        if sharded and self.engine is not None:
+            # One process group a process: the serving generation's mesh
+            # goes before the new one starts (downtime).
+            self._drop_generation()
+            if self.hbm is not None:
+                self.hbm.release(self.name)
         # Reload is transactional: the new generation is built aside and
         # swapped in only on success.  Both are resident until the swap,
         # so the new one is admitted under a staging key beside the old
@@ -194,7 +216,9 @@ class TorchModel(Model):
         staging_key = f"{self.name}!staging"   # '!' is not in model names
         zero_downtime = True
         if self.hbm is not None:
-            nbytes = module_bytes(spec.module)
+            # Each rank books its own shard.
+            nbytes = (shard_bytes(spec.module, mesh_cfg) if sharded
+                      else module_bytes(spec.module))
             if old_engine is None:
                 self.hbm.admit(self.name, nbytes)
             else:
@@ -212,14 +236,28 @@ class TorchModel(Model):
             # A managed model pins its params with one restore() of the
             # mapped tensors, into one device block as every warm fault
             # places them; on a cache hit they are not copied in twice.
-            pin = self.residency is not None
-            module, host, source = param_cache.load_or_materialize(
-                cfg.architecture, cfg.arch_kwargs, spec, local_dir,
-                self.device, checkpoint_name=CHECKPOINT_NAME,
-                seed=self.init_seed, fill=not pin)
-            self.param_source = source
-            engine, batcher = self._build_engine(spec, module, host, cfg,
-                                                 pin)
+            pin = self.residency is not None and not sharded
+            # The other ranks start up while this one materializes; they
+            # load once it has joined, and map the entry it stored.
+            leader = (self._start_mesh(mesh_cfg, cfg, local_dir)
+                      if sharded else None)
+            try:
+                module, host, source = param_cache.load_or_materialize(
+                    cfg.architecture, cfg.arch_kwargs, spec, local_dir,
+                    self.device, checkpoint_name=CHECKPOINT_NAME,
+                    seed=self.init_seed, fill=not pin)
+                self.param_source = source
+                if leader is not None:
+                    self._shard(module, leader.join().mesh)
+                    leader.wait_ready()
+                    # A shard has no host restore source: not offloadable.
+                    host = None
+                engine, batcher = self._build_engine(spec, module, host,
+                                                     cfg, pin, leader)
+            except BaseException:
+                if leader is not None:
+                    leader.close()
+                raise
             if self.hbm is not None and engine.booked_bytes() != nbytes:
                 # The warmed graphs' pool joins the booking, evicting as
                 # the parameters' admission did.
@@ -254,8 +292,64 @@ class TorchModel(Model):
             self.residency.register(self.name, self)
         return True
 
-    def _build_engine(self, spec, module, host, cfg: TorchModelConfig,
-                      pin: bool = False):
+    def _check_sequence_parallel(self, spec, cfg: TorchModelConfig) -> None:
+        """sp > 1 serves ring attention through the model's attention
+        hook over sequence-sharded activations; an architecture without
+        both fails at load, never silently serving unsharded."""
+        mcfg = getattr(spec.module, "config", None)
+        if not (hasattr(mcfg, "attn_fn") and hasattr(mcfg, "seq_shard")):
+            raise InvalidInput(
+                f"architecture {cfg.architecture!r} does not support "
+                f"sequence parallelism (no pluggable attention hook over "
+                f"a sequence-sharded input)")
+
+    def _start_mesh(self, mesh_cfg: MeshConfig, cfg: TorchModelConfig,
+                    local_dir: str):
+        """Start the mesh's other ranks (rank 0 is this process)."""
+        from kfserving_tpu_torch.parallel.follower import (
+            Leader,
+            mesh_devices,
+        )
+
+        devices = mesh_devices(cfg.mesh, mesh_cfg.num_devices, self.device)
+        return Leader(mesh_cfg, devices, cfg.mesh.get("backend"),
+                      {"kind": "predict", "name": self.name,
+                       "local_dir": local_dir, "config": dict(vars(cfg)),
+                       "seed": self.init_seed})
+
+    @staticmethod
+    def _shard(module, mesh) -> None:
+        """Keep this rank's shard of the module; under sp, serve ring
+        attention through its hook (the JAX package rebuilds the module
+        with the hook; here the live module's config takes it) over the
+        rank's sequence block."""
+        from kfserving_tpu_torch.parallel.mesh import axis_index, axis_sizes
+        from kfserving_tpu_torch.parallel.ring_attention import (
+            ring_attention_sharded,
+        )
+        from kfserving_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(module, mesh)
+        if axis_sizes(mesh).get("sp", 1) > 1:
+            module.config.attn_fn = ring_attention_sharded(mesh)
+            module.config.seq_shard = axis_index(mesh, "sp")
+
+    def mesh_shard(self, mesh):
+        """A follower rank's load: (serve function, this rank's shard
+        of the module), from the artifact's directory (``model_dir`` is
+        the rank 0's local copy) and the given config."""
+        cfg = self._read_config()
+        spec = create_model(cfg.architecture, **cfg.arch_kwargs)
+        check_kernel_shapes(spec.module, self.device)
+        module, _, self.param_source = param_cache.load_or_materialize(
+            cfg.architecture, cfg.arch_kwargs, spec, self.model_dir,
+            self.device, checkpoint_name=CHECKPOINT_NAME,
+            seed=self.init_seed)
+        self._shard(module, mesh)
+        return self._serve_fn(spec, cfg), module
+
+    @staticmethod
+    def _serve_fn(spec, cfg: TorchModelConfig):
         base_apply = apply_fn_for(spec)
         # The JAX package computes x.astype(bf16) * scale with the weakly
         # typed scale rounded to bf16, and XLA keeps the product in fp32
@@ -277,7 +371,11 @@ class TorchModel(Model):
                 return {"values": vals.float(),
                         "indices": idx.to(torch.int32)}
             return out
+        return serve_fn
 
+    def _build_engine(self, spec, module, host, cfg: TorchModelConfig,
+                      pin: bool = False, leader=None):
+        serve_fn = self._serve_fn(spec, cfg)
         seq_buckets = (BucketPolicy(cfg.seq_buckets)
                        if cfg.seq_buckets else None)
         engine = TorchEngine(
@@ -287,7 +385,7 @@ class TorchModel(Model):
                            else BucketPolicy.pow2(cfg.max_batch_size)),
             seq_buckets=seq_buckets,
             pipeline_depth=cfg.pipeline_depth,
-            device=self.device, host_params=host)
+            device=self.device, host_params=host, leader=leader)
         if self.hbm is not None and self.device.type == "cuda":
             self.hbm.set_shared("cublas_workspace", graphs.workspace_bytes[
                 self.device.index if self.device.index is not None

@@ -5,8 +5,9 @@ The same specs, mutations and TrainedModels go through both packages:
 spec round trips, defaults, validation messages, topology placements,
 shard packing, reconcile plans on ``FakeOrchestrator`` (replicas,
 revisions, traffic, status) and the TrainedModel flow must come out
-equal.  The port also refuses what it does not serve yet: a mesh of
-more than one device.
+equal.  Since the port serves meshes (``kfserving_tpu_torch/parallel/``),
+a mesh of more than one device validates and applies as in the JAX
+package.
 """
 
 import asyncio
@@ -195,9 +196,10 @@ def test_validation_refuses_unported_frameworks(framework):
 
 
 def test_validation_refuses_a_multi_device_mesh():
-    """A placement whose mesh spans more than one device is refused on
-    the port (it serves one device per replica); the JAX package places
-    it.  The selector itself answers alike."""
+    """A multi-device mesh is refused exactly where the JAX package
+    refuses it (no slice holds it, or an axis below 1), and placed where
+    it places it: the port serves meshes since the parallel layer.  The
+    selector itself answers alike."""
     def placement(pkg):
         s = PACKAGES[pkg]["spec"]
         return dataclasses.asdict(PACKAGES[pkg]["topology"].select_topology(
@@ -205,11 +207,18 @@ def test_validation_refuses_a_multi_device_mesh():
                             parallelism=s.ParallelismSpec(dp=2, tp=2))))
 
     assert placement("torch") == placement("jax")
-    jax_validation.validate(_isvc(
-        "jax", parallelism=jax_spec.ParallelismSpec(dp=2, tp=2)))
-    with pytest.raises(validation.ValidationError, match="Queue 1 item 9"):
-        validation.validate(_isvc(
-            "torch", parallelism=spec.ParallelismSpec(dp=2, tp=2)))
+
+    def verdicts(pkg):
+        s, v = PACKAGES[pkg]["spec"], PACKAGES[pkg]["validation"]
+        return [_outcome(lambda p=p: v.validate(_isvc(
+            pkg, parallelism=s.ParallelismSpec(**p))))
+            for p in (dict(dp=2, tp=2), dict(tp=8, sp=4),
+                      dict(dp=1024, tp=4), dict(tp=0))]
+
+    out = _both(verdicts)
+    assert out["torch"] == out["jax"]
+    assert out["torch"][0] is None
+    assert all(v[0] == "raised" for v in out["torch"][2:])
 
 
 def test_trained_model_validation_matches_jax():
@@ -447,18 +456,23 @@ async def test_reconcile_attaches_the_single_device_placement():
 
 
 async def test_apply_refuses_an_unported_framework_before_any_replica():
-    """The numpy frameworks and pytorch now apply to a replica; what the
-    port does not serve (a mesh of more than one device) is still
-    refused before any replica exists."""
+    """The numpy frameworks, pytorch and (since the parallel layer) a
+    multi-device mesh apply to a replica; an invalid spec (an axis
+    below 1) is still refused before any replica exists."""
     orch = orchestrator.FakeOrchestrator()
     c = controller.Controller(orch)
     await c.apply(_isvc("torch", framework="sklearn"))
     assert len(orch.replicas("default/svc/predictor")) == 1
     orch = orchestrator.FakeOrchestrator()
     c = controller.Controller(orch)
-    with pytest.raises(validation.ValidationError, match="item 9"):
+    await c.apply(_isvc("torch",
+                        parallelism=spec.ParallelismSpec(dp=2, tp=2)))
+    assert len(orch.replicas("default/svc/predictor")) == 1
+    orch = orchestrator.FakeOrchestrator()
+    c = controller.Controller(orch)
+    with pytest.raises(validation.ValidationError, match="axes must be"):
         await c.apply(_isvc("torch",
-                            parallelism=spec.ParallelismSpec(dp=2, tp=2)))
+                            parallelism=spec.ParallelismSpec(dp=2, tp=0)))
     assert orch.state == {}
 
 

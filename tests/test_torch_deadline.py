@@ -297,8 +297,10 @@ def test_generator_refuses_shapes_either_kernel_lacks():
     check_device_shapes(wide, cuda)
 
 
+# Since the parallel layer a mesh of several devices is served; the
+# config refuses an axis below 1.
 @pytest.mark.parametrize("mesh,refused", [
-    ({"tp": 2}, True), ({"dp": 1, "tp": 1, "sp": 1}, False), ({}, False),
+    ({"tp": 0}, True), ({"dp": 1, "tp": 1, "sp": 1}, False), ({}, False),
     (None, False)])
 def test_predict_config_refuses_a_mesh(mesh, refused):
     from kfserving_tpu_torch.predictors.torch_model import TorchModelConfig

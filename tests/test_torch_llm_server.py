@@ -241,9 +241,11 @@ async def test_stream_slot_freed_on_client_disconnect(served):
         await server.stop_async()
 
 
+# A mesh serves the paged mode with bucketed prefill; the other modes
+# are refused under one, by name, before any rank starts.
 @pytest.mark.parametrize("extra,message", [
-    ({"mesh": {"dp": 2, "tp": 1}}, "multi-device"),
-    ({"mesh": {"tp": 2}}, "multi-device"),
+    ({"mesh": {"dp": 2, "tp": 1}, "block_size": None}, "multi-device"),
+    ({"mesh": {"tp": 2}, "prefill_chunk_tokens": 32}, "multi-device"),
     ({"tokenizer": "hf:gpt2"}, "hf: tokenizers are not supported"),
 ])
 def test_unported_config_is_refused(tmp_path, extra, message):

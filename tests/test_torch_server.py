@@ -285,7 +285,9 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.detectors\n"
         "import kfserving_tpu_torch.predictors\n"
         "import kfserving_tpu_torch.protocol\n"
+        "import kfserving_tpu_torch.parallel\n"
         "for pkg in (kfserving_tpu_torch.control,\n"
+        "            kfserving_tpu_torch.parallel,\n"
         "            kfserving_tpu_torch.examples,\n"
         "            kfserving_tpu_torch.agent,\n"
         "            kfserving_tpu_torch.client,\n"
@@ -305,7 +307,10 @@ def test_port_imports_nothing_of_jax():
         "             'predictors.xgbserver.__main__',\n"
         "             'predictors.lgbserver.__main__',\n"
         "             'predictors.pmmlserver.__main__',\n"
-        "             'predictors.torchserver.__main__'):\n"
+        "             'predictors.torchserver.__main__',\n"
+        "             'parallel.follower', 'parallel.mesh',\n"
+        "             'parallel.multihost', 'parallel.ring_attention',\n"
+        "             'parallel.sharding'):\n"
         "    assert 'kfserving_tpu_torch.' + name in sys.modules, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
