@@ -204,7 +204,28 @@ failure:
    on every rank (the followers report theirs), each rank's parameter
    and KV-pool bytes beside the unsharded engine's, req/s, tokens/s and
    TTFT as information; no follower left after each unload;
-12. print a ``graphs`` line (per engine: the buckets held equal, capture
+12. line ``checkpoint`` (seeded HF-layout state dicts at BERT-base's and
+   ResNet-50's published widths, ResNet's BatchNorm statistics
+   calibrated in memory first, converted by ``python -m
+   kfserving_tpu_torch.tools.convert`` and loaded from the written
+   ``checkpoint.msgpack`` with no msgpack package: each loaded module bit
+   for bit the same weights mapped in memory and its forward that
+   module's; BERT over V2 JSON, K1 = 12 x batches, its top-k against the
+   plain attention; ResNet over the V2 binary wire, its argmax the
+   in-memory forward's but for counted near-ties; the checkpoint's
+   bytes, the conversion's, decode's and load's times, GB/s), line
+   ``openapi`` (``tools/torch2openapi`` for BERT-base, ResNet-50 and
+   ViT-B/16 on meta tensors: ``memory_allocated`` unchanged), line
+   ``grpc`` where ``grpc`` and ``google.protobuf`` import (BERT-base and
+   generate_4k behind ``grpc_port``: 32 ``ModelInfer`` requests, raw and
+   typed, at concurrency 8, then 8 ``GenerateStream`` streams of 48
+   tokens whose ids equal the same prompts' SSE ids, or both hold as the
+   greedy choice teacher-forced but for counted near-ties; K1 and K2
+   counted as in the HTTP phases; elsewhere one line says it did not
+   run) and line ``metrics_lint`` (``tools/check_metrics.lint_exposition``
+   over the BERT, generate_4k and router scrapes, each linted as its
+   phase ends: zero problems);
+13. print a ``graphs`` line (per engine: the buckets held equal, capture
    ms, pool bytes; compile-cache hits and misses per phase; the decode
    wave's variants, graph and eager wave ms; the residency catalog's
    warm fault and first-request ms), the ResNet arms' req/s and each
@@ -1127,6 +1148,7 @@ async def drive_server(model, vocab: int, rng) -> dict:
         request_path = await asyncio.to_thread(
             check_deadline_and_trace, port, "/v1/models/bert:predict",
             {"instances": [bodies[REQUEST_LENGTHS[0]]]})
+        await asyncio.to_thread(lint_metrics, port, "bert")
     finally:
         await server.stop_async()
     latencies = sorted(lat for lat, _ in done)
@@ -1478,6 +1500,7 @@ async def drive_generate(model) -> dict:
         check(idle is not None, f"slots or blocks not all free when idle: "
               f"{engine.stats()['paged']}")
         scraped["end"] = await asyncio.to_thread(scrape, port)
+        await asyncio.to_thread(lint_metrics, port, "generate_4k")
     finally:
         await server.stop_async()
     tokens = []
@@ -4814,6 +4837,7 @@ def serve_chain(card: str) -> tuple:
                 port, body, int(CHAIN_RATE * CHAIN_RATE_S),
                 int(CHAIN_RATE * CHAIN_RATE_S), rate=CHAIN_RATE)
             launches = flash_attention.launches
+            await asyncio.to_thread(lint_metrics, port, "router")
             batches = engine.execute_count - executed0
             pre = await transformer.preprocess({"instances": [image]})
             batch = torch.from_numpy(np.stack(pre["instances"])).to("cuda")
@@ -6851,6 +6875,761 @@ def serve_mesh(card: str, bert_config: dict = BERT_CONFIG,
     return summary
 
 
+# -- line "metrics_lint": the exposition linter over the served scrapes ------
+# Filled by the BERT, generate_4k and chain phases: each lints its server's
+# (the chain's: the router's) /metrics scrape once its run is over.
+METRICS_LINT: dict = {}
+
+
+def lint_metrics(port: int, where: str) -> None:
+    """``tools/check_metrics.lint_exposition`` over one ``/metrics``
+    scrape; any problem fails the run."""
+    from kfserving_tpu_torch.tools.check_metrics import lint_exposition
+
+    status, _, data = http_raw(port, "GET", "/metrics")
+    check(status == 200, f"{where}: /metrics HTTP {status}")
+    lines = data.decode().splitlines()
+    problems = lint_exposition("\n".join(lines))
+    check(not problems, f"{where}: /metrics lint: {problems[:5]}")
+    METRICS_LINT[where] = {
+        "families": sum(line.startswith("# TYPE ") for line in lines),
+        "samples": sum(bool(line) and not line.startswith("#")
+                       for line in lines),
+        "problems": len(problems)}
+
+
+def report_metrics_lint(card: str) -> dict:
+    wanted = {"bert", "generate_4k", "router"}
+    check(wanted <= set(METRICS_LINT), f"metrics_lint: scrapes of "
+          f"{sorted(wanted - set(METRICS_LINT))} were not linted")
+    summary = {"card": card, "scrapes": METRICS_LINT}
+    print("metrics_lint " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- line "openapi": the schema tool on meta tensors -------------------------
+def serve_openapi(card: str) -> dict:
+    """``tools/torch2openapi.generate`` for the served BERT-base, ResNet-50
+    and ViT-B/16 configurations: the probe runs each module on meta
+    tensors, so the card's allocated bytes do not move."""
+    from kfserving_tpu_torch.tools import torch2openapi
+
+    out = {}
+    for name, config in (("bert", BERT_CONFIG), ("resnet50", RESNET_CONFIG),
+                         ("vit", VIT_CONFIG)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        doc = torch2openapi.generate(name, config["architecture"],
+                                     config.get("arch_kwargs", {}))
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        check(after == before, f"openapi {name}: memory_allocated moved "
+              f"from {before} to {after} bytes")
+        sig = doc["x-model-signature"]
+        check(f"/v1/models/{name}:predict" in doc["paths"]
+              and f"/v2/models/{name}/infer" in doc["paths"]
+              and sig["inputs"] and sig["outputs"],
+              f"openapi {name}: incomplete document")
+        out[name] = {"ms": ms, "inputs": sig["inputs"],
+                     "outputs": sig["outputs"]}
+    summary = {"card": card, "models": out,
+               "allocated_bytes": torch.cuda.memory_allocated()}
+    print("openapi " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- line "checkpoint": HF checkpoints converted, loaded and served ----------
+CKPT_SEED = 83
+CKPT_IMAGES, CKPT_CONCURRENCY = 32, 16
+HF_RESNET_DEPTHS = (3, 4, 6, 3)
+
+
+def _normal(rng, shape, std: float) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            * np.float32(std))
+
+
+def hf_bert_state_dict(rng) -> dict:
+    """A seeded HF BertForMaskedLM state dict (``bert.*`` and ``cls.*``
+    keys, fp32) at BERT-base widths: Linear kernels N(0, 1/fan_in),
+    embeddings N(0, 1/hidden), biases N(0, 0.02), LayerNorm scales 1 and
+    shifts 0; the MLM decoder tied to the word embeddings."""
+    vocab, hidden, inter, num_layers = 30522, 768, 3072, 12
+    sd = {}
+
+    def linear(prefix, out, inp):
+        sd[f"{prefix}.weight"] = _normal(rng, (out, inp), inp ** -0.5)
+        sd[f"{prefix}.bias"] = _normal(rng, (out,), 0.02)
+
+    def norm(prefix):
+        sd[f"{prefix}.weight"] = torch.ones(hidden)
+        sd[f"{prefix}.bias"] = torch.zeros(hidden)
+
+    emb = "bert.embeddings"
+    for name, rows in (("word", vocab), ("position", 512),
+                       ("token_type", 2)):
+        sd[f"{emb}.{name}_embeddings.weight"] = _normal(
+            rng, (rows, hidden), hidden ** -0.5)
+    norm(f"{emb}.LayerNorm")
+    for i in range(num_layers):
+        p = f"bert.encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            linear(f"{p}.attention.self.{name}", hidden, hidden)
+        linear(f"{p}.attention.output.dense", hidden, hidden)
+        norm(f"{p}.attention.output.LayerNorm")
+        linear(f"{p}.intermediate.dense", inter, hidden)
+        linear(f"{p}.output.dense", hidden, inter)
+        norm(f"{p}.output.LayerNorm")
+    linear("cls.predictions.transform.dense", hidden, hidden)
+    norm("cls.predictions.transform.LayerNorm")
+    sd["cls.predictions.bias"] = _normal(rng, (vocab,), 0.02)
+    sd["cls.predictions.decoder.weight"] = sd[f"{emb}.word_embeddings.weight"]
+    sd["cls.predictions.decoder.bias"] = sd["cls.predictions.bias"]
+    return sd
+
+
+def hf_resnet_blocks() -> list:
+    """HF ResNet-50's bottleneck prefixes, in the port's block order."""
+    return [f"resnet.encoder.stages.{s}.layers.{i}"
+            for s, n in enumerate(HF_RESNET_DEPTHS) for i in range(n)]
+
+
+def hf_resnet_bn_names() -> dict:
+    """The port ResNet-50's BatchNorm names -> HF's normalization
+    prefixes."""
+    names = {"bn_init": "resnet.embedder.embedder.normalization"}
+    for i, p in enumerate(hf_resnet_blocks()):
+        for j in range(3):
+            names[f"blocks.{i}.bn{j + 1}"] = f"{p}.layer.{j}.normalization"
+        if p.endswith(".layers.0"):
+            names[f"blocks.{i}.norm_proj"] = f"{p}.shortcut.normalization"
+    return names
+
+
+def hf_resnet_state_dict(rng, classes: int = 1000) -> dict:
+    """A seeded HF ResNetForImageClassification state dict (``resnet.*``
+    and ``classifier.*`` keys, fp32) at ResNet-50's widths: conv kernels
+    N(0, 2/fan_in), BatchNorm scales U(0.5, 1), shifts N(0, 0.1), running
+    mean 0 and variance 1 (calibrated before the conversion)."""
+    sd = {}
+
+    def conv_bn(prefix, out, inp, k):
+        sd[f"{prefix}.convolution.weight"] = _normal(
+            rng, (out, inp, k, k), (2.0 / (inp * k * k)) ** 0.5)
+        p = f"{prefix}.normalization"
+        sd[f"{p}.weight"] = torch.from_numpy(
+            rng.uniform(0.5, 1.0, out).astype(np.float32))
+        sd[f"{p}.bias"] = _normal(rng, (out,), 0.1)
+        sd[f"{p}.running_mean"] = torch.zeros(out)
+        sd[f"{p}.running_var"] = torch.ones(out)
+        sd[f"{p}.num_batches_tracked"] = torch.tensor(0)
+
+    conv_bn("resnet.embedder.embedder", 64, 3, 7)
+    in_ch = 64
+    for p in hf_resnet_blocks():
+        stage = int(p.split(".")[3])
+        width = 64 * 2 ** stage
+        conv_bn(f"{p}.layer.0", width, in_ch, 1)
+        conv_bn(f"{p}.layer.1", width, width, 3)
+        conv_bn(f"{p}.layer.2", 4 * width, width, 1)
+        if p.endswith(".layers.0"):
+            conv_bn(f"{p}.shortcut", 4 * width, in_ch, 1)
+        in_ch = 4 * width
+    sd["classifier.1.weight"] = _normal(rng, (classes, in_ch),
+                                        in_ch ** -0.5)
+    sd["classifier.1.bias"] = _normal(rng, (classes,), 0.02)
+    return sd
+
+
+def in_memory_module(arch: str, arch_kwargs: dict, sd: dict):
+    """The served architecture on the card holding ``sd`` mapped in
+    memory (HF layout -> Flax tree -> the port's names), no file."""
+    from kfserving_tpu_torch.models import create_model, weights
+    from kfserving_tpu_torch.tools import convert
+
+    spec = create_model(arch, **arch_kwargs)
+    variables = convert.CONVERTERS[arch](sd, arch_kwargs)
+    state = weights.FLAX_CONVERTERS[arch](variables)
+    return weights.materialize(spec.module, torch.device("cuda"), state)
+
+
+def run_convert(sd: dict, arch: str, arch_kwargs: dict, extra: dict,
+                root: str) -> dict:
+    """``python -m kfserving_tpu_torch.tools.convert`` on ``sd`` saved as
+    a torch state dict: its report line plus the process's wall s."""
+    bin_path = os.path.join(root, f"{arch}.bin")
+    torch.save(sd, bin_path)
+    out_dir = os.path.join(root, arch)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kfserving_tpu_torch.tools.convert",
+         "--arch", arch, "--torch_checkpoint", bin_path, "--out_dir",
+         out_dir, "--arch_kwargs", json.dumps(arch_kwargs),
+         "--config_extra", json.dumps(extra)],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"convert {arch}: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(report["out_dir"] == out_dir, f"convert {arch}: {report}")
+    bin_bytes = os.path.getsize(bin_path)
+    os.remove(bin_path)
+    return dict(report, process_s=wall_s, bin_bytes=bin_bytes)
+
+
+def timed_map(model_dir: str, arch: str) -> dict:
+    """The checkpoint's mapping onto the port's names, timed alone: every
+    leaf of the mapped file copied into an owned fp32 array, the one step
+    of the read that moves the bytes (the decode before it only makes
+    views of the mapped file).  The file was just written, so the page
+    cache is warm."""
+    from kfserving_tpu_torch.models import weights
+
+    path = os.path.join(model_dir, "checkpoint.msgpack")
+    tree = weights.read_flax_msgpack(path)
+    t0 = time.perf_counter()
+    state = weights.FLAX_CONVERTERS[arch](tree)
+    s = time.perf_counter() - t0
+    leaves = {np.asarray(v).__array_interface__["data"][0]: np.asarray(v)
+              for v in state.values()}     # a tied leaf once
+    nbytes = sum(v.nbytes for v in leaves.values())
+    return {"checkpoint_bytes": os.path.getsize(path), "state_bytes": nbytes,
+            "map_ms": s * 1e3, "map_gb_per_s": nbytes / s / 1e9,
+            "page_cache": "warm"}
+
+
+def load_split(model, seconds: float) -> dict:
+    """One ``TorchModel.load`` split at its own startup marks (ms
+    resolution): the config, the meta-device module and the checkpoint's
+    digest, decode and mapping; the copy of the mapped state onto the
+    card (``weights.materialize``) with its GB/s; the param cache's
+    store; and the rest (the engine's warm-up and graph capture)."""
+    from kfserving_tpu_torch import startup
+
+    marks = startup.phases()
+    order = ["load_start", "download", "checkpoint_restore", "init_params",
+             "param_cache_store"]
+    check(all(marks[a] <= marks[b] for a, b in zip(order, order[1:])),
+          f"checkpoint: the load's startup marks are out of order: "
+          f"{ {k: marks.get(k) for k in order} }")
+    spans = {"checkpoint_ms": marks["checkpoint_restore"] - marks["download"],
+             "to_device_ms": marks["init_params"]
+             - marks["checkpoint_restore"],
+             "cache_store_ms": marks["param_cache_store"]
+             - marks["init_params"]}
+    spans = {k: v * 1e3 for k, v in spans.items()}
+    spans["engine_ms"] = seconds * 1e3 - sum(spans.values())
+    tensors = {t.data_ptr(): t for t in model.module.state_dict().values()}
+    nbytes = sum(t.nbytes for t in tensors.values())     # a tied leaf once
+    spans["to_device_gb_per_s"] = nbytes / spans["to_device_ms"] / 1e6
+    return dict(spans, load_ms=seconds * 1e3, device_bytes=nbytes)
+
+
+def bit_equal_modules(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k])
+        for k in sa)
+
+
+async def drive_checkpoint(bert, resnet, images, rng, vocab: int) -> dict:
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([bert, resnet], host="127.0.0.1")
+    port = server.http_port
+    try:
+        bodies = [rng.integers(1, vocab, size=n).tolist()
+                  for n in REQUEST_LENGTHS for _ in range(2)]
+        path = f"/v2/models/{bert.name}/infer"
+        requests = [(path, json.dumps({"inputs": [{
+            "name": "input_ids", "shape": [1, len(ids)],
+            "datatype": "INT32", "data": ids}]}).encode(),
+            {"content-type": "application/json"}) for ids in bodies]
+        # The main path's run: every count starts at 0 here.
+        reset_launches()
+        executed0 = bert.engine.execute_count
+        results, _, _ = await drive_requests(port, requests, 8)
+        launches = read_launches()
+        batches = bert.engine.execute_count - executed0
+        served = []
+        for ids, (status, data) in zip(bodies, results):
+            check(status == 200, f"checkpoint bert: HTTP {status} "
+                  f"{data[:200]!r}")
+            outs = {o["name"]: o for o in json.loads(data)["outputs"]}
+            bucket = bert.engine.seq_buckets.fit(len(ids))
+            values = np.reshape(outs["values"]["data"], (bucket, TOPK))
+            indices = np.reshape(outs["indices"]["data"], (bucket, TOPK))
+            check_topk(values, indices, bucket, vocab, "checkpoint bert")
+            served.append({"values": values, "indices": indices})
+        answers, _, _ = await drive_binary_images(
+            port, resnet.name, images, CKPT_CONCURRENCY)
+    finally:
+        await server.stop_async()
+    return {"bodies": bodies, "served": served, "launches": launches,
+            "batches": batches, "answers": answers}
+
+
+def serve_checkpoint(card: str) -> dict:
+    """Seeded HF-layout BERT-base and ResNet-50 state dicts converted by
+    ``python -m kfserving_tpu_torch.tools.convert``, loaded from their
+    checkpoints through the port's server and served: BERT over V2 JSON,
+    ResNet over the V2 binary wire.  Both loaded modules equal, bit for
+    bit, the same weights mapped in memory; their forwards equal that
+    module's; BERT's served top-k holds against the plain attention and
+    ResNet's argmax against the in-memory forward but for counted
+    near-ties."""
+    from kfserving_tpu_torch.predictors.torch_model import TorchModel
+
+    bert_arch, resnet_arch = {}, dict(RESNET_CONFIG["arch_kwargs"])
+    device = "cuda"
+    rng = np.random.default_rng(CKPT_SEED)
+    bert_sd = hf_bert_state_dict(rng)
+    resnet_sd = hf_resnet_state_dict(rng)
+    scale = float(torch.tensor(RESNET_CONFIG["scale"], dtype=torch.bfloat16))
+    size = resnet_arch.get("image_size", 224)
+    # Calibrate the random network's BatchNorm statistics in memory (its
+    # answers then depend on the image) and write them into the HF dict.
+    ref_resnet = in_memory_module("resnet50", dict(resnet_arch,
+                                                   torch_padding=True),
+                                  resnet_sd)
+    calib = torch.from_numpy(bench_images(rng, 64, size)).to(device)
+    calibrate_batch_norm(ref_resnet, calib.float() * scale)
+    for port_name, hf_name in hf_resnet_bn_names().items():
+        for ours, theirs in (("mean", "running_mean"), ("var", "running_var")):
+            resnet_sd[f"{hf_name}.{theirs}"] = ref_resnet.get_buffer(
+                f"{port_name}.{ours}").float().cpu().clone()
+    extra = {k: v for k, v in BERT_CONFIG.items() if k != "architecture"}
+    rextra = {k: v for k, v in RESNET_CONFIG.items()
+              if k not in ("architecture", "arch_kwargs")}
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-ckpt-")
+    models = []
+    try:
+        conv = {"bert": run_convert(bert_sd, "bert", bert_arch, extra, root),
+                "resnet50": run_convert(resnet_sd, "resnet50", resnet_arch,
+                                        rextra, root)}
+        maps = {arch: timed_map(os.path.join(root, arch), arch)
+                for arch in conv}
+        # The in-memory twin of the served BERT, built with the arch
+        # kwargs the converter wrote (the erf GELU of an HF checkpoint).
+        with open(os.path.join(root, "bert", "config.json")) as f:
+            written = json.load(f)["arch_kwargs"]
+        check(written == dict(bert_arch, gelu_approximate=False),
+              f"checkpoint bert: config arch_kwargs {written}")
+        ref_bert = in_memory_module("bert", written, bert_sd)
+        loads = {}
+        for arch, name in (("bert", "bert_ckpt"), ("resnet50", "resnet_ckpt")):
+            model = TorchModel(name, os.path.join(root, arch), device=device)
+            t0 = time.perf_counter()
+            model.load()
+            models.append(model)
+            loads[arch] = load_split(model, time.perf_counter() - t0)
+            check(model.param_source == "checkpoint",
+                  f"checkpoint {arch}: param_source {model.param_source}")
+        bert, resnet = models
+        cfg = bert.module.config
+        check((cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+               cfg.vocab_size) == (12, 768, 12, 30522),
+              "checkpoint: not BERT-base")
+        check(cfg.gelu_approximate is False,
+              "checkpoint: the converted BERT kept the tanh GELU")
+        check(resnet.module.torch_padding,
+              "checkpoint: the converted ResNet lost torch_padding")
+        for arch, model, ref in (("bert", bert, ref_bert),
+                                 ("resnet50", resnet, ref_resnet)):
+            check(bit_equal_modules(model.module, ref),
+                  f"checkpoint {arch}: the loaded weights differ from the "
+                  "same weights mapped in memory")
+        images = bench_images(rng, CKPT_IMAGES, size)
+        run = asyncio.run(drive_checkpoint(bert, resnet, images, rng,
+                                           cfg.vocab_size))
+        k1 = run["launches"]["flash_attention"]
+        check(run["batches"] > 0 and k1 == cfg.num_layers * run["batches"],
+              f"checkpoint bert: flash kernel launched "
+              f"{k1} times for {run['batches']} batches of "
+              f"{cfg.num_layers} layers")
+        check(run["launches"]["paged_attention"] == 0,
+              "checkpoint: the paged kernel ran on the predict path")
+        # Served against the plain attention, and the loaded module's
+        # forward against the in-memory one's on the same padded batch.
+        longest = max(range(len(run["bodies"])),
+                      key=lambda i: len(run["bodies"][i]))
+        reference = check_against_plain(bert, run["bodies"][longest],
+                                        run["served"][longest])
+        ids = run["bodies"][longest]
+        bucket = bert.engine.seq_buckets.fit(len(ids))
+        x = torch.zeros((1, bucket), dtype=torch.int64, device=device)
+        x[0, :len(ids)] = torch.tensor(ids, device=device)
+        mask = (x != 0).to(torch.int32)
+        batch = torch.from_numpy(images).to(device).float() * scale
+        with torch.inference_mode():
+            bert_logits = ref_bert(x, mask).float()
+            bert_diff = float((bert.module(x, mask).float()
+                               - bert_logits).abs().max())
+            resnet_logits = ref_resnet(batch).float()
+            resnet_diff = float((resnet.module(batch).float()
+                                 - resnet_logits).abs().max())
+        # Bit-equal weights on the same kernels: equal forwards, but for a
+        # library's run-to-run reduction order.
+        resnet_limit = RESNET_TIE_RTOL * float(resnet_logits.abs().max())
+        check(bert_diff <= MAX_LOGIT_DIFF and resnet_diff <= resnet_limit,
+              f"checkpoint: a loaded module's forward differs from the "
+              f"in-memory one's by {bert_diff} (bert) / {resnet_diff} "
+              f"(resnet, limit {resnet_limit})")
+        kinds = [answer_kind(resnet_logits[i], a, RESNET_TIE_RTOL)
+                 for i, a in enumerate(run["answers"])]
+        check(all(kinds), f"checkpoint resnet: served argmax off the "
+              f"in-memory forward at {[i for i, k in enumerate(kinds) if not k]}")
+        distinct = len(set(run["answers"]))
+        check(distinct > 1, "checkpoint resnet: every image got one answer")
+    finally:
+        for model in models:
+            model.unload()
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {
+        "card": card, "convert": conv, "map": maps, "load": loads,
+        "bert_requests": len(run["bodies"]), "bert_batches": run["batches"],
+        "flash_launches": run["launches"]["flash_attention"],
+        "reference": reference, "resnet_images": len(images),
+        "resnet_near_ties": kinds.count("tie"),
+        "resnet_distinct_answers": distinct,
+        "vs_in_memory_max_abs_diff": {"bert": bert_diff,
+                                      "resnet": resnet_diff},
+    }
+    print("checkpoint " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- line "grpc": the V2 gRPC front end over BERT-base and generate_4k ------
+GRPC_REQUESTS, GRPC_CONCURRENCY = 32, 8
+GRPC_STREAMS = 8
+
+
+async def drive_grpc(bert, gen, vocab: int) -> dict:
+    import grpc
+
+    from kfserving_tpu_torch.protocol.grpc import kfs_generate_pb2 as gpb
+    from kfserving_tpu_torch.protocol.grpc import pb2
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0, grpc_port=0)
+    await server.start_async([bert, gen], host="127.0.0.1")
+    port = server.http_port
+    channel = grpc.aio.insecure_channel(f"127.0.0.1:{server.grpc_port}")
+    infer = channel.unary_unary(
+        "/inference.GRPCInferenceService/ModelInfer",
+        request_serializer=pb2.ModelInferRequest.SerializeToString,
+        response_deserializer=pb2.ModelInferResponse.FromString)
+    stream = channel.unary_stream(
+        "/kfserving.generate.GenerationService/GenerateStream",
+        request_serializer=gpb.GenerateRequest.SerializeToString,
+        response_deserializer=gpb.GenerateStreamResponse.FromString)
+    rng = np.random.default_rng(89)
+    bodies = [rng.integers(1, vocab, size=REQUEST_LENGTHS[
+        i % len(REQUEST_LENGTHS)]).astype(np.int32)
+        for i in range(GRPC_REQUESTS)]
+    try:
+        sem = asyncio.Semaphore(GRPC_CONCURRENCY)
+
+        async def one(i, ids):
+            req = pb2.ModelInferRequest(model_name=bert.name, id=f"g{i}")
+            t = req.inputs.add(name="input_ids", datatype="INT32",
+                               shape=[1, len(ids)])
+            if i % 2:
+                req.raw_input_contents.append(ids.tobytes())
+            else:
+                t.contents.int_contents.extend(ids.tolist())
+            async with sem:
+                t0 = time.perf_counter()
+                resp = await infer(req)
+                return resp, (time.perf_counter() - t0) * 1e3
+
+        reset_launches()
+        executed0 = bert.engine.execute_count
+        t0 = time.perf_counter()
+        done = await asyncio.gather(*(one(i, ids)
+                                      for i, ids in enumerate(bodies)))
+        infer_wall_s = time.perf_counter() - t0
+        infer_launches = read_launches()
+        batches = bert.engine.execute_count - executed0
+        served = []
+        for i, ((resp, _), ids) in enumerate(zip(done, bodies)):
+            outs = {o.name: o for o in resp.outputs}
+            bucket = bert.engine.seq_buckets.fit(len(ids))
+            if i % 2:
+                raw = dict(zip([o.name for o in resp.outputs],
+                               resp.raw_output_contents))
+                values = np.frombuffer(raw["values"], np.float32)
+                indices = np.frombuffer(raw["indices"], np.int32)
+            else:
+                values = np.asarray(outs["values"].contents.fp32_contents)
+                indices = np.asarray(outs["indices"].contents.int_contents)
+            check(list(outs["values"].shape) == [1, bucket, TOPK]
+                  and resp.id == f"g{i}", f"grpc infer {i}: shape "
+                  f"{list(outs['values'].shape)}, id {resp.id!r}")
+            values = values.reshape(bucket, TOPK)
+            indices = indices.reshape(bucket, TOPK)
+            check_topk(values, indices, bucket, vocab, f"grpc infer {i}")
+            served.append({"values": values, "indices": indices})
+
+        async def generate(i):
+            out = {"ids": [], "text": "", "first_s": None}
+            t0 = time.perf_counter()
+            async for msg in stream(gpb.GenerateRequest(
+                    model_name=gen.name, text_input=gen_prompt(i),
+                    max_tokens=GEN_MAX_TOKENS)):
+                if out["first_s"] is None:
+                    out["first_s"] = time.perf_counter() - t0
+                if msg.HasField("token") and msg.token.id >= 0:
+                    out["ids"].append(msg.token.id)
+                if msg.finish_reason:
+                    out["finish_reason"] = msg.finish_reason
+                    out["generated_text"] = msg.generated_text
+                    out["token_count"] = msg.token_count
+            return out
+
+        before = gen.engine.stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        grpc_streams = await asyncio.gather(*(generate(i)
+                                              for i in range(GRPC_STREAMS)))
+        stream_wall_s = time.perf_counter() - t0
+        stream_launches = read_launches()
+        after = gen.engine.stats()
+        for i, s in enumerate(grpc_streams):
+            check(s.get("finish_reason") in ("eos", "length")
+                  and s["token_count"] == len(s["ids"]) <= GEN_MAX_TOKENS,
+                  f"grpc stream {i}: {s.get('finish_reason')}, "
+                  f"{s.get('token_count')} for {len(s['ids'])} ids")
+        http_streams = []
+        for i in range(GRPC_STREAMS):
+            status, events, _, _ = await asyncio.to_thread(
+                sse_stream, port, f"/v2/models/{gen.name}/generate_stream",
+                {"text_input": gen_prompt(i), "max_tokens": GEN_MAX_TOKENS})
+            check(status == 200, f"grpc: SSE stream {i}: HTTP {status}")
+            http_streams.append(stream_tokens(events, f"SSE stream {i}"))
+    finally:
+        await channel.close()
+        await server.stop_async()
+    return {"bodies": bodies, "served": served,
+            "infer_launches": infer_launches, "batches": batches,
+            "infer_req_per_s": len(bodies) / infer_wall_s,
+            "infer_p50_ms": percentile([ms for _, ms in done], 0.5),
+            "streams": grpc_streams, "http_streams": http_streams,
+            "stream_launches": stream_launches,
+            "stream_tokens_per_s": sum(len(s["ids"]) for s in grpc_streams)
+            / stream_wall_s,
+            "ttft_p50_ms": percentile([s["first_s"] * 1e3
+                                       for s in grpc_streams], 0.5),
+            "before": before, "after": after}
+
+
+def serve_grpc(card: str):
+    """BERT-base and the generate_4k decoder behind ``grpc_port``: 32
+    ``ModelInfer`` requests (raw and typed INT32) at concurrency 8, then
+    8 ``GenerateStream`` streams of 48 tokens at once, each stream's ids
+    equal to the same prompt's HTTP SSE ids (or both the greedy choice
+    teacher-forced but for counted near-ties).  Runs only where grpc
+    and protobuf import; elsewhere prints why and returns None."""
+    try:
+        import google.protobuf  # noqa: F401
+        import grpc  # noqa: F401
+    except ImportError as e:
+        print(json.dumps({"grpc": f"not run: grpcio not installed ({e})"}),
+              flush=True)
+        return None
+    bert, _ = load_model("bert", BERT_CONFIG)
+    gen, _ = load_generative("gen4k", GEN_CONFIG)
+    try:
+        cfg, gcfg = bert.module.config, gen.module.config
+        check((cfg.num_layers, cfg.hidden_size, cfg.num_heads)
+              == (12, 768, 12), "grpc: not BERT-base")
+        run = asyncio.run(drive_grpc(bert, gen, cfg.vocab_size))
+        k1 = run["infer_launches"]["flash_attention"]
+        check(run["batches"] > 0 and k1 == cfg.num_layers * run["batches"],
+              f"grpc infer: flash kernel launched {k1} times for "
+              f"{run['batches']} batches")
+        reference = check_against_plain(bert, run["bodies"][-1].tolist(),
+                                        run["served"][-1])
+        before, after = run["before"], run["after"]
+        waves = after["decode_steps"] - before["decode_steps"]
+        prefills = after["prefills"] - before["prefills"]
+        want = {"flash_attention": gcfg.num_layers * prefills,
+                "paged_attention": (gcfg.num_layers * waves
+                                    * after["steps_per_call"])}
+        check(waves > 0 and prefills > 0 and run["stream_launches"] == want,
+            f"grpc streams: launches {run['stream_launches']}, want {want}")
+        grpc_ids = [s["ids"] for s in run["streams"]]
+        equal = sum(a == b for a, b in zip(grpc_ids, run["http_streams"]))
+        held = None
+        if equal < GRPC_STREAMS:
+            held = {"grpc": hold_greedy_tokens(gen.module, gen.tokenizer,
+                                               grpc_ids, "cuda"),
+                    "http": hold_greedy_tokens(gen.module, gen.tokenizer,
+                                               run["http_streams"], "cuda")}
+    finally:
+        bert.unload()
+        gen.unload()
+    summary = {
+        "card": card, "infer_requests": GRPC_REQUESTS,
+        "concurrency": GRPC_CONCURRENCY, "infer_batches": run["batches"],
+        "infer_req_per_s": run["infer_req_per_s"],
+        "infer_p50_ms": run["infer_p50_ms"], "reference": reference,
+        "streams": GRPC_STREAMS, "max_tokens": GEN_MAX_TOKENS,
+        "stream_tokens_per_s": run["stream_tokens_per_s"],
+        "ttft_p50_ms": run["ttft_p50_ms"], "prefills": prefills,
+        "decode_waves": waves, "streams_equal_to_sse": equal,
+        "held_where_unequal": held,
+        "launches": {"infer": run["infer_launches"],
+                     "streams": run["stream_launches"]},
+    }
+    print("grpc " + json.dumps(summary), flush=True)
+    return summary
+
+
+# -- line "hf_tokenizer": an hf:<local dir> tokenizer behind generate_4k ----
+HF_TOKENIZER_SEED, HF_STREAMS = 97, 4
+
+
+def write_hf_tokenizer(path: str, vocab_size: int) -> None:
+    """A byte-level BPE of exactly ``vocab_size`` ids, saved with
+    ``PreTrainedTokenizerFast.save_pretrained``: ids 0 and 1 are <s> and
+    </s>, then the 256 byte symbols, then seeded merges of two earlier
+    tokens.  Every id the decoder can pick decodes to bytes, many of them
+    pieces of multi-byte characters."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    rng = np.random.default_rng(HF_TOKENIZER_SEED)
+    tokens = ["<s>", "</s>"] + sorted(pre_tokenizers.ByteLevel.alphabet())
+    vocab = {t: i for i, t in enumerate(tokens)}
+    merges = []
+    while len(tokens) < vocab_size:
+        a, b = (tokens[i] for i in rng.integers(2, len(tokens), 2))
+        if a + b not in vocab:
+            vocab[a + b] = len(tokens)
+            tokens.append(a + b)
+            merges.append((a, b))
+    tok = Tokenizer(models.BPE(vocab, merges))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.add_special_tokens(["<s>", "</s>"])
+    PreTrainedTokenizerFast(tokenizer_object=tok, bos_token="<s>",
+                            eos_token="</s>").save_pretrained(path)
+
+
+def serve_hf_tokenizer(card: str):
+    """The generate_4k decoder served with an ``hf:<local dir>``
+    tokenizer of its 32000 ids: 4 SSE streams of 48 tokens at once.  The
+    prompt's ids equal ``transformers``' own encode; each stream's text is
+    the tokenizer's decode of its ids; every id is the greedy choice of
+    the model teacher-forced over the prompt (but for counted near-ties);
+    K1 and K2 launch as in the generate phase.  Runs only where
+    transformers and tokenizers import; elsewhere prints why and returns
+    None."""
+    try:
+        import tokenizers  # noqa: F401
+        import transformers  # noqa: F401
+    except ImportError as e:
+        print(json.dumps({"hf_tokenizer": "not run: transformers or "
+                          f"tokenizers not installed ({e})"}), flush=True)
+        return None
+    from transformers import AutoTokenizer
+
+    vocab = GEN_CONFIG["arch_kwargs"]["vocab_size"]
+    root = tempfile.mkdtemp(prefix="kfs-chip-smoke-hf-")
+    try:
+        t0 = time.perf_counter()
+        write_hf_tokenizer(root, vocab)
+        write_s = time.perf_counter() - t0
+        gen, load_s = load_generative("gen4k", GEN_CONFIG,
+                                      tokenizer=f"hf:{root}")
+        try:
+            tok = gen.tokenizer
+            check((tok.vocab_size, tok.bos_id, tok.eos_id) == (vocab, 0, 1),
+                  f"hf_tokenizer: vocab {tok.vocab_size}, bos {tok.bos_id}, "
+                  f"eos {tok.eos_id}")
+            ref = AutoTokenizer.from_pretrained(root, local_files_only=True)
+            prompt_ids = [tok.encode(gen_prompt(i))
+                          for i in range(HF_STREAMS)]
+            check(all(ids == [0] + ref.encode(gen_prompt(i),
+                                              add_special_tokens=False)
+                      for i, ids in enumerate(prompt_ids)),
+                  "hf_tokenizer: the served encode differs from "
+                  "transformers'")
+            run = asyncio.run(drive_hf_streams(gen))
+            texts = []
+            for i, events in enumerate(run["streams"]):
+                ids = stream_tokens(events, f"hf stream {i}")
+                text = "".join(e["token"]["text"] for e in events
+                               if e.get("token"))
+                check(text == tok.decode(ids) == ref.decode(
+                    ids, skip_special_tokens=True)
+                    == events[-1]["generated_text"],
+                    f"hf stream {i}: streamed text {text!r} is not the "
+                    f"decode of its ids {tok.decode(ids)!r}")
+                texts.append((ids, text))
+            gcfg = gen.module.config
+            before, after = run["before"], run["after"]
+            waves = after["decode_steps"] - before["decode_steps"]
+            prefills = after["prefills"] - before["prefills"]
+            want = {"flash_attention": gcfg.num_layers * prefills,
+                    "paged_attention": (gcfg.num_layers * waves
+                                        * after["steps_per_call"])}
+            check(waves > 0 and prefills > 0 and run["launches"] == want,
+                  f"hf streams: launches {run['launches']}, want {want}")
+            held = hold_greedy_tokens(gen.module, tok,
+                                      [ids for ids, _ in texts], "cuda")
+        finally:
+            gen.unload()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {
+        "card": card, "vocab": vocab, "write_s": write_s,
+        "load_and_warmup_s": load_s,
+        "prompt_tokens": [len(ids) for ids in prompt_ids],
+        "streams": HF_STREAMS, "max_tokens": GEN_MAX_TOKENS,
+        "tokens": [len(ids) for ids, _ in texts],
+        # Ids that alone decode to a partial or invalid UTF-8 sequence.
+        "replacement_pieces": sum("\ufffd" in tok.decode([i])
+                                  for ids, _ in texts for i in ids),
+        "text_chars": [len(text) for _, text in texts],
+        "prefills": prefills, "decode_waves": waves, "held": held,
+        "launches": run["launches"],
+    }
+    print("hf_tokenizer " + json.dumps(summary), flush=True)
+    return summary
+
+
+async def drive_hf_streams(gen) -> dict:
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([gen], host="127.0.0.1")
+    path = f"/v2/models/{gen.name}/generate_stream"
+    try:
+        async def one(i):
+            status, events, _, _ = await asyncio.to_thread(
+                sse_stream, server.http_port, path,
+                {"text_input": gen_prompt(i), "max_tokens": GEN_MAX_TOKENS})
+            check(status == 200, f"hf stream {i}: HTTP {status} {events}")
+            return events
+
+        before = gen.engine.stats()
+        # The main path's run: every count starts at 0 here.
+        reset_launches()
+        streams = await asyncio.gather(*(one(i) for i in range(HF_STREAMS)))
+        launches = read_launches()
+        after = gen.engine.stats()
+    finally:
+        await server.stop_async()
+    return {"streams": streams, "launches": launches, "before": before,
+            "after": after}
+
+
 def check_codec(card: str) -> dict:
     """The port's native codec builds here (the host C compiler against
     this interpreter's Python.h) and parses a seeded 224 x 224 x 3 uint8
@@ -6956,6 +7735,11 @@ def main() -> int:
         check(not any(host_paths.values()), f"tabular, torchserver and "
               f"detectors launched K1 or K2: {host_paths}")
         meshes = phase("mesh", serve_mesh, card)
+        checkpoint = phase("checkpoint", serve_checkpoint, card)
+        phase("openapi", serve_openapi, card)
+        grpc_run = phase("grpc", serve_grpc, card)
+        hf_run = phase("hf_tokenizer", serve_hf_tokenizer, card)
+        phase("metrics_lint", report_metrics_lint, card)
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read
@@ -6974,9 +7758,20 @@ def main() -> int:
                               + rolling["flash_launches"]
                               + agent["flash_launches"]
                               + sum(g["flash_attention"] for g in generative)
-                              + meshes["launches"]["flash_attention"])
+                              + meshes["launches"]["flash_attention"]
+                              + checkpoint["flash_launches"])
     kernels[1]["launches"] = (sum(g["paged_attention"] for g in generative)
                               + meshes["launches"]["paged_attention"])
+    # grpc runs only where grpcio imports, hf_tokenizer where transformers
+    # does.
+    optional = []
+    if grpc_run is not None:
+        optional += grpc_run["launches"].values()
+    if hf_run is not None:
+        optional.append(hf_run["launches"])
+    for part in optional:
+        kernels[0]["launches"] += part["flash_attention"]
+        kernels[1]["launches"] += part["paged_attention"]
     print("graphs " + json.dumps({
         "card": card,
         "predict": {"bert": serving["graphs"], "resnet": resnet["graphs"],

@@ -72,10 +72,12 @@ def build_server(args) -> ModelServer:
                                     device=args.device)
         server = ModelServer(http_port=args.http_port,
                              registered_models=repo,
-                             container_concurrency=cc)
+                             container_concurrency=cc,
+                             grpc_port=args.grpc_port)
     else:
         server = ModelServer(http_port=args.http_port,
-                             container_concurrency=cc)
+                             container_concurrency=cc,
+                             grpc_port=args.grpc_port)
     if args.config_dir:
         import asyncio
 

@@ -42,8 +42,9 @@ config.json keys are the JAX package's (unknown keys are ignored):
 The draft materializes through the mmap param cache beside the target;
 with no model_dir of its own it shares the target's directory (a
 self-draft on the target's weights).  The port refuses, with
-InvalidInput, what it has not ported yet: a mesh of more than one device
-and ``hf:`` tokenizers.
+InvalidInput, what it has not ported yet: the modes other than paged
+decoding under a mesh of more than one device.  ``"tokenizer":
+"hf:<dir>"`` loads a tokenizer saved in a local directory.
 
 Request shapes (V1 predict and the generate routes):
     {"instances": ["a prompt", {"prompt": "...", "max_tokens": 32,
@@ -240,10 +241,47 @@ def build_tokenizer(spec: str):
     if spec == "byte":
         return ByteTokenizer()
     if spec.startswith("hf:"):
-        raise InvalidInput(
-            f"tokenizer {spec!r}: hf: tokenizers are not supported by the "
-            "PyTorch port yet; use \"byte\"")
+        return _hf_tokenizer(spec)
     raise InvalidInput(f"unknown tokenizer spec {spec!r}")
+
+
+def _hf_tokenizer(spec: str):
+    """``hf:<dir>``: a tokenizer saved with ``save_pretrained`` in a
+    local directory, loaded by ``transformers.AutoTokenizer`` with the
+    JAX package's encode and decode rules.  Only a local directory
+    resolves: the hub is never asked (``local_files_only``)."""
+    path = spec[3:]
+    if not os.path.isdir(path):
+        raise InvalidInput(
+            f"tokenizer {spec!r}: {path!r} is not a local directory "
+            "(hf: tokenizers load from a local directory only)")
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+    if tok.eos_token_id is None:
+        logger.warning(
+            "tokenizer %s has no eos_token_id: generation will only "
+            "stop at the token budget or a stop sequence", spec)
+
+    class _HF:
+        vocab_size = tok.vocab_size
+        bos_id = tok.bos_token_id
+        eos_id = tok.eos_token_id
+
+        def encode(self, text, add_bos=True):
+            # add_special_tokens=False: some tokenizers append EOS (or
+            # wrap with template tokens) in plain encode(), which would
+            # poison the prompt; BOS is added explicitly and only when
+            # the tokenizer has one.
+            ids = tok.encode(text, add_special_tokens=False)
+            if add_bos and tok.bos_token_id is not None:
+                ids = [tok.bos_token_id] + ids
+            return ids
+
+        def decode(self, ids):
+            return tok.decode(ids, skip_special_tokens=True)
+
+    return _HF()
 
 
 class GenerativeConfig:

@@ -6,7 +6,11 @@ checkpoint.msgpack) with the PyTorch port — V1 ``:predict``,
 ``:generate`` and ``generate_stream``:
 
     python -m kfserving_tpu_torch.predictors.llmserver --model_name gen \
-        --model_dir /path/to/model --http_port 8080 [--device cuda]
+        --model_dir /path/to/model --http_port 8080 [--device cuda] \
+        [--grpc_port 8081]
+
+``--grpc_port`` adds the V2 gRPC API and the generation service's
+``Generate`` and ``GenerateStream`` over the same model.
 
 With ``KFS_STANDBY`` set the server starts with no model and loads it on
 ``POST /standby/activate``.  ``--log_url`` tees every request and
@@ -38,7 +42,8 @@ parser.add_argument("--device", default="cuda",
 
 def build_server(args) -> ModelServer:
     server = ModelServer(http_port=args.http_port,
-                         container_concurrency=args.container_concurrency)
+                         container_concurrency=args.container_concurrency,
+                         grpc_port=args.grpc_port)
     if args.log_url:
         from kfserving_tpu_torch.agent import RequestLogger
 

@@ -55,6 +55,7 @@ not offloadable.
 """
 
 import json
+import logging
 import os
 from typing import Any, Dict, List, Optional
 
@@ -85,6 +86,8 @@ from kfserving_tpu_torch.protocol.v2 import (
 )
 from kfserving_tpu_torch.server.dataplane import is_v2_request
 from kfserving_tpu_torch.storage import Storage
+
+logger = logging.getLogger("kfserving_tpu_torch.predictors")
 
 DEFAULT_CONFIG_NAME = "config.json"
 CHECKPOINT_NAME = param_cache.CHECKPOINT_NAME
@@ -152,6 +155,8 @@ class TorchModel(Model):
         self.batcher: Optional[DynamicBatcher] = None
         self.module: Optional[torch.nn.Module] = None
         self._spec = None
+        # The V2 signature metadata() reports, traced once per load.
+        self._signature: Optional[Dict[str, Any]] = None
         # The artifact's local directory once Storage.download pulled it.
         self._local_dir: Optional[str] = None
         # How the weights were materialized: "mmap" (param-cache hit),
@@ -275,6 +280,7 @@ class TorchModel(Model):
             raise
         self._spec, self.module = spec, module
         self.engine, self.batcher = engine, batcher
+        self._signature = None
         self.ready = True
         if old_engine is not None:
             old_engine.close()
@@ -619,13 +625,54 @@ class TorchModel(Model):
         meta["batch_buckets"] = list(self.engine.batch_buckets.buckets)
         if self.engine.seq_buckets:
             meta["seq_buckets"] = list(self.engine.seq_buckets.buckets)
-        example = self._spec.example
-        if isinstance(example, dict):
-            meta["inputs"] = [
-                {"name": k, "datatype": datatype_of(np.asarray(v)),
-                 "shape": [-1] + list(np.asarray(v).shape[1:])}
-                for k, v in example.items()]
+        if self._signature is None:
+            self._signature = self._signature_metadata()
+        meta.update(self._signature)
         return meta
+
+    def _signature_metadata(self) -> Dict[str, Any]:
+        """V2 model-metadata inputs and outputs, as the JAX package
+        reports them: the serving function run on a fresh meta-device
+        module and meta tensors (no storage, no compute, no device
+        work).  The batch dim reports -1."""
+        def on_meta(arr: np.ndarray) -> torch.Tensor:
+            return torch.empty(arr.shape, device="meta",
+                               dtype=torch.from_numpy(arr[:0]).dtype)
+
+        def v2_datatype(dtype: torch.dtype) -> str:
+            empty = torch.empty(0, dtype=dtype)
+            return datatype_of(empty if dtype == torch.bfloat16
+                               else empty.numpy())
+
+        try:
+            cfg = self.config
+            spec = create_model(cfg.architecture, **cfg.arch_kwargs)
+            example = spec.example
+            if isinstance(example, dict):
+                example = {k: np.asarray(v) for k, v in example.items()}
+                inputs = [{"name": k, "datatype": datatype_of(v),
+                           "shape": [-1] + list(v.shape[1:])}
+                          for k, v in example.items()]
+                batch = {k: on_meta(v) for k, v in example.items()}
+            else:
+                example = np.asarray(example)
+                if cfg.input_dtype == "uint8":
+                    example = example.astype(np.uint8)
+                inputs = [{"name": "input_0",
+                           "datatype": datatype_of(example),
+                           "shape": [-1] + list(example.shape[1:])}]
+                batch = on_meta(example)
+            with torch.no_grad():
+                out = self._serve_fn(spec, cfg)(spec.module, batch)
+            leaves = (out.items() if isinstance(out, dict)
+                      else [("output_0", out)])
+            outputs = [{"name": k, "datatype": v2_datatype(leaf.dtype),
+                        "shape": [-1] + list(leaf.shape[1:])}
+                       for k, leaf in leaves]
+            return {"inputs": inputs, "outputs": outputs}
+        except Exception:  # metadata is best-effort, never fatal
+            logger.debug("signature metadata unavailable", exc_info=True)
+            return {}
 
     def engine_stats(self) -> Dict[str, Any]:
         stats = dict(self.engine.stats()) if self.engine else {}

@@ -65,6 +65,12 @@ A V2 infer request may use the binary data extension
 ``binary_data_output`` gets a binary response.  A CloudEvent request
 (binary or structured) gets its response in the same framing.
 
+With ``grpc_port`` set (``--grpc_port`` on the entry points) the same
+dataplane also serves the V2 gRPC API (``inference.GRPCInferenceService``,
+``inference.ModelRepositoryService``) and the token stream
+(``kfserving.generate.GenerationService``), from
+``server/grpc_server.py``; gRPC requests land in the same request series.
+
 Each inference request joins a trace (``traceparent`` or
 ``x-request-id``, echoed back as ``x-request-id``), may carry a budget
 (``x-request-timeout-ms``: 504 once it is spent, at whichever stage),
@@ -166,7 +172,7 @@ DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "kfs-profile")
 # The JAX package's parent parser surface (reference kfserver.py:34-43),
 # so the orchestrators' argv reads alike for both packages; the batcher
 # flags are accepted and, as there, the artifact's config.json decides
-# the batcher.  --grpc_port comes with the gRPC server.
+# the batcher.
 parser = argparse.ArgumentParser(add_help=False)
 parser.add_argument("--http_port", default=DEFAULT_HTTP_PORT, type=int,
                     help="The HTTP port listened to by the model server.")
@@ -180,6 +186,9 @@ parser.add_argument("--max_batch_size", default=32, type=int,
 parser.add_argument("--container_concurrency", default=0, type=int,
                     help="Max concurrent inference calls per replica "
                          "(0 = unlimited; Knative containerConcurrency).")
+parser.add_argument("--grpc_port", default=None, type=int,
+                    help="V2 gRPC port (unset = gRPC disabled, 0 = "
+                         "ephemeral).")
 
 
 def _json(data: Any, status: int = 200) -> Response:
@@ -290,10 +299,15 @@ class ModelServer:
     def __init__(self, http_port: int = DEFAULT_HTTP_PORT,
                  registered_models: Optional[ModelRepository] = None,
                  container_concurrency: int = 0,
-                 max_queue_depth: Optional[int] = None):
+                 max_queue_depth: Optional[int] = None,
+                 grpc_port: Optional[int] = None):
         self.repository = registered_models or ModelRepository()
         self.dataplane = DataPlane(self.repository)
         self.http_port = http_port
+        # V2 gRPC front end over the same dataplane (None = disabled;
+        # 0 = ephemeral port, which `self.grpc_port` then holds).
+        self.grpc_port = grpc_port
+        self.grpc_server = None
         self.metrics = Metrics()
         self.router = Router()
         self._register_routes()
@@ -1316,6 +1330,15 @@ class ModelServer:
                 obs.sanitizer_armed().set(1)
         await self.http_server.start(host, self.http_port)
         self.http_port = self.http_server.port
+        if self.grpc_port is not None:
+            # grpc and protobuf load only for a server that asks for them.
+            from kfserving_tpu_torch.server.grpc_server import GRPCServer
+
+            self.grpc_server = GRPCServer(
+                self.dataplane, port=self.grpc_port, host=host,
+                metrics=self.metrics, monitoring=self.monitoring)
+            await self.grpc_server.start()
+            self.grpc_port = self.grpc_server.port
         startup.mark("serving")
 
     async def drain(self, budget_s: float) -> bool:
@@ -1347,6 +1370,9 @@ class ModelServer:
             sanitizer.attach_flight_recorder(None)
             self._owns_sanitizer_watchdog = False
             obs.sanitizer_armed().set(0)
+        if self.grpc_server is not None:
+            await self.grpc_server.stop()
+            self.grpc_server = None
         await self.http_server.stop()
         residency = getattr(self.repository, "residency", None)
         if residency is not None:

@@ -54,6 +54,9 @@ class DataPlane:
         self.revision: Optional[str] = None
 
     # -- health / metadata -------------------------------------------------
+    def live(self) -> bool:
+        return True
+
     def server_ready(self) -> bool:
         """V2 "server ready": all registered models ready."""
         return all(m.ready for m in self.repository.get_models())
@@ -71,7 +74,7 @@ class DataPlane:
 
     def server_metadata(self) -> Dict[str, Any]:
         return {"name": SERVER_NAME, "version": SERVER_VERSION,
-                "extensions": []}
+                "extensions": ["model_repository"]}
 
     def model_metadata(self, name: str) -> Dict[str, Any]:
         model = self.repository.get_model(name)

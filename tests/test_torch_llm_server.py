@@ -242,11 +242,14 @@ async def test_stream_slot_freed_on_client_disconnect(served):
 
 
 # A mesh serves the paged mode with bucketed prefill; the other modes
-# are refused under one, by name, before any rank starts.
+# are refused under one, by name, before any rank starts.  An hf:
+# tokenizer loads from a local directory only: a missing one fails the
+# load (tests/test_torch_tokenizer.py serves one that exists).
 @pytest.mark.parametrize("extra,message", [
     ({"mesh": {"dp": 2, "tp": 1}, "block_size": None}, "multi-device"),
     ({"mesh": {"tp": 2}, "prefill_chunk_tokens": 32}, "multi-device"),
-    ({"tokenizer": "hf:gpt2"}, "hf: tokenizers are not supported"),
+    ({"tokenizer": "hf:/nonexistent/kfs-tokenizer"},
+     "is not a local directory"),
 ])
 def test_unported_config_is_refused(tmp_path, extra, message):
     config = dict(CONFIG)

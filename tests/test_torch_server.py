@@ -279,6 +279,13 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.reliability.brownout\n"
         "import kfserving_tpu_torch.reliability.envknobs\n"
         "import kfserving_tpu_torch.observability.federation\n"
+        "import kfserving_tpu_torch.tools.convert\n"
+        "import kfserving_tpu_torch.tools.check_metrics\n"
+        "import kfserving_tpu_torch.tools.torch2openapi\n"
+        "optional = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('grpc', 'msgpack', 'transformers', 'tokenizers')\n"
+        "    or m.startswith('google.protobuf'))\n"
+        "assert not optional, optional\n"
         "import importlib, pkgutil\n"
         "import kfserving_tpu_torch.control, kfserving_tpu_torch.examples\n"
         "import kfserving_tpu_torch.agent, kfserving_tpu_torch.client\n"
@@ -286,6 +293,7 @@ def test_port_imports_nothing_of_jax():
         "import kfserving_tpu_torch.predictors\n"
         "import kfserving_tpu_torch.protocol\n"
         "import kfserving_tpu_torch.parallel\n"
+        "import kfserving_tpu_torch.tools\n"
         "for pkg in (kfserving_tpu_torch.control,\n"
         "            kfserving_tpu_torch.parallel,\n"
         "            kfserving_tpu_torch.examples,\n"
@@ -293,7 +301,8 @@ def test_port_imports_nothing_of_jax():
         "            kfserving_tpu_torch.client,\n"
         "            kfserving_tpu_torch.detectors,\n"
         "            kfserving_tpu_torch.predictors,\n"
-        "            kfserving_tpu_torch.protocol):\n"
+        "            kfserving_tpu_torch.protocol,\n"
+        "            kfserving_tpu_torch.tools):\n"
         "    for info in pkgutil.walk_packages(pkg.__path__,\n"
         "                                      pkg.__name__ + '.'):\n"
         "        importlib.import_module(info.name)\n"
@@ -310,11 +319,31 @@ def test_port_imports_nothing_of_jax():
         "             'predictors.torchserver.__main__',\n"
         "             'parallel.follower', 'parallel.mesh',\n"
         "             'parallel.multihost', 'parallel.ring_attention',\n"
-        "             'parallel.sharding'):\n"
+        "             'parallel.sharding', 'tools.analyzers.naming',\n"
+        "             'protocol.grpc.kfs_generate_pb2'):\n"
         "    assert 'kfserving_tpu_torch.' + name in sys.modules, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'flax', 'aiohttp', 'msgpack', 'ml_dtypes',\n"
+        "     'kfserving_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_grpc_server_imports_nothing_of_jax():
+    """The gRPC front end (imported only for --grpc_port) brings grpc and
+    protobuf, and nothing of JAX, the JAX package or msgpack."""
+    pytest.importorskip("grpc")
+    code = (
+        "import sys\n"
+        "from kfserving_tpu_torch.server.grpc_server import GRPCServer\n"
+        "assert len(GRPCServer(None)._handlers()) == 3\n"
+        "assert 'grpc' in sys.modules and 'google.protobuf' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes',\n"
         "     'kfserving_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
