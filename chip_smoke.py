@@ -1897,6 +1897,19 @@ async def wait_idle(engine) -> None:
     check(False, "the generator did not go idle")
 
 
+def write_json(path: str, obj) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def module_logits(module, x: np.ndarray) -> np.ndarray:
+    """The harness's reference for a served answer: ``module`` called
+    directly on the card, its fp32 logits on the host."""
+    with torch.inference_mode():
+        return module(torch.from_numpy(x).to("cuda")).float().cpu().numpy()
+
+
 def kernel_events(trace_path: str) -> dict:
     """The capture's Chrome trace: device kernel events of K1, of K2 and
     of any kernel, and the host's graph launches."""
@@ -1975,6 +1988,8 @@ async def observe_window(model, trace_dir: str) -> dict:
         raised = False
         try:
             with sanitizer.loop_guard("chip_smoke", "cuda"):
+                # kfslint: disable=host-sync the deliberate violation the
+                # sanitizer's probe must catch
                 probe.sum().item()
         except sanitizer.ForbiddenTransfer:
             raised = True
@@ -2022,7 +2037,7 @@ async def observe_window(model, trace_dir: str) -> dict:
           "prefills")
 
     # 1. The capture names K1 (the eager prefill); K2 runs in graphs.
-    kernels = kernel_events(captured["trace"])
+    kernels = await asyncio.to_thread(kernel_events, captured["trace"])
     check(kernels["flash_attention"] > 0, f"the profiler capture names no "
           f"flash attention kernel: {kernels}")
     # 2. The timeline over the window.
@@ -3013,7 +3028,8 @@ def serve_kvhandoff(card: str, setup: dict = KVHANDOFF_SETUP) -> dict:
     waves = [0]
 
     async def incarnation(extra, work):
-        model, load_s = load_generative("kvhandoff", cfg, **extra)
+        model, load_s = await asyncio.to_thread(
+            load_generative, "kvhandoff", cfg, **extra)
         server = ModelServer(http_port=0)
         await server.start_async([model], host="127.0.0.1")
         try:
@@ -3771,12 +3787,11 @@ async def drive_repository(root: str) -> dict:
             resp, first_predict_ms[name] = await call(
                 "POST", f"/v1/models/{name}:predict",
                 {"instances": x.tolist()})
-            module = repo.get_model(name).module
-            with torch.inference_mode():
-                direct = module(torch.from_numpy(x).to("cuda")).float().cpu()
-            served = torch.tensor(resp["predictions"])
-            limit = BF16_RTOL * direct.abs().amax(dim=-1, keepdim=True)
-            check(bool(((served - direct).abs() <= limit + BF16_ATOL).all()),
+            direct = await asyncio.to_thread(
+                module_logits, repo.get_model(name).module, x)
+            served = np.asarray(resp["predictions"], np.float32)
+            limit = BF16_RTOL * np.abs(direct).max(axis=-1, keepdims=True)
+            check(bool((np.abs(served - direct) <= limit + BF16_ATOL).all()),
                   f"{name}: served logits differ from the direct forward")
         cycles = []
         for _ in range(2):
@@ -4144,10 +4159,8 @@ async def drive_density(root: str) -> dict:
                                        * DENSITY_FRAC) + shared_bytes(hbm)
             # Resident and idle right after its predict: its direct
             # forward is the reference for every later answer.
-            module = repo.get_model(name).module
-            with torch.inference_mode():
-                direct[name] = module(torch.from_numpy(x).to(
-                    "cuda")).float().cpu().numpy()[0]
+            direct[name] = (await asyncio.to_thread(
+                module_logits, repo.get_model(name).module, x))[0]
         cold_evictions = sum(hbm.evictions.values())
         latencies, checked = [], 0
 
@@ -4452,11 +4465,10 @@ async def drive_blackbox(port: int, predictor, image: np.ndarray,
             ("square_attack", "art.json", ART_CONFIG,
              {"instances": [image.tolist(), label]})):
         art = os.path.join(root, kind)
-        os.makedirs(art)
-        with open(os.path.join(art, cfg_name), "w") as f:
-            json.dump(cfg, f)
-        explainer = build_explainer("resnet", kind, art,
-                                    f"127.0.0.1:{port}")
+        await asyncio.to_thread(write_json, os.path.join(art, cfg_name),
+                                cfg)
+        explainer = await asyncio.to_thread(
+            build_explainer, "resnet", kind, art, f"127.0.0.1:{port}")
         explainer.load()
         server = ModelServer(http_port=0)
         await server.start_async([explainer], host="127.0.0.1")
@@ -4721,6 +4733,22 @@ async def wait_until(predicate, what: str, timeout_s: float = RECYCLE_WAIT_S):
     check(False, f"{what}: not within {timeout_s} s")
 
 
+def chain_reference(module, batch: torch.Tensor) -> tuple:
+    """The chain's reference logits (fp32): ``module`` called directly,
+    with K1 and with the plain attention."""
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    cfg = module.config
+    with torch.inference_mode():
+        logits = module(batch).float()
+        cfg.attn_fn = lambda q, k, v, mask: flash_attention_plain(q, k, v)
+        try:
+            plain = module(batch).float()
+        finally:
+            cfg.attn_fn = None
+    return logits, plain
+
+
 async def chain_requests(port: int, body: bytes, n: int, concurrency: int,
                          rate: float = 0.0):
     """POST ``body`` n times through the port's asyncio client: closed
@@ -4779,10 +4807,7 @@ def serve_chain(card: str) -> tuple:
     from kfserving_tpu_torch.examples.image_transformer import (
         ImageTransformer,
     )
-    from kfserving_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_plain,
-    )
+    from kfserving_tpu_torch.ops.flash_attention import flash_attention
 
     model_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-chain-")
     with open(os.path.join(model_dir, "config.json"), "w") as f:
@@ -4841,14 +4866,8 @@ def serve_chain(card: str) -> tuple:
             batches = engine.execute_count - executed0
             pre = await transformer.preprocess({"instances": [image]})
             batch = torch.from_numpy(np.stack(pre["instances"])).to("cuda")
-            with torch.inference_mode():
-                logits = module(batch).float()
-                cfg.attn_fn = lambda q, k, v, mask: \
-                    flash_attention_plain(q, k, v)
-                try:
-                    plain = module(batch).float()
-                finally:
-                    cfg.attn_fn = None
+            logits, plain = await asyncio.to_thread(chain_reference, module,
+                                                    batch)
             param_bytes = sum(t.numel() * t.element_size() for t in
                               list(module.parameters())
                               + list(module.buffers()))
@@ -5106,7 +5125,7 @@ def serve_recycle(card: str) -> dict:
                 await controller.apply(InferenceService(name="gen",
                                                         predictor=spec))
             except Exception:
-                rerun_replica(orch, cid, spec)
+                await asyncio.to_thread(rerun_replica, orch, cid, spec)
                 raise
             out["apply_s"] = time.perf_counter() - t0
             incumbent = orch.replicas(cid)[0]
@@ -5166,7 +5185,8 @@ def serve_recycle(card: str) -> dict:
             status, captured, _ = await capture
             check(status == 200 and captured.get("captured"),
                   f"recycle: profile capture HTTP {status} {captured}")
-            out["capture"] = kernel_events(captured["trace"])
+            out["capture"] = await asyncio.to_thread(kernel_events,
+                                                     captured["trace"])
             check(out["capture"]["flash_attention"] > 0
                   and out["capture"]["paged_attention"] > 0,
                   f"recycle: the successor's capture names "
@@ -6267,34 +6287,36 @@ def serve_torchserver(card: str, device: str = "cuda") -> dict:
                 first, _, _ = await drive_requests(port, requests[:1], 1)
                 results, lat, wall = await drive_requests(
                     port, requests[1:], TORCHSERVER_CONCURRENCY)
-                results = first + results
-                worst = 0.0
-                for i, ((status, data), x) in enumerate(zip(results,
-                                                            images)):
-                    check(status == 200, f"torchserver b{b} request {i}: "
-                          f"HTTP {status} {data[:200]!r}")
-                    got = torch.tensor(json.loads(data)["predictions"],
-                                       dtype=torch.float32)
-                    batch = torch.from_numpy(x)
-                    with torch.no_grad():
-                        direct = net(batch.to(device)).cpu()
-                        plain = cpu_net(batch)
-                    check(torch.equal(got, direct),
-                          f"torchserver b{b} request {i}: the served "
-                          f"answer differs from the direct forward on the "
-                          f"card by {float((got - direct).abs().max())}")
-                    check(torch.allclose(direct, plain,
-                                         rtol=TORCHSERVER_RTOL,
-                                         atol=TORCHSERVER_ATOL),
-                          f"torchserver b{b} request {i}: the card's "
-                          f"forward differs from the CPU copy by "
-                          f"{float((direct - plain).abs().max())}")
-                    worst = max(worst, float((direct - plain).abs().max()))
-                out[f"b{b}"] = dict(latency_summary(lat, wall),
-                                    max_abs_err_vs_cpu=worst)
+                out[b] = (first + results, images, lat, wall)
             return out
 
-        arms = asyncio.run(serve_over_http(model, run))
+        arms = {}
+        # Every answer against the module called directly, once the
+        # requests are over.
+        for b, (results, images, lat, wall) in asyncio.run(
+                serve_over_http(model, run)).items():
+            worst = 0.0
+            for i, ((status, data), x) in enumerate(zip(results, images)):
+                check(status == 200, f"torchserver b{b} request {i}: "
+                      f"HTTP {status} {data[:200]!r}")
+                got = torch.tensor(json.loads(data)["predictions"],
+                                   dtype=torch.float32)
+                batch = torch.from_numpy(x)
+                with torch.no_grad():
+                    direct = net(batch.to(device)).cpu()
+                    plain = cpu_net(batch)
+                err = float((direct - plain).abs().max())
+                check(torch.equal(got, direct),
+                      f"torchserver b{b} request {i}: the served answer "
+                      f"differs from the direct forward on the card by "
+                      f"{float((got - direct).abs().max())}")
+                check(torch.allclose(direct, plain, rtol=TORCHSERVER_RTOL,
+                                     atol=TORCHSERVER_ATOL),
+                      f"torchserver b{b} request {i}: the card's forward "
+                      f"differs from the CPU copy by {err}")
+                worst = max(worst, err)
+            arms[f"b{b}"] = dict(latency_summary(lat, wall),
+                                 max_abs_err_vs_cpu=worst)
         batch = torch.from_numpy(rng.normal(size=(16, 3, 32, 32)).astype(
             np.float32)).to(device)
         with torch.no_grad():
@@ -6470,12 +6492,11 @@ print("reduced", t.tolist())
 NCCL_SAME_CARD_TIMEOUT_S = 120
 
 
-def mesh_block(sizes: dict, device: str = "cuda") -> dict:
-    """A config's mesh block: ``sizes`` with every rank on one device
-    (cuda:0 on the card), over gloo."""
+def mesh_block(sizes: dict) -> dict:
+    """A config's mesh block: ``sizes`` with every rank on cuda:0, over
+    gloo."""
     n = math.prod(sizes.values())
-    return dict(sizes, devices=[f"{device}:0" if device == "cuda"
-                                else device] * n, backend="gloo")
+    return dict(sizes, devices=["cuda:0"] * n, backend="gloo")
 
 
 def check_nccl_same_card() -> dict:
@@ -6647,9 +6668,10 @@ def hold_bert_answers(answers, reference, bodies, vocab: int,
             "share_of_limit": worst_share, "top1_agreement": share_top1}
 
 
-def mesh_bert(card: str, config: dict, device: str) -> dict:
+def mesh_bert(card: str) -> dict:
+    config = BERT_CONFIG
     rng = np.random.default_rng(13)
-    ref, _ = load_model("bert", config, device)
+    ref, _ = load_model("bert", config)
     cfg = ref.module.config
     try:
         bodies = [rng.integers(1, cfg.vocab_size, size=n).tolist()
@@ -6663,7 +6685,7 @@ def mesh_bert(card: str, config: dict, device: str) -> dict:
     for sizes in MESH_BERT:
         name = json.dumps(sizes, sort_keys=True)
         model, load_s = load_model(
-            "bert", dict(config, mesh=mesh_block(sizes, device)), device)
+            "bert", dict(config, mesh=mesh_block(sizes)))
         leader = model.engine._leader
         try:
             n_ranks = math.prod(sizes.values())
@@ -6688,13 +6710,12 @@ def mesh_bert(card: str, config: dict, device: str) -> dict:
               "model")
         # Under sp the ring fold (plain torch) replaces K1.
         want_k1 = 0 if sizes.get("sp", 1) > 1 else cfg.num_layers * batches
-        if device == "cuda":
-            check(all(c["flash_attention"] == want_k1
-                      and c["paged_attention"] == 0 for c in counts),
-                  f"mesh {name}: launches per rank {counts}, want K1 "
-                  f"{want_k1} ({batches} batches)")
+        check(all(c["flash_attention"] == want_k1
+                  and c["paged_attention"] == 0 for c in counts),
+              f"mesh {name}: launches per rank {counts}, want K1 "
+              f"{want_k1} ({batches} batches)")
         rows[name] = {
-            "ranks": n_ranks, "devices": mesh_block(sizes, device)["devices"],
+            "ranks": n_ranks, "devices": mesh_block(sizes)["devices"],
             "backend": "gloo", "graphs": False, "load_s": load_s,
             "batches": batches, "launches_per_rank": counts,
             "param_bytes_per_rank": rank_bytes,
@@ -6765,18 +6786,19 @@ async def mesh_generate_streams(model) -> dict:
             "ttft_max_ms": ttfts[-1] * 1e3}
 
 
-def hold_greedy_tokens(module, tokenizer, streams, device: str) -> dict:
+def hold_greedy_tokens(module, tokenizer, streams, prompts=None) -> dict:
     """Each stream's tokens against the unsharded model teacher-forced
-    over the stream's own context: every token its greedy choice but
-    for near-ties (top-2 within RESNET_TIE_RTOL of the largest |logit|),
-    counted."""
+    over the stream's own context (``prompts[i]``, else
+    ``gen_prompt(i)``): every token its greedy choice but for near-ties
+    (top-2 within RESNET_TIE_RTOL of the largest |logit|), counted."""
     ties = positions = 0
     for i, served in enumerate(streams):
-        prompt = tokenizer.encode(gen_prompt(i))
-        ids = torch.tensor([prompt + served[:-1]], device=device)
+        prompt = tokenizer.encode(prompts[i] if prompts is not None
+                                  else gen_prompt(i))
+        ids = torch.tensor([prompt + served[:-1]], device="cuda")
         with torch.inference_mode():
             logits = module(ids)[0, len(prompt) - 1:].float()
-        served_t = torch.tensor(served, device=device)
+        served_t = torch.tensor(served, device="cuda")
         top = logits.max(dim=-1).values
         gap = top - logits.gather(-1, served_t[:, None])[:, 0]
         limit = RESNET_TIE_RTOL * logits.abs().amax(dim=-1)
@@ -6791,14 +6813,15 @@ def hold_greedy_tokens(module, tokenizer, streams, device: str) -> dict:
             "near_ties": ties, "tie_rtol": RESNET_TIE_RTOL}
 
 
-def mesh_generate(card: str, config: dict, device: str) -> dict:
-    ref, _ = load_generative("gen4k", config, device)
+def mesh_generate(card: str) -> dict:
+    config = GEN_CONFIG
+    ref, _ = load_generative("gen4k", config)
     name = json.dumps(MESH_GEN, sort_keys=True)
     try:
         ref_bytes = {"param_bytes": ref.engine.param_bytes(),
                      "cache_bytes": ref.engine.cache_bytes()}
         model, load_s = load_generative(
-            "gen4k", config, device, mesh=mesh_block(MESH_GEN, device))
+            "gen4k", config, mesh=mesh_block(MESH_GEN))
         leader = model.engine._leader
         try:
             check(leader is not None and len(leader.pids) == 1,
@@ -6816,8 +6839,7 @@ def mesh_generate(card: str, config: dict, device: str) -> dict:
         alive = processes_gone(pids)
         check(not alive, f"mesh {name}: followers {alive} outlived the "
               "model")
-        held = hold_greedy_tokens(ref.module, ref.tokenizer, run["tokens"],
-                                  device)
+        held = hold_greedy_tokens(ref.module, ref.tokenizer, run["tokens"])
     finally:
         ref.unload()
     before, after = run["before"], run["after"]
@@ -6826,11 +6848,10 @@ def mesh_generate(card: str, config: dict, device: str) -> dict:
     want = {"flash_attention": cfg.num_layers * prefills,
             "paged_attention": (cfg.num_layers * waves
                                 * after["steps_per_call"])}
-    if device == "cuda":
-        check(waves > 0 and prefills > 0
-              and all(c == want for c in run["counts"]),
-              f"mesh {name}: launches per rank {run['counts']}, want {want}"
-              f" ({prefills} prefills, {waves} waves)")
+    check(waves > 0 and prefills > 0
+          and all(c == want for c in run["counts"]),
+          f"mesh {name}: launches per rank {run['counts']}, want {want}"
+          f" ({prefills} prefills, {waves} waves)")
     heads = cfg.num_heads // MESH_GEN["tp"]
     check(all(b["cache_bytes"] * MESH_GEN["tp"] == ref_bytes["cache_bytes"]
               for b in rank_bytes),
@@ -6838,7 +6859,7 @@ def mesh_generate(card: str, config: dict, device: str) -> dict:
           f"1/{MESH_GEN['tp']} of {ref_bytes['cache_bytes']}")
     return {name: {
         "ranks": MESH_GEN["tp"],
-        "devices": mesh_block(MESH_GEN, device)["devices"],
+        "devices": mesh_block(MESH_GEN)["devices"],
         "backend": "gloo", "graphs": False, "load_s": load_s,
         "heads_per_rank": heads, "requests": GEN_REQUESTS,
         "concurrency": GEN_CONCURRENCY, "prefills": prefills,
@@ -6850,19 +6871,374 @@ def mesh_generate(card: str, config: dict, device: str) -> dict:
         "held": held, "followers_left": len(alive)}}
 
 
-def serve_mesh(card: str, bert_config: dict = BERT_CONFIG,
-               gen_config: dict = GEN_CONFIG, device: str = "cuda") -> dict:
+# -- line "mesh_modes": the generator's other modes under MESH_GEN ----------
+# Each mode at its published configuration (above), GPT-2-small width,
+# with the traffic cut (never a width) so the line takes about two
+# minutes: dense 4 streams of 32 tokens; chunked 2 live streams (48
+# tokens) and one cold 3900-token prompt (8 tokens) landing among them;
+# speculative 2 prompts of 32 tokens in the ngram and self-draft arms;
+# the tier 6 conversations' turn 0 through the 72-block pool, then turn
+# 1 of the first 2 (their chains spilled: a fault-back); the handoff 3
+# conversations exported under tp2 and adopted by an unsharded engine.
+MODES_DENSE = (4, 32)
+MODES_COLD_LIVE = (2, 48)
+MODES_SPEC = (2, 32)
+MODES_TIER_CONVS, MODES_TIER_RETURNS, MODES_HANDOFF_CONVS = 6, 2, 3
+MODES_KV_TOKENS = 8
+
+
+def plain_decoder(config: dict):
+    """The unsharded decoder of ``config`` on the seeded init every
+    GenerativeModel of it loads (through the param cache)."""
+    from kfserving_tpu_torch.engine import param_cache
+    from kfserving_tpu_torch.models import create_model
+
+    spec = create_model(config["architecture"], **config["arch_kwargs"])
+    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as d:
+        module, _, _ = param_cache.load_or_materialize(
+            config["architecture"], config["arch_kwargs"], spec, d,
+            torch.device("cuda"))
+    return module
+
+
+def mode_launches(after: dict, before: dict, layers: int,
+                  steps: int, spec_k: int, draft: bool,
+                  paged: bool) -> dict:
+    """K1 and K2 launches a rank makes for the dispatches between two
+    stats: K1 once per layer per bucketed prefill and per draft forward
+    (K per draft wave, on rank 0 alone: ``draft``); K2 once per layer
+    per decode step of a plain paged wave and per verified position of
+    a spec wave (chunks attend by gather, dense waves by masked
+    attention)."""
+    prefills = after["prefills"] - before["prefills"]
+    waves = after["decode_steps"] - before["decode_steps"]
+    spec_waves = ((after.get("speculative") or {}).get("waves", 0)
+                  - (before.get("speculative") or {}).get("waves", 0))
+    k2 = layers * (steps * (waves - spec_waves) + (spec_k + 1) * spec_waves)
+    return {"flash_attention": layers * (prefills + (spec_k * spec_waves
+                                                     if draft else 0)),
+            "paged_attention": k2 if paged else 0}
+
+
+async def mode_streams(model, bodies, concurrency: int,
+                       sequential: bool = False,
+                       last_lands: bool = False) -> dict:
+    """The bodies as SSE generate streams through the model's server
+    (at ``concurrency``, or one after another; ``last_lands``: the last
+    body once every other stream has a token out), every rank's launch
+    counts read from 0 around them: ids, TTFTs in body order, stats
+    before and after, counts per rank."""
+    from kfserving_tpu_torch.server.app import ModelServer
+
+    server = ModelServer(http_port=0)
+    await server.start_async([model], host="127.0.0.1")
+    port = server.http_port
+    path = f"/v2/models/{model.name}/generate_stream"
+    engine = model.engine
+    leader = engine._leader
+    sem = asyncio.Semaphore(concurrency)
+
+    async def one(body):
+        async with sem:
+            return await asyncio.to_thread(sse_stream, port, path, body)
+
+    try:
+        await asyncio.to_thread(reset_mesh_launches, leader)
+        before = engine.stats()
+        if sequential:
+            streams = [await one(b) for b in bodies]
+        elif last_lands:
+            live = [asyncio.ensure_future(one(b)) for b in bodies[:-1]]
+            for _ in range(6000):
+                if engine.tokens_generated - before["tokens_generated"] \
+                        >= len(live):
+                    break
+                await asyncio.sleep(0.01)
+            cold = await one(bodies[-1])
+            streams = list(await asyncio.gather(*live)) + [cold]
+        else:
+            streams = await asyncio.gather(*(one(b) for b in bodies))
+        for _ in range(200):
+            if all(slot is None for slot in engine._slots):
+                break
+            await asyncio.sleep(0.05)
+        after = engine.stats()
+        counts = await asyncio.to_thread(follower_counts, leader)
+    finally:
+        await server.stop_async()
+    ids = []
+    for i, (status, events, _, _) in enumerate(streams):
+        check(status == 200, f"{model.name} stream {i}: HTTP {status} "
+              f"{events}")
+        ids.append(stream_tokens(events, f"{model.name} stream {i}",
+                                 bodies[i]["max_tokens"]))
+    return {"ids": ids, "ttft_ms": [s[2] * 1e3 for s in streams],
+            "before": before, "after": after, "counts": counts}
+
+
+def mode_row(name: str, run: dict, config: dict, load_s: float,
+             spec_k: int = 0, draft: bool = False, held=None) -> dict:
+    """A mode's row: its launches on every rank against the dispatches'
+    count (rank 0's stats; every rank runs them, and rank 0 alone the
+    draft), the tokens and each stream's TTFT.  No rate: a few short
+    streams measure start-up and first tokens, not throughput."""
+    before, after = run["before"], run["after"]
+    want = [mode_launches(after, before,
+                          config["arch_kwargs"]["num_layers"],
+                          config["steps_per_call"], spec_k,
+                          draft and rank == 0,
+                          config.get("block_size") is not None)
+            for rank in range(len(run["counts"]))]
+    check(run["counts"] == want,
+          f"mesh_modes {name}: launches per rank {run['counts']}, "
+          f"want {want}")
+    return {"load_s": load_s, "streams": len(run["ids"]),
+            "generated_tokens": sum(len(t) for t in run["ids"]),
+            "ttft_ms": run["ttft_ms"],
+            "prefills": after["prefills"] - before["prefills"],
+            "decode_waves": after["decode_steps"] - before["decode_steps"],
+            "launches_per_rank": run["counts"], "held": held}
+
+
+def load_mesh(name: str, config: dict, **extra):
+    model, load_s = load_generative(name, config, mesh=mesh_block(MESH_GEN),
+                                    **extra)
+    check(model.engine._leader is not None
+          and len(model.engine._leader.pids) == 1,
+          f"mesh_modes {name}: one follower expected")
+    return model, load_s
+
+
+def close_mesh(model) -> list:
+    """Unload a mesh model: the pids of followers that outlived it."""
+    pids = list(model.engine._leader.pids)
+    asyncio.run(model.close())
+    model.unload()
+    return processes_gone(pids)
+
+
+def mode_dense(ref) -> dict:
+    n, tokens = MODES_DENSE
+    prompts = [dense_prompt(i) for i in range(n)]
+    model, load_s = load_mesh("modes-dense", DENSE_CONFIG)
+    try:
+        check(model.engine.block_size is None, "dense: the engine paged")
+        run = asyncio.run(mode_streams(
+            model, [{"text_input": p, "max_tokens": tokens}
+                    for p in prompts], n))
+    finally:
+        alive = close_mesh(model)
+    held = hold_greedy_tokens(ref, model.tokenizer, run["ids"], prompts)
+    return dict(mode_row("dense", run, DENSE_CONFIG, load_s, held=held),
+                followers_left=len(alive))
+
+
+def mode_chunked(ref) -> dict:
+    n, tokens = MODES_COLD_LIVE
+    config = dict(COLD_CONFIG, prefill_chunk_tokens=COLD_CHUNK)
+    prompts = [live_prompt(i) for i in range(n)] + [cold_prompt(0)]
+    bodies = [{"text_input": p, "max_tokens": tokens} for p in prompts[:n]]
+    bodies.append({"text_input": prompts[-1], "max_tokens": 8})
+    model, load_s = load_mesh("modes-chunked", config)
+    try:
+        run = asyncio.run(mode_streams(model, bodies, len(bodies),
+                                       last_lands=True))
+    finally:
+        alive = close_mesh(model)
+    cp_before = run["before"]["chunked_prefill"]
+    cp = run["after"]["chunked_prefill"]
+    chunks = cp["chunks_dispatched"] - cp_before["chunks_dispatched"]
+    want = -(-(COLD_LEN + 1) // COLD_CHUNK)
+    check(chunks == want, f"mesh_modes chunked: {chunks} chunks for the "
+          f"cold prompt, want {want}")
+    held = hold_greedy_tokens(ref, model.tokenizer, run["ids"], prompts)
+    return dict(mode_row("chunked", run, config, load_s, held=held),
+                chunks=chunks,
+                cold_ttft_ms=run["ttft_ms"][-1], followers_left=len(alive))
+
+
+def mode_spec(ref) -> dict:
+    n, tokens = MODES_SPEC
+    prompts = [spec_prompt(i) for i in range(n)]
+    arms = {"ngram": {"tokens": SPEC_K},
+            "draft": {"tokens": SPEC_K, "draft": {
+                "architecture": SPEC_CONFIG["architecture"],
+                "arch_kwargs": SPEC_CONFIG["arch_kwargs"],
+                "window": SPEC_WINDOW}}}
+    out = {}
+    for arm, spec in arms.items():
+        model, load_s = load_mesh(f"modes-spec-{arm}", SPEC_CONFIG,
+                                  speculative=spec)
+        try:
+            reports = model.engine._leader.ask(("report",))
+            booked = [model.engine.draft_param_bytes()] + [
+                r["draft_param_bytes"] for r in reports]
+            run = asyncio.run(mode_streams(
+                model, [{"text_input": p, "max_tokens": tokens}
+                        for p in prompts], n))
+        finally:
+            alive = close_mesh(model)
+        spec_st = run["after"]["speculative"]
+        spec_waves = spec_st["waves"] - run["before"]["speculative"]["waves"]
+        check(spec_waves > 0, f"mesh_modes speculative {arm}: no spec wave")
+        # Rank 0 alone holds a draft; the followers get its proposals.
+        check((booked[0] > 0) == (arm == "draft")
+              and not any(booked[1:]),
+              f"mesh_modes speculative {arm}: draft bytes per rank "
+              f"{booked}")
+        held = hold_greedy_tokens(ref, model.tokenizer, run["ids"], prompts)
+        out[arm] = dict(mode_row(f"speculative {arm}", run, SPEC_CONFIG,
+                                 load_s, spec_k=SPEC_K,
+                                 draft=arm == "draft", held=held),
+                        spec_waves=spec_waves,
+                        acceptance_rate=spec_st.get("acceptance_rate"),
+                        draft_param_bytes_per_rank=booked,
+                        followers_left=len(alive))
+    return out
+
+
+def tier_bodies(setup: dict, convs, turn: int) -> list:
+    return [{"text_input": kv_prompt(c, turn, setup["ctx_len"]),
+             "max_tokens": MODES_KV_TOKENS} for c in convs]
+
+
+def mode_tier(ref) -> dict:
+    setup = KVTIER_SETUP
+    config = setup["config"]
+    first = tier_bodies(setup, range(MODES_TIER_CONVS), 0)
+    back = tier_bodies(setup, range(MODES_TIER_RETURNS), 1)
+    model, load_s = load_mesh("modes-tier", config,
+                              host_tier_blocks=setup["tier_blocks"])
+    try:
+        run = asyncio.run(mode_streams(model, first + back, 1,
+                                       sequential=True))
+        st = model.engine.stats()
+    finally:
+        alive = close_mesh(model)
+    ht, ev = st["host_tier"], st["paged"]["evictions"]
+    check(ev["capacity_spilled"] > 0 and ht["faulted_blocks"] > 0
+          and ht["fault_failures"] == 0 and ht["spill_failures"] == 0,
+          f"mesh_modes tier: host tier {ht}, evictions {ev}")
+    held = hold_greedy_tokens(ref, model.tokenizer, run["ids"],
+                              [b["text_input"] for b in first + back])
+    return dict(mode_row("tier", run, config, load_s, held=held),
+                spilled_blocks=ev["capacity_spilled"],
+                faulted_blocks=ht["faulted_blocks"],
+                tokens_saved=st["paged"]["host_tier_tokens_saved"],
+                return_ttft_ms=run["ttft_ms"][MODES_TIER_CONVS:],
+                followers_left=len(alive))
+
+
+def mode_handoff(ref) -> dict:
+    """Turn 0 of each conversation under tp2, the export into a
+    persistent tier, then an unsharded engine on the same directory
+    adopting it and serving turn 1 by fault-back."""
+    from kfserving_tpu_torch.engine.kv_tier import payload_digest
+
+    setup = KVHANDOFF_SETUP
+    config = setup["config"]
+    convs = range(MODES_HANDOFF_CONVS)
+    kv_dir = tempfile.mkdtemp(prefix="kfs-chip-smoke-kv-")
+    tier = {"host_tier_blocks": setup["tier_blocks"],
+            "host_tier_dir": kv_dir}
+    try:
+        model, load_s = load_mesh("modes-handoff", config, **tier)
+        try:
+            run = asyncio.run(mode_streams(
+                model, tier_bodies(setup, convs, 0), 1, sequential=True))
+            t0 = time.perf_counter()
+            export = model.engine.export_kv(setup["export_budget_s"])
+            export_ms = (time.perf_counter() - t0) * 1e3
+            kv = model.engine.kv_tier
+            exported = {c: payload_digest(kv.read(bytes.fromhex(c)))
+                        for c in kv.chains()}
+        finally:
+            alive = close_mesh(model)
+        check(export["exported"] > 0 and export["dropped"] == 0
+              and export["failed"] == 0,
+              f"mesh_modes handoff: export {export}")
+        successor, _ = load_generative("modes-handoff", config, **tier)
+        try:
+            kv = successor.engine.kv_tier
+            adopted = dict(kv.handoff)
+            digests = {c: payload_digest(kv.read(bytes.fromhex(c)))
+                       for c in kv.chains()}
+
+            async def turn1():
+                from kfserving_tpu_torch.server.app import ModelServer
+
+                server = ModelServer(http_port=0)
+                await server.start_async([successor], host="127.0.0.1")
+                try:
+                    return await drive_kv_turns(
+                        server.http_port, "modes-handoff",
+                        dict(setup, tokens=MODES_KV_TOKENS), 1, convs)
+                finally:
+                    await server.stop_async()
+
+            ids1, ttft1 = asyncio.run(turn1())
+            faulted = successor.engine.stats()["host_tier"]["faulted_blocks"]
+            asyncio.run(successor.close())
+        finally:
+            successor.unload()
+    finally:
+        shutil.rmtree(kv_dir, ignore_errors=True)
+    check(adopted["adopted"] == export["exported"] and digests == exported,
+          f"mesh_modes handoff: adopted {adopted} after exporting {export}")
+    check(faulted > 0, "mesh_modes handoff: the successor faulted nothing "
+          "back")
+    prompts = ([kv_prompt(c, 0, setup["ctx_len"]) for c in convs]
+               + [kv_prompt(c, 1, setup["ctx_len"]) for c in convs])
+    held = hold_greedy_tokens(ref, successor.tokenizer,
+                              run["ids"] + [ids1[c] for c in convs],
+                              prompts)
+    return dict(mode_row("handoff", run, config, load_s, held=held),
+                export=export, export_ms=export_ms, adopted=adopted,
+                successor_faulted_blocks=faulted,
+                successor_ttft_ms=ttft1, followers_left=len(alive))
+
+
+def mesh_modes(card: str) -> dict:
+    """Line ``mesh_modes``: dense slots, chunked prefill, speculative
+    decoding (ngram and self-draft), the host KV tier and KV handoff,
+    each under MESH_GEN at its published configuration; every streamed
+    token held against the unsharded decoder's greedy choice teacher-
+    forced (near-ties counted), every rank's K1/K2 launches against the
+    dispatches.  A mode that fails fails the run."""
+    out = {"card": card, "mesh": MESH_GEN, "backend": "gloo",
+           "graphs": False}
+    ref = plain_decoder(DENSE_CONFIG)
+    out["dense"] = mode_dense(ref)
+    ref = plain_decoder(SPEC_CONFIG)
+    out["speculative"] = mode_spec(ref)
+    ref = plain_decoder(COLD_CONFIG)
+    out["chunked"] = mode_chunked(ref)
+    out["tier"] = mode_tier(ref)
+    out["handoff"] = mode_handoff(ref)
+    del ref
+    rows = [out["dense"], out["chunked"], out["tier"], out["handoff"]] + \
+        list(out["speculative"].values())
+    left = sum(r["followers_left"] for r in rows)
+    check(left == 0, f"mesh_modes: {left} followers outlived their model")
+    out["launches"] = {
+        k: sum(c[k] for r in rows for c in r["launches_per_rank"])
+        for k in ("flash_attention", "paged_attention")}
+    print("mesh_modes " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_mesh(card: str) -> dict:
     """Line ``mesh``; returns it with every rank's launches summed
     (``launches``)."""
-    summary = {"card": card}
-    if device == "cuda":
-        summary["nccl_two_ranks_one_card"] = check_nccl_same_card()
-        summary["nccl_one_rank_graph"] = check_nccl_graph()
+    summary = {"card": card,
+               "nccl_two_ranks_one_card": check_nccl_same_card(),
+               "nccl_one_rank_graph": check_nccl_graph()}
     from kfserving_tpu_torch.parallel.follower import stop_forkserver
 
     try:
-        summary["bert"] = mesh_bert(card, bert_config, device)
-        summary["generate"] = mesh_generate(card, gen_config, device)
+        summary["bert"] = mesh_bert(card)
+        summary["generate"] = mesh_generate(card)
+        modes = mesh_modes(card)
     finally:
         # The followers' forkserver goes with the phase.
         stop_forkserver()
@@ -6870,7 +7246,8 @@ def serve_mesh(card: str, bert_config: dict = BERT_CONFIG,
         summary["generate"].values())
     summary["launches"] = {
         k: sum(c[k] for row in rows for c in row["launches_per_rank"] or [])
-        for k in ("flash_attention", "paged_attention")}
+        + modes["launches"][k] for k in ("flash_attention", "paged_attention")}
+    summary["modes_launches"] = modes["launches"]
     print("mesh " + json.dumps(summary), flush=True)
     return summary
 
@@ -7467,9 +7844,9 @@ def serve_grpc(card: str):
         held = None
         if equal < GRPC_STREAMS:
             held = {"grpc": hold_greedy_tokens(gen.module, gen.tokenizer,
-                                               grpc_ids, "cuda"),
+                                               grpc_ids),
                     "http": hold_greedy_tokens(gen.module, gen.tokenizer,
-                                               run["http_streams"], "cuda")}
+                                               run["http_streams"])}
     finally:
         bert.unload()
         gen.unload()
@@ -7582,7 +7959,7 @@ def serve_hf_tokenizer(card: str):
             check(waves > 0 and prefills > 0 and run["launches"] == want,
                   f"hf streams: launches {run['launches']}, want {want}")
             held = hold_greedy_tokens(gen.module, tok,
-                                      [ids for ids, _ in texts], "cuda")
+                                      [ids for ids, _ in texts])
         finally:
             gen.unload()
     finally:

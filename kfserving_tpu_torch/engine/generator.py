@@ -117,22 +117,51 @@ chunked prefill and its speculative decoding.
 
 - **meshes** (``mesh``, a DeviceMesh of more than one rank): the module
   is this rank's tensor-parallel shard (``parallel/sharding.py``), and
-  the KV pool shards on the heads axis as the q/k/v projections that fill
-  it do (it replicates when ``num_heads % tp`` leaves a remainder, as the
-  projections then do): cache writes, the flash prefill (K1) and the
-  paged decode (K2) run on the rank's local heads, and the all-reduce
-  after each layer's out and MLP-down projections is the only
-  collective.  The LM head stays replicated, so every rank holds the
-  same logits.  Rank 0's engine sends each prefill and decode wave to
-  the other ranks (``attach_leader``) before it runs it; their engines
-  never schedule and run what arrives (``mirror``).  Under a mesh every
-  program runs eagerly (a gloo collective cannot sit inside a CUDA
-  graph).  The paged mode with bucketed prefill, the prefix cache and
-  seeded sampling is served under a mesh; ``predictors/llm.py`` refuses
-  the other modes there.
+  the KV pool or the dense slot caches shard on the heads axis as the
+  q/k/v projections that fill them do (they replicate when ``num_heads
+  % tp`` leaves a remainder, as the projections then do): cache writes,
+  the flash prefill and draft forwards (K1) and the paged decode and
+  verify (K2) run on the rank's local heads, and the all-reduce after
+  each layer's out and MLP-down projections is the only collective of a
+  forward.  The LM head stays replicated, so every rank holds the same
+  logits.  Rank 0's engine sends every device operation to the other
+  ranks (``attach_leader``) from its enqueue thread before it runs it,
+  so they arrive in its dispatch order and the ranks' collectives pair
+  up: decode waves, prefill buckets, chunks, spec waves, feed re-syncs,
+  tier gathers and fault-back inserts.  The other ranks' engines never
+  schedule and run what arrives (``mirror``).  Every mode is served
+  under a mesh:
 
-Left for later: graphs for the prefill buckets, and dense slots, chunked
-prefill, speculative decoding, the host KV tier and handoff under a mesh.
+  - dense slots and chunked prefill need nothing more: a chunk is one
+    command, dispatched whole, so a preemption or a cancel between
+    chunks leaves no rank inside a collective;
+  - speculative decoding: the n-gram head's proposals travel in the
+    spec command's host input, and a draft model runs on rank 0 alone,
+    its proposals broadcast into every rank's verify input
+    (``parallel/mesh.py::broadcast_from_rank0``; on the device over
+    NCCL, through the host over gloo, whose all-reduces already join
+    the host every layer).  Replicas of the draft on every rank (the
+    JAX package replicates it) would hold one draft per rank and would
+    need every rank's proposals to be bit-equal to rank 0's, which
+    nothing guarantees across cards or BLAS algorithm choices: one
+    flipped argmax would feed a follower's verify other tokens and
+    corrupt the all-reduced logits of every later token;
+  - the host KV tier and handoff stay on rank 0's host, their payloads
+    in the JAX layout with every head (as the JAX package's
+    ``device_get`` of a sharded pool gathers them): a spill or export
+    gathers every rank's heads of the blocks at rank 0
+    (``_collect_heads``), and a fault-back scatters each rank its heads
+    (``_scatter_heads``), over the process group.  A follower holds its
+    share of the pool and of each snapshot, never a tier.  With
+    replicated heads rank 0's snapshot is the payload and every rank
+    receives the whole of a fault-back's.  A tier or handoff directory
+    is therefore the same under any mesh.
+
+  Under a mesh every program runs eagerly (a gloo collective cannot sit
+  inside a CUDA graph).
+
+Left for later: graphs for the prefill buckets, and graphs under a
+mesh.
 """
 
 import asyncio
@@ -383,6 +412,14 @@ class GenerationEngine:
         # Heads this rank holds: all of them, or its tensor-parallel
         # share (the projections' rows say which).
         heads = module.layers[0].query.weight.shape[0] // cfg.head_dim
+        # Under a mesh: whether the ranks split the heads (else every
+        # rank holds them all), and whether this rank follows rank 0 (a
+        # follower keeps no host tier: the tier and its buffers live on
+        # rank 0).
+        self._mesh = mesh
+        self._heads_sharded = heads != cfg.num_heads
+        self._follower = (mesh is not None
+                          and torch.distributed.get_rank() != 0)
         self.eos_id = eos_id
         self.name = name
         buckets = sorted(set(prefill_buckets or
@@ -579,19 +616,23 @@ class GenerationEngine:
 
         # -- host KV tier (paged mode only) --------------------------------
         # KFS_KV_TIER_BLOCKS and KFS_KV_TIER_DIR are the env twins.  One
-        # block's payload is its k/v in the JAX layout: [layers, (k, v),
-        # BS, H, D].
+        # block's payload is its k/v in the JAX layout with every head:
+        # [layers, (k, v), BS, H, D]; a mesh rank's share of it holds
+        # its own heads.
         self.kv_tier: Optional[HostKVTier] = None
         if self.block_size is not None:
-            self._payload_shape = ((cfg.num_layers, 2)
-                                   + tuple(alloc_shape[1:]))
+            self._local_payload_shape = ((cfg.num_layers, 2)
+                                         + tuple(alloc_shape[1:]))
+            self._payload_shape = (cfg.num_layers, 2, self.block_size,
+                                   cfg.num_heads, cfg.head_dim)
             if host_tier_blocks is None:
                 try:
                     host_tier_blocks = int(os.environ.get(
                         "KFS_KV_TIER_BLOCKS", "0"))
                 except ValueError:
                     host_tier_blocks = 0
-            if host_tier_blocks and int(host_tier_blocks) > 0:
+            if host_tier_blocks and int(host_tier_blocks) > 0 \
+                    and not self._follower:
                 self.kv_tier = HostKVTier(
                     block_bytes=(int(np.prod(self._payload_shape))
                                  * torch.empty((), dtype=cfg.dtype
@@ -1416,7 +1457,10 @@ class GenerationEngine:
         spill-pending block: gather the pending blocks on the engine's
         stream and queue their copy into pinned memory; the fetch
         executor waits for it and writes the tier (no tier I/O on the
-        scheduler loop, no host sync here)."""
+        scheduler loop, no host sync here).  Under a mesh whose ranks
+        split the heads the gather collects every rank's heads at rank
+        0 through the host (``_collect_heads``), which blocks this
+        thread until the blocks are read."""
         if self.kv_tier is None:
             return
         with self._block_lock:
@@ -1438,17 +1482,69 @@ class GenerationEngine:
         blocks (row n: block n's payload in the JAX layout), gathered
         with ``index_select`` over the named blocks on the engine's
         stream, and its copy to pinned host memory behind an event.  The
-        snapshot rides the handle until the event fired."""
+        snapshot rides the handle until the event fired.  Under a mesh
+        whose ranks split the heads, every rank gathers its heads (the
+        followers from the ``"gather"`` command) and rank 0 collects
+        them into the full payload on the host (``_collect_heads``),
+        a synchronous gather that blocks the enqueue thread (the handle
+        has no event then); with replicated heads rank 0's own snapshot
+        is the payload, copied behind an event as on one device."""
+        sharded = self._mesh is not None and self._heads_sharded
+        if sharded and self._leader is not None:
+            self._leader.send(("gather", blocks))
         with torch.inference_mode(), self._device_scope():
             idx = self._to_device(np.asarray(blocks, np.int64))
-            snap = torch.empty((len(blocks),) + self._payload_shape,
+            snap = torch.empty((len(blocks),) + self._local_payload_shape,
                                dtype=self._cache_dtype, device=self.device)
             for li, (pk, pv) in enumerate(self._caches):
                 snap[:, li, 0] = pk.index_select(0, idx)
                 snap[:, li, 1] = pv.index_select(0, idx)
+            if sharded:
+                return _Fetch([self._collect_heads(snap)], None)
             handle = self._start_fetch([snap])
         handle.source = snap
         return handle
+
+    def _rank_heads(self) -> List[int]:
+        """Each global rank's tensor-parallel index: the block of heads
+        it holds."""
+        from kfserving_tpu_torch.parallel.mesh import MeshConfig, axis_sizes
+        from kfserving_tpu_torch.parallel.sharding import rank_coords
+
+        config = MeshConfig(**axis_sizes(self._mesh))
+        return [rank_coords(config, r)["tp"]
+                for r in range(config.num_devices)]
+
+    def _collect_heads(self, snap: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every rank's [N, layers, 2, BS, H / tp, D] snapshot gathered at
+        rank 0 and joined on the heads axis in tp order (the blocks of
+        ranks with one tp index are copies); None on the other ranks."""
+        from kfserving_tpu_torch.parallel.mesh import gather_to_rank0
+
+        parts = gather_to_rank0(snap)
+        if parts is None:
+            return None
+        first = {}
+        for part, t in zip(parts, self._rank_heads()):
+            first.setdefault(t, part)
+        return torch.cat([first[t] for t in sorted(first)], dim=4)
+
+    def _scatter_heads(self, buf: Optional[torch.Tensor],
+                       n: int) -> torch.Tensor:
+        """Rank 0's staged full payloads [N, layers, 2, BS, H, D] (None on
+        the other ranks) -> this rank's heads of them, on its device."""
+        from kfserving_tpu_torch.parallel.mesh import scatter_from_rank0
+
+        parts = None
+        if buf is not None:
+            if self._heads_sharded:
+                h = self._local_payload_shape[3]
+                parts = [buf[:, :, :, :, t * h:(t + 1) * h].contiguous()
+                         for t in self._rank_heads()]
+            else:
+                parts = [buf] * len(self._rank_heads())
+        return scatter_from_rank0(parts, (n,) + self._local_payload_shape,
+                                  self._cache_dtype, self.device)
 
     def _payload_rows(self, handle: _Fetch) -> np.ndarray:
         """Wait for a gather's copy; its rows as [N, block_bytes] uint8
@@ -1573,12 +1669,19 @@ class GenerationEngine:
                                "ms": round(elapsed_ms, 3)})
         return True
 
-    def _insert_payloads(self, buf: torch.Tensor, blocks: List[int]) -> None:
+    def _insert_payloads(self, buf: Optional[torch.Tensor],
+                         blocks: List[int]) -> None:
         """Enqueue thread, in the device scope: copy staged payloads [N,
         layers, 2, BS, H, D] to the card on the engine's stream and write
         them into pool blocks ``blocks`` in place (the pools' addresses
         are baked into the captured graphs).  On the card the pinned
-        buffer is held until the copy's event fired."""
+        buffer is held until the copy's event fired.  Under a mesh rank
+        0 scatters each rank its heads of the payloads (the followers
+        run this from the ``"insert"`` command, with no buffer)."""
+        if self._mesh is not None:
+            if self._leader is not None:
+                self._leader.send(("insert", blocks))
+            buf = self._scatter_heads(buf, len(blocks))
         dev = (buf.to(self.device, non_blocking=True)
                if self.device.type == "cuda" else buf)
         dest = self._to_device(np.asarray(blocks, np.int64)[:, None])
@@ -1781,6 +1884,8 @@ class GenerationEngine:
         # arrays here, on the fetch executor.
         with sanitizer.sanctioned_fetch():
             if handle.event is not None:
+                # kfslint: disable=host-sync sanctioned fetch: the fetch
+                # executor waits for the copies' event
                 handle.event.synchronize()
             arrays = [h.numpy() for h in handle.host]
         lp = tuple(arrays[1:]) if len(arrays) > 1 else None
@@ -2047,22 +2152,31 @@ class GenerationEngine:
 
     # -- meshes -------------------------------------------------------------
     def attach_leader(self, leader) -> None:
-        """Rank 0 of a mesh: send each prefill and decode wave to the
-        other ranks from now on (after construction, whose greedy wave
-        every rank's engine runs for itself)."""
+        """Rank 0 of a mesh: send each device operation to the other
+        ranks from now on (after construction, whose greedy wave every
+        rank's engine runs for itself)."""
         self._leader = leader
 
     def mirror(self, command: tuple) -> None:
-        """A follower rank: run a program rank 0 dispatched, from the
-        same host inputs ("wave" or "prefill"); its outputs stay here."""
+        """A follower rank: run a device operation rank 0 dispatched,
+        from the same host inputs; its outputs stay here.  Rank 0 sends
+        every one from its enqueue thread, so the commands arrive in its
+        dispatch order: a decode wave, a prefill bucket, a chunk, a
+        spec wave (the verify, with rank 0's draft proposals), a feed
+        re-sync, a tier gather (a spill or an export) or a fault-back
+        insert."""
         kind, args = command[0], command[1:]
+        run = {"wave": self._run_wave, "prefill": self._prefill_program,
+               "chunk": self._run_chunk,
+               "spec": lambda host, drafted, flags: self._run_spec(
+                   host, None, flags, drafted),
+               "resync": self._run_resync, "gather": self._gather_blocks,
+               "insert": lambda blocks: self._insert_payloads(None, blocks),
+               }.get(kind)
+        if run is None:
+            raise ValueError(f"unknown generator command {kind!r}")
         with torch.inference_mode(), self._device_scope():
-            if kind == "wave":
-                self._run_wave(*args)
-            elif kind == "prefill":
-                self._prefill_program(*args)
-            else:
-                raise ValueError(f"unknown generator command {kind!r}")
+            run(*args)
 
     # -- chunked prefill (device side) --------------------------------------
     def _enqueue_chunk(self, slot: int, act: _Active, idx: int,
@@ -2105,12 +2219,20 @@ class GenerationEngine:
         arrays, flags = self._sampling_arrays([req], 1)
         host[tail + 4:] = self._sampling_bits(arrays)
         with torch.inference_mode(), self._device_scope():
-            self._stage(self._chunk_in, host)
-            p = _Sampling(*self._sampling_views(
-                self._chunk_in[tail + 4:], 1), *flags)
-            out = self._run_program(("chunk", nb) + flags,
-                                    lambda: self._chunk_program(nb, p))
-            return self._start_fetch(out)
+            return self._start_fetch(self._run_chunk(host, nb, flags))
+
+    def _run_chunk(self, host: np.ndarray, nb: int, flags
+                   ) -> List[torch.Tensor]:
+        """Enqueue thread: stage a chunk's host inputs into its static
+        input and run the chunk program over ``nb`` table blocks."""
+        if self._leader is not None:
+            self._leader.send(("chunk", host, nb, flags))
+        self._stage(self._chunk_in, host)
+        tail = 2 * self.prefill_chunk_tokens + self.blocks_per_slot
+        p = _Sampling(*self._sampling_views(self._chunk_in[tail + 4:], 1),
+                      *flags)
+        return self._run_program(("chunk", nb) + flags,
+                                 lambda: self._chunk_program(nb, p))
 
     def _chunk_program(self, nb: int, p: _Sampling) -> List[torch.Tensor]:
         C = self.prefill_chunk_tokens
@@ -2173,24 +2295,46 @@ class GenerationEngine:
         draft = ngram if ngram is not None else np.zeros((S, K), np.int32)
         host = np.concatenate([last, draft.ravel(), qpos.ravel(),
                                table.ravel(), self._sampling_bits(arrays)])
-        draft_event = None
         with torch.inference_mode(), self._device_scope():
-            self._stage(self._spec_in, host)
-            if windows is not None:
-                self._stage(self._draft_in, windows.ravel())
-                self._run_program(("spec_draft", S, self._draft_window),
-                                  self._draft_program)
-                if self.device.type == "cuda":
-                    draft_event = torch.cuda.Event()
-                    draft_event.record()
-            p = _Sampling(*self._spec_views()[4], *flags)
-            handle = self._start_fetch(self._run_program(
-                ("spec_verify", S, K + 1) + flags,
-                lambda: self._verify_program(p)))
+            out, draft_event = self._run_spec(host, windows, flags)
+            handle = self._start_fetch(out)
         handle.draft_event = draft_event
         self.decode_steps += 1
         self.spec_waves += 1
         return handle, (list(eligible), host_draft_ms), time.perf_counter()
+
+    def _run_spec(self, host: np.ndarray, windows: Optional[np.ndarray],
+                  flags, drafted: bool = False
+                  ) -> Tuple[List[torch.Tensor], Optional[Any]]:
+        """Enqueue thread: stage a spec wave's verify input (and the
+        draft's windows), run the draft program when a draft model
+        proposes, then the verify.  Under a mesh rank 0 alone holds the
+        draft: its proposals are broadcast into every rank's verify
+        input (``drafted``: a follower's wave whose proposals rank 0's
+        draft makes).  Returns the verify's outputs and, on the card,
+        the draft's event (None otherwise)."""
+        drafted = drafted or windows is not None
+        if self._leader is not None:
+            self._leader.send(("spec", host, drafted, flags))
+        S, K = self.max_slots, self.spec_tokens
+        draft_event = None
+        self._stage(self._spec_in, host)
+        if windows is not None:
+            self._stage(self._draft_in, windows.ravel())
+            self._run_program(("spec_draft", S, self._draft_window),
+                              self._draft_program)
+            if self.device.type == "cuda":
+                draft_event = torch.cuda.Event()
+                draft_event.record()
+        if drafted and self._mesh is not None:
+            from kfserving_tpu_torch.parallel.mesh import (
+                broadcast_from_rank0)
+
+            broadcast_from_rank0(self._spec_views()[1])
+        p = _Sampling(*self._spec_views()[4], *flags)
+        out = self._run_program(("spec_verify", S, K + 1) + flags,
+                                lambda: self._verify_program(p))
+        return out, draft_event
 
     def _draft_program(self) -> List[torch.Tensor]:
         S, W = self.max_slots, self._draft_window
@@ -2237,9 +2381,13 @@ class GenerationEngine:
         draft_ready_s = 0.0
         with sanitizer.sanctioned_fetch():
             if handle.draft_event is not None:
+                # kfslint: disable=host-sync sanctioned fetch: the fetch
+                # executor waits for the copies' event
                 handle.draft_event.synchronize()
                 draft_ready_s = time.perf_counter() - t0
             if handle.event is not None:
+                # kfslint: disable=host-sync sanctioned fetch: the fetch
+                # executor waits for the copies' event
                 handle.event.synchronize()
             arrays = [h.numpy() for h in handle.host]
         lp = tuple(arrays[2:]) if len(arrays) > 2 else None
@@ -2259,9 +2407,17 @@ class GenerationEngine:
             if s is not None and not s.prefilling and s.last_token >= 0:
                 host[:, i] = (i, s.last_token, s.length)
         with torch.inference_mode(), self._device_scope():
-            self._stage(self._resync_in, host.ravel())
-            self._run_program(("feed_resync", S), self._resync_program)
+            self._run_resync(host.ravel())
         return self._enqueue_wave()
+
+    def _run_resync(self, host: np.ndarray) -> None:
+        """Enqueue thread: stage a re-sync's rows, tokens and positions
+        and write them into the device feed."""
+        if self._leader is not None:
+            self._leader.send(("resync", host))
+        self._stage(self._resync_in, host)
+        self._run_program(("feed_resync", self.max_slots),
+                          self._resync_program)
 
     def _resync_program(self) -> List[torch.Tensor]:
         S = self.max_slots

@@ -98,9 +98,11 @@ def row_parallel(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
     """``linear(x)`` for a projection whose input dim is sharded over
     ``group``: each rank's partial product, kept in fp32, is all-reduced,
     the bias is added once, and the sum is rounded to x's dtype once, as
-    the unsharded product's fp32 accumulator is.  Without a group,
+    the unsharded product's fp32 accumulator is.  Without a group, or
+    for a projection the mesh left whole (its head count does not
+    divide over ``tp``: every rank holds the full product),
     ``linear(x)``."""
-    if group is None:
+    if group is None or linear.weight.shape[1] == linear.in_features:
         return linear(x)
     from kfserving_tpu_torch.parallel.mesh import all_reduce
 

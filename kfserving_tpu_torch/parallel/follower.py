@@ -11,13 +11,19 @@ has no JAX counterpart and adds no feature, supplies the other ranks:
   keeps only its shard (``sharding.shard_module``) and follows.
 - **One follower loop** mirrors every device operation rank 0 issues, in
   rank 0's order, so the ranks' collectives pair up: a predict batch
-  (``run_sharded``), a generator's prefill bucket or decode wave with its
-  host inputs (tokens, lengths, slot rows, block tables, sampling
-  arrays).  Rank 0 sends each command to every follower before it runs
-  the operation itself; only rank 0 runs the scheduler, the batcher and
-  the host side of sampling.  A follower's decode wave draws the same
-  tokens as rank 0's (the logits are replicated over ``tp``), which keeps
-  its device feed equal to rank 0's.
+  (``run_sharded``), or a generator's device operation with its host
+  inputs (tokens, lengths, slot rows, block tables, sampling arrays):
+  a prefill bucket, a decode wave, a prefill chunk, a speculative wave
+  (its verify; rank 0 alone runs a draft model and broadcasts its
+  proposals), a feed re-sync, the gather of KV blocks rank 0
+  spills or exports, the insert of blocks it faults back
+  (``GenerationEngine.mirror``).  Rank 0 sends each command to every
+  follower before it runs the operation itself, all from one thread (a
+  generator's enqueue thread, a predict engine's batch under
+  ``Leader.lock``); only rank 0 runs the scheduler, the batcher, the
+  host side of sampling and the host KV tier.  A follower's decode wave
+  draws the same tokens as rank 0's (the logits are replicated over
+  ``tp``), which keeps its device feed equal to rank 0's.
 - **Processes.**  Followers are forked from a forkserver (one per
   serving process, started at the first mesh) that has imported torch
   and this package once, so a mesh's ranks start in a fraction of a
@@ -66,7 +72,8 @@ from kfserving_tpu_torch.parallel.mesh import (
 from kfserving_tpu_torch.parallel.sharding import shard_batch
 
 # How long a collective may wait for a peer (a first batch compiles the
-# kernels' modules on every rank).
+# kernels' modules on every rank); read when a mesh starts, and handed to
+# its followers.
 COLLECTIVE_TIMEOUT_S = 600
 # How long a stopped follower gets to exit before it is killed.
 STOP_GRACE_S = 20.0
@@ -138,9 +145,10 @@ class Leader:
         self.config = config
         self._dir = tempfile.mkdtemp(prefix="kfs-mesh-")
         store = os.path.join(self._dir, "store")
+        self._timeout_s = COLLECTIVE_TIMEOUT_S
         init = {"store": store, "world": n, "mesh": config.sizes(),
                 "devices": [str(d) for d in devices], "backend": backend,
-                "target": target}
+                "target": target, "timeout_s": self._timeout_s}
         self.procs: List[Any] = []
         self._conns: List[Any] = []
         self.mesh = None
@@ -179,7 +187,7 @@ class Leader:
             dist.init_process_group(
                 backend, store=dist.FileStore(store, n), rank=0,
                 world_size=n,
-                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+                timeout=datetime.timedelta(seconds=self._timeout_s))
             self.mesh = build_mesh(self.config, devices=devices,
                                    backend=backend)
         except BaseException:
@@ -391,7 +399,7 @@ class _PredictReplica:
 
 class _GenerateReplica:
     """A follower's GenerationEngine shard: its engine never schedules;
-    it runs each prefill and decode wave rank 0 dispatches."""
+    it runs each device operation rank 0 dispatches."""
 
     def __init__(self, target: Dict[str, Any], mesh, device):
         from kfserving_tpu_torch.predictors.llm import (
@@ -408,8 +416,11 @@ class _GenerateReplica:
         self.engine.mirror(command)
 
     def report(self) -> Dict[str, Any]:
+        """What this rank holds: its shard's and its KV caches' bytes,
+        and its draft's (0: rank 0 alone holds the draft)."""
         return {"param_bytes": self.engine.param_bytes(),
-                "cache_bytes": self.engine.cache_bytes()}
+                "cache_bytes": self.engine.cache_bytes(),
+                "draft_param_bytes": self.engine.draft_param_bytes()}
 
     def close(self) -> None:
         self.engine.shutdown_nowait()
@@ -493,7 +504,7 @@ def _follower(conn) -> None:
             init["backend"],
             store=dist.FileStore(init["store"], init["world"]),
             rank=rank, world_size=init["world"],
-            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+            timeout=datetime.timedelta(seconds=init["timeout_s"]))
         mesh = build_mesh(MeshConfig(**init["mesh"]), devices=devices,
                           backend=init["backend"])
         target = init["target"]

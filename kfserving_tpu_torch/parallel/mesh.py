@@ -224,3 +224,63 @@ def exchange(send: List[torch.Tensor], dst: int, src: int, group):
         return [buf.to(device).bool() if dtype == torch.bool
                 else buf.to(device) for buf, dtype in recv]
     return finish
+
+
+def broadcast_from_rank0(t: torch.Tensor) -> torch.Tensor:
+    """Global rank 0's ``t`` written into ``t`` on every rank (one shape
+    and dtype); returns it.  Over NCCL it moves on the device; over gloo
+    a CUDA tensor goes through host memory.  Every rank of the world
+    group calls it."""
+    if dist.get_world_size() == 1:
+        return t
+    if dist.get_backend() != "gloo":
+        dist.broadcast(t, src=0)
+        return t
+    host = _to_host(t)
+    dist.broadcast(host, src=0)
+    if host is not t:
+        t.copy_(host)
+    return t
+
+
+def _wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
+    """``t`` as contiguous bytes (gloo gathers and scatters no bf16), on
+    the host over gloo."""
+    t = _to_host(t) if staged else t.contiguous()
+    return t.view(torch.uint8)
+
+
+def gather_to_rank0(t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``t`` (one shape and dtype) at global rank 0, in
+    rank order, on the host; None on the other ranks.  Every rank of the
+    world group calls it."""
+    n = dist.get_world_size()
+    if n == 1:
+        return [t.cpu()]
+    staged = dist.get_backend() == "gloo"
+    wire = _wire(t, staged)
+    parts = ([torch.empty_like(wire) for _ in range(n)]
+             if dist.get_rank() == 0 else None)
+    dist.gather(wire, parts, dst=0)
+    if parts is None:
+        return None
+    return [p.cpu().view(t.dtype).view(t.shape) for p in parts]
+
+
+def scatter_from_rank0(parts: Optional[List[torch.Tensor]], shape,
+                       dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """Rank r's ``parts[r]`` (given at global rank 0, None elsewhere;
+    each of ``shape`` and ``dtype``), returned on ``device``.  Every rank
+    of the world group calls it."""
+    if dist.get_world_size() == 1:
+        return parts[0].to(device)
+    staged = dist.get_backend() == "gloo"
+    recv = torch.empty(shape, dtype=dtype,
+                       device="cpu" if staged else device)
+    send = None
+    if parts is not None:
+        send = [_wire(p if staged else p.to(device), staged)
+                for p in parts]
+    dist.scatter(recv.view(torch.uint8), send, src=0)
+    return recv.to(device)

@@ -41,10 +41,11 @@ config.json keys are the JAX package's (unknown keys are ignored):
     }
 The draft materializes through the mmap param cache beside the target;
 with no model_dir of its own it shares the target's directory (a
-self-draft on the target's weights).  The port refuses, with
-InvalidInput, what it has not ported yet: the modes other than paged
-decoding under a mesh of more than one device.  ``"tokenizer":
-"hf:<dir>"`` loads a tokenizer saved in a local directory.
+self-draft on the target's weights).  Every mode serves under a
+``"mesh"`` of more than one rank too (``engine/generator.py``, meshes):
+each rank holds its shard of the target, and rank 0 the draft.
+``"tokenizer": "hf:<dir>"`` loads a tokenizer saved in a local
+directory.
 
 Request shapes (V1 predict and the generate routes):
     {"instances": ["a prompt", {"prompt": "...", "max_tokens": 32,
@@ -337,34 +338,6 @@ class GenerativeConfig:
                 f"{path} missing required key 'architecture'")
         return cls(**data)
 
-    def check_ported(self) -> None:
-        """Refuse what the PyTorch port does not serve yet: under a mesh
-        of more than one rank, every mode but the paged one with
-        bucketed prefill (each refused by name)."""
-        if MeshConfig.from_dict(self.mesh).num_devices <= 1:
-            return
-        missing = []
-        if self.block_size is None:
-            missing.append("dense slots (set block_size)")
-        if self.prefill_chunk_tokens:
-            missing.append("chunked prefill (prefill_chunk_tokens)")
-        spec_env = os.environ.get("KFS_SPECDEC_TOKENS", "0")
-        if int((self.speculative or {}).get("tokens", 0)) > 0 or (
-                spec_env.isdigit() and int(spec_env) > 0):
-            missing.append("speculative decoding (speculative, "
-                           "KFS_SPECDEC_TOKENS)")
-        tier_env = os.environ.get("KFS_KV_TIER_BLOCKS", "0")
-        if self.host_tier_blocks or (tier_env.isdigit()
-                                     and int(tier_env) > 0):
-            missing.append("the host KV tier (host_tier_blocks, "
-                           "KFS_KV_TIER_BLOCKS)")
-        if self.host_tier_dir or os.environ.get("KFS_KV_TIER_DIR"):
-            missing.append("KV handoff (host_tier_dir, KFS_KV_TIER_DIR)")
-        if missing:
-            raise InvalidInput(
-                "not supported by the PyTorch port under a multi-device "
-                "mesh yet: " + ", ".join(missing))
-
 
 class GenerativeModel(Model):
     """A served decoder with continuous batching and token streaming.
@@ -406,7 +379,6 @@ class GenerativeModel(Model):
                 os.path.join(local, "config.json"),
                 overrides=self.config_overrides)
             self.config = cfg
-        cfg.check_ported()
         self.tokenizer = build_tokenizer(cfg.tokenizer)
         mesh_cfg = MeshConfig.from_dict(cfg.mesh)
         if mesh_cfg.num_devices > 1 and self.engine is not None:
@@ -424,15 +396,16 @@ class GenerativeModel(Model):
                 param_cache.load_or_materialize(
                     cfg.architecture, cfg.arch_kwargs, spec, local,
                     self.device)
+            # The draft (rank 0's alone under a mesh): a failed load
+            # stops the followers too.
+            speculative, draft = self._speculative(cfg, local)
         except BaseException:
             if leader is not None:
                 leader.close()
             raise
         if leader is not None:
-            engine = self._mesh_leader_engine(module, leader)
-            draft = None
+            engine = self._mesh_leader_engine(module, leader, speculative)
         else:
-            speculative, draft = self._speculative(cfg, local)
             engine = self._engine(module, speculative)
         # The engine compiled its greedy wave; a variant compiled later
         # is a note after warmup.
@@ -488,14 +461,21 @@ class GenerativeModel(Model):
         )
 
         cfg = self.config
+        config = dict(vars(cfg))
+        env = os.environ.get("KFS_SPECDEC_TOKENS", "0")
+        if not config["speculative"] and env.isdigit() and int(env) > 0:
+            # The env twin as this rank's engine reads it: a follower's
+            # environment is its forkserver's, which may predate it.
+            config["speculative"] = {"tokens": int(env)}
         return Leader(
             mesh_cfg, mesh_devices(cfg.mesh, mesh_cfg.num_devices,
                                    self.device),
             cfg.mesh.get("backend"),
             {"kind": "generate", "name": self.name, "local_dir": local,
-             "config": dict(vars(cfg)), "seed": 0})
+             "config": config, "seed": 0})
 
-    def _mesh_leader_engine(self, module, leader) -> GenerationEngine:
+    def _mesh_leader_engine(self, module, leader, speculative=None
+                            ) -> GenerationEngine:
         """Rank 0 of a mesh (the JAX package's mesh path,
         ``kfserving_tpu/predictors/llm.py``): keep this rank's shard,
         build the engine (every rank's engine runs its own greedy wave
@@ -504,7 +484,7 @@ class GenerativeModel(Model):
 
         try:
             shard_module(module, leader.join().mesh)
-            engine = self._engine(module, mesh=leader.mesh)
+            engine = self._engine(module, speculative, mesh=leader.mesh)
             leader.wait_ready()
         except BaseException:
             leader.close()
@@ -513,8 +493,9 @@ class GenerativeModel(Model):
         return engine
 
     def mesh_engine(self, local: str, mesh) -> GenerationEngine:
-        """A follower rank's load: this rank's shard and an engine over
-        it that never schedules (``GenerationEngine.mirror``)."""
+        """A follower rank's load: this rank's shard and an engine over it
+        that never schedules (``GenerationEngine.mirror``); no draft,
+        whose proposals rank 0 broadcasts."""
         cfg = self.config
         self.tokenizer = build_tokenizer(cfg.tokenizer)
         spec = create_model(cfg.architecture, **cfg.arch_kwargs)
@@ -523,19 +504,22 @@ class GenerativeModel(Model):
         from kfserving_tpu_torch.parallel.sharding import shard_module
 
         shard_module(module, mesh)
-        return self._engine(module, mesh=mesh)
+        speculative, _ = self._speculative(cfg, local, with_draft=False)
+        return self._engine(module, speculative, mesh=mesh)
 
-    def _speculative(self, cfg: GenerativeConfig, local: str):
+    def _speculative(self, cfg: GenerativeConfig, local: str,
+                     with_draft: bool = True):
         """The engine's ``speculative`` argument and (draft module,
         window), or (None, None) when speculation is off.  The draft is
         a second model materialized through the mmap param cache; it
-        shares the target's directory when it names none of its own."""
+        shares the target's directory when it names none of its own
+        (``with_draft`` False: none is loaded)."""
         spec_cfg = cfg.speculative or {}
         if int(spec_cfg.get("tokens", 0)) <= 0:
             return None, None
         speculative: Dict[str, Any] = {"tokens": int(spec_cfg["tokens"])}
         draft_cfg = spec_cfg.get("draft")
-        if not draft_cfg:
+        if not draft_cfg or not with_draft:
             return speculative, None
         draft_kwargs = dict(draft_cfg.get("arch_kwargs") or {})
         draft_spec = create_model(draft_cfg["architecture"], **draft_kwargs)

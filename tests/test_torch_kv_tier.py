@@ -492,7 +492,10 @@ async def test_spilled_payload_is_the_jax_decoders_kv(tiny, port_module):
 
 
 def test_host_tier_config_is_served():
+    # The config carries both tier keys (no mode is refused any more, a
+    # mesh's included: tests/test_torch_mesh_modes.py).
     cfg = GenerativeConfig(architecture="decoder_tiny", block_size=16,
-                           host_tier_blocks=8, host_tier_dir="/tmp/kv")
-    cfg.check_ported()
+                           host_tier_blocks=8, host_tier_dir="/tmp/kv",
+                           mesh={"tp": 2})
     assert (cfg.host_tier_blocks, cfg.host_tier_dir) == (8, "/tmp/kv")
+    assert not hasattr(cfg, "check_ported")

@@ -241,13 +241,11 @@ async def test_stream_slot_freed_on_client_disconnect(served):
         await server.stop_async()
 
 
-# A mesh serves the paged mode with bucketed prefill; the other modes
-# are refused under one, by name, before any rank starts.  An hf:
-# tokenizer loads from a local directory only: a missing one fails the
-# load (tests/test_torch_tokenizer.py serves one that exists).
+# An hf: tokenizer loads from a local directory only: a missing one
+# fails the load (tests/test_torch_tokenizer.py serves one that exists).
+# Every generator mode serves under a mesh
+# (tests/test_torch_mesh_modes.py).
 @pytest.mark.parametrize("extra,message", [
-    ({"mesh": {"dp": 2, "tp": 1}, "block_size": None}, "multi-device"),
-    ({"mesh": {"tp": 2}, "prefill_chunk_tokens": 32}, "multi-device"),
     ({"tokenizer": "hf:/nonexistent/kfs-tokenizer"},
      "is not a local directory"),
 ])

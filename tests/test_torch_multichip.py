@@ -238,22 +238,6 @@ async def test_tp_decoder_matches_unsharded_and_jax_greedy(decoder):
     assert _gone(pids)
 
 
-@pytest.mark.parametrize("extra,mode", [
-    ({"block_size": None, "cache_blocks": None}, "dense slots"),
-    ({"prefill_chunk_tokens": 32}, "chunked prefill"),
-    ({"speculative": {"tokens": 2}}, "speculative decoding"),
-    ({"host_tier_blocks": 8}, "host KV tier"),
-    ({"host_tier_dir": "/nonexistent/tier"}, "KV handoff"),
-])
-def test_modes_still_refused_under_a_mesh(tmp_path, extra, mode):
-    config = dict(GEN, mesh={"tp": 2}, **extra)
-    model = GenerativeModel("g", _write(str(tmp_path / "g"), config),
-                            device="cpu")
-    with pytest.raises(InvalidInput, match=mode):
-        model.load()
-    assert model.engine is None
-
-
 RANK0 = """
 import json, time
 from kfserving_tpu_torch.parallel.follower import Leader
