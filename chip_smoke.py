@@ -15,7 +15,10 @@ failure:
    (equal arrays) and print host us per body of each;
 2. hold each kernel (flash attention, paged decode attention) against its
    plain PyTorch version on the card at the serving paths' shapes and
-   edge cases (K1 also at head dims 16 and 32), and time kernel (device, events and host issue time),
+   edge cases (K1 also at head dims 16 and 32; K2 also at one tp rank's
+   heads, around the hopper path's tile and at one 4096-token row, each
+   row naming the path that ran, checked against the profiled kernel
+   names), and time kernel (device, events and host issue time),
    plain version and the library call that computes the same function (a
    yardstick only; SDPA's flash backend forced where there is no mask,
    else the backend it picks, named from its kernels).  Device time comes
@@ -243,6 +246,7 @@ nothing of JAX.
 """
 
 import asyncio
+import dataclasses
 import http.client
 import json
 import math
@@ -291,6 +295,10 @@ VIT_CASE = "b16 L197 bf16 (ViT-B/16)"
 # (partitions, fp32 exp).
 PAGED_FP32_TOLERANCE = 2e-5
 PAGED_MAIN_CASE = "b8 decode ~3045 bf16"
+PAGED_LONG_ROW_CASE = "b1 4096 bf16"
+# The device kernel each path of K2 launches first (its merge follows).
+PAGED_KERNEL_NAMES = {"hopper": "paged_span_kernel",
+                      "simple": "paged_partition_kernel"}
 # One rank's heads (H = 6 of 12) under the mesh phase's {"tp": 2}.
 MESH_BERT_CASE = "tp2 rank: b16 L512 bf16 H6 kv_lengths"
 MESH_PREFILL_CASE = "tp2 rank: b8 L4096 bf16 H6 causal kv_lengths"
@@ -624,13 +632,15 @@ def time_kernel_case(kernel, plain, library, plain_iters: int) -> dict:
     back-to-back calls ("events_ms", which a slow host inflates for a
     short kernel) and behind a sleep kernel ("queued_ms", the profiler's
     stand-in), the host's time to issue one kernel call ("host_us"),
-    the library call's backend and the kernel-to-library ratio.
-    ``library(sdpa)`` makes the library call through the function
+    the library call's backend, the kernel-to-library ratio and the
+    names of the device kernels of the kernel's call ("device_kernels",
+    empty where the profiler saw none).  ``library(sdpa)`` makes the library call through the function
     ``sdpa`` (scaled_dot_product_attention by default)."""
-    ms, _, timing = profiled_device_ms(kernel)
+    ms, events, timing = profiled_device_ms(kernel)
     library_ms, library_events, library_timing = profiled_device_ms(library)
     plain_ms, _, plain_timing = profiled_device_ms(plain, plain_iters)
     return {"ms": ms, "timing": timing,
+            "device_kernels": sorted(e.key for e in events),
             "events_ms": cuda_time_ms(kernel),
             "queued_ms": queued_events_ms(kernel),
             "host_us": host_us_per_call(kernel),
@@ -861,12 +871,43 @@ def paged_case(gen, name, B, H, D, BS, MB, dtype, lengths, edit=None):
     return name, (q, pool_k, pool_v, table.contiguous(), lengths)
 
 
+def ptxas_report(log: str, kernel: str) -> list:
+    """Registers, spills and static shared memory of each instance of
+    ``kernel`` in an ``nvcc -Xptxas -v`` log."""
+    out, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = None
+            if kernel in entry.group(1):
+                current = {"function": entry.group(1)}
+                out.append(current)
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            current["spill_stores"] = int(spill.group(1))
+            current["spill_loads"] = int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            current["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def check_paged_attention() -> dict:
     import torch.nn.functional as F
 
+    from kfserving_tpu_torch.csrc import build
     from kfserving_tpu_torch.ops.paged_attention import (
+        _sm_count,
+        kernel_path,
         paged_attention_kernel,
         paged_attention_plain,
+        split_plan,
     )
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -879,6 +920,11 @@ def check_paged_attention() -> dict:
         table[0, 1:] = -1
         table[2, 0] = table[4, 0]
 
+    # The hopper path's tile: one below, at and one above it, around a
+    # block, and multiples of the block size.
+    tile = split_plan(B, H, D, BS, MB, _sm_count(torch.device("cuda")))
+    tt = tile.tile_tokens
+    boundary = [tt - 1, tt, tt + 1, BS - 1, BS, BS + 1, 4 * BS, 24 * BS]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     decode = [3021 + 4 * i for i in range(B)]     # the served rows
@@ -891,10 +937,18 @@ def check_paged_attention() -> dict:
         # One rank's heads of the decode wave under {"tp": 2}.
         paged_case(gen, MESH_DECODE_CASE, B, H // 2, D, BS, MB, bf16,
                    decode),
+        paged_case(gen, "edge rows bf16 H6", B, H // 2, D, BS, MB, bf16,
+                   edge, edit),
+        paged_case(gen, f"tile boundaries bf16 (tile {tt})", B, H, D, BS,
+                   MB, bf16, boundary),
+        # One row holds all the work: the split must spread it.
+        paged_case(gen, PAGED_LONG_ROW_CASE, 1, H, D, BS, MB, bf16, [4096]),
     ]
     results = []
     for name, args in cases:
         q, pool_k, pool_v, table, lengths = args
+        rows, _, H, d = q.shape
+        path = kernel_path(q.dtype, d)
         out = paged_attention_kernel(*args)
         ref = paged_attention_plain(*args)
         torch.cuda.synchronize()
@@ -904,12 +958,21 @@ def check_paged_attention() -> dict:
         for r in zero_rows:
             check(bool((out[r] == 0).all()),
                   f"{name}: the zero-length row is not exactly 0")
+        if rows > 1:
+            # A row's output must not depend on the other rows' lengths
+            # (a speculative verify and plain decode give the same tokens
+            # only so): row 0's length changes, the rest are bit-equal.
+            changed = lengths.clone()
+            changed[0] = (int(lengths[0]) + 37) % (MB * BS)
+            again = paged_attention_kernel(q, pool_k, pool_v, table,
+                                           changed)
+            check(torch.equal(again[1:], out[1:]), f"{name}: rows 1-"
+                  f"{rows - 1} changed with row 0's length")
         # Yardstick: SDPA over K/V gathered beforehand (the gather is not
         # timed), with a length mask.
-        H, d = q.shape[2], q.shape[-1]
         idx = table.long().clamp_min(0)
-        k_all = pool_k[idx].reshape(B, MB * BS, H, d).transpose(1, 2)
-        v_all = pool_v[idx].reshape(B, MB * BS, H, d).transpose(1, 2)
+        k_all = pool_k[idx].reshape(rows, MB * BS, H, d).transpose(1, 2)
+        v_all = pool_v[idx].reshape(rows, MB * BS, H, d).transpose(1, 2)
         keys = torch.arange(MB * BS, device="cuda")
         mask = (keys[None, :] < lengths[:, None])[:, None, None, :]
         qt = q.transpose(1, 2)
@@ -919,19 +982,30 @@ def check_paged_attention() -> dict:
             lambda sdpa=F.scaled_dot_product_attention: sdpa(
                 qt, k_all, v_all, attn_mask=mask),
             plain_iters=5)
-        bound, bound_by = paged_bound_ms(B, H, d, BS, MB, q.dtype, lengths)
-        row = {"case": name, "max_abs_err": err, "tolerance": tol,
-               "share_of_limit": share, **times, "bound_ms": bound,
-               "bound_by": bound_by,
+        # The path that ran, from the profiled device kernels' names.
+        if times["device_kernels"]:
+            check(any(PAGED_KERNEL_NAMES[path] in k
+                      for k in times["device_kernels"]),
+                  f"{name}: the {path} path's kernel is not among "
+                  f"{times['device_kernels']}")
+        bound, bound_by = paged_bound_ms(rows, H, d, BS, MB, q.dtype,
+                                         lengths)
+        row = {"case": name, "path": path, "max_abs_err": err,
+               "tolerance": tol, "share_of_limit": share, **times,
+               "bound_ms": bound, "bound_by": bound_by,
+               "share_of_bound": bound / times["ms"],
                "library": "scaled_dot_product_attention over K/V "
                           "gathered beforehand (gather not timed)"}
         print("paged_attention " + json.dumps(row), flush=True)
         results.append(row)
         del out, ref, k_all, v_all
     main_row = next(r for r in results if r["case"] == PAGED_MAIN_CASE)
-    mesh = [{k: r[k] for k in ("case", "ms", "bound_ms", "bound_by",
-                               "plain_ms", "library_ms", "max_abs_err")}
+    summary = ("case", "path", "ms", "bound_ms", "bound_by", "plain_ms",
+               "library_ms", "max_abs_err")
+    mesh = [{k: r[k] for k in summary}
             for r in results if r["case"] == MESH_DECODE_CASE]
+    long_row = [{k: r[k] for k in summary}
+                for r in results if r["case"] == PAGED_LONG_ROW_CASE]
     return {
         "name": "paged_attention",
         "route": "cuda",
@@ -944,8 +1018,14 @@ def check_paged_attention() -> dict:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        # One tp rank's heads (the mesh phase's shape).
+        # One tp rank's heads (the mesh phase's shape), and one long row.
         "mesh_cases": mesh,
+        "long_row_cases": long_row,
+        # The hopper path at the main case: its plan and ptxas's report.
+        "hopper_plan": dataclasses.asdict(tile),
+        "hopper_ptxas": ptxas_report(
+            build.build_logs.get("paged_attention", ""),
+            PAGED_KERNEL_NAMES["hopper"]),
     }
 
 
@@ -1923,8 +2003,7 @@ def kernel_events(trace_path: str) -> dict:
             out["kernels"] += 1
             if "flash_fwd" in name:
                 out["flash_attention"] += 1
-            elif "paged_partition_kernel" in name or \
-                    "paged_combine_kernel" in name:
+            elif "paged_" in name:
                 out["paged_attention"] += 1
         elif "cudaGraphLaunch" in name:
             out["graph_launches"] += 1

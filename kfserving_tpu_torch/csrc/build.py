@@ -14,9 +14,10 @@ running interpreter's ``Python.h`` into a CPython extension module:
     cc -O3 -shared -fPIC -I<python include> \
        -o build/_<name>-<digest><EXT_SUFFIX> <name>.c
 
-Each file name carries a digest of the source and the flags (and, for an
-extension, of the interpreter's include directory and ABI suffix), so an
-edited source rebuilds and an unchanged one is reused.  Nothing here runs
+Each file name carries a digest of the source and the flags (for a kernel
+also of every shared ``*.cuh`` header here; for an extension, of the
+interpreter's include directory and ABI suffix), so an edited source or
+header rebuilds and an unchanged one is reused.  Nothing here runs
 at import time: the first wrapper call builds (or ``build_all`` builds
 every kernel at once, one nvcc process per source, all started together).
 """
@@ -62,9 +63,19 @@ def find_nvcc() -> Optional[str]:
     return default if os.path.exists(default) else None
 
 
+def headers() -> List[str]:
+    """The shared headers (``*.cuh``) in this directory."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def library_path(name: str) -> str:
+    """Where kernel ``name`` is built: the digest covers its source, every
+    shared header (a kernel may include any of them) and the flags."""
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read())
+    for header in headers():
+        with open(os.path.join(CSRC_DIR, header), "rb") as f:
+            digest.update(header.encode() + b"\0" + f.read())
     digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR,
                         f"lib{name}-{digest.hexdigest()[:16]}.so")

@@ -72,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -377,60 +379,6 @@ struct WgCfg {
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// A wait that has not completed after this long can only be a producer and
-// consumers that disagree on a trip count: trap (the launch then fails with
-// an error) rather than hang the card.
-constexpr uint64_t kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
-
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t start = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - start > kWaitLimitNs) __trap();
-  }
-}
-
 // TMA: one box of the 4-d tensor map (d, h, l, b) into shared memory,
 // completing `bar`'s transaction count.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -683,7 +631,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), CONSUMERS * WG_THREADS / 32);  // one per warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 

@@ -25,12 +25,18 @@ drop (a -1 table entry, a position past the table, a -1 destination) to
 that sink block, which nothing reads.  The caller reports ``NB``.
 
 On a CPU tensor ``paged_attention_kernel`` runs ``paged_attention_plain``;
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises.  The kernel has two
+paths (``kernel_path``): bf16 at head dims 64 and 128 takes the hopper
+path, a ring of bulk copies of all heads of a token span, split over the
+card by ``split_plan``; float32, and bf16 at head dim 32, take the simple
+flash-decoding path.
 """
 
 import ctypes
+import functools
 import math
-from typing import Tuple
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -40,13 +46,30 @@ from kfserving_tpu_torch.ops import launches
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-# Tokens of one row's walk that one thread block of the kernel covers;
-# a combine pass merges the partitions (flash decoding).  Keep equal to
+# Head dims the hopper path takes in bf16; every other supported
+# (dtype, head dim) takes the simple path.
+HOPPER_HEAD_DIMS = (64, 128)
+# Simple path: tokens of one row's walk that one thread block covers; a
+# combine pass merges the partitions (flash decoding).  Keep equal to
 # PARTITION_TOKENS in csrc/paged_attention.cu.
 PARTITION_TOKENS = 256
 _MAX_GRID_YZ = 65535
 
+# Hopper path (split_plan): the defaults, the fastest plan at every decode
+# case of tools/paged_sweep.py on an H100 (PERF.md, PR 18).
+SPAN_STAGE_BYTES = 48 * 1024   # K + V of one ring stage, at most
+SPAN_STAGES = 2                # ring stages
+SPAN_TOKENS = 64               # tokens of one partial (at least a tile)
+SPAN_CONSUMERS = 512           # consumer threads of a CTA, at most
+SPAN_CTAS_PER_SM = 1           # resident CTAs an SM is planned for
+SMEM_PER_SM = 233472           # 228 KB, of which 1 KB is reserved per CTA
+# Equal to MAX_CONSUMERS, LANE_ELEMS and SMEM_LIMIT in the .cu.
+SPAN_MAX_CONSUMERS = 512
+SPAN_LANE_ELEMS = 8            # bf16 in one 16-byte load
+SMEM_PER_CTA = 232448          # 227 KB
+
 _fn = None
+_hopper_fn = None
 
 
 def _check_shapes(q, pool_k, pool_v, block_table, lengths
@@ -100,17 +123,173 @@ def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which of the kernel's paths a CUDA call takes: "hopper" (bf16 at
+    head dims 64 and 128) or "simple" (the rest)."""
+    if dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS:
+        return "hopper"
+    return "simple"
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """The hopper path's launch: a grid of ``ctas`` x ``head_groups`` CTAs,
+    each with ``consumers`` threads plus a producer warp and
+    ``smem_bytes`` of shared memory, staging ``tile_tokens`` tokens of
+    ``head_group`` heads per ring stage over ``stages`` stages;
+    ``groups_per_head`` lane groups share one head's tokens.  Each row's
+    partials are its spans of ``span_tokens`` tokens, and a CTA takes
+    whole spans, so a row's output never depends on the other rows."""
+    head_group: int
+    head_groups: int
+    tile_tokens: int
+    span_tokens: int
+    stages: int
+    groups_per_head: int
+    consumers: int
+    smem_bytes: int
+    ctas: int
+
+
+def span_smem_bytes(D: int, head_group: int, tile_tokens: int,
+                    stages: int, groups_per_head: int) -> int:
+    """Shared memory of one CTA (span_smem_bytes in the .cu): the ring
+    (K and V of each stage), the span merge's two scratch buffers, the
+    barriers and the CTA's share."""
+    return (2 * stages * tile_tokens * head_group * D * 2
+            + 2 * groups_per_head * head_group * (D + 2) * 4
+            + 2 * stages * 8 + 16)
+
+
+def split_plan(B: int, H: int, D: int, BS: int, MB: int, sm_count: int,
+               stage_bytes: int = SPAN_STAGE_BYTES,
+               stages: int = SPAN_STAGES,
+               ctas_per_sm: int = SPAN_CTAS_PER_SM,
+               consumers: int = SPAN_CONSUMERS,
+               span_tokens: int = SPAN_TOKENS) -> SplitPlan:
+    """The hopper path's plan from the shapes and the card's SM count; no
+    length is read, so the launch is static (CUDA graphs capture it).
+
+    A head group is every head, unless one token's K and V of all heads
+    overflow a stage or its lane groups overflow the CTA.  A tile is the
+    largest power of two of tokens dividing BS whose K and V fit a stage,
+    so a tile never crosses a pool block; a span is ``span_tokens``
+    tokens, or a tile if that is longer.  The grid fills ``ctas_per_sm``
+    CTAs on every SM (fewer where shared memory does not hold them), and
+    the kernel divides all rows' spans evenly among them."""
+    if B * MB * BS >= 2 ** 31:
+        raise ValueError(f"B * MB * BS = {B * MB * BS} tokens overflow the "
+                         "kernel's 32-bit token counts")
+    lpg = D // SPAN_LANE_ELEMS          # lanes of one (token, head) row
+    row = D * 2                         # bytes of one (token, head) row
+
+    def min_groups(hg):                 # whole warps of consumers
+        return 32 // math.gcd(32, lpg * hg)
+
+    head_group = next(
+        hg for hg in range(H, 0, -1)
+        if H % hg == 0 and 2 * hg * row <= stage_bytes
+        and lpg * hg * min_groups(hg) <= SPAN_MAX_CONSUMERS)
+    groups = 1
+    while lpg * head_group * groups * 2 <= consumers:
+        groups *= 2
+    groups = max(groups, min_groups(head_group))
+    tile = 1
+    while BS % (2 * tile) == 0 and 2 * 2 * tile * head_group * row \
+            <= stage_bytes:
+        tile *= 2
+    smem = span_smem_bytes(D, head_group, tile, stages, groups)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"a plan of {stages} stages of {tile} tokens needs "
+                         f"{smem} bytes of shared memory, over "
+                         f"{SMEM_PER_CTA}")
+    per_sm = max(1, min(ctas_per_sm, SMEM_PER_SM // (smem + 1024)))
+    head_groups = H // head_group
+    return SplitPlan(
+        head_group=head_group, head_groups=head_groups, tile_tokens=tile,
+        span_tokens=max(span_tokens, tile), stages=stages,
+        groups_per_head=groups,
+        consumers=lpg * head_group * groups, smem_bytes=smem,
+        ctas=max(1, sm_count * per_sm // head_groups))
+
+
+def span_slots(B: int, MB: int, BS: int, plan: SplitPlan) -> int:
+    """Partial slots the merge needs at most: every row's spans at the
+    longest length."""
+    return B * -(-(MB * BS) // plan.span_tokens)
+
+
+def split_tiles(plan: SplitPlan, lengths: Sequence[int], max_tokens: int
+                ) -> List[Tuple[int, int, int, int, int]]:
+    """The tiles the hopper path stages for these lengths, as (CTA, slot,
+    row, first token, tokens): the kernel's division of all rows' spans,
+    laid end to end, into equal shares of ``min(ctas, spans)`` CTAs, and
+    its walk over each share; a span's partial goes to its slot, its index
+    among all spans.  The CPU tests hold it to its contract; the kernel
+    does the same arithmetic on the device."""
+    lens = [min(max(int(n), 0), max_tokens) for n in lengths]
+    span, tt = plan.span_tokens, plan.tile_tokens
+    spans = [-(-n // span) for n in lens]
+    total = sum(spans)
+    ctas = min(plan.ctas, total)
+    tiles = []
+    for g in range(ctas):
+        begin, end = g * total // ctas, (g + 1) * total // ctas
+        row, before = 0, 0
+        while before + spans[row] <= begin:
+            before += spans[row]
+            row += 1
+        pos, left, slot = (begin - before) * span, end - begin, begin
+        while left > 0:
+            n = min(lens[row] - pos, tt - pos % tt)
+            tiles.append((g, slot, row, pos, n))
+            pos += n
+            if pos != lens[row] and pos % span:
+                continue
+            left -= 1
+            slot += 1
+            if pos == lens[row] and left > 0:
+                pos = 0
+                row += 1
+                while lens[row] == 0 and row + 1 < len(lens):
+                    row += 1
+    return tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def bind(lib: ctypes.CDLL, symbol: str):
+    """One of the library's C entry points with its argument types:
+    pointers, then ints, then the scale and the stream."""
+    pointers, ints = {"kfs_paged_attention": (8, 7),
+                      "kfs_paged_attention_hopper": (9, 11)}[symbol]
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
 def _kernel():
     global _fn
     if _fn is None:
         from kfserving_tpu_torch.csrc import build
 
-        fn = build.load("paged_attention").kfs_paged_attention
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
-        _fn = fn
+        _fn = bind(build.load("paged_attention"), "kfs_paged_attention")
     return _fn
+
+
+def _hopper_kernel():
+    global _hopper_fn
+    if _hopper_fn is None:
+        from kfserving_tpu_torch.csrc import build
+
+        _hopper_fn = bind(build.load("paged_attention"),
+                          "kfs_paged_attention_hopper")
+    return _hopper_fn
 
 
 def _check_cuda_operands(q, pool_k, pool_v, block_table, lengths, D):
@@ -158,21 +337,11 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
     if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
         raise ValueError(f"B = {B} or H = {H} exceeds the kernel grid's "
                          f"{_MAX_GRID_YZ}")
-    parts = -(-(MB * BS) // PARTITION_TOKENS)
-    out = torch.empty_like(q)
-    part_acc = torch.empty((B, H, parts, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, H, parts, 2), dtype=torch.float32,
-                          device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                   block_table.data_ptr(), lengths.data_ptr(),
-                   out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-                   B, H, D, BS, MB, parts, _DTYPE_CODE[q.dtype],
-                   1.0 / math.sqrt(D), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: "
-                           f"cudaError {rc}")
+    if kernel_path(q.dtype, D) == "hopper":
+        out = launch_hopper(q, pool_k, pool_v, block_table, lengths,
+                            split_plan(B, H, D, BS, MB, _sm_count(q.device)))
+    else:
+        out = _launch_simple(q, pool_k, pool_v, block_table, lengths)
     launches.count(paged_attention_kernel)
     return out
 
@@ -181,6 +350,62 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
 # included (ops/launches.py; chip_smoke.py reads it to show that the
 # decode path ran through the kernel).
 paged_attention_kernel.launches = 0
+
+
+def _launch_simple(q: torch.Tensor, pool_k: torch.Tensor,
+                   pool_v: torch.Tensor, block_table: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """The simple path (operands checked by the caller)."""
+    B, _, H, D = q.shape
+    BS, MB = pool_k.shape[1], block_table.shape[1]
+    out = torch.empty_like(q)
+    parts = -(-(MB * BS) // PARTITION_TOKENS)
+    part_acc = torch.empty((B, H, parts, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, parts, 2), dtype=torch.float32,
+                          device=q.device)
+    rc = _kernel()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                   block_table.data_ptr(), lengths.data_ptr(),
+                   out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                   B, H, D, BS, MB, parts, _DTYPE_CODE[q.dtype],
+                   1.0 / math.sqrt(D),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+def launch_hopper(q: torch.Tensor, pool_k: torch.Tensor,
+                  pool_v: torch.Tensor, block_table: torch.Tensor,
+                  lengths: torch.Tensor, plan: SplitPlan,
+                  kernel=None) -> torch.Tensor:
+    """The hopper path under ``plan`` (operands checked by the caller:
+    bf16, head dim 64 or 128, contiguous, on one card), through the built
+    library's entry point unless ``kernel`` names another build's.  The
+    wrapper passes ``split_plan``'s plan; tools/paged_sweep.py times
+    others."""
+    B, _, H, D = q.shape
+    BS, MB = pool_k.shape[1], block_table.shape[1]
+    out = torch.empty_like(q)
+    # One scratch buffer: part_acc [slots, H, D], part_ml [slots, H, 2]
+    # and row_first [B] (int32).
+    slots = span_slots(B, MB, BS, plan)
+    scratch = torch.empty(slots * H * (D + 2) + B, dtype=torch.float32,
+                          device=q.device)
+    part_ml = scratch[slots * H * D:]
+    row_first = scratch[slots * H * (D + 2):].view(torch.int32)
+    rc = (kernel or _hopper_kernel())(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), part_ml.data_ptr(), row_first.data_ptr(), B, H,
+        D, BS, MB, plan.head_group, plan.tile_tokens, plan.span_tokens,
+        plan.stages, plan.groups_per_head, plan.ctas, 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention hopper kernel launch failed: "
+                           f"cudaError {rc}")
+    return out
 
 
 # The decode attention the decoder calls, under the JAX dispatcher's name.
