@@ -18,7 +18,10 @@ failure:
    edge cases (K1 also at head dims 16 and 32; K2 also at one tp rank's
    heads, around the hopper path's tile and at one 4096-token row, each
    row naming the path that ran, checked against the profiled kernel
-   names), and time kernel (device, events and host issue time),
+   names; both at head dims 80, 96, 192 and 256: the Gemma-2B-width
+   prefill and decode, ViT-H/14's L = 257, Phi-2's and GPT-NeoX-20B's
+   heads, a D192 case, tile edges and fp32, each row naming its path),
+   and time kernel (device, events and host issue time),
    plain version and the library call that computes the same function (a
    yardstick only; SDPA's flash backend forced where there is no mask,
    else the backend it picks, named from its kernels).  Device time comes
@@ -51,7 +54,10 @@ failure:
    wave's graph against the same wave run eagerly from the same state
    (tokens and written-back feed equal); time one decode wave eagerly
    and from its graph (between events and busy; no host sync on the
-   graph's enqueue path) and one prefill on the card;
+   graph's enqueue path) and one prefill on the card; then the same at
+   Gemma-2B's widths (vocab 256000, hidden 2048, 18 layers, 8 heads of
+   256, MLP 16384; line "gen_d256", phase "generate_d256": K1 18 times
+   per prefill, K2 18 times per step);
    then line "observe": the same configuration with the observability
    layer on (KFS_SANITIZE=1, a 0.5 s history tick, one declared SLO
    objective, incidents spooled to a temporary directory): a 2 s
@@ -113,8 +119,10 @@ failure:
 6. serve ViT-B/16 (224 px, L = 197) at the chain bench's predictor
    configuration; the flash kernel must launch exactly 12 times per
    executed batch, and the served model must agree with the same weights
-   run with the plain attention; each batch bucket's graph against the
-   eager forward;
+   run with the plain attention (its logits, and its top-1 but for
+   near-ties); each batch bucket's graph against the eager forward; then
+   ViT-H/14 (patch 14, hidden 1280, 32 layers, 16 heads of 80, L = 257)
+   the same way ("vit_h14", K1 32 times per batch);
    then the explain verb: ResNet-50 (the resnet bench configuration)
    and ViT-B/16 (L = 197) served as saliency explainers, one batch of 8
    images POSTed twice to each explain route with single-image predicts
@@ -291,6 +299,12 @@ MAX_LOGIT_DIFF = 0.5
 
 PREFILL_CASE = "b8 L4096 bf16 causal kv_lengths"
 VIT_CASE = "b16 L197 bf16 (ViT-B/16)"
+# The head dims the kernels took in PR 19 (the rest of 16-256): each case
+# of theirs goes in the kernels line with the path it ran.
+NEW_HEAD_DIMS = (80, 96, 192, 256)
+GEMMA_PREFILL_CASE = "gemma b8 L4096 bf16 H8 D256 causal kv_lengths"
+VIT_H14_CASE = "vit_h14 b16 L257 bf16 H16 D80"
+GEMMA_DECODE_CASE = "gemma b8 decode ~3045 bf16 H8 D256"
 # K2 fp32 differs from its plain version by summation order only
 # (partitions, fp32 exp).
 PAGED_FP32_TOLERANCE = 2e-5
@@ -317,6 +331,15 @@ GEN_CONFIG = {
     "tokenizer": "byte",
 }
 GEN_REQUESTS, GEN_CONCURRENCY, GEN_MAX_TOKENS = 16, 8, 48
+# The decoder at Gemma-2B's widths (Gemma Team, 2024, Table 1: vocab
+# 256000, hidden 2048, 18 layers, 8 heads of 256, MLP 16384, tied
+# embeddings; the port's decoder is GPT-class, so only the widths carry
+# over) under generate_4k's serving settings and traffic: head dim 256,
+# K1's wgmma path at 64-key tiles and K2's hopper path at 4-token tiles.
+GEMMA_CONFIG = dict(GEN_CONFIG, arch_kwargs={
+    "vocab_size": 256000, "hidden_size": 2048, "num_layers": 18,
+    "num_heads": 8, "intermediate_size": 16384, "max_seq": 4096})
+GEMMA_WIDTHS = (18, 2048, 8, 4096)
 GEN_SYSTEM_LEN, GEN_TAIL_LEN = 2980, 40
 
 # GPT-2-small width with a 32000 vocabulary, as the three configurations
@@ -411,6 +434,14 @@ VIT_CONFIG = {
     "output": "argmax",
 }
 VIT_REQUESTS, VIT_CONCURRENCY = 48, 16
+# ViT-H/14 at 224 px (Dosovitskiy et al., 2021, Table 1: patch 14, hidden
+# 1280, 32 layers, 16 heads, MLP 5120): L = 257, head dim 80, the mma.sync
+# path of K1.  The chain bench's ViT serving settings and traffic.
+VIT_H14_CONFIG = dict(VIT_CONFIG, arch_kwargs={
+    "image_size": 224, "patch_size": 14, "hidden_size": 1280,
+    "num_layers": 32, "num_heads": 16, "intermediate_size": 5120,
+    "num_classes": 1000})
+VIT_H14_WIDTHS = (32, 1280, 16, 257)
 # ViT served through K1 vs the same weights with the plain attention
 # (both bf16): the logits of one batch differ by at most this share of
 # the batch's largest |logit|.  K1 and the plain version differ by bf16
@@ -690,9 +721,11 @@ def check_flash_attention() -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from kfserving_tpu_torch.csrc import build
     from kfserving_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
+        kernel_path,
     )
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -760,6 +793,28 @@ def check_flash_attention() -> dict:
         (MESH_BERT_CASE, 16, 6, 512, 512, 64, bf16, False, "ragged"),
         (MESH_PREFILL_CASE, 8, 6, 4096, 4096, 64, bf16, True,
          prefill_lengths),
+        # The head dims past 128 and the two public ones below it that are
+        # not multiples of 64: the Gemma-2B-width prefill (generate_d256's
+        # bucket), ViT-H/14 at 224 px (L = 257, vit_h14's largest batch),
+        # GPT-NeoX-20B's heads, a D192 prefill, the wgmma path's 64-key
+        # tile edges at D256 and D192, and fp32 at D80 and D256.
+        (GEMMA_PREFILL_CASE, 8, 8, 4096, 4096, 256, bf16, True,
+         prefill_lengths),
+        (VIT_H14_CASE, 16, 16, 257, 257, 80, bf16, False, None),
+        ("vit_h14 b16 L257 bf16 D80 kv_lengths", 16, 16, 257, 257, 80,
+         bf16, False, "ragged"),
+        ("neox b4 L2048 bf16 H64 D96 causal kv_lengths", 4, 64, 2048, 2048,
+         96, bf16, True, "ragged"),
+        ("b4 L2048 bf16 H16 D192 causal kv_lengths", 4, 16, 2048, 2048, 192,
+         bf16, True, "ragged"),
+        ("L200 bf16 D256 causal kv_lengths edges", 6, 8, 200, 200, 256,
+         bf16, True, [0, 1, 63, 64, 65, 200]),
+        ("L200 bf16 D192 kv_lengths edges", 6, 8, 200, 200, 192, bf16,
+         False, [0, 1, 63, 64, 65, 200]),
+        ("b2 L128 fp32 D80 kv_lengths", 2, 4, 128, 128, 80, fp32, False,
+         [128, 37]),
+        ("b2 L128 fp32 D256 causal kv_lengths", 2, 4, 128, 128, 256, fp32,
+         True, [128, 37]),
     ]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -813,9 +868,12 @@ def check_flash_attention() -> dict:
             library, plain_iters=2 if Lk > 512 else 5)
         bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D, dtype, causal,
                                              lengths)
-        row = {"case": name, "max_abs_err": err, "tolerance": tol,
-               "share_of_limit": share, **times, "bound_ms": bound,
-               "bound_by": bound_by, "share_of_bound": bound / times["ms"]}
+        row = {"case": name, "head_dim": D,
+               "dtype": str(dtype).split(".")[-1],
+               "path": kernel_path(dtype, D), "max_abs_err": err,
+               "tolerance": tol, "share_of_limit": share, **times,
+               "bound_ms": bound, "bound_by": bound_by,
+               "share_of_bound": bound / times["ms"]}
         print("flash_attention " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, qt, kt, vt, out, mask
@@ -842,7 +900,21 @@ def check_flash_attention() -> dict:
         "small_head_dim_cases": small,
         # One tp rank's heads (the mesh phase's shapes).
         "mesh_cases": mesh,
+        # Head dims 80, 96, 192 and 256: each case with its path.
+        "head_dim_cases": head_dim_cases(results),
+        # Registers, spills and static shared memory of every instance.
+        "ptxas": ptxas_report(build.build_logs.get("flash_attention", ""),
+                              "flash_fwd"),
     }
+
+
+def head_dim_cases(results, dims=NEW_HEAD_DIMS) -> list:
+    """The kernels line's summary of the cases at head dims ``dims``."""
+    keys = ("case", "head_dim", "dtype", "path", "ms", "bound_ms",
+            "bound_by", "plain_ms", "library_ms", "library_backend",
+            "max_abs_err")
+    return [{k: r[k] for k in keys} for r in results
+            if r["head_dim"] in dims]
 
 
 def paged_bound_ms(B, H, D, BS, MB, dtype, lengths) -> tuple:
@@ -943,6 +1015,28 @@ def check_paged_attention() -> dict:
                    MB, bf16, boundary),
         # One row holds all the work: the split must spread it.
         paged_case(gen, PAGED_LONG_ROW_CASE, 1, H, D, BS, MB, bf16, [4096]),
+        # The head dims of PR 19: generate_d256's decode (Gemma-2B widths),
+        # Phi-2's and GPT-NeoX-20B's heads, a D192 decode, the edge rows
+        # at D256 (the other rows bit-equal, as for every case here), and
+        # the simple path at D16 and in fp32 at D80, D192 and D256 (three
+        # and two 16-byte vectors a lane at the last two).
+        paged_case(gen, GEMMA_DECODE_CASE, B, 8, 256, BS, MB, bf16, decode),
+        paged_case(gen, "phi2 b8 decode ~3045 bf16 H32 D80", B, 32, 80, BS,
+                   MB, bf16, decode),
+        paged_case(gen, "neox b8 decode ~3045 bf16 H64 D96", B, 64, 96, BS,
+                   MB, bf16, decode),
+        paged_case(gen, "b8 decode ~3045 bf16 H12 D192", B, H, 192, BS, MB,
+                   bf16, decode),
+        paged_case(gen, "edge rows bf16 H8 D256", B, 8, 256, BS, MB, bf16,
+                   edge, edit),
+        paged_case(gen, "edge rows bf16 H4 D16", B, 4, 16, BS, MB, bf16,
+                   edge, edit),
+        paged_case(gen, "edge rows fp32 H32 D80", B, 32, 80, BS, MB, fp32,
+                   edge, edit),
+        paged_case(gen, "edge rows fp32 H12 D192", B, H, 192, BS, MB, fp32,
+                   edge, edit),
+        paged_case(gen, "edge rows fp32 H8 D256", B, 8, 256, BS, MB, fp32,
+                   edge, edit),
     ]
     results = []
     for name, args in cases:
@@ -990,7 +1084,9 @@ def check_paged_attention() -> dict:
                   f"{times['device_kernels']}")
         bound, bound_by = paged_bound_ms(rows, H, d, BS, MB, q.dtype,
                                          lengths)
-        row = {"case": name, "path": path, "max_abs_err": err,
+        row = {"case": name, "head_dim": d,
+               "dtype": str(q.dtype).split(".")[-1], "path": path,
+               "max_abs_err": err,
                "tolerance": tol, "share_of_limit": share, **times,
                "bound_ms": bound, "bound_by": bound_by,
                "share_of_bound": bound / times["ms"],
@@ -1026,6 +1122,15 @@ def check_paged_attention() -> dict:
         "hopper_ptxas": ptxas_report(
             build.build_logs.get("paged_attention", ""),
             PAGED_KERNEL_NAMES["hopper"]),
+        # Head dims 80, 96, 192 and 256 (and the simple path's D16 and
+        # fp32 instances): each case with its path, the hopper plan at
+        # generate_d256's decode, and the simple path's ptxas report.
+        "head_dim_cases": head_dim_cases(results, NEW_HEAD_DIMS + (16,)),
+        "gemma_plan": dataclasses.asdict(split_plan(
+            B, 8, 256, BS, MB, _sm_count(torch.device("cuda")))),
+        "simple_ptxas": ptxas_report(
+            build.build_logs.get("paged_attention", ""),
+            PAGED_KERNEL_NAMES["simple"]),
     }
 
 
@@ -1500,7 +1605,7 @@ def stream_tokens(events, where: str, max_tokens: int = GEN_MAX_TOKENS):
     return ids
 
 
-async def drive_generate(model) -> dict:
+async def drive_generate(model, name: str = "gen4k") -> dict:
     from kfserving_tpu_torch.ops.flash_attention import flash_attention
     from kfserving_tpu_torch.ops.paged_attention import (
         paged_attention_kernel,
@@ -1510,7 +1615,7 @@ async def drive_generate(model) -> dict:
     server = ModelServer(http_port=0)
     await server.start_async([model], host="127.0.0.1")
     port = server.http_port
-    path = "/v2/models/gen4k/generate_stream"
+    path = f"/v2/models/{name}/generate_stream"
     engine = model.engine
     try:
         status, events, _, _ = await asyncio.to_thread(
@@ -1539,18 +1644,18 @@ async def drive_generate(model) -> dict:
         wall_s = time.perf_counter() - t0
         scraped["streams"] = await asyncio.to_thread(scrape, port)
         status, v1, _ = await asyncio.to_thread(
-            http_json, port, "POST", "/v1/models/gen4k:predict",
+            http_json, port, "POST", f"/v1/models/{name}:predict",
             {"instances": [{"prompt": gen_prompt(100), "max_tokens": 8}]})
         check(status == 200, f"V1 predict: HTTP {status} {v1}")
         pred = v1["predictions"][0]
         check(pred["finish_reason"] in ("length", "eos")
               and pred["token_count"] <= 8, f"V1 predict: {pred}")
         status, v2, _ = await asyncio.to_thread(
-            http_json, port, "POST", "/v2/models/gen4k/generate",
+            http_json, port, "POST", f"/v2/models/{name}/generate",
             {"text_input": gen_prompt(101), "parameters": {"max_tokens": 8}})
         check(status == 200, f"V2 generate: HTTP {status} {v2}")
         check(v2["details"]["token_count"] <= 8
-              and v2["model_name"] == "gen4k", f"V2 generate: {v2}")
+              and v2["model_name"] == name, f"V2 generate: {v2}")
         after = engine.stats()
         launches = {"flash_attention": flash_attention.launches,
                     "paged_attention": paged_attention_kernel.launches}
@@ -1580,7 +1685,7 @@ async def drive_generate(model) -> dict:
         check(idle is not None, f"slots or blocks not all free when idle: "
               f"{engine.stats()['paged']}")
         scraped["end"] = await asyncio.to_thread(scrape, port)
-        await asyncio.to_thread(lint_metrics, port, "generate_4k")
+        await asyncio.to_thread(lint_metrics, port, name)
     finally:
         await server.stop_async()
     tokens = []
@@ -1594,10 +1699,10 @@ async def drive_generate(model) -> dict:
                      - scraped["before"].get(ttft, 0))
     check(ttfts_counted == GEN_REQUESTS, f"llm_ttft_ms counted "
           f"{ttfts_counted} first tokens for {GEN_REQUESTS} streams")
-    counts = request_counts(scraped["end"], "gen4k")
+    counts = request_counts(scraped["end"], name)
     want = {"generate_stream 200": GEN_REQUESTS + 2, "predict 200": 1,
             "generate 200": 1}
-    check(counts == want, f"gen4k: request_total {counts} != {want}")
+    check(counts == want, f"{name}: request_total {counts} != {want}")
     return {"launches": launches, "before": before, "after": after,
             "ttft_count": ttfts_counted, "request_total": counts,
             "timed_out_stream": timed_out,
@@ -1852,21 +1957,17 @@ def time_generate_device(model) -> dict:
     }
 
 
-def serve_generate(card: str) -> dict:
-    from kfserving_tpu_torch.predictors.llm import GenerativeModel
-
-    with tempfile.TemporaryDirectory(prefix="kfs-chip-smoke-") as model_dir:
-        with open(os.path.join(model_dir, "config.json"), "w") as f:
-            json.dump(GEN_CONFIG, f)
-        model = GenerativeModel("gen4k", model_dir, device="cuda")
-        t0 = time.perf_counter()
-        model.load()
-        load_s = time.perf_counter() - t0
+def serve_generate(card: str, name: str = "gen4k",
+                   config: dict = GEN_CONFIG,
+                   widths: tuple = (12, 768, 12, 4096)) -> dict:
+    """A decoder at ``config`` served over HTTP with generate_4k's serving
+    settings and traffic; ``widths`` is (layers, hidden, heads, max_seq)."""
+    model, load_s = load_generative(name, config)
     cfg = model.module.config
     check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.max_seq)
-          == (12, 768, 12, 4096), "not the generate_4k decoder")
+          == widths, f"{name}: not the decoder of {widths}")
     try:
-        run = asyncio.run(drive_generate(model))
+        run = asyncio.run(drive_generate(model, name))
         before, after = run["before"], run["after"]
         waves = after["decode_steps"] - before["decode_steps"]
         prefills = after["prefills"] - before["prefills"]
@@ -1891,6 +1992,10 @@ def serve_generate(card: str) -> dict:
         model.unload()
     summary = {
         "card": card, "load_s": load_s, "requests": GEN_REQUESTS,
+        "widths": {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                   "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+                   "vocab": cfg.vocab_size,
+                   "intermediate": cfg.intermediate_size},
         "concurrency": GEN_CONCURRENCY,
         "generated_tokens": run["generated"], "wall_s": run["wall_s"],
         "tokens_per_s": run["tokens_per_s"],
@@ -1907,7 +2012,8 @@ def serve_generate(card: str) -> dict:
         "timed_out_stream": run["timed_out_stream"],
         "reference": reference, "device": device, "graphs": wave_graphs,
     }
-    print("generate " + json.dumps(summary), flush=True)
+    print(("generate " if name == "gen4k" else f"{name} ")
+          + json.dumps(summary), flush=True)
     return summary
 
 
@@ -3643,23 +3749,26 @@ def serve_resnet(card: str) -> dict:
 
 
 # -- phase 6: ViT-B/16 through the port's server -----------------------------
-def serve_vit(card: str) -> dict:
+def serve_vit(card: str, name: str = "vit", config: dict = VIT_CONFIG,
+              widths: tuple = (12, 768, 12, 197)) -> dict:
+    """A ViT at ``config`` served over HTTP (48 images at concurrency 16,
+    V1 with every fourth V2); ``widths`` is (layers, hidden, heads, L)."""
     from kfserving_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
 
-    model, load_s = load_model("vit", VIT_CONFIG)
+    model, load_s = load_model(name, config)
     module = model.module
     cfg = module.config
     check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.seq_len)
-          == (12, 768, 12, 197), "not ViT-B/16 at 224 px")
+          == widths, f"{name}: not the ViT of {widths}")
     rng = np.random.default_rng(6)
     try:
         images = bench_images(rng, VIT_REQUESTS, cfg.image_size)
         images = images.astype(np.float32) / 255.0
         images = np.round(images, 3)         # shorter JSON, same function
-        bodies = image_bodies("vit", images)
+        bodies = image_bodies(name, images)
 
         async def drive(port):
             first = await asyncio.to_thread(scrape, port)
@@ -3667,11 +3776,11 @@ def serve_vit(card: str) -> dict:
             flash_attention.launches = 0
             executed0 = model.engine.execute_count
             answers, latencies, wall_s = await drive_images(
-                port, "vit", bodies, VIT_CONCURRENCY)
+                port, name, bodies, VIT_CONCURRENCY)
             launches = flash_attention.launches
             batches = model.engine.execute_count - executed0
             last = await asyncio.to_thread(scrape, port)
-            stages = stage_window(first, last, batches, "vit")
+            stages = stage_window(first, last, batches, name)
             compiles = compile_cache_window(first, last)
             return (answers, latencies, wall_s, launches, batches, stages,
                     compiles)
@@ -3679,11 +3788,11 @@ def serve_vit(card: str) -> dict:
         (answers, latencies, wall_s, launches, batches, stages,
          compiles) = asyncio.run(serve_over_http(model, drive))
         check(compiles == {"hit": batches, "miss": 0},
-              f"vit: compile cache {compiles} for {batches} batches")
+              f"{name}: compile cache {compiles} for {batches} batches")
         check(batches > 0 and launches == cfg.num_layers * batches,
-              f"vit: flash kernel launched {launches} times for {batches} "
-              f"batches of {cfg.num_layers} layers")
-        batch = torch.from_numpy(images[:VIT_CONFIG["max_batch_size"]]
+              f"{name}: flash kernel launched {launches} times for "
+              f"{batches} batches of {cfg.num_layers} layers")
+        batch = torch.from_numpy(images[:config["max_batch_size"]]
                                  ).to("cuda")
         with torch.inference_mode():
             served_logits = module(batch).float()
@@ -3695,15 +3804,23 @@ def serve_vit(card: str) -> dict:
         diff = float((served_logits - plain_logits).abs().max())
         limit = VIT_LOGIT_RTOL * float(plain_logits.abs().max())
         check(math.isfinite(diff) and diff <= limit,
-              f"vit: kernel vs plain logits differ by {diff} > {limit}")
-        direct = served_logits.argmax(dim=-1).cpu().tolist()
-        served = answers[:len(direct)]
-        top2 = served_logits.topk(2, dim=-1).values
-        near_tie = (top2[:, 0] - top2[:, 1]).cpu().tolist()
-        far = [i for i, (a, b) in enumerate(zip(served, direct))
-               if a != b and near_tie[i] > limit]
-        check(not far, f"vit: served argmax differs from the direct "
-              f"forward's at images {far}")
+              f"{name}: kernel vs plain logits differ by {diff} > {limit}")
+        served = answers[:len(batch)]
+        # The tie rule: a served argmax may differ from the direct forward's
+        # (through K1) or the plain attention's only where that forward's
+        # top two logits lie within the limit.
+        top1 = {}
+        for ref_name, logits in (("direct", served_logits),
+                                 ("plain", plain_logits)):
+            ref = logits.argmax(dim=-1).cpu().tolist()
+            top2 = logits.topk(2, dim=-1).values
+            near_tie = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+            far = [i for i, (a, b) in enumerate(zip(served, ref))
+                   if a != b and near_tie[i] > limit]
+            check(not far, f"{name}: served argmax differs from the "
+                  f"{ref_name} forward's at images {far}")
+            top1[ref_name] = (sum(a == b for a, b in zip(served, ref))
+                              / len(ref))
         sixteen = torch.from_numpy(images[:16]).to("cuda")
         with torch.inference_mode():
             b16 = forward_breakdown(lambda: module(sixteen))
@@ -3714,6 +3831,8 @@ def serve_vit(card: str) -> dict:
         model.unload()
     summary = {
         "card": card, "load_and_warmup_s": load_s,
+        "widths": dict(zip(("layers", "hidden", "heads", "seq_len"), widths),
+                       head_dim=cfg.head_dim),
         "graphs": graph_check, "compile_cache": compiles,
         "requests": len(answers), "concurrency": VIT_CONCURRENCY,
         "wall_s": wall_s, "req_per_s": len(answers) / wall_s,
@@ -3726,10 +3845,11 @@ def serve_vit(card: str) -> dict:
             "achieved_tflops", "mfu") if k in stats},
         "engine_stage_means": stages,
         "logits_max_abs_diff_vs_plain": diff, "logit_limit": limit,
+        "top1_agreement": top1,
         "b16_forward": b16,
         "b16_busy_tflops": module.flops(16) / b16["device_busy_ms"] / 1e9,
     }
-    print("vit " + json.dumps(summary), flush=True)
+    print(f"{name} " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -7355,7 +7475,7 @@ def lint_metrics(port: int, where: str) -> None:
 
 
 def report_metrics_lint(card: str) -> dict:
-    wanted = {"bert", "generate_4k", "router"}
+    wanted = {"bert", "gen4k", "gen_d256", "router"}
     check(wanted <= set(METRICS_LINT), f"metrics_lint: scrapes of "
           f"{sorted(wanted - set(METRICS_LINT))} were not linted")
     summary = {"card": card, "scrapes": METRICS_LINT}
@@ -8164,6 +8284,8 @@ def main() -> int:
         tiny = phase("tiny_models", load_tiny_models, card)
         serving = phase("bert", serve_bert, card)
         generating = phase("generate", serve_generate, card)
+        gemma = phase("generate_d256", serve_generate, card, "gen_d256",
+                      GEMMA_CONFIG, GEMMA_WIDTHS)
         observing = phase("observe", serve_observe, card)
         dense = phase("generate_dense", serve_generate_dense, card)
         cold = phase("generate_cold4k", serve_cold4k, card)
@@ -8172,6 +8294,8 @@ def main() -> int:
         kvhandoff = phase("kvhandoff", serve_kvhandoff, card)
         resnet = phase("resnet", serve_resnet, card)
         vit = phase("vit", serve_vit, card)
+        vit_h14 = phase("vit_h14", serve_vit, card, "vit_h14",
+                        VIT_H14_CONFIG, VIT_H14_WIDTHS)
         explain = phase("explain", serve_explain, card)
         phase("explain_blackbox", serve_explain_blackbox, card)
         phase("explain_storage", serve_storage, card)
@@ -8200,13 +8324,14 @@ def main() -> int:
         shutil.rmtree(cache, ignore_errors=True)
     # K1 and K2 run on these serving paths; each path's count was read
     # from 0 just before it ran.
-    generative = ([generating["launches"], observing["launches"],
-                   dense["launches"]]
+    generative = ([generating["launches"], gemma["launches"],
+                   observing["launches"], dense["launches"]]
                   + [arm["launches"] for arm in cold["arms"].values()]
                   + [arm["launches"] for arm in spec["arms"].values()]
                   + [kvtier["launches"], kvhandoff["launches"]])
     kernels[0]["launches"] = (serving["flash_launches"]
                               + vit["flash_launches"]
+                              + vit_h14["flash_launches"]
                               + explain["vit"]["k1_launches"]
                               + residency["flash_launches"]
                               + chain["flash_launches"]

@@ -18,15 +18,17 @@
 // lasts tens of microseconds, so latency and the tile pipeline's fill and
 // drain matter as much as either roof.
 //
-// bf16 path (D = 64 and 128): one thread block of three warpgroups per
-// 128-query tile of one (b, h).
+// bf16 path (D = 64, 128, 192 and 256): one thread block of three
+// warpgroups per 128-query tile of one (b, h) (two at D = 256, below).
 //   - Warpgroup 0 is the producer.  It gives most of its registers to the
 //     consumers (setmaxnreg) and one thread issues TMA loads: the Q tile
-//     once, then K and V tiles of BLOCK_K = 128 keys into a ring of STAGES
-//     buffers guarded by full / empty mbarriers.  It stops at the row's last
-//     valid tile, so the causal skip and the kv_lengths skip move no bytes.
-//     Tensor maps are built on the host from the wrapper's element strides,
-//     with a 128-byte swizzle; a 128-wide head loads as two 64-column boxes.
+//     once, then K and V tiles of BLOCK_K keys (128 up to D = 128, 64 at
+//     D = 192 and 256, where two 128-key stages beside Q overflow the 227
+//     KB) into a ring of STAGES buffers guarded by full / empty mbarriers.
+//     It stops at the row's last valid tile, so the causal skip and the
+//     kv_lengths skip move no bytes.  Tensor maps are built on the host
+//     from the wrapper's element strides, with a 128-byte swizzle; a head
+//     loads as D / 64 boxes of 64 columns.
 //     TMA zero-fills rows past L, so short or ragged L needs no other path.
 //   - Warpgroups 1 and 2 each own 64 query rows (one wgmma M).  S = Q K^T is
 //     a wgmma with both operands in shared memory, K-major, whose
@@ -36,6 +38,12 @@
 //     a row's length.  P is rounded to bf16 in registers and is the
 //     register-A operand of O += P V, whose B operand is the V tile read
 //     MN-major (transposed) straight from the ring: no transpose copy.
+//   - At D = 256 a consumer's O is 128 fp32 registers a thread, which
+//     spilled under the 168 that a block of 12 warps leaves each thread
+//     (setmaxnreg did not lift ptxas's allocation), so the block is the
+//     two consumer warpgroups alone (255 registers) and their first thread
+//     issues the loads: Q and the first STAGES tiles up front, then each
+//     stage again once both warpgroups have released it.
 //   - Causal grids issue the heaviest q tiles (those with the most key
 //     tiles) first, for every (b, h), so the tail of the grid is short.
 //   - Producer and consumers take their trip count from one function; a
@@ -53,18 +61,21 @@
 // of Q past a row's length are computed (as by the plain version) and
 // stored.
 //
-// mma.sync path (fp32 at every head dim, bf16 at D = 16 and 32): the first
-// version's m16n8k16 kernel, templated on the element type.  fp32 inputs are
-// split into bf16 hi + lo halves and multiplied as hi*hi + hi*lo + lo*hi
-// (about 16 mantissa bits).  wgmma's tf32 form needs a K-major B operand,
-// which V (keys by head dim, head dim contiguous) is not, and no served path
-// runs fp32, so this path keeps synchronous 64 x 64 tiles.  A 16- or
-// 32-wide bf16 row is 32 or 64 bytes, under the 128-byte swizzle row the
-// wgmma path's TMA boxes and descriptors are built on, so those head dims
-// (bert_tiny, decoder_tiny, vit_tiny) take this path with bf16 tiles loaded
-// as they are: one product a step, P rounded to bf16 before P V.  Simple
-// and right first; at these widths a call moves few bytes and does few
-// operations, so launch latency bounds it on the card.
+// mma.sync path (fp32 at every head dim, bf16 at D = 16, 32, 80 and 96):
+// the first version's m16n8k16 kernel, templated on the element type.  fp32
+// inputs are split into bf16 hi + lo halves and multiplied as hi*hi + hi*lo
+// + lo*hi (about 16 mantissa bits).  wgmma's tf32 form needs a K-major B
+// operand, which V (keys by head dim, head dim contiguous) is not, and no
+// served path runs fp32, so this path keeps synchronous 64 x 64 tiles (at
+// D = 256 fp32 its six tiles take 203 KB).  The wgmma path's TMA boxes and
+// descriptors are built on 64-column panels of 128-byte swizzled rows, so
+// bf16 head dims that are not a multiple of 64 take this path with bf16
+// tiles loaded as they are: one product a step, P rounded to bf16 before
+// P V.  At D = 16 and 32 (bert_tiny, decoder_tiny, vit_tiny) a call moves
+// few bytes and does few operations, so launch latency bounds it; at D =
+// 80 (ViT-H/14, Phi-2) and 96 (GPT-NeoX-20B) the synchronous loads and
+// mma.sync keep it off the tensor cores' wgmma rate.  Simple and right
+// first.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,11 +104,18 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 
 // ---------------------------------------------------------------------------
 // mma.sync path: fp32 at every head dim (bf16 hi + lo halves), and bf16 at
-// the head dims the wgmma path does not take (16 and 32).
+// the head dims the wgmma path does not take (16, 32, 80 and 96).
 
 constexpr int F32_BLOCK_Q = 64;
-constexpr int F32_BLOCK_K = 64;
 constexpr int F32_THREADS = 128;  // four warps, 16 query rows each
+
+// Keys of one step: 64, or 32 for fp32 at D = 256, where a thread's share
+// of the 64 x 256 O (128 registers) beside a 64-key S and the split
+// operands overflows the 255 registers a thread may have (ptxas spilled).
+template <typename T, int D>
+__host__ __device__ constexpr int mma_block_k() {
+  return sizeof(T) == 4 && D >= 256 ? 32 : 64;
+}
 // Row padding of the shared-memory tiles, in bf16 elements (16 bytes):
 // staggers rows across banks so the fragment loads below are conflict-free.
 constexpr int PAD = 8;
@@ -131,15 +149,15 @@ __device__ __forceinline__ uint32_t pack_rows(const bf16* p, int ld) {
          ((uint32_t)__bfloat16_as_ushort(p[ld]) << 16);
 }
 
-// Copies a [64, D] tile (rows past `rows_valid` zero-filled) into shared
+// Copies a [ROWS, D] tile (rows past `rows_valid` zero-filled) into shared
 // memory: fp32 as bf16 hi and lo halves, bf16 as it is (`lo` unused).
-template <typename T, int D>
+template <typename T, int D, int ROWS>
 __device__ void load_tile(bf16* hi, bf16* lo, const T* base,
                           long long stride_l, int rows_valid) {
   constexpr int LD = D + PAD;
   if constexpr (sizeof(T) == 4) {
     constexpr int CPR = D / 4;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < F32_BLOCK_Q * CPR; i += F32_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * CPR; i += F32_THREADS) {
       const int r = i / CPR;
       const int c = (i % CPR) * 4;
       uint2 h = make_uint2(0u, 0u), l = make_uint2(0u, 0u);
@@ -154,7 +172,7 @@ __device__ void load_tile(bf16* hi, bf16* lo, const T* base,
     }
   } else {
     constexpr int CPR = D / 8;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < F32_BLOCK_Q * CPR; i += F32_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * CPR; i += F32_THREADS) {
       const int r = i / CPR;
       const int c = (i % CPR) * 8;
       uint4 h = make_uint4(0u, 0u, 0u, 0u);
@@ -177,17 +195,19 @@ __global__ void __launch_bounds__(F32_THREADS)
                   int causal, Strides qs, Strides ks, Strides vs, Strides os,
                   float scale_log2) {
   constexpr bool kSplit = sizeof(T) == 4;
+  constexpr int F32_BLOCK_K = mma_block_k<T, D>();
   constexpr int LD = D + PAD;
-  constexpr int TILE = F32_BLOCK_Q * LD;
+  constexpr int Q_TILE = F32_BLOCK_Q * LD;
+  constexpr int KV_TILE = F32_BLOCK_K * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + TILE;
-  bf16* sv = sk + TILE;
+  bf16* sk = sq + Q_TILE;
+  bf16* sv = sk + KV_TILE;
   // The lo halves exist only for fp32 (the launch sizes shared memory to
   // match); a bf16 launch never touches them.
-  bf16* sq_lo = sv + TILE;
-  bf16* sk_lo = sq_lo + TILE;
-  bf16* sv_lo = sk_lo + TILE;
+  bf16* sq_lo = sv + KV_TILE;
+  bf16* sk_lo = sq_lo + Q_TILE;
+  bf16* sv_lo = sk_lo + KV_TILE;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -207,7 +227,8 @@ __global__ void __launch_bounds__(F32_THREADS)
   const T* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.l;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
-  load_tile<T, D>(sq, sq_lo, qb, qs.l, min(F32_BLOCK_Q, Lq - q0));
+  load_tile<T, D, F32_BLOCK_Q>(sq, sq_lo, qb, qs.l,
+                              min(F32_BLOCK_Q, Lq - q0));
 
   float acc[D / 8][4];
 #pragma unroll
@@ -222,11 +243,13 @@ __global__ void __launch_bounds__(F32_THREADS)
   for (int k0 = 0; k0 < kv_end; k0 += F32_BLOCK_K) {
     __syncthreads();  // the previous tile's readers are done
     const int rows = min(F32_BLOCK_K, Lk - k0);
-    load_tile<T, D>(sk, sk_lo, kb + (long long)k0 * ks.l, ks.l, rows);
-    load_tile<T, D>(sv, sv_lo, vb + (long long)k0 * vs.l, vs.l, rows);
+    load_tile<T, D, F32_BLOCK_K>(sk, sk_lo, kb + (long long)k0 * ks.l,
+                                 ks.l, rows);
+    load_tile<T, D, F32_BLOCK_K>(sv, sv_lo, vb + (long long)k0 * vs.l,
+                                 vs.l, rows);
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
+    // S = Q K^T for this warp's 16 rows x F32_BLOCK_K keys.
     float s[F32_BLOCK_K / 8][4];
 #pragma unroll
     for (int n = 0; n < F32_BLOCK_K / 8; ++n)
@@ -351,10 +374,8 @@ __global__ void __launch_bounds__(F32_THREADS)
 // bf16 path: TMA ring + wgmma, warp-specialized.
 
 constexpr int BLOCK_Q = 128;   // query rows per thread block
-constexpr int BLOCK_K = 128;   // keys per ring stage
 constexpr int WG_THREADS = 128;
 constexpr int CONSUMERS = 2;   // warpgroups of 64 query rows each
-constexpr int THREADS = WG_THREADS * (1 + CONSUMERS);
 // A swizzle row: 64 bf16 = 128 bytes; a tile is stored as panels of
 // [rows][64] with the 128-byte swizzle, one panel per 64 head-dim columns.
 constexpr int SW_COLS = 64;
@@ -368,6 +389,25 @@ static_assert(WG_THREADS * PRODUCER_REGS + CONSUMERS * WG_THREADS *
 template <int D>
 struct WgCfg {
   static constexpr int PANELS = D / SW_COLS;
+  // Keys per ring stage: 128 up to D = 128.  At D = 192 and 256 a
+  // 128-key K and V stage is 96-128 KB, so two of them beside Q (48-64
+  // KB) overflow a CTA's 227 KB: 64 keys there.
+  static constexpr int BLOCK_K = D <= 128 ? 128 : 64;
+  // The loads: a producer warpgroup ahead of the consumers that hands
+  // them its registers (setmaxnreg), or at D = 256 the first consumer
+  // thread between its tiles.  ptxas allocates the whole kernel under its
+  // launch bound, and each of an SM's four register banks (16K) holds
+  // every fourth warp: 12 warps leave 168 registers a thread (9 warps
+  // too, on the SMSP that holds three), and a D = 256 consumer holds a
+  // 64 x 256 fp32 O (128 registers) beside S, P and the operand
+  // descriptors, so it spilled there.  The two consumer warpgroups alone
+  // (8 warps) allow 255.
+  static constexpr bool PRODUCER_WG = D <= 192;
+  static constexpr int THREADS =
+      CONSUMERS * WG_THREADS + (PRODUCER_WG ? WG_THREADS : 0);
+  static constexpr int FIRST_CONSUMER = PRODUCER_WG ? WG_THREADS : 0;
+  static constexpr int S_REGS = BLOCK_K / 2;  // S floats of one thread
+  static constexpr int K_STEPS = BLOCK_K / 16;  // k16 steps of P V
   static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr int Q_PANEL = BLOCK_Q * SW_ROW_BYTES;
   static constexpr int KV_PANEL = BLOCK_K * SW_ROW_BYTES;
@@ -377,6 +417,8 @@ struct WgCfg {
   // 1024 bytes of slack align the tiles to the swizzle pattern's repeat.
   static constexpr int SMEM =
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+  static_assert(D % SW_COLS == 0, "the wgmma path takes 64-column panels");
+  static_assert(SMEM <= 232448, "over a CTA's 227 KB of shared memory");
 };
 
 // TMA: one box of the 4-d tensor map (d, h, l, b) into shared memory,
@@ -470,6 +512,31 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], as wgmma_ss_n128 (the S tile
+// of a 64-key stage).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (bf16 pairs),
 // B from shared memory MN-major (transposed), 128-byte swizzle.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -496,40 +563,46 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// The number of BLOCK_K key tiles a query tile reads: keys up to the row's
-// length and, for causal calls, up to the tile's last query row.  The
+// The number of key tiles of BK keys a query tile reads: keys up to the
+// row's length and, for causal calls, up to the tile's last query row.  The
 // producer and the consumers both take their trip count from here, so
 // their barrier waits always pair up; 0 means no load and no wait.
+template <int BK>
 __device__ __forceinline__ int kv_tile_count(int q0, int n_kv, int causal) {
   const int kv_end = causal ? min(n_kv, q0 + BLOCK_Q) : n_kv;
-  return kv_end > 0 ? (kv_end + BLOCK_K - 1) / BLOCK_K : 0;
+  return kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
 }
 
-// S = Q K^T for one warpgroup's 64 query rows and one 128-key tile (issued,
+// S = Q K^T for one warpgroup's 64 query rows and one key tile (issued,
 // not waited for): D / 16 steps of 16 head-dim columns, 32 bytes of a
 // swizzled row each, a new panel every 64 columns.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_half,
-                                         uint32_t k_tile) {
+__device__ __forceinline__ void issue_qk(float (&s)[WgCfg<D>::S_REGS],
+                                         uint32_t q_half, uint32_t k_tile) {
   using C = WgCfg<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n128(s,
-                  kmajor_desc(q_half + (kk / 4) * C::Q_PANEL + (kk % 4) * 32),
-                  kmajor_desc(k_tile + (kk / 4) * C::KV_PANEL + (kk % 4) * 32),
-                  kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da =
+        kmajor_desc(q_half + (kk / 4) * C::Q_PANEL + (kk % 4) * 32);
+    const uint64_t db =
+        kmajor_desc(k_tile + (kk / 4) * C::KV_PANEL + (kk % 4) * 32);
+    if constexpr (C::BLOCK_K == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
+  }
 }
 
 // O += P V (issued, not waited for).  V [keys][head dim] is the MN-major B
 // operand; a k16 step is 16 swizzled rows (2048 bytes) of each 64-column
 // panel.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / SW_COLS][32],
-                                         const uint32_t (&pa)[8][4],
-                                         uint32_t v_tile) {
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[D / SW_COLS][32],
+    const uint32_t (&pa)[WgCfg<D>::K_STEPS][4], uint32_t v_tile) {
   using C = WgCfg<D>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < C::K_STEPS; ++kk)
 #pragma unroll
     for (int p = 0; p < C::PANELS; ++p)
       wgmma_rs_n64(acc[p], pa[kk],
@@ -537,19 +610,22 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / SW_COLS][32],
                                 kk * 16 * SW_ROW_BYTES));
 }
 
-// One S tile through the online softmax, in place: masks (when `masked`),
-// exponentiates in the log2 domain, updates the running max and this
-// thread's partial sums, and returns the factor each of its two rows'
+// One S tile of BK keys through the online softmax, in place: masks (when
+// `masked`), exponentiates in the log2 domain, updates the running max and
+// this thread's partial sums, and returns the factor each of its two rows'
 // earlier O must be scaled by.  The four threads of a group share a row.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_i)[2],
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
+                                             float (&m_i)[2],
                                              float (&l_i)[2],
                                              float (&alpha)[2], bool masked,
                                              int k0, int n_kv, int causal,
                                              int row0, int t,
                                              float scale_log2) {
+  constexpr int N8 = BK / 8;  // n8 blocks of the tile
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < N8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + i * 8 + t * 2 + (e & 1);
@@ -561,7 +637,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_i)[2],
   for (int r = 0; r < 2; ++r) {
     float mx = m_i[r];
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < N8; ++i)
       mx = fmaxf(mx, fmaxf(s[i * 4 + 2 * r], s[i * 4 + 2 * r + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -571,7 +647,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_i)[2],
     alpha[r] = exp2f(m_i[r] * scale_log2 - m_use);
     float rs = 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < N8; ++i) {
       float& x0 = s[i * 4 + 2 * r];
       float& x1 = s[i * 4 + 2 * r + 1];
       x0 = exp2f(fmaf(x0, scale_log2, -m_use));
@@ -585,10 +661,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_i)[2],
 
 // P in bf16: the accumulator layout of keys 16kk..16kk+15 (two n8 blocks)
 // is the register-A layout of one k16 step.
-__device__ __forceinline__ void to_bf16(const float (&s)[64],
-                                        uint32_t (&pa)[8][4]) {
+template <int BK>
+__device__ __forceinline__ void to_bf16(const float (&s)[BK / 2],
+                                        uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     pa[kk][0] = pack(s[8 * kk + 0], s[8 * kk + 1]);
     pa[kk][1] = pack(s[8 * kk + 2], s[8 * kk + 3]);
     pa[kk][2] = pack(s[8 * kk + 4], s[8 * kk + 5]);
@@ -597,7 +674,7 @@ __device__ __forceinline__ void to_bf16(const float (&s)[64],
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(WgCfg<D>::THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
@@ -622,7 +699,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_Q;
   int n_kv = Lk;
   if (kv_lengths != nullptr) n_kv = min(max(kv_lengths[b], 0), Lk);
-  const int n_tiles = kv_tile_count(q0, n_kv, causal);
+  const int n_tiles = kv_tile_count<C::BLOCK_K>(q0, n_kv, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -635,38 +712,55 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / WG_THREADS;
-  if (wg == 0) {
-    // Producer: one thread issues every load.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_expect_tx(q_full, C::Q_BYTES);
+  // The loads of Q, and of key tile j into stage j % STAGES (which tile
+  // j - STAGES filled: the caller waits for both consumers to release
+  // it first).
+  auto load_q = [&]() {
+    mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-      for (int p = 0; p < C::PANELS; ++p)
-        tma_load(sq + p * C::Q_PANEL, &tq, q_full, p * SW_COLS, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % C::STAGES;
-        // Stage s was last filled with tile j - STAGES: wait for both
-        // consumers to release it.
-        if (j >= C::STAGES) mbar_wait(empty(s), ((j / C::STAGES) - 1) & 1);
-        const int k0 = j * BLOCK_K;
-        mbar_expect_tx(k_full(s), C::KV_BYTES);
+    for (int p = 0; p < C::PANELS; ++p)
+      tma_load(sq + p * C::Q_PANEL, &tq, q_full, p * SW_COLS, h, q0, b);
+  };
+  auto load_kv = [&](int j) {
+    const int s = j % C::STAGES;
+    const int k0 = j * C::BLOCK_K;
+    mbar_expect_tx(k_full(s), C::KV_BYTES);
 #pragma unroll
-        for (int p = 0; p < C::PANELS; ++p)
-          tma_load(sk + s * C::KV_BYTES + p * C::KV_PANEL, &tk, k_full(s),
-                   p * SW_COLS, h, k0, b);
-        mbar_expect_tx(v_full(s), C::KV_BYTES);
+    for (int p = 0; p < C::PANELS; ++p)
+      tma_load(sk + s * C::KV_BYTES + p * C::KV_PANEL, &tk, k_full(s),
+               p * SW_COLS, h, k0, b);
+    mbar_expect_tx(v_full(s), C::KV_BYTES);
 #pragma unroll
-        for (int p = 0; p < C::PANELS; ++p)
-          tma_load(sv + s * C::KV_BYTES + p * C::KV_PANEL, &tv, v_full(s),
-                   p * SW_COLS, h, k0, b);
+    for (int p = 0; p < C::PANELS; ++p)
+      tma_load(sv + s * C::KV_BYTES + p * C::KV_PANEL, &tv, v_full(s),
+               p * SW_COLS, h, k0, b);
+  };
+
+  const int consumer_thread = threadIdx.x - C::FIRST_CONSUMER;
+  if (consumer_thread < 0) {
+    // Producer warpgroup: one thread issues every load.
+    if constexpr (C::PRODUCER_WG) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   ::"n"(PRODUCER_REGS));
+      if (threadIdx.x == 0 && n_tiles > 0) {
+        load_q();
+        for (int j = 0; j < n_tiles; ++j) {
+          if (j >= C::STAGES)
+            mbar_wait(empty(j % C::STAGES), ((j / C::STAGES) - 1) & 1);
+          load_kv(j);
+        }
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 ::"n"(CONSUMER_REGS));
-    const int c = wg - 1;                        // 64-row half of the tile
+    if constexpr (C::PRODUCER_WG) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   ::"n"(CONSUMER_REGS));
+    } else if (threadIdx.x == 0 && n_tiles > 0) {
+      // No producer: the first STAGES tiles now, the rest in the loop.
+      load_q();
+      for (int j = 0; j < min(n_tiles, C::STAGES); ++j) load_kv(j);
+    }
+    const int c = consumer_thread / WG_THREADS;  // 64-row half of the tile
     const int warp = (threadIdx.x / 32) % 4;     // 16-row slice of the half
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;  // accumulator row group
@@ -683,15 +777,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     float m_i[2] = {-INFINITY, -INFINITY};  // running max, raw score units
     float l_i[2] = {0.f, 0.f};              // this thread's partial sums
     float alpha[2];
-    float s[64];                            // S tile: 64 rows x 128 keys
+    float s[C::S_REGS];                     // S tile: 64 rows x BLOCK_K
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
-    uint32_t pa[8][4];                      // P in bf16
+    for (int i = 0; i < C::S_REGS; ++i) s[i] = 0.f;
+    uint32_t pa[C::K_STEPS][4];             // P in bf16
     const uint32_t q_half = sq + c * 64 * SW_ROW_BYTES;
     // Masks only on a tile that crosses a row's length or (causal) the
     // diagonal of this warpgroup's rows.
     auto masked = [&](int k0) {
-      return k0 + BLOCK_K > n_kv || (causal && k0 + BLOCK_K - 1 > first_row);
+      return k0 + C::BLOCK_K > n_kv ||
+             (causal && k0 + C::BLOCK_K - 1 > first_row);
     };
     auto fence_acc = [&]() {
 #pragma unroll
@@ -713,8 +808,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
-      softmax_tile(s, m_i, l_i, alpha, masked(j * BLOCK_K), j * BLOCK_K,
-                   n_kv, causal, row0, t, scale_log2);
+      const int k0 = j * C::BLOCK_K;
+      softmax_tile<C::BLOCK_K>(s, m_i, l_i, alpha, masked(k0), k0, n_kv,
+                               causal, row0, t, scale_log2);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -724,7 +820,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             acc[p][i * 4 + 2 * r] *= alpha[r];
             acc[p][i * 4 + 2 * r + 1] *= alpha[r];
           }
-      to_bf16(s, pa);
+      to_bf16<C::BLOCK_K>(s, pa);
       mbar_wait(v_full(st), phase);
       fence_acc();
       wgmma_fence();
@@ -733,6 +829,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait_all();
       fence_acc();
       release(st);
+      if constexpr (!C::PRODUCER_WG) {
+        // Refill this stage once both consumers have released it.
+        if (threadIdx.x == 0 && j + C::STAGES < n_tiles) {
+          mbar_wait(empty(st), phase);
+          load_kv(j + C::STAGES);
+        }
+        __syncwarp();
+      }
     }
 
     // Normalize and store; a row whose normalizer is 0 had no valid key.
@@ -822,11 +926,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, B, Lq, H, D, qs, BLOCK_Q);
-  if (err == 0) err = tensor_map(&tk, k, B, Lk, H, D, ks, BLOCK_K);
-  if (err == 0) err = tensor_map(&tv, v, B, Lk, H, D, vs, BLOCK_K);
+  if (err == 0) err = tensor_map(&tk, k, B, Lk, H, D, ks, C::BLOCK_K);
+  if (err == 0) err = tensor_map(&tv, v, B, Lk, H, D, vs, C::BLOCK_K);
   if (err != 0) return err;
   const dim3 grid(B * H, (Lq + BLOCK_Q - 1) / BLOCK_Q);
-  kernel<<<grid, THREADS, C::SMEM, stream>>>(
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), kv_lengths, H, Lq, Lk, causal, os,
       scale_log2);
   return (int)cudaGetLastError();
@@ -838,8 +942,10 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                int causal, Strides qs, Strides ks, Strides vs, Strides os,
                float scale_log2, cudaStream_t stream) {
   // Q, K and V tiles, plus their lo halves for fp32.
-  constexpr int tiles = sizeof(T) == 4 ? 6 : 3;
-  constexpr int smem = tiles * F32_BLOCK_Q * (D + PAD) * (int)sizeof(bf16);
+  constexpr int halves = sizeof(T) == 4 ? 2 : 1;
+  constexpr int smem = halves * (F32_BLOCK_Q + 2 * mma_block_k<T, D>()) *
+                       (D + PAD) * (int)sizeof(bf16);
+  static_assert(smem <= 232448, "over a CTA's 227 KB of shared memory");
   auto kernel = flash_fwd_mma<T, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -870,19 +976,28 @@ extern "C" int kfs_flash_attention(
   const int* lens = static_cast<const int*>(kv_lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define KFS_ARGS q, k, v, o, lens, B, H, Lq, Lk, causal, qs, ks, vs, os, sl2, st
+  // The paths by (dtype, D): ops/flash_attention.py::kernel_path.
   if (dtype == 0) {
     switch (D) {
       case 16: return launch_mma<bf16, 16>(KFS_ARGS);
       case 32: return launch_mma<bf16, 32>(KFS_ARGS);
       case 64: return launch_bf16<64>(KFS_ARGS);
+      case 80: return launch_mma<bf16, 80>(KFS_ARGS);
+      case 96: return launch_mma<bf16, 96>(KFS_ARGS);
       case 128: return launch_bf16<128>(KFS_ARGS);
+      case 192: return launch_bf16<192>(KFS_ARGS);
+      case 256: return launch_bf16<256>(KFS_ARGS);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 16: return launch_mma<float, 16>(KFS_ARGS);
       case 32: return launch_mma<float, 32>(KFS_ARGS);
       case 64: return launch_mma<float, 64>(KFS_ARGS);
+      case 80: return launch_mma<float, 80>(KFS_ARGS);
+      case 96: return launch_mma<float, 96>(KFS_ARGS);
       case 128: return launch_mma<float, 128>(KFS_ARGS);
+      case 192: return launch_mma<float, 192>(KFS_ARGS);
+      case 256: return launch_mma<float, 256>(KFS_ARGS);
     }
   }
 #undef KFS_ARGS

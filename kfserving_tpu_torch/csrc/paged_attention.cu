@@ -18,10 +18,13 @@
 //
 // Two paths; the wrapper routes by dtype and head dim, and a call that
 // neither takes raises there:
-//   - hopper: bf16 at D = 64 and 128 (every served decoder's decode, verify,
-//     tier and handoff wave, and each tp rank's wave);
-//   - simple: float32 at D = 32, 64 and 128 and bf16 at D = 32 (the tiny
-//     configs and the fp32 edge cases), PR 2's flash-decoding kernel.
+//   - hopper: bf16 at D = 64, 128, 192 and 256 (every served decoder's
+//     decode, verify, tier and handoff wave, and each tp rank's wave; the
+//     TPU kernel's own head dims up to 256);
+//   - simple: float32 at D = 16, 32, 64, 80, 96, 128, 192 and 256 and bf16
+//     at D = 16, 32, 80 and 96 (the tiny configs, the fp32 edge cases, and
+//     the head dims that are not a multiple of 64, where the JAX package
+//     runs XLA), PR 2's flash-decoding kernel.
 //
 // Hopper path (paged_span_kernel + paged_span_combine_kernel).  What became
 // of the four limits of the simple kernel:
@@ -36,11 +39,13 @@
 //      pool block with every head (or a head group, where H * D is too wide
 //      for a stage): one contiguous region of TT * H * D * 2 bytes each for K
 //      and V, so one copy each.  In shared memory a group of D / 8 lanes
-//      reads one (token, head) row with 16-byte loads, D split across the
-//      lanes, so each quarter-warp reads 128 contiguous bytes (no bank
-//      conflict).  Each group keeps a running max, sum and accumulator for
-//      one head over every P-th token of a tile (one pass, online softmax,
-//      no score array).
+//      (rounded up to a power of two: 32 with 8 idle at D = 192) reads one
+//      (token, head) row with 16-byte loads, D split across the lanes, so
+//      each quarter-warp reads 128 contiguous bytes (no bank conflict).
+//      Each group keeps a running max, sum and accumulator for one head
+//      over every P-th token of a tile (one pass, online softmax, no score
+//      array).  At D = 256 one token of 8 heads is 8 KB of K and V, so a
+//      stage holds 4 tokens (split_plan sizes tiles to the stage).
 //   3. A split sized to the card.  The grid is static, G CTAs (the SM
 //      count, from the wrapper's plan: B, H, D, BS, MB and the SMs) times
 //      the head groups, so it can be captured in a CUDA graph.  A row's
@@ -63,12 +68,14 @@
 // Simple path (paged_partition_kernel + paged_combine_kernel, flash
 // decoding).  Pass 1 has one thread block per (partition of
 // PARTITION_TOKENS tokens, head, row): partitions past the row's length exit
-// at once.  Inside a block, groups of D / VEC lanes take one token each and
-// load the token's D values of this head with 16-byte vector loads.  Scores
-// go to shared memory; the block takes their max and sum, then walks V for
-// P V, and writes the partition's unnormalized accumulator with its max and
-// sum.  Pass 2 (one block per (head, row), one thread per d) merges the
-// partitions.
+// at once.  Inside a block, groups of lanes take one token each and load
+// the token's D values of this head with 16-byte vector loads: D / VEC
+// lanes rounded up to a power of two (idle lanes load nothing), at most a
+// warp, a lane holding several vectors where D / VEC is over 32 (fp32 at
+// D = 192 and 256).  Scores go to shared memory; the block takes their max and
+// sum, then walks V for P V, and writes the partition's unnormalized
+// accumulator with its max and sum.  Pass 2 (one block per (head, row), one
+// thread per d) merges the partitions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,6 +136,22 @@ struct Vec<float> {
   __device__ __forceinline__ static void store(float* p, float x) { *p = x; }
 };
 
+// Lanes that share one (token, head) row of `vecs` 16-byte vectors, a
+// power of two so a lane group divides the warp and its sums are xor
+// shuffles: up to a warp's worth of vectors the next power of two (the
+// lanes past `vecs` load nothing), past it the largest power of two up to
+// 32 that divides `vecs` (each lane then holds vecs / lanes vectors, none
+// idle: 16 lanes of 3 for fp32 at D = 192, whose idle-lane form spilled).
+__host__ __device__ constexpr int row_lanes(int vecs) {
+  int lanes = 1;
+  if (vecs <= 32) {
+    while (lanes < vecs) lanes *= 2;
+    return lanes;
+  }
+  while (lanes < 32 && vecs % (2 * lanes) == 0) lanes *= 2;
+  return lanes;
+}
+
 __device__ __forceinline__ int row_tokens(const int* lengths, int b,
                                           int max_tokens) {
   return min(max(lengths[b], 0), max_tokens);
@@ -160,7 +183,10 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return s;
 }
 
-// Pass 1: grid (partitions, H, B).
+// Pass 1: grid (partitions, H, B).  A group of LPT lanes takes one token:
+// lane i of the group holds the 16-byte vectors i, i + LPT, ... of its D
+// values (NV of them: one where D fits a warp's vectors, three for fp32
+// at D = 192 and two at 256), and lanes past D's vectors hold none.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     paged_partition_kernel(const T* __restrict__ q,
@@ -172,8 +198,10 @@ __global__ void __launch_bounds__(THREADS)
                            float* __restrict__ part_ml, int H, int BS, int MB,
                            int parts, float scale) {
   constexpr int VEC = Vec<T>::N;
-  constexpr int LPT = D / VEC;          // lanes per token
-  static_assert(LPT >= 1 && LPT <= 32 && (32 % LPT) == 0, "head dim");
+  static_assert(D % VEC == 0, "head dim");
+  constexpr int VECS = D / VEC;         // 16-byte vectors of a row
+  constexpr int LPT = row_lanes(VECS);  // lanes per token
+  constexpr int NV = (VECS + LPT - 1) / LPT;  // vectors of a lane
   constexpr int TPW = 32 / LPT;         // tokens per warp step
   constexpr int GROUPS = WARPS * TPW;   // tokens per block step
   __shared__ float scores[PARTITION_TOKENS];
@@ -188,11 +216,24 @@ __global__ void __launch_bounds__(THREADS)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int group = warp * TPW + lane / LPT;
-  const int d0 = (lane % LPT) * VEC;
+  // Element offset of this lane's j-th vector, and whether it exists
+  // (captured by value: a reference to `lane` put it on the stack).
+  auto d_of = [=](int j) { return ((lane % LPT) + j * LPT) * VEC; };
+  auto has = [=](int j) {
+    return NV * LPT == VECS || (lane % LPT) + j * LPT < VECS;
+  };
   const long long row_stride = (long long)H * D;  // one token of the pool
 
-  float qv[VEC];
-  Vec<T>::load(q + ((long long)b * H + h) * D + d0, qv);
+  float qv[NV][VEC];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (has(j)) {
+      Vec<T>::load(q + ((long long)b * H + h) * D + d_of(j), qv[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qv[j][i] = 0.f;
+    }
+  }
   const int* trow = table + (long long)b * MB;
 
   // Scores of this partition's tokens.  The loop bound is the warp's first
@@ -205,11 +246,15 @@ __global__ void __launch_bounds__(THREADS)
       const int pos = start + t;
       const int blk = max(trow[pos / BS], 0);
       const T* kp = pool_k + ((long long)blk * BS + pos % BS) * row_stride +
-                    (long long)h * D + d0;
-      float kv[VEC];
-      Vec<T>::load(kp, kv);
+                    (long long)h * D;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) s = fmaf(qv[i], kv[i], s);
+      for (int j = 0; j < NV; ++j) {
+        if (!has(j)) continue;
+        float kv[VEC];
+        Vec<T>::load(kp + d_of(j), kv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) s = fmaf(qv[j][i], kv[i], s);
+      }
     }
 #pragma unroll
     for (int o = LPT / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -229,22 +274,32 @@ __global__ void __launch_bounds__(THREADS)
   const float l = block_sum(sum, red);  // its barriers publish scores[]
 
   // P V over this partition, then across the token groups.
-  float acc[VEC];
+  float acc[NV][VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[j][i] = 0.f;
   for (int t = group; t < n; t += GROUPS) {
     const int pos = start + t;
     const int blk = max(trow[pos / BS], 0);
     const T* vp = pool_v + ((long long)blk * BS + pos % BS) * row_stride +
-                  (long long)h * D + d0;
-    float vv[VEC];
-    Vec<T>::load(vp, vv);
+                  (long long)h * D;
     const float w = scores[t];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(w, vv[i], acc[i]);
+    for (int j = 0; j < NV; ++j) {
+      if (!has(j)) continue;
+      float vv[VEC];
+      Vec<T>::load(vp + d_of(j), vv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[j][i] = fmaf(w, vv[i], acc[j][i]);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc_red[group][d0 + i] = acc[i];
+  for (int j = 0; j < NV; ++j) {
+    if (!has(j)) continue;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc_red[group][d_of(j) + i] = acc[j][i];
+  }
   __syncthreads();
   const long long slot = ((long long)b * H + h) * parts + p;
   for (int d = threadIdx.x; d < D; d += THREADS) {
@@ -300,31 +355,36 @@ int launch(const void* q, const void* pk, const void* pv, const int* table,
   return (int)cudaGetLastError();
 }
 
-// The simple path's instances: float32 at every head dim, bf16 at D = 32
-// (bf16 at D = 64 and 128 takes the hopper path).
+// The simple path's instances: float32 at every head dim of the set, bf16
+// at D = 16, 32, 80 and 96 (bf16 at D = 64, 128, 192 and 256 takes the
+// hopper path).  ops/paged_attention.py::kernel_path routes the same way.
 template <typename T>
 int dispatch_d(int D, const void* q, const void* pk, const void* pv,
                const int* table, const int* lengths, void* out, float* pa,
                float* pml, int B, int H, int BS, int MB, int parts,
                float scale, cudaStream_t st) {
   constexpr bool f32 = std::is_same<T, float>::value;
-  if (D == 32)
-    return launch<T, 32>(q, pk, pv, table, lengths, out, pa, pml, B, H, BS,
-                         MB, parts, scale, st);
+#define KFS_SIMPLE(d)                                                       \
+  if (D == d)                                                              \
+    return launch<T, d>(q, pk, pv, table, lengths, out, pa, pml, B, H, BS, \
+                        MB, parts, scale, st);
+  KFS_SIMPLE(16)
+  KFS_SIMPLE(32)
+  KFS_SIMPLE(80)
+  KFS_SIMPLE(96)
   if constexpr (f32) {
-    if (D == 64)
-      return launch<T, 64>(q, pk, pv, table, lengths, out, pa, pml, B, H,
-                           BS, MB, parts, scale, st);
-    if (D == 128)
-      return launch<T, 128>(q, pk, pv, table, lengths, out, pa, pml, B, H,
-                            BS, MB, parts, scale, st);
+    KFS_SIMPLE(64)
+    KFS_SIMPLE(128)
+    KFS_SIMPLE(192)
+    KFS_SIMPLE(256)
   }
+#undef KFS_SIMPLE
   return (int)cudaErrorInvalidValue;
 }
 
 
 // ---------------------------------------------------------------------------
-// Hopper path: bf16 at D = 64 and 128.
+// Hopper path: bf16 at D = 64, 128, 192 and 256.
 
 constexpr int LANE_ELEMS = 8;           // bf16 in one 16-byte load
 constexpr int CHUNK = 4;                // tokens a group scores together
@@ -419,12 +479,16 @@ struct Cursor {
   }
 };
 
-// Grid (G, H / HG); HG * P * D / 8 consumer threads plus one producer warp.
+// Grid (G, H / HG); HG * P * LPG consumer threads plus one producer warp.
 template <int D>
 __global__ void __launch_bounds__(SPAN_THREADS)
     paged_span_kernel(const SpanParams p) {
-  constexpr int LPG = D / LANE_ELEMS;  // lanes of one (token, head) row
-  static_assert(LPG >= 1 && LPG <= 32 && 32 % LPG == 0, "head dim");
+  // Lanes of one (token, head) row: its D / 8 vectors, padded to a power
+  // of two (8 of the 32 idle at D = 192); span_lanes in
+  // ops/paged_attention.py.
+  constexpr int VECS = D / LANE_ELEMS;
+  constexpr int LPG = row_lanes(VECS);
+  static_assert(D % LANE_ELEMS == 0 && VECS <= 32, "head dim");
   extern __shared__ __align__(128) unsigned char smem[];
   const int HG = p.head_group, TT = p.tile_tokens, S = p.stages,
             P = p.groups_per_head, H = p.H;
@@ -546,21 +610,24 @@ __global__ void __launch_bounds__(SPAN_THREADS)
   const int grp = threadIdx.x / LPG;
   const int h = grp % HG, par = grp / HG;
   const int d0 = (threadIdx.x % LPG) * LANE_ELEMS;
+  // Whether this lane holds a vector of the row (every lane where D / 8
+  // is a power of two); an idle lane loads nothing and adds 0.
+  const bool live = VECS == LPG || threadIdx.x % LPG < VECS;
   const int row_elems = HG * D;  // one token of a tile
   float m = -INFINITY, l = 0.f, acc[LANE_ELEMS], qv[LANE_ELEMS];
 #pragma unroll
-  for (int i = 0; i < LANE_ELEMS; ++i) acc[i] = 0.f;
+  for (int i = 0; i < LANE_ELEMS; ++i) acc[i] = qv[i] = 0.f;
   int slot = share[3], buf = 0, q_row = -1;
   bool first = false;  // the current span is its row's first
   bool span_start = true;
   for (int s = 0, phase = 0; cur.spans > 0;) {
     const int n = cur.tile(TT);
-    if (cur.row != q_row) {
+    if (cur.row != q_row && live) {
       Vec<bf16>::load(p.q + ((long long)cur.row * H + h0 + h) * D + d0, qv);
 #pragma unroll
       for (int i = 0; i < LANE_ELEMS; ++i) qv[i] *= p.scale_log2;
-      q_row = cur.row;
     }
+    q_row = cur.row;
     if (span_start) {
       first = cur.pos == 0;
       span_start = false;
@@ -580,7 +647,8 @@ __global__ void __launch_bounds__(SPAN_THREADS)
         const int t = par + (k + u) * P;
         ok[u] = t < n;
         sc[u] = 0.f;
-        if (ok[u]) {
+        if (!live) vraw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u] && live) {
           float kv[LANE_ELEMS];
           Vec<bf16>::load(kt + t * row_elems, kv);
 #pragma unroll
@@ -636,8 +704,10 @@ __global__ void __launch_bounds__(SPAN_THREADS)
     float* red_acc = red + buf * red_floats;
     float* red_ml = red_acc + P * HG * D;
     float* mine = red_acc + (par * HG + h) * D + d0;
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < LANE_ELEMS; ++i) mine[i] = acc[i];
+      for (int i = 0; i < LANE_ELEMS; ++i) mine[i] = acc[i];
+    }
     if (threadIdx.x % LPG == 0) {
       red_ml[2 * (par * HG + h)] = m;
       red_ml[2 * (par * HG + h) + 1] = l;
@@ -766,7 +836,8 @@ int launch_span(const SpanParams& p, bf16* out, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (attr != cudaSuccess) return (int)attr;
-  const int consumers = p.head_group * p.groups_per_head * (D / LANE_ELEMS);
+  const int consumers =
+      p.head_group * p.groups_per_head * row_lanes(D / LANE_ELEMS);
   if (consumers % 32 != 0 || consumers > MAX_CONSUMERS)
     return (int)cudaErrorInvalidValue;
   const int smem = span_smem_bytes(D, p.head_group, p.tile_tokens, p.stages,
@@ -785,7 +856,7 @@ int launch_span(const SpanParams& p, bf16* out, cudaStream_t stream) {
 
 }  // namespace
 
-// The simple path (float32 at D = 32, 64 and 128, bf16 at D = 32).
+// The simple path (dispatch_d's instances).
 // dtype: 0 = bfloat16, 1 = float32.  q [B, 1, H, D], pools [NB, BS, H, D],
 // out [B, 1, H, D], all contiguous; table [B, MB] and lengths [B] int32.
 // part_acc [B, H, parts, D] and part_ml [B, H, parts, 2] fp32 scratch, with
@@ -854,5 +925,7 @@ extern "C" int kfs_paged_attention_hopper(
   bf16* o = static_cast<bf16*>(out);
   if (D == 64) return launch_span<64>(p, o, st);
   if (D == 128) return launch_span<128>(p, o, st);
+  if (D == 192) return launch_span<192>(p, o, st);
+  if (D == 256) return launch_span<256>(p, o, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -197,8 +197,7 @@ from kfserving_tpu_torch.observability.profiling.roofline import (
 )
 from kfserving_tpu_torch.ops.flash_attention import check_kernel_shapes
 from kfserving_tpu_torch.ops.paged_attention import (
-    SUPPORTED_DTYPES,
-    SUPPORTED_HEAD_DIMS,
+    check_head_dim,
     paged_insert,
 )
 from kfserving_tpu_torch.protocol.errors import InferenceError, InvalidInput
@@ -252,14 +251,8 @@ def check_device_shapes(module, device: torch.device,
     prefill runs the flash kernel (K1), and the paged mode's decode waves
     the paged kernel (K2)."""
     check_kernel_shapes(module, device)
-    cfg = module.config
-    if paged and device.type == "cuda" and (
-            cfg.dtype not in SUPPORTED_DTYPES
-            or cfg.head_dim not in SUPPORTED_HEAD_DIMS):
-        raise InvalidInput(
-            f"the paged decode kernel takes dtypes {SUPPORTED_DTYPES} and "
-            f"head dims {SUPPORTED_HEAD_DIMS}, not {cfg.dtype} and "
-            f"{cfg.head_dim}")
+    if paged and device.type == "cuda":
+        check_head_dim(module.config.dtype, module.config.head_dim)
 
 
 @dataclass

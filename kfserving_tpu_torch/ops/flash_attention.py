@@ -13,12 +13,13 @@ be a multiple of 8 came from its lane tiling, while this kernel masks
 keys past Lk in the tile that crosses it and stores no query row past Lq
 (ViT-B/16 at 224 px runs L = 197).
 
-The kernel, for an H100: bf16 at head dims 64 and 128 runs a
-warp-specialized kernel (a TMA producer warp feeding a ring of K/V tiles
-to two ``wgmma`` consumer warpgroups); fp32 at every head dim runs an
-``mma.sync`` kernel over bf16 hi + lo halves, and bf16 at head dims 16
-and 32 the same kernel on bf16 tiles.  Its source note says what bounds
-each and why.
+The kernel, for an H100, takes the head dims in ``SUPPORTED_HEAD_DIMS``
+in bf16 and fp32 (``kernel_path`` names the path of each): bf16 at head
+dims 64, 128, 192 and 256 runs a warp-specialized kernel (a TMA producer
+warp feeding a ring of K/V tiles to two ``wgmma`` consumer warpgroups);
+fp32 at every head dim runs an ``mma.sync`` kernel over bf16 hi + lo
+halves, and bf16 at head dims 16, 32, 80 and 96 the same kernel on bf16
+tiles.  Its source note says what bounds each and why.
 
 On a CPU tensor the wrapper runs ``flash_attention_plain``; on a CUDA
 tensor it launches the kernel or raises.
@@ -33,9 +34,14 @@ import torch
 from kfserving_tpu_torch.ops import launches
 from kfserving_tpu_torch.protocol.errors import InvalidInput
 
-# Head dims the kernel is instantiated for (csrc/flash_attention.cu).
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims the kernel is instantiated for (csrc/flash_attention.cu): the
+# TPU kernel's multiples of 64 up to 256, the tiny configs' 16 and 32, and
+# 80 and 96 (ViT-H/14 and Phi-2, GPT-NeoX-20B; XLA's in the JAX package).
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
+# Head dims of the wgmma path in bf16 (64-column swizzled panels); every
+# other supported (dtype, head dim) runs on mma.sync.
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # Elements per 16-byte vector load, by dtype.
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
@@ -46,12 +52,21 @@ _TENSOR_MAP_ERROR = 10000
 _fn = None
 
 
+def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which of the kernel's paths a CUDA call takes: "wgmma" (bf16 at
+    head dims 64, 128, 192 and 256) or "mma" (mma.sync: the rest)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
+
+
 def check_kernel_shapes(module: torch.nn.Module,
                         device: torch.device) -> None:
     """On the card, refuse a model whose attention this kernel is not
     built for (it would raise on the first batch; nothing reroutes a card
-    call to the plain version).  Models without attention pass.  The
-    predict path and the generation engine both call it at load."""
+    call to the plain version), naming the dtypes and head dims it takes.
+    Models without attention pass.  The predict path and the generation
+    engine both call it at load."""
     cfg = getattr(module, "config", None)
     head_dim = getattr(cfg, "head_dim", None)
     if device.type != "cuda" or head_dim is None:

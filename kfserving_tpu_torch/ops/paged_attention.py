@@ -25,11 +25,13 @@ drop (a -1 table entry, a position past the table, a -1 destination) to
 that sink block, which nothing reads.  The caller reports ``NB``.
 
 On a CPU tensor ``paged_attention_kernel`` runs ``paged_attention_plain``;
-on a CUDA tensor it launches the kernel or raises.  The kernel has two
-paths (``kernel_path``): bf16 at head dims 64 and 128 takes the hopper
-path, a ring of bulk copies of all heads of a token span, split over the
-card by ``split_plan``; float32, and bf16 at head dim 32, take the simple
-flash-decoding path.
+on a CUDA tensor it launches the kernel or raises.  The kernel takes the
+head dims in ``SUPPORTED_HEAD_DIMS`` in bf16 and fp32 and has two paths
+(``kernel_path``): bf16 at head dims 64, 128, 192 and 256 (the TPU
+kernel's multiples of 64) takes the hopper path, a ring of bulk copies of
+all heads of a token span, split over the card by ``split_plan``; float32,
+and bf16 at head dims 16, 32, 80 and 96, take the simple flash-decoding
+path.
 """
 
 import ctypes
@@ -41,14 +43,17 @@ from typing import List, Sequence, Tuple
 import torch
 
 from kfserving_tpu_torch.ops import launches
+from kfserving_tpu_torch.protocol.errors import InvalidInput
 
-# Head dims and dtypes the kernel is instantiated for.
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# Head dims and dtypes the kernel is instantiated for: the TPU kernels'
+# multiples of 64 up to 256, the tiny configs' 16 and 32, and 80 and 96
+# (ViT-H/14 and Phi-2, GPT-NeoX-20B).  K1 takes the same set.
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # Head dims the hopper path takes in bf16; every other supported
 # (dtype, head dim) takes the simple path.
-HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_HEAD_DIMS = (64, 128, 192, 256)
 # Simple path: tokens of one row's walk that one thread block covers; a
 # combine pass merges the partitions (flash decoding).  Keep equal to
 # PARTITION_TOKENS in csrc/paged_attention.cu.
@@ -67,6 +72,16 @@ SMEM_PER_SM = 233472           # 228 KB, of which 1 KB is reserved per CTA
 SPAN_MAX_CONSUMERS = 512
 SPAN_LANE_ELEMS = 8            # bf16 in one 16-byte load
 SMEM_PER_CTA = 232448          # 227 KB
+
+
+def span_lanes(D: int) -> int:
+    """Lanes of one (token, head) row on the hopper path (row_lanes in
+    the .cu): its D / 8 vectors rounded up to a power of two, at most a
+    warp; 32 with 8 idle at D = 192."""
+    lanes = 1
+    while lanes < D // SPAN_LANE_ELEMS and lanes < 32:
+        lanes *= 2
+    return lanes
 
 _fn = None
 _hopper_fn = None
@@ -123,9 +138,19 @@ def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def check_head_dim(dtype: torch.dtype, head_dim: int) -> None:
+    """Raises InvalidInput for a (dtype, head dim) the kernel is not built
+    for, naming what it takes."""
+    if dtype not in SUPPORTED_DTYPES or head_dim not in SUPPORTED_HEAD_DIMS:
+        raise InvalidInput(
+            f"the paged decode kernel takes dtypes {SUPPORTED_DTYPES} and "
+            f"head dims {SUPPORTED_HEAD_DIMS}, not {dtype} and head dim "
+            f"{head_dim}")
+
+
 def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
     """Which of the kernel's paths a CUDA call takes: "hopper" (bf16 at
-    head dims 64 and 128) or "simple" (the rest)."""
+    head dims 64, 128, 192 and 256) or "simple" (the rest)."""
     if dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS:
         return "hopper"
     return "simple"
@@ -180,7 +205,7 @@ def split_plan(B: int, H: int, D: int, BS: int, MB: int, sm_count: int,
     if B * MB * BS >= 2 ** 31:
         raise ValueError(f"B * MB * BS = {B * MB * BS} tokens overflow the "
                          "kernel's 32-bit token counts")
-    lpg = D // SPAN_LANE_ELEMS          # lanes of one (token, head) row
+    lpg = span_lanes(D)                 # lanes of one (token, head) row
     row = D * 2                         # bytes of one (token, head) row
 
     def min_groups(hg):                 # whole warps of consumers
@@ -381,7 +406,8 @@ def launch_hopper(q: torch.Tensor, pool_k: torch.Tensor,
                   lengths: torch.Tensor, plan: SplitPlan,
                   kernel=None) -> torch.Tensor:
     """The hopper path under ``plan`` (operands checked by the caller:
-    bf16, head dim 64 or 128, contiguous, on one card), through the built
+    bf16, a head dim of ``HOPPER_HEAD_DIMS``, contiguous, on one card),
+    through the built
     library's entry point unless ``kernel`` names another build's.  The
     wrapper passes ``split_plan``'s plan; tools/paged_sweep.py times
     others."""

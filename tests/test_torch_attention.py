@@ -8,6 +8,7 @@ on the card by chip_smoke.py.  Inputs come from numpy with a fixed seed.
 """
 
 import functools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +22,10 @@ from kfserving_tpu.ops.attention import (
 )
 from kfserving_tpu_torch.csrc import build
 from kfserving_tpu_torch.ops import attention as torch_attention
+from kfserving_tpu_torch.ops import paged_attention as paged_port
 from kfserving_tpu_torch.ops.attention import dot_product_attention
 from kfserving_tpu_torch.ops.flash_attention import (
+    _check_cuda_operands as flash_operands,
     flash_attention,
     flash_attention_plain,
 )
@@ -30,6 +33,10 @@ from kfserving_tpu_torch.ops.flash_attention import (
 # fp32 on both sides; the Pallas interpreter and torch sum in another
 # order, as in the JAX package's own interpret-mode tests.
 ATOL = RTOL = 2e-3
+# The head dims K1 and K2 are built for on the card, as their refusals
+# print them.
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
+HEAD_DIMS_RE = re.escape(str(HEAD_DIMS))
 
 
 def _qkv(seed, B, L, H, D, Lk=None):
@@ -117,10 +124,13 @@ def test_small_head_dims_plain_matches_pallas_interpret(case):
 @pytest.mark.parametrize("head_dim,dtype,ok", [
     (16, "float32", True), (32, "float32", True), (16, "bfloat16", True),
     (32, "bfloat16", True), (64, "bfloat16", True), (128, "float32", True),
-    (48, "bfloat16", False), (8, "float32", False)])
+    (48, "bfloat16", False), (8, "float32", False),
+    (80, "bfloat16", True), (96, "float32", True), (192, "bfloat16", True),
+    (256, "float32", True), (272, "bfloat16", False)])
 def test_kernel_shapes_at_every_built_head_dim(head_dim, dtype, ok):
     """On the card ``check_kernel_shapes`` takes exactly the head dims
-    K1 is instantiated for (16, 32, 64, 128), in bf16 and fp32."""
+    K1 is instantiated for (16, 32, 64, 80, 96, 128, 192, 256), in bf16
+    and fp32, and its refusal names them."""
     from kfserving_tpu_torch.models import create_model
     from kfserving_tpu_torch.ops.flash_attention import (
         SUPPORTED_HEAD_DIMS,
@@ -128,7 +138,7 @@ def test_kernel_shapes_at_every_built_head_dim(head_dim, dtype, ok):
     )
     from kfserving_tpu_torch.protocol.errors import InvalidInput
 
-    assert SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    assert SUPPORTED_HEAD_DIMS == HEAD_DIMS
     module = create_model("bert_tiny", num_heads=2,
                           hidden_size=2 * head_dim, dtype=dtype).module
     assert module.config.head_dim == head_dim
@@ -136,7 +146,8 @@ def test_kernel_shapes_at_every_built_head_dim(head_dim, dtype, ok):
     if ok:
         check_kernel_shapes(module, torch.device("cuda"))
     else:
-        with pytest.raises(InvalidInput, match=f"head dim {head_dim}"):
+        with pytest.raises(InvalidInput, match=f"head dims {HEAD_DIMS_RE}"
+                           f".*head dim {head_dim}"):
             check_kernel_shapes(module, torch.device("cuda"))
 
 
@@ -257,6 +268,37 @@ class _OnCard:
     def data_ptr(self):
         return self._t.data_ptr()
 
+    def is_contiguous(self):
+        return self._t.is_contiguous()
+
+    def contiguous(self):
+        return self
+
+
+def _paged_gate(monkeypatch, shape, dtype, expect):
+    """K2's wrapper on operands that report themselves on the card: the
+    path it launches (the launchers recorded, not run), or its refusal."""
+    routed = []
+    monkeypatch.setattr(paged_port, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(paged_port, "launch_hopper",
+                        lambda *a, **k: routed.append("hopper"))
+    monkeypatch.setattr(paged_port, "_launch_simple",
+                        lambda *a, **k: routed.append("simple"))
+    monkeypatch.setattr(paged_port.paged_attention_kernel, "launches", 0)
+    B, _, H, D = shape
+    q = _OnCard(torch.zeros(shape, dtype=dtype))
+    pool = _OnCard(torch.zeros((4, 16, H, D), dtype=dtype))
+    table = _OnCard(torch.zeros((B, 2), dtype=torch.int32))
+    lengths = _OnCard(torch.ones(B, dtype=torch.int32))
+    if expect in ("hopper", "simple"):
+        paged_port.paged_attention_kernel(q, pool, pool, table, lengths)
+        assert routed == [expect]
+        assert paged_port.kernel_path(dtype, D) == expect
+    else:
+        with pytest.raises(ValueError, match=expect):
+            paged_port.paged_attention_kernel(q, pool, pool, table, lengths)
+        assert routed == []
+
 
 @pytest.mark.parametrize("shape,dtype,mask,expect", [
     ((1, 64, 2, 64), torch.bfloat16, None, "kernel"),
@@ -267,6 +309,23 @@ class _OnCard:
     ((1, 60, 2, 64), torch.bfloat16, None, "kernel"),   # any L
     ((1, 64, 2, 64), torch.bfloat16, "arbitrary", "plain"),
     ((1, 64, 2, 64), torch.bfloat16, "causal_short_q", "plain"),
+] + [
+    # K1's gate at every head dim it is built for, both dtypes, and its
+    # refusals naming the set.
+    ((1, 64, 2, D), dtype, "lengths", "kernel")
+    for D in HEAD_DIMS for dtype in (torch.bfloat16, torch.float32)
+] + [
+    ((1, 64, 2, D), torch.bfloat16, None, f"head dims {HEAD_DIMS_RE}")
+    for D in (48, 272)
+] + [
+    # K2's gate ("paged"): the path each (dtype, D) launches, and its
+    # refusals naming the set.
+    ((3, 1, 2, D), dtype, "paged",
+     "hopper" if dtype == torch.bfloat16 and D % 64 == 0 else "simple")
+    for D in HEAD_DIMS for dtype in (torch.bfloat16, torch.float32)
+] + [
+    ((3, 1, 2, D), dtype, "paged", f"head dims {HEAD_DIMS_RE}")
+    for D in (48, 272) for dtype in (torch.bfloat16, torch.float32)
 ])
 def test_kernel_gate_is_what_the_kernel_accepts(monkeypatch, shape, dtype,
                                                 mask, expect):
@@ -274,7 +333,12 @@ def test_kernel_gate_is_what_the_kernel_accepts(monkeypatch, shape, dtype,
     kernel wrapper, which raises for a dtype or head dim it does not
     take (any length is taken): no plain fallback and no kill switch
     (the environment variable the first port read is ignored).  Mask
-    cases the kernel does not handle take the plain path."""
+    cases the kernel does not handle take the plain path.  K2's wrapper
+    ("paged") likewise launches one of its two paths at every head dim
+    of the set, in bf16 and fp32, and refuses the others."""
+    if mask == "paged":
+        _paged_gate(monkeypatch, shape, dtype, expect)
+        return
     monkeypatch.setenv("KFS_DISABLE_FLASH", "1")
     routed = []
     monkeypatch.setattr(torch_attention, "_torch_attention",
@@ -302,6 +366,10 @@ def test_kernel_gate_is_what_the_kernel_accepts(monkeypatch, shape, dtype,
     if expect in ("kernel", "plain"):
         dot_product_attention(q, k, v, **kw)
         assert routed == [expect]
+        if expect == "kernel":
+            # The wrapper's own checks, which run before its launch, take
+            # the operands too.
+            flash_operands(q, k, v, shape[3])
     else:
         with pytest.raises(ValueError, match=expect):
             dot_product_attention(q, k, v, **kw)

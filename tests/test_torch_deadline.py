@@ -273,11 +273,13 @@ async def _serve_keep(models, drive):
 
 def test_generator_refuses_shapes_either_kernel_lacks():
     """On a CUDA device the engine checks K1's head dims as well as K2's
-    at construction: head dim 48 is built in neither; head dim 16 is in
-    K1 but not in K2, so only the dense slot mode (which decodes without
-    K2) takes it; decoder_tiny's 32 is in both."""
+    at construction.  Both are built for one set (16, 32, 64, 80, 96,
+    128, 192, 256): head dim 48 is in neither, and the refusal names the
+    set; 16, decoder_tiny's 32, 80 and 256 are in both, paged or dense.
+    K2's own gate, which the paged mode adds, refuses 48 naming it."""
     from kfserving_tpu_torch.engine.generator import check_device_shapes
     from kfserving_tpu_torch.models import create_model
+    from kfserving_tpu_torch.ops.paged_attention import check_head_dim
     from kfserving_tpu_torch.protocol.errors import InvalidInput
 
     cuda = torch.device("cuda")
@@ -286,12 +288,19 @@ def test_generator_refuses_shapes_either_kernel_lacks():
     check_device_shapes(module, cuda)
     d48 = create_model("decoder_tiny", num_heads=2, hidden_size=96).module
     check_device_shapes(d48, torch.device("cpu"))
-    with pytest.raises(InvalidInput, match="flash attention kernel"):
+    with pytest.raises(InvalidInput, match=r"flash attention kernel .*"
+                       r"\(16, 32, 64, 80, 96, 128, 192, 256\)"):
         check_device_shapes(d48, cuda)
+    with pytest.raises(InvalidInput, match=r"paged decode kernel .*"
+                       r"\(16, 32, 64, 80, 96, 128, 192, 256\)"):
+        check_head_dim(torch.float32, 48)
     d16 = create_model("decoder_tiny", num_heads=4, hidden_size=64).module
-    with pytest.raises(InvalidInput, match="paged decode kernel"):
-        check_device_shapes(d16, cuda)
+    check_device_shapes(d16, cuda)
     check_device_shapes(d16, cuda, paged=False)
+    for hidden in (160, 512):                      # head dims 80 and 256
+        wide = create_model("decoder_tiny", num_heads=2, hidden_size=hidden,
+                            dtype=torch.bfloat16).module
+        check_device_shapes(wide, cuda)
     wide = create_model("decoder_tiny", num_heads=1, hidden_size=64,
                         dtype=torch.bfloat16).module
     check_device_shapes(wide, cuda)

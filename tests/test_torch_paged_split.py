@@ -65,7 +65,8 @@ def _covered_once(plan, lengths, BS, max_tokens=MAX_TOKENS):
 
 
 @pytest.mark.parametrize("H,D,BS,sms", list(itertools.product(
-    (6, 12), (64, 128), (32, 128), (132, 5))))
+    (6, 12), (64, 128), (32, 128), (132, 5))) + list(itertools.product(
+        (8, 12), (192, 256), (32, 128), (132, 5))))
 def test_split_plan_covers_every_token_once(H, D, BS, sms):
     MB = MAX_TOKENS // BS
     plan = port.split_plan(len(EDGE), H, D, BS, MB, sms)
@@ -124,13 +125,18 @@ def test_split_plan_groups_heads_when_a_token_overflows_a_stage():
 @pytest.mark.parametrize("dtype,D,path", [
     (torch.bfloat16, 64, "hopper"), (torch.bfloat16, 128, "hopper"),
     (torch.bfloat16, 32, "simple"), (torch.float32, 32, "simple"),
-    (torch.float32, 64, "simple"), (torch.float32, 128, "simple")])
+    (torch.float32, 64, "simple"), (torch.float32, 128, "simple"),
+    (torch.bfloat16, 192, "hopper"), (torch.bfloat16, 256, "hopper"),
+    (torch.bfloat16, 16, "simple"), (torch.bfloat16, 80, "simple"),
+    (torch.bfloat16, 96, "simple"), (torch.float32, 80, "simple"),
+    (torch.float32, 256, "simple")])
 def test_kernel_path_by_dtype_and_head_dim(dtype, D, path):
     assert port.kernel_path(dtype, D) == path
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64),
-                                     (torch.bfloat16, 96)])
+                                     (torch.bfloat16, 48),
+                                     (torch.float32, 272)])
 def test_operands_neither_path_takes_raise(dtype, D):
     q = torch.zeros((2, 1, 4, D), dtype=dtype)
     pool = torch.zeros((3, 16, 4, D), dtype=dtype)
